@@ -44,8 +44,9 @@ class FeedForward(nn.Module):
 
 class Attention(nn.Module):
     """Multi-head self-attention (reference vformer.py:61-97) over
-    ``fused_attention``, which takes contiguous heads-first tensors. No
-    model on the path passes a mask (reference vformer.py:87)."""
+    ``fused_attention``, which reads the head split of the fused QKV
+    projection in place and writes tokens-first, so neither side copies.
+    No model on the path passes a mask (reference vformer.py:87)."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
                  dropout: float = 0.0):
@@ -63,8 +64,9 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, _ = x.shape
         qkv = self.to_qkv(x).reshape(b, n, 3, self.heads, self.dim_head)
-        # one copy to (3, B, H, N, D): q, k, v come out contiguous
-        q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
+        # (B, H, N, D) views of the projection; the result is a (B, H, N, D)
+        # view of a (B, N, H, D) tensor, so the merge below is a view too
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
         out = fused_attention(q, k, v, self.scale)
         return self.to_out(out.transpose(1, 2).reshape(b, n, -1))
 

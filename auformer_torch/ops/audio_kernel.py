@@ -3,11 +3,11 @@ auformer/ops/audio_pallas.py).
 
 ``mel_frontend`` launches the CUDA kernel ``csrc/mel.cu`` for a CUDA
 tensor: (B, 441000) f32 raw audio -> (B, 1, 64, 1001) normalized log-mel in
-one pass over the audio (framing with reflect padding, windowed DFT, power,
-mel projection, feature_len masking, dB) plus one in-place pass for the
-per-sample 80 dB floor and the normalization. ``mel_frontend_reference`` is
-its plain PyTorch version: the chain of ``ops/audio.py`` with bf16 DFT
-operands and f32 accumulation, the Pallas kernel's numerics class.
+one launch (framing with reflect padding, windowed DFT on bf16 tensor
+cores, power, mel projection, feature_len masking, dB, the per-sample 80 dB
+floor and the normalization). ``mel_frontend_reference`` is its plain
+PyTorch version: the chain of ``ops/audio.py`` with bf16 DFT operands and
+f32 accumulation, the Pallas kernel's numerics class.
 """
 from __future__ import annotations
 
@@ -17,8 +17,8 @@ import functools
 import numpy as np
 import torch
 
-from .audio import (N_FFT, N_MELS, OUT_FRAMES, WIN_LENGTH, _dft_basis,
-                    mel_filterbank, plain_frontend)
+from .audio import (HOP_LENGTH, N_FFT, N_MELS, OUT_FRAMES, WIN_LENGTH,
+                    _dft_basis, mel_filterbank, plain_frontend)
 from .build import check, library
 
 MEL_LEN = 441000                 # fixed 10 s @ 44.1 kHz serving buffer
@@ -43,31 +43,79 @@ def mel_frontend_reference(audio: torch.Tensor,
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = library("mel")
-    lib.mel_frontend_forward.argtypes = [ctypes.c_void_p] * 6 + [
+    lib.mel_frontend_forward.argtypes = [ctypes.c_void_p] * 8 + [
         ctypes.c_int, ctypes.c_void_p]
     lib.mel_frontend_forward.restype = ctypes.c_int
-    lib.mel_padded_bins.restype = ctypes.c_int
+    for name in ("mel_basis_columns", "mel_hop_stride"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
-def _kernel_tables(padded_bins: int) -> tuple[np.ndarray, np.ndarray]:
+def kernel_tables(columns: int = 1024, hop_stride: int = 456
+                  ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """The kernel's constant operands, in f32: the windowed DFT basis
-    trimmed to the window support as (882, padded_bins, [re, im]) and the
-    mel filterbank as (padded_bins, 64); bins 513 and up are zero."""
+    trimmed to the window support as (columns, 2 * hop_stride), column 2f
+    the real and 2f+1 the imaginary part of bin f; the mel filterbank of
+    those bins as (64, columns / 2); and each band's range [first, end) of
+    bins with a nonzero weight.
+
+    The kernel keeps a frame as two hop rows of 441 samples, each padded
+    to ``hop_stride``: basis row r is window sample r (r < 441) or
+    r - (hop_stride - 441) (hop_stride <= r < hop_stride + 441), and zero
+    at the pads.
+
+    The bins above columns / 2 (bin 512, Nyquist) are left out; the kernel
+    may drop them only because their mel weights are negligible, which is
+    checked here.
+    """
+    bins = columns // 2
+    fb = mel_filterbank()
+    if np.abs(fb[bins:]).max() > 1e-12 * np.abs(fb).max():
+        raise ValueError(f"mel bins from {bins} up carry weight; the kernel "
+                         f"cannot leave them out")
     basis = _dft_basis(N_FFT, WIN_LENGTH)[_LEFT:_LEFT + WIN_LENGTH]
-    pairs = np.zeros((WIN_LENGTH, padded_bins, 2), np.float32)
-    pairs[:, :_F, 0] = basis[:, :_F]
-    pairs[:, :_F, 1] = basis[:, _F:]
-    melfb = np.zeros((padded_bins, N_MELS), np.float32)
-    melfb[:_F] = mel_filterbank()
-    return pairs, melfb
+    rows = np.concatenate([np.arange(HOP_LENGTH),
+                           hop_stride + np.arange(WIN_LENGTH - HOP_LENGTH)])
+    pairs = np.zeros((columns, 2 * hop_stride), np.float32)
+    pairs[0::2, rows] = basis[:, :bins].T
+    pairs[1::2, rows] = basis[:, _F:_F + bins].T
+    melfb = np.ascontiguousarray(fb[:bins].T)                  # (64, bins)
+    ranges = np.zeros((N_MELS, 2), np.int32)
+    for m in range(N_MELS):
+        nz = np.flatnonzero(melfb[m])
+        if nz.size:
+            ranges[m] = nz[0], nz[-1] + 1
+    return pairs, melfb, ranges
 
 
 @functools.cache
-def _device_tables(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    pairs, melfb = _kernel_tables(_library().mel_padded_bins())
+def _device_tables(device: torch.device
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    lib = _library()
+    pairs, melfb, ranges = kernel_tables(lib.mel_basis_columns(),
+                                         lib.mel_hop_stride())
     return (torch.from_numpy(pairs).to(device=device, dtype=torch.bfloat16),
-            torch.from_numpy(melfb).to(device))
+            torch.from_numpy(melfb).to(device),
+            torch.from_numpy(ranges).to(device))
+
+
+_SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scratch(device: torch.device, stream: int, b: int
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per (device, stream): each sample's dB max key (INT_MIN) and arrival
+    count (0). The kernel's last block of a sample resets both, so the
+    next call on the stream finds them so; calls on one stream run in
+    order."""
+    key = (device.index, stream)
+    held = _SCRATCH.get(key)
+    if held is None or held[0].numel() < b:
+        held = (torch.full((b,), -2 ** 31, dtype=torch.int32, device=device),
+                torch.zeros((b,), dtype=torch.int32, device=device))
+        _SCRATCH[key] = held
+    return held
 
 
 def mel_frontend(audio: torch.Tensor,
@@ -97,17 +145,18 @@ def mel_frontend(audio: torch.Tensor,
         flen = feature_len.to(device=audio.device,
                               dtype=torch.int32).reshape(b).contiguous()
     lib = _library()
-    basis, melfb = _device_tables(audio.device)
+    basis, melfb, ranges = _device_tables(audio.device)
     out = torch.empty((b, N_MELS, OUT_FRAMES), dtype=torch.float32,
                       device=audio.device)
     if b == 0:
         return out[:, None]
-    max_key = torch.empty((b,), dtype=torch.int32, device=audio.device)
     stream = torch.cuda.current_stream(audio.device).cuda_stream
+    max_key, count = _scratch(audio.device, stream, b)
     with torch.cuda.device(audio.device):
         err = lib.mel_frontend_forward(
             audio.data_ptr(), basis.data_ptr(), melfb.data_ptr(),
-            flen.data_ptr(), out.data_ptr(), max_key.data_ptr(), b, stream)
+            ranges.data_ptr(), flen.data_ptr(), out.data_ptr(),
+            max_key.data_ptr(), count.data_ptr(), b, stream)
     check(err, "mel kernel")
     mel_frontend.launches += 1
     return out[:, None]

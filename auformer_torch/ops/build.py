@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library, loaded with
-``ctypes``. The library name carries a hash of its source, so an edited
-source is rebuilt and a built one is reused. Builds land in ``.cache/kernels``
+``ctypes``. The library name carries a hash of its source and of the
+shared headers (``csrc/*.cuh``), so an edit to either is rebuilt and a
+built library is reused. Builds land in ``.cache/kernels``
 at the root of the checkout. Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -29,20 +30,47 @@ def source(name: str) -> Path:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256(source(name).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library's path, named by a hash of its source, every header
+    under csrc/ and the flags."""
+    h = hashlib.sha256(source(name).read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def _nvcc() -> str:
+def _tool(name: str) -> str | None:
+    """A CUDA toolkit program from PATH or CUDA_HOME, else None."""
     from torch.utils.cpp_extension import CUDA_HOME
-    found = shutil.which("nvcc")
+    found = shutil.which(name)
     if found:
         return found
-    if CUDA_HOME and Path(CUDA_HOME, "bin", "nvcc").exists():
-        return str(Path(CUDA_HOME, "bin", "nvcc"))
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
-                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+    if CUDA_HOME and Path(CUDA_HOME, "bin", name).exists():
+        return str(Path(CUDA_HOME, "bin", name))
+    return None
+
+
+def _nvcc() -> str:
+    nvcc = _tool("nvcc")
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
+    return nvcc
+
+
+def tensor_core_instructions(name: str) -> int | None:
+    """The count of tensor-core instructions (HMMA, HGMMA) in the SASS of
+    the built ``csrc/<name>.cu``, from ``cuobjdump -sass``; None where the
+    toolkit has no cuobjdump."""
+    cuobjdump = _tool("cuobjdump")
+    if cuobjdump is None:
+        return None
+    build((name,))
+    sass = subprocess.run([cuobjdump, "-sass", str(_target(name))],
+                          capture_output=True, text=True, check=True).stdout
+    return sum(1 for line in sass.splitlines()
+               if " HMMA." in line or " HGMMA." in line)
 
 
 def build(names=KERNELS) -> dict[str, str]:

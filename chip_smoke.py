@@ -7,17 +7,23 @@ hand-written kernel against its plain PyTorch version.
 Phases, each printing one JSON line (any failed check exits non-zero):
 
   env      torch / CUDA versions, the card's name and power limit
-  build    nvcc for every kernel under auformer_torch/csrc, all at once
-  kernels  each kernel at every main-path shape against its plain version
-           on the card: max error beside its tolerance, kernel / plain /
-           library time, roofline bound
+  build    nvcc for every kernel under auformer_torch/csrc, all at once:
+           ptxas registers and spills, tensor-core instructions in the SASS
+  kernels  each kernel at every main-path shape and dtype, on the inputs
+           the main path gives it (attention: the strided head split of a
+           fused QKV projection), against its plain version on the card:
+           max error beside its tolerance, kernel / plain / library time,
+           roofline bound
   slice    full-width avformer clip-batch inference (112x112, T=16, B=8,
            random reference-layout weights from a seed): launch counts of
-           one forward, fp32 logits against the same port on the CPU,
-           clips/s in fp32 and bf16, a profiled bf16 forward, and
+           one bf16 (the default) and one fp32 forward, fp32 logits against
+           the same port on the CPU, clips/s in fp32 and bf16, a profiled
+           bf16 forward (device time, kernels per forward), and
            run_inference into a temporary directory
 
-Then one JSON line of per-kernel results, the nvidia-smi name/power line,
+Then one JSON line of per-kernel results (per-forward sums over the
+attention sites in bf16, the main path's dtype, and in fp32), the
+nvidia-smi name/power line,
 and last ``{"ok": true, "device": {...}}``. Without a GPU, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -158,12 +164,18 @@ def phase_build() -> None:
     logs = build.build(build.KERNELS)
     for name in build.KERNELS:
         build.library(name)
+    seconds = time.perf_counter() - t0
     ptxas = {name: [line.strip() for line in log.splitlines()
                     if "registers" in line or "spill" in line]
              for name, log in logs.items()}
-    emit("build", seconds=round(time.perf_counter() - t0, 3),
+    tensor_core = {n: build.tensor_core_instructions(n)
+                   for n in build.KERNELS}
+    if any(count == 0 for count in tensor_core.values()):
+        fail(f"a kernel runs no tensor-core instruction: {tensor_core}")
+    emit("build", seconds=round(seconds, 3),
          sources=[str(build.source(n).relative_to(ROOT))
-                  for n in build.KERNELS], ptxas=ptxas)
+                  for n in build.KERNELS], ptxas=ptxas,
+         tensor_core_instructions=tensor_core)
 
 
 def attention_cases(torch, dev) -> list[dict]:
@@ -174,9 +186,12 @@ def attention_cases(torch, dev) -> list[dict]:
     cases = []
     for site, n, d, rows_per_clip, per_forward in ATTENTION_SITES:
         shape = (BATCH * rows_per_clip // HEADS, HEADS, n, d)
-        base = [rs.randn(*shape).astype(np.float32) for _ in range(3)]
+        # the fused projection's output, (B, N, 3 * H * D), as
+        # Attention.forward hands it over: strided (B, H, N, D) views
+        qkv = rs.randn(shape[0], n, 3 * HEADS * d).astype(np.float32)
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (torch.from_numpy(t).to(dev, dtype) for t in base)
+            q, k, v = torch.from_numpy(qkv).to(dev, dtype).reshape(
+                shape[0], n, 3, HEADS, d).permute(2, 0, 3, 1, 4).unbind(0)
             scale = d ** -0.5
             got = fused_attention(q, k, v, scale)
             want = attention_reference(q, k, v, scale)
@@ -207,7 +222,7 @@ def attention_cases(torch, dev) -> list[dict]:
 
 def mel_bound(b: int, valid_frames: int) -> tuple[float, str]:
     nbytes = (b * 441000 * 4 + b * 64 * 1001 * 4 + b * 4   # audio, out, flen
-              + 882 * 576 * 2 * 2 + 576 * 64 * 4)         # basis, filterbank
+              + 1024 * 912 * 2 + 64 * 512 * 4 + 64 * 8)   # basis, filterbank
     dft = 2 * valid_frames * 882 * 1026      # bf16 operands
     mel = 2 * valid_frames * 513 * 64        # f32
     return bound(nbytes, dft / PEAK_FLOPS["bf16"] + mel / PEAK_FLOPS["f32"])
@@ -268,6 +283,7 @@ def profile_forward(torch, infer, batch: dict) -> dict:
     events.sort(key=lambda e: e.device_time_total, reverse=True)
     total_us = sum(e.device_time_total for e in events)
     return {"device_ms_per_forward": total_us / 3e3,
+            "device_kernels_per_forward": sum(e.count for e in events) / 3,
             "top": [{"name": e.key[:80],
                      "ms_per_forward": e.device_time_total / 3e3,
                      "calls_per_forward": e.count / 3}
@@ -310,17 +326,28 @@ def phase_slice(torch, dev, batch: dict):
     infer32 = make_infer_fn(cfg32, model32)
     on_card = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
-    # the main path, once, with the launch counts read around it
-    fused_attention.launches = 0
-    mel_frontend.launches = 0
-    logits = infer32(on_card)
-    torch.cuda.synchronize()
-    launches = {"attention": fused_attention.launches,
-                "mel": mel_frontend.launches}
-    want = sum(s[-1] for s in ATTENTION_SITES)
-    if launches != {"attention": want, "mel": 1}:
-        fail(f"launches per forward {launches}, expected attention {want} "
-             f"and mel 1")
+    cfg16 = Config(image_size=IMAGE, n_frames=FRAMES, batch_size=BATCH)
+    model16 = build_model(cfg16)
+    load_weights(model16, sd)
+    infer16 = make_infer_fn(cfg16, model16)
+
+    def counted(infer):
+        """One forward with the launch counts set to 0 just before it and
+        read just after."""
+        fused_attention.launches = 0
+        mel_frontend.launches = 0
+        out = infer(on_card)
+        torch.cuda.synchronize()
+        got = {"attention": fused_attention.launches,
+               "mel": mel_frontend.launches}
+        want = {"attention": sum(s[-1] for s in ATTENTION_SITES), "mel": 1}
+        if got != want:
+            fail(f"launches per forward {got}, expected {want}")
+        return out, got
+
+    # the main path: the default (bf16) configuration
+    logits16, launches = counted(infer16)
+    logits, launches32 = counted(infer32)
 
     t0 = time.perf_counter()
     cpu_logits = make_infer_fn(cfg32, cpu_model, device="cpu")(batch)
@@ -335,12 +362,7 @@ def phase_slice(torch, dev, batch: dict):
     if got[:, 12:].abs().max().item() != 0.0:
         fail("EX/VA slices of the avformer output are not zero")
 
-    cfg16 = Config(image_size=IMAGE, n_frames=FRAMES, batch_size=BATCH)
-    model16 = build_model(cfg16)
-    load_weights(model16, sd)
-    infer16 = make_infer_fn(cfg16, model16)
-    logits16 = infer16(on_card)
-    if not torch.isfinite(logits16).all():
+    if logits16.shape != (BATCH, 21) or not torch.isfinite(logits16).all():
         fail("bf16 logits are not finite")
     rate32 = clips_per_s(torch, infer32, on_card, 20)
     rate16 = clips_per_s(torch, infer16, on_card, 20)
@@ -363,7 +385,8 @@ def phase_slice(torch, dev, batch: dict):
 
     wall_ms = 1e3 * BATCH / rate16
     emit("slice", batch=BATCH, frames=FRAMES, image=IMAGE,
-         launches_per_forward=launches, max_abs_err_fp32_vs_cpu=err,
+         launches_per_forward={"bfloat16": launches, "float32": launches32},
+         max_abs_err_fp32_vs_cpu=err,
          rtol=SLICE_TOL[0], atol=SLICE_TOL[1], cpu_forward_s=cpu_s,
          max_abs_diff_bf16_vs_fp32=(logits16 - logits).abs().max().item(),
          clips_per_s={"float32": rate32, "bfloat16": rate16},
@@ -397,24 +420,25 @@ def main() -> int:
     launches = phase_slice(torch, dev, batch)
 
     from auformer_torch.ops import build
-    fp32 = [c for c in attn if c["dtype"] == "float32"]
 
-    def per_forward(key):
-        return sum(c[key] * c["launches_per_forward"] for c in fp32)
+    def per_forward(dtype: str) -> dict:
+        """Sums over one forward's attention calls (time x launches)."""
+        sites = [c for c in attn if c["dtype"] == dtype]
+        total = {key: sum(c[key] * c["launches_per_forward"] for c in sites)
+                 for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        total["bound_by"] = ("bytes" if all(c["bound_by"] == "bytes"
+                                            for c in sites) else "operations")
+        total["max_abs_err"] = max(c["max_abs_err"] for c in sites)
+        return total
 
+    attn_sums = {d: per_forward(d) for d in ("bfloat16", "float32")}
     mel_main = mel[1]                       # the slice's input: feature_len
-    b_ms = per_forward("bound_ms")
     print(json.dumps({"kernels": [
         {"name": "attention", "route": "cuda",
          "source": str(build.source("attention").relative_to(ROOT)),
          "replaces": "auformer/ops/attention.py:88",
          "launches": launches["attention"],
-         "max_abs_err": max(c["max_abs_err"] for c in fp32),
-         "ms": per_forward("ms"), "plain_ms": per_forward("plain_ms"),
-         "bound_ms": b_ms,
-         "bound_by": "bytes" if all(c["bound_by"] == "bytes" for c in fp32)
-         else "operations",
-         "library_ms": per_forward("library_ms")},
+         **attn_sums["bfloat16"], "per_dtype": attn_sums},
         {"name": "mel_frontend", "route": "cuda",
          "source": str(build.source("mel").relative_to(ROOT)),
          "replaces": "auformer/ops/audio_pallas.py:185",

@@ -93,3 +93,67 @@ def test_fused_attention_on_cpu_takes_the_plain_version():
     torch.testing.assert_close(out, tatt.attention_reference(q, k, v, 0.2),
                                rtol=0, atol=0)
     assert tatt.fused_attention.launches == before
+
+
+def _to_qkv_views(b, n, h, d, dtype=torch.float32, seed=5):
+    """The head split ``Attention.forward`` hands over: (B, H, N, D) views
+    of one fused (B, N, 3 * H * D) projection."""
+    rs = np.random.RandomState(seed)
+    qkv = torch.from_numpy(rs.randn(b, n, 3 * h * d).astype(np.float32)
+                           ).to(dtype)
+    return qkv, qkv.reshape(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", SHAPES + [(129, 64), (1, 8)])
+def test_kernel_takes_the_to_qkv_views_in_place(n, d, dtype):
+    """The kernel reads the head split where it lies: three views of one
+    storage, k and v H * D elements apart, tokens 3 * H * D apart."""
+    qkv, (q, k, v) = _to_qkv_views(2, n, 8, d, dtype)
+    assert not q.is_contiguous()
+    assert q.data_ptr() == qkv.data_ptr()
+    assert k.data_ptr() - q.data_ptr() == 8 * d * qkv.element_size()
+    assert q.stride() == (n * 3 * 8 * d, d, 3 * 8 * d, 1)
+    tatt.check_kernel_inputs(q, k, v)
+    tatt.check_kernel_inputs(*(t.contiguous() for t in (q, k, v)))
+
+
+def test_kernel_inputs_rejected_as_the_kernel_would():
+    _, (q, k, v) = _to_qkv_views(2, 12, 8, 32)
+    bad = {
+        "stride(-1) != 1": (q.transpose(2, 3), k, v),
+        "shape": (q[:, :, :11], k, v),
+        "N > 144": tuple(torch.zeros(1, 1, 145, 32) for _ in range(3)),
+        "D not a multiple of 8": tuple(torch.zeros(1, 1, 12, 12)
+                                       for _ in range(3)),
+        "D > 64": tuple(torch.zeros(1, 1, 12, 72) for _ in range(3)),
+        "misaligned pointer": (torch.zeros(2 * 8 * 12 * 32 + 1)[1:].view(
+            2, 8, 12, 32), k, v),
+        "misaligned token rows": tuple(
+            torch.zeros(1, 12, 3 * 8 + 1)[..., :8].unsqueeze(1)
+            for _ in range(3)),
+    }
+    for why, args in bad.items():
+        with pytest.raises(ValueError):
+            tatt.check_kernel_inputs(*args)
+            pytest.fail(why)
+    with pytest.raises(TypeError):
+        tatt.check_kernel_inputs(q, k.to(torch.bfloat16), v)
+    with pytest.raises(TypeError):
+        tatt.check_kernel_inputs(q.half(), k.half(), v.half())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_output_is_a_view_of_tokens_first_storage(dtype):
+    """``fused_attention`` returns (B, H, N, D) laid out as (B, N, H, D),
+    on the CPU as the kernel writes it on the card: merging the heads is a
+    view, and the values are the plain version's."""
+    _, (q, k, v) = _to_qkv_views(2, 17, 8, 64, dtype)
+    out = tatt.fused_attention(q, k, v, 0.125)
+    assert out.shape == q.shape and out.dtype == dtype
+    assert out.transpose(1, 2).is_contiguous()
+    merged = out.transpose(1, 2).reshape(2, 17, -1)
+    assert merged.data_ptr() == out.data_ptr()
+    torch.testing.assert_close(out, tatt.attention_reference(q, k, v, 0.125),
+                               rtol=0, atol=0)
+    assert tatt.output_buffer(q).transpose(1, 2).is_contiguous()

@@ -113,3 +113,54 @@ def test_left_aligned_is_not_ported():
 def test_mel_frontend_rejects_other_lengths():
     with pytest.raises(ValueError):
         audio_kernel.mel_frontend(torch.zeros(1, 44100))
+
+
+def _kernel_layout_mel(audio: np.ndarray, frames) -> np.ndarray:
+    """The CUDA kernel's arithmetic for some frames of one sample, from its
+    own tables, in numpy: hop rows of 441 samples (reflect padding by index,
+    rows past hop 1000 zero) padded to the kernel's stride, frame f as the
+    padded values of rows f-1 and f, bf16 frames and basis with f32 sums,
+    power from interleaved (re, im) columns, and each mel band summed over
+    its own bin range."""
+    pairs, melfb, ranges = audio_kernel.kernel_tables()
+    stride = pairs.shape[1] // 2
+    bf16 = lambda a: torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+    out = []
+    for k in frames:
+        row = np.zeros(2 * stride, np.float32)
+        for half, h in enumerate((k - 1, k)):
+            if h > 1000:
+                continue
+            i = h * 441 + np.arange(441)
+            i = np.where(i < 0, -i, i)
+            i = np.where(i >= 441000, 2 * 440999 - i, i)
+            row[half * stride:half * stride + 441] = audio[i]
+        spec = bf16(pairs) @ bf16(row)                     # (1024,)
+        power = spec[0::2] ** 2 + spec[1::2] ** 2           # (512,)
+        out.append([power[lo:hi] @ melfb[m, lo:hi]
+                    for m, (lo, hi) in enumerate(ranges)])
+    return np.asarray(out, np.float32).T                   # (64, frames)
+
+
+def test_kernel_tables_reproduce_the_plain_mel_power():
+    """The kernel's padded hop-row frames, interleaved basis, dropped bin
+    512 and per-band bin ranges give the plain chain's mel power, edge
+    frames included (the CUDA kernel itself runs on the card only)."""
+    audio = (np.random.RandomState(5).randn(441000) * 0.3).astype(np.float32)
+    frames = [0, 1, 2, 500, 999, 1000]
+    want = taudio.mel_spectrogram(torch.from_numpy(audio[None]),
+                                  conv_dtype=torch.bfloat16)[0].numpy()
+    got = _kernel_layout_mel(audio, frames)
+    np.testing.assert_allclose(got, want[:, frames], rtol=2e-5, atol=1e-7)
+
+
+def test_kernel_tables_drop_only_weightless_bins():
+    pairs, melfb, ranges = audio_kernel.kernel_tables()
+    fb = taudio.mel_filterbank()
+    assert pairs.shape == (1024, 912) and melfb.shape == (64, 512)
+    assert np.abs(fb[512]).max() < 1e-12 * fb.max()
+    for m, (lo, hi) in enumerate(ranges):
+        assert np.all(melfb[m, :lo] == 0) and np.all(melfb[m, hi:] == 0)
+        assert melfb[m, lo] != 0 and melfb[m, hi - 1] != 0
+    # the pads of both hop rows are zero basis rows
+    assert not pairs[:, 441:456].any() and not pairs[:, 897:].any()

@@ -6,6 +6,8 @@ neither JAX nor the JAX package, so it runs where only PyTorch is installed;
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +20,8 @@ from auformer_torch.ops import audio_kernel
 
 pytestmark = pytest.mark.cuda
 
-SHAPES = [(49, 32), (17, 64), (12, 32)]
+TOKENS = [1, 12, 17, 33, 49, 64, 129]
+DIMS = [32, 64]
 TOL = {torch.float32: (1e-4, 1e-5),
        # one bf16 ulp (2**-7 relative) where the f32 sums round differently
        torch.bfloat16: (1e-2, 1e-3)}
@@ -34,25 +37,61 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _qkv(n, d, seed, device, dtype, b=4, h=8):
+def _qkv(n, d, seed, device, dtype, b=4, h=8, layout="contiguous"):
+    """q, k, v as (B, H, N, D) tensors: contiguous, or the head split of a
+    fused (B, N, 3 * H * D) projection (strided views of one tensor, as
+    ``Attention.forward`` hands them over)."""
     rs = np.random.RandomState(seed)
-    return [torch.from_numpy(rs.randn(b, h, n, d).astype(np.float32)).to(
-        device, dtype) for _ in range(3)]
+    if layout == "contiguous":
+        return [torch.from_numpy(rs.randn(b, h, n, d).astype(np.float32)).to(
+            device, dtype) for _ in range(3)]
+    qkv = torch.from_numpy(rs.randn(b, n, 3 * h * d).astype(np.float32)).to(
+        device, dtype)
+    return list(qkv.reshape(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0))
+
+
+def _check_attention(q, k, v, scale):
+    before = tatt.fused_attention.launches
+    got = tatt.fused_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert tatt.fused_attention.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert got.transpose(1, 2).is_contiguous()        # (B, N, H, D) storage
+    want = tatt.attention_reference(q, k, v, scale)
+    rtol, atol = TOL[q.dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "to_qkv"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", DIMS)
+@pytest.mark.parametrize("n", TOKENS)
+def test_attention_kernel_matches_plain_version(cuda_device, n, d, dtype,
+                                                layout):
+    q, k, v = _qkv(n, d, n * d, cuda_device, dtype, layout=layout)
+    _check_attention(q, k, v, d ** -0.5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,d", SHAPES)
-def test_attention_kernel_matches_plain_version(cuda_device, n, d, dtype):
-    q, k, v = _qkv(n, d, 0, cuda_device, dtype)
-    before = tatt.fused_attention.launches
-    got = tatt.fused_attention(q, k, v, d ** -0.5)
-    torch.cuda.synchronize()
-    assert tatt.fused_attention.launches == before + 1
-    assert got.dtype == dtype and got.shape == q.shape
-    want = tatt.attention_reference(q, k, v, d ** -0.5)
-    rtol, atol = TOL[dtype]
-    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
-                               atol=atol)
+def test_attention_kernel_ragged_last_cta(cuda_device, dtype):
+    """1001 rows of 49 tokens: 2 rows per CTA, the last CTA holds one."""
+    lib = tatt._library()
+    per_cta, warps, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    assert lib.attention_launch_shape(
+        1001, 49, 32, tatt._DTYPE_CODE[dtype], ctypes.byref(per_cta),
+        ctypes.byref(warps), ctypes.byref(smem)) == 0
+    assert per_cta.value > 1 and 1001 % per_cta.value != 0
+    q, k, v = _qkv(49, 32, 5, cuda_device, dtype, b=143, h=7,
+                   layout="to_qkv")
+    _check_attention(q, k, v, 32 ** -0.5)
+
+
+@pytest.mark.parametrize("n,d", [(49, 40), (17, 8), (129, 48)])
+def test_attention_kernel_other_head_dims(cuda_device, n, d):
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _qkv(n, d, 6, cuda_device, dtype, b=2, h=3)
+        _check_attention(q, k, v, d ** -0.5)
 
 
 def test_attention_kernel_rejects_what_it_does_not_take(cuda_device):
@@ -60,30 +99,86 @@ def test_attention_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(NotImplementedError):
         tatt.fused_attention(q, k, v, 0.2, torch.ones(
             4, 12, dtype=torch.bool, device=cuda_device))
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):       # stride(-1) != 1
         tatt.fused_attention(q.transpose(2, 3), k, v, 0.2)
     with pytest.raises(TypeError):
         tatt.fused_attention(q.half(), k.half(), v.half(), 0.2)
-    big = torch.zeros(1, 1, 128, 64, device=cuda_device)
+    with pytest.raises(TypeError):        # mixed dtypes
+        tatt.fused_attention(q, k.bfloat16(), v, 0.2)
+    flat = torch.zeros(4 * 8 * 12 * 32 + 1, device=cuda_device)
+    shifted = flat[1:].view(4, 8, 12, 32)  # rows off 16 bytes
     with pytest.raises(ValueError):
-        tatt.fused_attention(big, big, big, 0.1)
+        tatt.fused_attention(shifted, k, v, 0.2)
+    for n, d in ((145, 32), (12, 72), (12, 12)):
+        big = torch.zeros(1, 1, n, d, device=cuda_device)
+        with pytest.raises(ValueError):
+            tatt.fused_attention(big, big, big, 0.1)
 
 
-@pytest.mark.parametrize("with_len", [False, True])
-def test_mel_kernel_matches_plain_version(cuda_device, with_len):
-    rs = np.random.RandomState(2)
-    n_valid = np.array([441000, 300_000, 441, 441000])
-    audio = (rs.randn(4, 441000) * 0.1).astype(np.float32)
-    audio[np.arange(441000)[None, :] < (441000 - n_valid)[:, None]] = 0.0
-    audio = torch.from_numpy(audio).to(cuda_device)
-    flen = (torch.from_numpy(1 + n_valid // 441).to(cuda_device)
-            if with_len else None)
+def _mel_audio(b, seed, n_valid=None):
+    rs = np.random.RandomState(seed)
+    audio = (rs.randn(b, 441000) * 0.1).astype(np.float32)
+    if n_valid is not None:
+        audio[np.arange(441000)[None, :]
+              < (441000 - np.asarray(n_valid))[:, None]] = 0.0
+    return audio
+
+
+def _check_mel(audio, flen=None):
+    dev = torch.device("cuda")
+    audio = torch.from_numpy(np.ascontiguousarray(audio)).to(dev)
+    if flen is not None:
+        flen = torch.as_tensor(np.asarray(flen, np.int32)).to(dev)
     before = audio_kernel.mel_frontend.launches
     got = audio_kernel.mel_frontend(audio, flen)
     torch.cuda.synchronize()
     assert audio_kernel.mel_frontend.launches == before + 1
     want = audio_kernel.mel_frontend_reference(audio, flen)
+    assert got.shape == (audio.shape[0], 1, 64, 1001)
     torch.testing.assert_close(got, want, rtol=0, atol=MEL_ATOL)
+    return got
+
+
+@pytest.mark.parametrize("with_len", [False, True])
+def test_mel_kernel_matches_plain_version(cuda_device, with_len):
+    n_valid = np.array([441000, 300_000, 441, 441000])
+    _check_mel(_mel_audio(4, 2, n_valid),
+               1 + n_valid // 441 if with_len else None)
+
+
+@pytest.mark.parametrize("b", [1, 3, 8])
+def test_mel_kernel_batch_sizes(cuda_device, b):
+    _check_mel(_mel_audio(b, 10 + b))
+
+
+@pytest.mark.parametrize("flen", [1, 2, 1000, 1001, 5000])
+def test_mel_kernel_feature_len(cuda_device, flen):
+    n_valid = min(441000, max(0, (flen - 1) * 441))
+    _check_mel(_mel_audio(2, flen, [n_valid, n_valid]), [flen, flen])
+
+
+@pytest.mark.parametrize("at", [0, 440999])
+def test_mel_kernel_impulse(cuda_device, at):
+    audio = np.zeros((1, 441000), np.float32)
+    audio[0, at] = 1.0
+    _check_mel(audio)
+
+
+def test_mel_kernel_all_zero(cuda_device):
+    got = _check_mel(np.zeros((2, 441000), np.float32))
+    assert torch.unique(got).numel() == 1
+
+
+def test_mel_kernel_repeats_and_samples_stand_alone(cuda_device):
+    """Two calls in a row give the same bits (the per-sample scratch is
+    reset), and a sample's output does not depend on its batch."""
+    audio = _mel_audio(3, 7, [441000, 100_000, 441000])
+    flen = [1001, 1 + 100_000 // 441, 1001]
+    first = _check_mel(audio, flen)
+    second = _check_mel(audio, flen)
+    assert torch.equal(first, second)
+    alone = _check_mel(audio[1:2], flen[1:2])
+    assert torch.equal(alone[0], first[1])
 
 
 def test_mel_kernel_rejects_what_it_does_not_take(cuda_device):

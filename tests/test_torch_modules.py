@@ -17,6 +17,7 @@ from auformer.nn import vformer as jvformer
 from auformer.ops import preprocess as jpreprocess
 from auformer_torch.core.weights import Exporter, load_weights
 from auformer_torch.nn import blocks, heads, resnet, vformer
+from auformer_torch.ops import attention as tatt
 from auformer_torch.ops import preprocess
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -71,6 +72,47 @@ def test_transformer(heads_, dim_head):
     tmod = blocks.Transformer(dim, depth, heads_, dim_head, mlp)
     v, tmod = carry(jmod, tmod, x, lambda e: e.transformer("", ""), 1)
     assert_close(tmod(torch.from_numpy(x)), jmod.apply(v, x))
+
+
+@pytest.mark.parametrize("heads_,dim_head", [(8, 8), (4, 32), (1, 64)])
+def test_attention_copies_no_head_layout(monkeypatch, heads_, dim_head):
+    """``Attention.forward`` hands ``fused_attention`` the head split of
+    its own to_qkv output (views of that storage, which the kernel's input
+    check accepts), merges the heads of the result as a view, and still
+    matches the JAX module."""
+    dim, depth, mlp = 64, 1, 128
+    x = np.random.RandomState(4).randn(3, 17, dim).astype(np.float32)
+    jmod = jblocks.Transformer(dim, depth, heads_, dim_head, mlp)
+    tmod = blocks.Transformer(dim, depth, heads_, dim_head, mlp)
+    variables, tmod = carry(jmod, tmod, x,
+                            lambda e: e.transformer("", ""), 6)
+    attn = tmod.layers[0][0].fn.fn
+    seen = {}
+    attn.to_qkv.register_forward_hook(
+        lambda m, i, o: seen.__setitem__("qkv", o))
+    if not isinstance(attn.to_out, torch.nn.Identity):
+        attn.to_out.register_forward_pre_hook(
+            lambda m, i: seen.__setitem__("merged", i[0]))
+
+    def spy(q, k, v, scale, mask=None):
+        seen["qkv_views"] = (q, k, v)
+        tatt.check_kernel_inputs(q, k, v)
+        seen["out"] = tatt.fused_attention(q, k, v, scale, mask)
+        return seen["out"]
+
+    monkeypatch.setattr(blocks, "fused_attention", spy)
+    got = tmod(torch.from_numpy(x))
+    qkv = seen["qkv"]
+    q, k, v = seen["qkv_views"]
+    step = heads_ * dim_head * qkv.element_size()
+    assert q.data_ptr() == qkv.data_ptr()
+    assert (k.data_ptr() - q.data_ptr(), v.data_ptr() - q.data_ptr()) == (
+        step, 2 * step)
+    assert all(t.untyped_storage().data_ptr()
+               == qkv.untyped_storage().data_ptr() for t in (q, k, v))
+    if "merged" in seen:
+        assert seen["merged"].data_ptr() == seen["out"].data_ptr()
+    assert_close(got, jmod.apply(variables, x))
 
 
 def test_resnet18_32px():
