@@ -44,12 +44,12 @@
 //    operand as they are, and turns Q and K loads into 8-byte pairs.
 //  * Row strides in shared memory are padded so that ldmatrix and the fp32
 //    fragment loads are free of bank conflicts.
-//  * Template buckets bound the register arrays: key tiles of 16 in
-//    {1, 2, 3, 4, 6, 9} and head dims up to 32 or 64. Every tile of a bucket
-//    is computed, without branches, so the MMAs are straight-line code that
-//    ptxas interleaves; a head dim below the bucket's is zero-padded in
-//    shared memory. N <= 144 (the JAX package serves 12, 17, 49 and 129
-//    tokens) and D <= 64, D % 8 == 0.
+//  * Template buckets bound the register arrays: N <= 16, 32, 64 or 144
+//    (the JAX package serves 12, 17, 49 and 129 tokens, one bucket each) and
+//    head dims up to 32 or 64. Every tile of a bucket is computed, without
+//    branches, so the MMAs are straight-line code that ptxas interleaves;
+//    other N take the next bucket up, and a head dim below the bucket's is
+//    zero-padded in shared memory. N <= 144, D <= 64, D % 8 == 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -424,21 +424,16 @@ cudaError_t opt_in(KernelFn kernel) {
 // tiles for D <= 32 or D <= 64.
 KernelFn pick_kernel(int n, int d, int dtype) {
   const int wide = d > 32;
-  const int kb = n <= 16 ? 0 : n <= 32 ? 1 : n <= 48 ? 2 : n <= 64 ? 3
-               : n <= 96 ? 4 : 5;
-  static const KernelFn bf16[6][2] = {
+  const int kb = n <= 16 ? 0 : n <= 32 ? 1 : n <= 64 ? 2 : 3;
+  static const KernelFn bf16[4][2] = {
       {attention_bf16_kernel<1, 2>, attention_bf16_kernel<1, 4>},
       {attention_bf16_kernel<2, 2>, attention_bf16_kernel<2, 4>},
-      {attention_bf16_kernel<3, 2>, attention_bf16_kernel<3, 4>},
       {attention_bf16_kernel<4, 2>, attention_bf16_kernel<4, 4>},
-      {attention_bf16_kernel<6, 2>, attention_bf16_kernel<6, 4>},
       {attention_bf16_kernel<9, 2>, attention_bf16_kernel<9, 4>}};
-  static const KernelFn f32[6][2] = {
+  static const KernelFn f32[4][2] = {
       {attention_f32_kernel<2, 4>, attention_f32_kernel<2, 8>},
       {attention_f32_kernel<4, 4>, attention_f32_kernel<4, 8>},
-      {attention_f32_kernel<6, 4>, attention_f32_kernel<6, 8>},
       {attention_f32_kernel<8, 4>, attention_f32_kernel<8, 8>},
-      {attention_f32_kernel<12, 4>, attention_f32_kernel<12, 8>},
       {attention_f32_kernel<18, 4>, attention_f32_kernel<18, 8>}};
   return dtype == 1 ? bf16[kb][wide] : f32[kb][wide];
 }

@@ -115,8 +115,8 @@ static_assert(kMels * kTileFrames * 4 <= kPowerBytes,
               "the partial mel sums fit the power scratch");
 
 #ifdef MEL_PHASE_TIMES
-// Built only by scripts/mel_phase_times.py: each CTA's thread 0 stamps the
-// global timer (ns) as it reaches each phase.
+// Built only for scripts/mel_phase_times.py (ops/build.py with this define):
+// each CTA's thread 0 stamps the global timer (ns) as it reaches each phase.
 constexpr int kPhases = 6;  // start, frames, DFT + mel, swap, arrival, floor
 constexpr int kMaxCtas = kTiles * kCluster * 64;
 __device__ unsigned long long mel_phase_ns[kMaxCtas][kPhases];

@@ -41,8 +41,9 @@ def mel_frontend_reference(audio: torch.Tensor,
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = library("mel")
+def mel_library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The built csrc/mel.cu (with ``defines``) and its C signatures."""
+    lib = library("mel", defines)
     lib.mel_frontend_forward.argtypes = [ctypes.c_void_p] * 8 + [
         ctypes.c_int, ctypes.c_void_p]
     lib.mel_frontend_forward.restype = ctypes.c_int
@@ -92,7 +93,7 @@ def kernel_tables(columns: int = 1024, hop_stride: int = 456
 @functools.cache
 def _device_tables(device: torch.device
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    lib = _library()
+    lib = mel_library()
     pairs, melfb, ranges = kernel_tables(lib.mel_basis_columns(),
                                          lib.mel_hop_stride())
     return (torch.from_numpy(pairs).to(device=device, dtype=torch.bfloat16),
@@ -144,7 +145,7 @@ def mel_frontend(audio: torch.Tensor,
     else:
         flen = feature_len.to(device=audio.device,
                               dtype=torch.int32).reshape(b).contiguous()
-    lib = _library()
+    lib = mel_library()
     basis, melfb, ranges = _device_tables(audio.device)
     out = torch.empty((b, N_MELS, OUT_FRAMES), dtype=torch.float32,
                       device=audio.device)

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library, loaded with
-``ctypes``. The library name carries a hash of its source and of the
-shared headers (``csrc/*.cuh``), so an edit to either is rebuilt and a
-built library is reused. Builds land in ``.cache/kernels``
-at the root of the checkout. Nothing here runs at import time.
+``ctypes``. The library name carries a hash of its source, the shared
+headers (``csrc/*.cuh``), the flags and any extra preprocessor defines, so
+an edit to any of them is rebuilt and a built library is reused. Builds
+land in ``.cache/kernels`` at the root of the checkout. Nothing here runs at
+import time.
 """
 from __future__ import annotations
 
@@ -22,20 +23,24 @@ KERNELS = ("attention", "mel")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def source(name: str) -> Path:
     return SRC_DIR / f"{name}.cu"
 
 
-def _target(name: str) -> Path:
+def _flags(defines: tuple[str, ...]) -> tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def _target(name: str, defines: tuple[str, ...] = ()) -> Path:
     """The library's path, named by a hash of its source, every header
-    under csrc/ and the flags."""
+    under csrc/, the flags and the defines."""
     h = hashlib.sha256(source(name).read_bytes())
     for header in sorted(SRC_DIR.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(defines)).encode())
     digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
@@ -73,21 +78,22 @@ def tensor_core_instructions(name: str) -> int | None:
                if " HMMA." in line or " HGMMA." in line)
 
 
-def build(names=KERNELS) -> dict[str, str]:
+def build(names=KERNELS, defines: tuple[str, ...] = ()) -> dict[str, str]:
     """Compile every named source not built yet, one ``nvcc`` each, all
-    started together. Returns the compiler output (``-Xptxas -v``: each
-    kernel's registers, shared memory and spills) of each build."""
+    started together, with ``-D<define>`` for each of ``defines``. Returns
+    the compiler output (``-Xptxas -v``: each kernel's registers, shared
+    memory and spills) of each build."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = [n for n in names if not _target(n).exists()]
+    todo = [n for n in names if not _target(n, defines).exists()]
     if not todo:
         return {}
     nvcc = _nvcc()
     procs = {}
     try:
         for name in todo:
-            tmp = _target(name).with_suffix(f".{os.getpid()}.tmp")
+            tmp = _target(name, defines).with_suffix(f".{os.getpid()}.tmp")
             procs[name] = (tmp, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source(name))],
+                [nvcc, *_flags(defines), "-o", str(tmp), str(source(name))],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         logs, failed = {}, []
         for name, (tmp, proc) in procs.items():
@@ -96,7 +102,7 @@ def build(names=KERNELS) -> dict[str, str]:
                 failed.append(f"--- {name} (exit {proc.returncode})\n"
                               f"{logs[name]}")
             else:
-                os.replace(tmp, _target(name))
+                os.replace(tmp, _target(name, defines))
     finally:
         for _, proc in procs.values():
             if proc.poll() is None:
@@ -107,13 +113,14 @@ def build(names=KERNELS) -> dict[str, str]:
     return logs
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of ``csrc/<name>.cu``, built on first use."""
-    lib = _LIBS.get(name)
+def library(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded shared library of ``csrc/<name>.cu`` built with
+    ``defines``, built on first use."""
+    lib = _LIBS.get((name, defines))
     if lib is None:
-        build((name,))
-        lib = ctypes.CDLL(str(_target(name)))
-        _LIBS[name] = lib
+        build((name,), defines)
+        lib = ctypes.CDLL(str(_target(name, defines)))
+        _LIBS[name, defines] = lib
     return lib
 
 

@@ -221,10 +221,15 @@ def attention_cases(torch, dev) -> list[dict]:
 
 
 def mel_bound(b: int, valid_frames: int) -> tuple[float, str]:
-    nbytes = (b * 441000 * 4 + b * 64 * 1001 * 4 + b * 4   # audio, out, flen
-              + 1024 * 912 * 2 + 64 * 512 * 4 + 64 * 8)   # basis, filterbank
-    dft = 2 * valid_frames * 882 * 1026      # bf16 operands
-    mel = 2 * valid_frames * 513 * 64        # f32
+    """Bytes: audio, output, feature_len, the kernel's basis and filterbank
+    tables. Operations of each valid frame: the 882 x 1026 DFT (bf16
+    operands), then in f32 the power of 513 bins and one multiply-add per
+    nonzero weight of the triangular HTK filterbank."""
+    from auformer_torch.ops.audio import mel_filterbank
+    nbytes = (b * 441000 * 4 + b * 64 * 1001 * 4 + b * 4
+              + 1024 * 912 * 2 + 64 * 512 * 4 + 64 * 8)
+    dft = 2 * valid_frames * 882 * 1026
+    mel = valid_frames * (3 * 513 + 2 * np.count_nonzero(mel_filterbank()))
     return bound(nbytes, dft / PEAK_FLOPS["bf16"] + mel / PEAK_FLOPS["f32"])
 
 

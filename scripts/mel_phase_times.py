@@ -3,9 +3,10 @@
 
     python3 scripts/mel_phase_times.py [--batch 8]
 
-Builds auformer_torch/csrc/mel.cu a second time with -DMEL_PHASE_TIMES,
-which makes thread 0 of every CTA stamp the GPU's global timer (ns) as it
-reaches each phase, runs it on random audio (all frames valid) after a
+Builds auformer_torch/csrc/mel.cu a second time with -DMEL_PHASE_TIMES
+(through ops/build.py, hashed like the regular build), which makes thread
+0 of every CTA stamp the GPU's global timer (ns) as it reaches each phase,
+runs it on random audio (all frames valid) after a
 warm-up, checks its output against the regular kernel, and prints one JSON
 line: the call's event time, and the median over CTAs of each phase's
 length (frames assembled, DFT and mel sums, the cluster's partial-sum swap,
@@ -16,7 +17,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -37,15 +37,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from auformer_torch.ops import audio_kernel, build
 
-    lib_path = build.BUILD_DIR / "libmel-phase-times.so"
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-DMEL_PHASE_TIMES",
-                    "-o", str(lib_path), str(build.source("mel"))],
-                   check=True, capture_output=True)
-    lib = ctypes.CDLL(str(lib_path))
-    lib.mel_frontend_forward.argtypes = [ctypes.c_void_p] * 8 + [
-        ctypes.c_int, ctypes.c_void_p]
-    lib.mel_frontend_forward.restype = ctypes.c_int
+    lib = audio_kernel.mel_library(("MEL_PHASE_TIMES",))
     lib.mel_phase_times.argtypes = [ctypes.c_void_p]
     lib.mel_phase_times.restype = ctypes.c_int
 

@@ -7,6 +7,7 @@ neither JAX nor the JAX package, so it runs where only PyTorch is installed;
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 import ctypes
+import functools
 
 import numpy as np
 import pytest
@@ -85,6 +86,34 @@ def test_attention_kernel_ragged_last_cta(cuda_device, dtype):
     q, k, v = _qkv(49, 32, 5, cuda_device, dtype, b=143, h=7,
                    layout="to_qkv")
     _check_attention(q, k, v, 32 ** -0.5)
+
+
+@pytest.mark.parametrize("n,d", [(49, 32), (17, 64), (12, 32)])
+def test_attention_kernel_keeps_p_in_f32(cuda_device, n, d):
+    """bf16 P V takes P in f32 (the kernel's hi + lo bf16 parts), not P
+    rounded to bf16 once. Every query token of a row attends alike (equal q
+    rows), and each V column is 30 * (s - p.s) with s = +-1: the terms are
+    ~30 / N, the output cancels to below 0.07, and one rounding of P
+    (2^-9 relative) moves it by >20x the tolerance."""
+    b, h, big = 2, 4, 30.0
+    rs = np.random.RandomState(n)
+    bf16 = functools.partial(torch.tensor, dtype=torch.bfloat16)
+    q = bf16(np.repeat(rs.randn(b, h, 1, d), n, axis=2))
+    k = bf16(rs.randn(b, h, n, d))
+    scale = d ** -0.5
+    p = torch.softmax(q[:, :, :1].double() @ k.double().transpose(-1, -2)
+                      * scale, dim=-1)
+    sign = torch.from_numpy(rs.choice([-1.0, 1.0], (b, h, n, d)))
+    v = (big * (sign - p @ sign)).bfloat16()
+    q, k, v = (t.to(cuda_device) for t in (q, k, v))
+    _check_attention(q, k, v, scale)
+    want = tatt.attention_reference(q, k, v, scale).float()
+    p_once = torch.softmax(q.float() @ k.float().transpose(-1, -2) * scale,
+                           dim=-1).bfloat16().float()
+    once = (p_once @ v.float()).bfloat16().float()
+    rtol, atol = TOL[torch.bfloat16]
+    assert want.abs().max() < 0.07
+    assert not torch.allclose(once, want, rtol=rtol, atol=atol)
 
 
 @pytest.mark.parametrize("n,d", [(49, 40), (17, 8), (129, 48)])
