@@ -1,11 +1,13 @@
-"""Clip-batch inference + submission writers (counterpart of
+"""Inference entry points + submission writers (counterpart of
 auformer/infer.py; reference test_aff2.py:46-119).
 
-Batches of uint8 clips and raw audio go through one forward each and the
-per-video demux happens on the host from the returned (B, 21) blocks, with
-the reference's output files. The entry points run on the card: with no
-``device`` they take ``cuda`` and raise when there is none; the CPU runs the
-plain versions of the kernels only when asked for with ``device="cpu"``.
+``run_inference``: batches of uint8 clips and raw audio go through one
+forward each and the per-video demux happens on the host from the returned
+(B, 21) blocks. ``run_inference_sweep``: the dense sweep (sweep.py) labels
+every frame of whole videos. Both write the reference's output files. The
+entry points run on the card: with no ``device`` they take ``cuda`` and
+raise when there is none; the CPU runs the plain versions of the kernels
+only when asked for with ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -108,7 +110,7 @@ class TaskWriters:
                 w.close()
 
 
-def _resolve_device(device) -> torch.device:
+def resolve_device(device) -> torch.device:
     """``cuda`` unless the caller names another device; raises when the
     device is CUDA and no GPU is present."""
     device = torch.device("cuda" if device is None else device)
@@ -128,7 +130,7 @@ def make_infer_fn(cfg: Config, model: torch.nn.Module, device=None):
     (B,) valid mel frames, or precomputed ``audio_features`` (B, 1, 64, 1001).
     Arrays may be numpy or tensors.
     """
-    device = _resolve_device(device)
+    device = resolve_device(device)
     dtype = compute_dtype(cfg)
     model.to(device=device, dtype=dtype).eval()
 
@@ -150,6 +152,18 @@ def make_infer_fn(cfg: Config, model: torch.nn.Module, device=None):
         return model(x).float()
 
     return infer
+
+
+def _write_pickle(result_path: str, rows: dict) -> np.ndarray:
+    """The (max row + 1, 21) prediction matrix of ``rows`` (dataset row ->
+    logits), written to ``inference.pkl`` as the reference does."""
+    output = np.zeros((max(rows, default=-1) + 1, 21), np.float32)
+    for idx, row in rows.items():
+        output[idx, :len(row)] = row
+    os.makedirs(result_path, exist_ok=True)
+    with open(os.path.join(result_path, "inference.pkl"), "wb") as f:
+        pickle.dump({"predictions": output}, f)
+    return output
 
 
 def run_inference(cfg: Config, model: torch.nn.Module,
@@ -182,10 +196,68 @@ def run_inference(cfg: Config, model: torch.nn.Module,
     finally:
         writers.close()
 
-    output = np.zeros((max(rows, default=-1) + 1, 21), np.float32)
-    for idx, row in rows.items():
-        output[idx] = row
-    os.makedirs(result_path, exist_ok=True)
-    with open(os.path.join(result_path, "inference.pkl"), "wb") as f:
-        pickle.dump({"predictions": output}, f)
-    return output
+    return _write_pickle(result_path, rows)
+
+
+#: clips per grouped fetch of ``run_inference_sweep``'s default branch
+FETCH_GROUP_CLIPS = 16384
+
+
+def run_inference_sweep(cfg: Config, model: torch.nn.Module,
+                        videos: Iterable[Mapping],
+                        result_path: str = "results",
+                        bucket: int | None = None,
+                        device=None) -> np.ndarray:
+    """Dense-sweep inference over whole videos (sweep.py): the trunk once
+    per frame and every label frame's window scored through the temporal,
+    audio and fusion heads, with the same logits as ``run_inference``.
+
+    Each item of ``videos`` is one video: ``video_id`` (str), ``Index``
+    (N,) dataset rows, ``frames`` (N, H, W, 3) uint8, ``wav`` (L,) float32
+    mono and ``timestamps_ms`` (N,). With ``cfg.strict_parity`` the item
+    carries ``audio_features`` (N, 1, 64, 1001) host features instead of
+    ``wav`` and ``timestamps_ms``, and ``sweep_video`` runs on them.
+    Otherwise each video is dispatched (``dispatch_video``: audio computed
+    on the device from one wav upload) and the logits come back with one
+    grouped ``fetch_many`` per ``FETCH_GROUP_CLIPS`` clips. Writes
+    per-video AU txts + ``inference.pkl`` and returns the
+    (max Index + 1, 21) prediction matrix, the AU columns filled.
+    """
+    from .sweep import default_sweep_bucket, make_sweep
+
+    device = resolve_device(device)
+    sweep = make_sweep(cfg, model, device=device)
+    bucket = bucket or default_sweep_bucket(device)
+    writers = TaskWriters(result_path, cfg.task, width=sweep.out_dim)
+    rows: dict[int, np.ndarray] = {}
+
+    def emit(video, logits: np.ndarray) -> None:
+        for idx, row in zip(np.asarray(video["Index"]), logits):
+            rows[int(idx)] = row
+        writers.write_rows(str(video["video_id"]), logits)
+
+    pending: list = []
+
+    def drain() -> None:
+        outs = sweep.fetch_many([handle for _, handle in pending])
+        for (video, _), logits in zip(pending, outs):
+            emit(video, logits)
+        pending.clear()
+
+    try:
+        for video in videos:
+            if cfg.strict_parity:
+                emit(video, sweep.sweep_video(
+                    np.asarray(video["frames"]),
+                    np.asarray(video["audio_features"], np.float32),
+                    batch=bucket))
+                continue
+            pending.append((video, sweep.dispatch_video(
+                np.asarray(video["frames"]), wav=video["wav"],
+                timestamps_ms=video["timestamps_ms"], batch=bucket)))
+            if sum(h[0] for _, h in pending) >= FETCH_GROUP_CLIPS:
+                drain()
+        drain()
+    finally:
+        writers.close()
+    return _write_pickle(result_path, rows)

@@ -20,13 +20,21 @@ from .vformer import VideoModel
 class AudioModel(nn.Module):
     """1-channel resnet18 over the log-mel image -> (B, 512) features
     (reference audio.py:22-39; its 22-way fc is replaced by Dummy in every
-    user, so it is omitted). The (B, 1, n_mels, T) input is already NCHW."""
+    user, so it is omitted). The (B, 1, n_mels, T) input is already NCHW.
+
+    ``time_major=True`` takes the dense sweep's phase-mel layout
+    (B, T, n_mels, 1) and permutes it into (B, 1, n_mels, T): one copy of
+    the features. The JAX package instead runs HW-swapped conv kernels on
+    the transposed image (sweep.py::swap_conv_hw), a TPU layout trick."""
 
     def __init__(self):
         super().__init__()
         self.resnet = ResNet18(in_channels=1)
 
-    def forward(self, audio_features: torch.Tensor) -> torch.Tensor:
+    def forward(self, audio_features: torch.Tensor,
+                time_major: bool = False) -> torch.Tensor:
+        if time_major:
+            audio_features = audio_features.permute(0, 3, 2, 1).contiguous()
         return self.resnet(audio_features)
 
 

@@ -9,11 +9,11 @@ hann)`` + ``AmplitudeToDB('power', 80)`` + ``Normalize(-14.8, 19.895)``
     -> HTK mel filterbank matmul -> power-to-dB with per-sample
     80 dB floor -> affine normalize
 
-The fixed 10 s buffer (L = 441000) goes to ``audio_kernel.mel_frontend``,
-the fused CUDA kernel, whose plain version for CPU tensors is this module's
-chain with bf16 DFT operands. Other lengths run the plain chain here.
-Right-aligned windows only: the left-aligned mode and ``reflect_end_patch``
-of the JAX package's device-audio train and sweep paths are not ported yet.
+A right-aligned fixed 10 s buffer (L = 441000) goes to
+``audio_kernel.mel_frontend``, the fused CUDA kernel, whose plain version for
+CPU tensors is this module's chain with bf16 DFT operands. Other lengths,
+and left-aligned windows (the dense sweep's per-window route, with
+``reflect_end_patch``), run the plain chain here.
 """
 from __future__ import annotations
 
@@ -152,25 +152,39 @@ def normalize_spec(x: torch.Tensor) -> torch.Tensor:
 
 def plain_frontend(audio: torch.Tensor,
                    feature_len: torch.Tensor | None = None,
-                   mel_bf16: bool = False) -> torch.Tensor:
+                   mel_bf16: bool = False,
+                   left_aligned: bool = False) -> torch.Tensor:
     """The frontend chain in plain PyTorch: (B, L) -> (B, 1, 64, 1001).
 
-    Frames are right-aligned into 1001 columns; ``feature_len`` (B,) counts
-    the valid frames per sample, and the columns before them are zeroed
-    before the dB step, as the reference's left-pad-then-AmpToDB does
-    (aff2compdataset.py:234-241).
+    Right-aligned (the default): frames are right-aligned into 1001
+    columns; ``feature_len`` (B,) counts the valid frames per sample, and
+    the columns before them are zeroed before the dB step, as the
+    reference's left-pad-then-AmpToDB does (aff2compdataset.py:234-241).
+
+    ``left_aligned=True``: each row's valid samples start at position 0, so
+    the STFT grid and the start reflect pad anchor at the true signal
+    start, as the reference's mel over a short window does. The valid mel
+    frames are then the FIRST ``feature_len``; a per-row ``gather`` along T
+    moves them to the right edge of the 1001 columns (exact: it copies
+    values) before masking and dB.
     """
     mel = mel_spectrogram(
         audio, conv_dtype=torch.bfloat16 if mel_bf16 else torch.float32)
     t = mel.shape[-1]
     if t > OUT_FRAMES:
-        mel = mel[..., -OUT_FRAMES:]
+        mel = mel[..., :OUT_FRAMES] if left_aligned else mel[..., -OUT_FRAMES:]
     elif t < OUT_FRAMES:
-        mel = F.pad(mel, (OUT_FRAMES - t, 0))
+        pad = (0, OUT_FRAMES - t) if left_aligned else (OUT_FRAMES - t, 0)
+        mel = F.pad(mel, pad)
     if feature_len is not None:
         cols = torch.arange(OUT_FRAMES, device=mel.device)
         first = OUT_FRAMES - feature_len.to(mel.device).reshape(-1, 1, 1)
-        mel = torch.where(cols >= first, mel, torch.zeros_like(mel))
+        if left_aligned:
+            src = (cols - first).expand(-1, mel.shape[1], -1)  # (B, M, T)
+            shifted = mel.gather(2, src.clamp(0, OUT_FRAMES - 1))
+            mel = torch.where(src >= 0, shifted, torch.zeros_like(mel))
+        else:
+            mel = torch.where(cols >= first, mel, torch.zeros_like(mel))
     return normalize_spec(amplitude_to_db(mel))[:, None]
 
 
@@ -180,27 +194,43 @@ def audio_frontend(audio: torch.Tensor,
                    left_aligned: bool = False) -> torch.Tensor:
     """Full frontend: (B, L) raw audio -> (B, 1, 64, 1001) normalized log-mel.
 
-    ``feature_len`` (B,) int: valid (right-aligned) mel frames per sample.
-    A (B, 441000) buffer takes ``audio_kernel.mel_frontend``: the CUDA
-    kernel for a CUDA tensor, its plain version for a CPU tensor. Both have
-    bf16 DFT operands with f32 accumulation, the Pallas kernel's numerics,
-    whatever ``mel_bf16`` says. Other lengths run ``plain_frontend``, with
-    bf16 DFT operands only when ``mel_bf16``.
+    ``feature_len`` (B,) int: valid mel frames per sample. A right-aligned
+    (B, 441000) buffer takes ``audio_kernel.mel_frontend``: the CUDA kernel
+    for a CUDA tensor, its plain version for a CPU tensor. Both have bf16
+    DFT operands with f32 accumulation, the Pallas kernel's numerics,
+    whatever ``mel_bf16`` says. Other lengths and left-aligned windows run
+    ``plain_frontend``, with bf16 DFT operands only when ``mel_bf16``, as
+    the JAX package's XLA path does (its Pallas kernel, like the CUDA one,
+    knows right-aligned windows only).
     """
-    if left_aligned:
-        raise NotImplementedError(
-            "left-aligned windows (device-audio train/sweep) are not ported "
-            "yet; see ROADMAP.md")
     from .audio_kernel import MEL_LEN, mel_frontend
-    if audio.dim() == 2 and audio.shape[-1] == MEL_LEN:
+    if (not left_aligned and audio.dim() == 2
+            and audio.shape[-1] == MEL_LEN):
         return mel_frontend(audio, feature_len)
-    return plain_frontend(audio, feature_len, mel_bf16)
+    return plain_frontend(audio, feature_len, mel_bf16, left_aligned)
 
 
 def reflect_end_patch(audio: torch.Tensor,
                       n_valid: torch.Tensor) -> torch.Tensor:
-    """Counterpart of the JAX package's ``reflect_end_patch``, which only
-    the left-aligned device-audio paths use."""
-    raise NotImplementedError(
-        "reflect_end_patch belongs to the left-aligned device-audio paths, "
-        "which are not ported yet; see ROADMAP.md")
+    """Patch torchaudio's center-pad END reflection into left-aligned windows.
+
+    ``audio``: (B, L) float32, each row a window whose ``n_valid[b]`` true
+    samples sit at the START of the buffer with zeros after. torchaudio's
+    STFT (center=True) reflect-pads the *signal* end: position
+    ``n_valid + j`` takes sample ``n_valid - 2 - j`` (no edge repeat). This
+    writes those 512 samples right after the last valid one, for every row
+    at once, so that ``audio_frontend(left_aligned=True)`` equals the
+    reference's per-window mel for every window of at least 513 samples;
+    shorter ones (< 12 ms, where torchaudio's own reflect pad raises) stay
+    zero after the signal. Samples written past L are cropped, so a full
+    window (``n_valid == L``) comes back unchanged.
+    """
+    b, length = audio.shape
+    w = F.pad(audio, (0, N_FFT // 2))
+    nv = n_valid.to(device=audio.device, dtype=torch.int64).reshape(b, 1)
+    j = torch.arange(N_FFT // 2, device=audio.device)
+    dst = nv + j
+    src = (nv - 2 - j).clamp(min=0)
+    vals = torch.where(nv >= N_FFT // 2 + 1, w.gather(1, src),
+                       w.gather(1, dst))
+    return w.scatter(1, dst, vals)[:, :length]

@@ -20,12 +20,22 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            the same port on the CPU, clips/s in fp32 and bf16, a profiled
            bf16 forward (device time, kernels per forward), and
            run_inference into a temporary directory
+  sweep    the full-width dense sweep of a synthetic 2,100-frame video
+           (30 fps timestamps, 70 s wav; buckets of 1280 and 820 label
+           frames): launch counts per bucket and of run_inference_sweep,
+           phase-mel features of 16 windows against the per-window route,
+           fp32 sweep logits against the fp32 clip path, the forced
+           per-window route against the phase route, label frames/s in
+           bf16, device ms, kernels and ms by stage per bucket, idle share,
+           peak memory, and the submission files of run_inference_sweep
 
-Then one JSON line of per-kernel results (per-forward sums over the
-attention sites in bf16, the main path's dtype, and in fp32), the
-nvidia-smi name/power line,
-and last ``{"ok": true, "device": {...}}``. Without a GPU, or outside a
-checkout of the repository, it exits non-zero and prints no result.
+Then one JSON line of per-kernel results: for attention, sums over one
+sweep bucket's calls in bf16 (the main path's dtype), with the per-bucket
+sums in both dtypes (``per_bucket``) and the clip path's per-forward sums
+(``per_forward``); ``launches`` counts the slice's and the sweep's main
+path runs. Then the nvidia-smi name/power line, and last
+``{"ok": true, "device": {...}}``. Without a GPU, or outside a checkout of
+the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -51,14 +61,36 @@ HEADS = 8
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 
-# attention sites of one avformer forward: (name, tokens, head dim,
-# (batch*head) rows per clip, launches per forward)
-ATTENTION_SITES = (("spatial", 49, 32, FRAMES * HEADS, 1),
-                   ("temporal", 17, 64, HEADS, 3),
-                   ("au_tokens", 12, 32, HEADS, 7))
+# the dense sweep's synthetic video and the bucket the default (2048) cap
+# splits it into: 1280 + 820 label frames
+SWEEP_FRAMES = 2100
+SWEEP_WAV_SECS = 70
+SWEEP_BSIZE = 1280
+SECOND_FRAMES = 300  # a second, shorter video for run_inference_sweep
+LABEL_FRAME = 48     # T=16, dilation 3
+# 16 label frames whose windows are held against the per-window route and
+# the clip path: short (ts < 10 s), full, truncated by the end of the file
+# (ts > 65 s), both buckets' first and last rows and the boundary at 1280
+FEATURE_WINDOWS = (0, 1, 5, 47, 48, 299, 300, 600, 1000, 1279, 1280, 1281,
+                   1950, 2000, 2098, 2099)
+
+# attention sites: (path, name, tokens, head dim, batch, launches per call)
+# with 8 heads; a call is one clip-batch forward (slice) or one sweep
+# bucket, whose trunk batch is the bucket, its history frames and the
+# black frame
+ATTENTION_SITES = (("slice", "spatial", 49, 32, BATCH * FRAMES, 1),
+                   ("slice", "temporal", 17, 64, BATCH, 3),
+                   ("slice", "au_tokens", 12, 32, BATCH, 7),
+                   ("sweep", "spatial", 49, 32,
+                    SWEEP_BSIZE + LABEL_FRAME + 1, 1),
+                   ("sweep", "temporal", 17, 64, SWEEP_BSIZE, 3),
+                   ("sweep", "au_tokens", 12, 32, SWEEP_BSIZE, 7))
+ATTN_PER_CALL = 11
 ATTN_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-3)}
 MEL_ATOL = 2e-3          # normalized units (0.04 dB): sum order only
 SLICE_TOL = (2e-3, 2e-4)  # rtol, atol: card fp32 vs CPU fp32 logits
+SWEEP_TOL = (2e-3, 2e-4)  # rtol, atol: fp32 sweep vs fp32 clip path
+FEATURE_ATOL = 1e-4       # normalized units: phase-mel vs per-window, f32
 
 
 def emit(phase: str, **fields) -> None:
@@ -184,8 +216,8 @@ def attention_cases(torch, dev) -> list[dict]:
                                               fused_attention)
     rs = np.random.RandomState(SEED + 1)
     cases = []
-    for site, n, d, rows_per_clip, per_forward in ATTENTION_SITES:
-        shape = (BATCH * rows_per_clip // HEADS, HEADS, n, d)
+    for path, site, n, d, batch, per_call in ATTENTION_SITES:
+        shape = (batch, HEADS, n, d)
         # the fused projection's output, (B, N, 3 * H * D), as
         # Attention.forward hands it over: strided (B, H, N, D) views
         qkv = rs.randn(shape[0], n, 3 * HEADS * d).astype(np.float32)
@@ -201,7 +233,7 @@ def attention_cases(torch, dev) -> list[dict]:
             err = (got.float() - want.float()).abs().max().item()
             if not torch.allclose(got.float(), want.float(), rtol=rtol,
                                   atol=atol):
-                fail(f"attention {site} {dname}: max |err| {err}")
+                fail(f"attention {path} {site} {dname}: max |err| {err}")
             nbytes = 4 * q.numel() * q.element_size()
             flops = 4 * q.shape[0] * HEADS * n * n * d
             peak = PEAK_FLOPS["f32" if dtype == torch.float32 else "bf16"]
@@ -212,8 +244,8 @@ def attention_cases(torch, dev) -> list[dict]:
             lib, lib_ev = timed(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, scale=scale), 50)
             cases.append(dict(
-                site=site, dtype=dname, shape=list(shape),
-                launches_per_forward=per_forward, max_abs_err=err,
+                path=path, site=site, dtype=dname, shape=list(shape),
+                launches_per_call=per_call, max_abs_err=err,
                 rtol=rtol, atol=atol, ms=ms, plain_ms=plain, library_ms=lib,
                 bound_ms=b_ms, bound_by=b_by, event_ms=ev,
                 plain_event_ms=plain_ev, library_event_ms=lib_ev))
@@ -295,11 +327,10 @@ def profile_forward(torch, infer, batch: dict) -> dict:
                     for e in events[:12]]}
 
 
-def check_submission(result_dir: str, batches: list, out) -> None:
-    want_rows = {}
-    for b in batches:
-        for vid in b["video_id"]:
-            want_rows[vid] = want_rows.get(vid, 0) + 1
+def check_submission(result_dir: str, want_rows: dict, out) -> None:
+    """Each video's AU file: the header and one row of 12 binary labels per
+    label frame (``want_rows``: video id -> rows); inference.pkl holds the
+    returned (rows, 21) predictions."""
     for vid, rows in want_rows.items():
         lines = Path(result_dir, "au", f"{vid}.txt").read_text().splitlines()
         if (lines[0] != "AU1,AU2,AU4,AU6,AU7,AU10,AU12,AU15,AU23,AU24,AU25,"
@@ -309,7 +340,7 @@ def check_submission(result_dir: str, batches: list, out) -> None:
             fail(f"submission file of {vid} is malformed")
     with open(Path(result_dir, "inference.pkl"), "rb") as f:
         preds = pickle.load(f)["predictions"]
-    n = sum(len(b["Index"]) for b in batches)
+    n = sum(want_rows.values())
     if preds.shape != (n, 21) or not np.array_equal(preds, out):
         fail(f"inference.pkl holds {preds.shape}, expected ({n}, 21)")
 
@@ -345,7 +376,7 @@ def phase_slice(torch, dev, batch: dict):
         torch.cuda.synchronize()
         got = {"attention": fused_attention.launches,
                "mel": mel_frontend.launches}
-        want = {"attention": sum(s[-1] for s in ATTENTION_SITES), "mel": 1}
+        want = {"attention": ATTN_PER_CALL, "mel": 1}
         if got != want:
             fail(f"launches per forward {got}, expected {want}")
         return out, got
@@ -386,7 +417,11 @@ def phase_slice(torch, dev, batch: dict):
         batches.append(b)
     with tempfile.TemporaryDirectory() as tmp:
         out = run_inference(cfg16, model16, batches, tmp)
-        check_submission(tmp, batches, out)
+        want_rows = {}
+        for b in batches:
+            for vid in b["video_id"]:
+                want_rows[vid] = want_rows.get(vid, 0) + 1
+        check_submission(tmp, want_rows, out)
 
     wall_ms = 1e3 * BATCH / rate16
     emit("slice", batch=BATCH, frames=FRAMES, image=IMAGE,
@@ -400,6 +435,244 @@ def phase_slice(torch, dev, batch: dict):
          peak_memory_mb_bf16=peak_mb, profile_bf16=prof,
          run_inference={"batches": len(batches),
                         "rows": int(out.shape[0])})
+    return launches
+
+
+def sweep_video(seed: int):
+    """uint8 frames, a 70 s wav and ideal 30 fps timestamps: windows short
+    at the start (ts < 10 s), full in the middle, truncated by the end of
+    the file (ts > 65 s)."""
+    rs = np.random.RandomState(seed)
+    frames = rs.randint(0, 256, (SWEEP_FRAMES, IMAGE, IMAGE, 3),
+                        dtype=np.uint8)
+    wav = (rs.randn(SWEEP_WAV_SECS * 44100) * 0.1).astype(np.float32)
+    return frames, wav, np.arange(SWEEP_FRAMES) * 1000.0 / 30.0
+
+
+class BucketCounts:
+    """Launch counts per bucket: wraps a sweep's ``fused_sweep`` (called
+    once per bucket) and records the launches each call adds."""
+
+    def __init__(self, sweep, fused_attention, mel_frontend):
+        self.calls = []
+        inner = sweep.fused_sweep
+
+        def counted(*args, **kwargs):
+            before = fused_attention.launches, mel_frontend.launches
+            out = inner(*args, **kwargs)
+            self.calls.append(
+                {"attention": fused_attention.launches - before[0],
+                 "mel": mel_frontend.launches - before[1]})
+            return out
+        sweep.fused_sweep = counted
+
+
+def stage_profile(torch, sweep, run) -> dict:
+    """Device ms of one ``run()`` by stage: record_function ranges around
+    the sweep's methods, each range's device time the sum of the kernels
+    launched inside it. Stages: the phase table (once per video), the
+    phase-mel features (edge frames, gather, dB; a bucket minus its
+    fused_sweep), the trunk, the audio resnet, and the heads (fused_sweep
+    minus trunk and audio: T-Former, AU_formers, fusion, window gather)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    names = {"fused_sweep_phase_audio": "bucket",
+             "fused_sweep": "fused_sweep", "frame_features": "trunk",
+             "phase_mel_table": "table", "a_net": "audio_resnet"}
+    saved = {attr: getattr(sweep, attr) for attr in names}
+
+    def ranged(label, fn):
+        def call(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return call
+    for attr, label in names.items():
+        setattr(sweep, attr, ranged(f"sweep/{label}", saved[attr]))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        for attr, fn in saved.items():
+            if attr == "a_net":
+                sweep.a_net = fn
+            else:
+                delattr(sweep, attr)
+    us = {label: 0.0 for label in names.values()}
+    for e in prof.events():
+        label = e.name[len("sweep/"):]
+        if (e.name.startswith("sweep/") and label in us
+                and str(e.device_type).endswith("CPU")):
+            us[label] += e.device_time_total
+    ms = {k: v / 1e3 for k, v in us.items()}
+    stages = {"phase_table": ms["table"],
+              "phase_features": ms["bucket"] - ms["fused_sweep"],
+              "trunk": ms["trunk"], "audio_resnet": ms["audio_resnet"],
+              "heads": ms["fused_sweep"] - ms["trunk"] - ms["audio_resnet"]}
+    if min(ms["bucket"], ms["trunk"], ms["audio_resnet"]) <= 0:
+        fail(f"the profiler attributed no device time to a stage: {ms}")
+    return stages
+
+
+def phase_sweep(torch, dev) -> dict:
+    from auformer_torch.core.config import Config
+    from auformer_torch.core.weights import load_weights
+    from auformer_torch.infer import make_infer_fn, run_inference_sweep
+    from auformer_torch.nn import build_model
+    from auformer_torch.ops.attention import fused_attention
+    from auformer_torch.ops.audio_kernel import mel_frontend
+    from auformer_torch.ops.phase_mel import (SLEN, phase_mel_table,
+                                              phase_plan,
+                                              phase_window_features)
+    from auformer_torch.sweep import AvformerSweep, default_sweep_bucket
+
+    frames, wav, ts = sweep_video(SEED + 3)
+    n = SWEEP_FRAMES
+    bucket = default_sweep_bucket(dev)
+    cfg16 = Config(image_size=IMAGE, n_frames=FRAMES)
+    cfg32 = Config(compute_dtype="float32", image_size=IMAGE,
+                   n_frames=FRAMES)
+    model16, model32 = build_model(cfg16), build_model(cfg32)
+    sd = random_reference_state_dict(model32, SEED)
+    load_weights(model16, sd)
+    load_weights(model32, sd)
+    sweep16 = AvformerSweep(cfg16, model16)
+    sweep32 = AvformerSweep(cfg32, model32)
+    bsize = sweep16._bucket_size(n, bucket)
+    n_buckets = -(-n // bsize)
+    if (cfg16.label_frame, bsize, n_buckets) != (LABEL_FRAME, SWEEP_BSIZE, 2):
+        fail(f"the sweep splits {n} frames into {n_buckets} buckets of "
+             f"{bsize}, not 2 of {SWEEP_BSIZE}")
+
+    # the main path: run_inference_sweep (bf16) over the video and a
+    # second, shorter one, with the counts set to 0 just before it
+    m = SECOND_FRAMES
+    items = [dict(video_id="video_a", Index=np.arange(n), frames=frames,
+                  wav=wav, timestamps_ms=ts),
+             dict(video_id="video_b", Index=np.arange(n, n + m),
+                  frames=frames[:m], wav=wav[:20 * 44100],
+                  timestamps_ms=ts[:m])]
+    main_buckets = sum(-(-k // sweep16._bucket_size(k, bucket))
+                       for k in (n, m))
+    with tempfile.TemporaryDirectory() as tmp:
+        fused_attention.launches = 0
+        mel_frontend.launches = 0
+        t0 = time.perf_counter()
+        out = run_inference_sweep(cfg16, model16, items, tmp)
+        ris_s = time.perf_counter() - t0
+        launches = {"attention": fused_attention.launches,
+                    "mel": mel_frontend.launches}
+        want = {"attention": ATTN_PER_CALL * main_buckets, "mel": 0}
+        if launches != want:
+            fail(f"run_inference_sweep launched {launches}, expected {want}")
+        check_submission(tmp, {"video_a": n, "video_b": m}, out)
+    if not np.isfinite(out).all() or out[:, 12:].any():
+        fail("run_inference_sweep predictions are not finite AU logits")
+
+    # launches per bucket, and the bf16 logits
+    counts = BucketCounts(sweep16, fused_attention, mel_frontend)
+    logits16 = sweep16.sweep_video_device_audio(frames, wav, ts,
+                                                batch=bucket)
+    del sweep16.fused_sweep
+    per_bucket = [{"attention": ATTN_PER_CALL, "mel": 0}] * n_buckets
+    if counts.calls != per_bucket:
+        fail(f"launches per bucket {counts.calls}, expected {per_bucket}")
+    if logits16.shape != (n, 12) or not np.isfinite(logits16).all():
+        fail("bf16 sweep logits are not finite")
+    if not np.allclose(logits16, out[:n, :12], rtol=0, atol=0):
+        fail("run_inference_sweep differs from sweep_video_device_audio")
+
+    sel = np.array(FEATURE_WINDOWS)
+    starts, n_valid = sweep32.audio_window_plan(ts, len(wav))
+    phases, base, psel = phase_plan(starts.astype(np.int64) - SLEN, n_valid)
+    ext = torch.zeros(len(wav) + 2 * SLEN + 512, device=dev)
+    ext[SLEN:SLEN + len(wav)] = torch.from_numpy(wav).to(dev)
+    picked = [torch.from_numpy(a[sel]).to(dev)
+              for a in (starts, n_valid, base, psel)]
+    feats = phase_window_features(ext, phase_mel_table(ext, np.unique(phases)),
+                                  *picked)
+    windows = sweep32.window_features(ext, picked[0], picked[1])
+    feat_err = (feats - windows).abs().max().item()
+    if feats.shape != (len(sel), 1, 64, 1001) or not feat_err <= FEATURE_ATOL:
+        fail(f"phase-mel features differ from the per-window route by "
+             f"{feat_err}")
+
+    # fp32 sweep against the fp32 clip path on those 16 label frames
+    logits32 = sweep32.sweep_video_device_audio(frames, wav, ts,
+                                                batch=bucket)
+    idx = sweep32.window_indices(n)[sel]                 # black slot = n
+    clip = np.where((idx == n)[..., None, None, None], 0,
+                    frames[np.minimum(idx, n - 1)])
+    clip_logits = make_infer_fn(cfg32, model32)(
+        {"clip": clip, "audio_features": feats})[:, :12].cpu().numpy()
+    clip_err = float(np.abs(logits32[sel] - clip_logits).max())
+    if not np.allclose(logits32[sel], clip_logits, rtol=SWEEP_TOL[0],
+                       atol=SWEEP_TOL[1]):
+        fail(f"fp32 sweep differs from the fp32 clip path by {clip_err}")
+
+    # the per-window route, forced, against the phase route (256 frames)
+    head = frames[:256], wav, ts[:256]
+    phase256 = sweep32.sweep_video_device_audio(*head, batch=bucket)
+    sweep32.max_phases = 0
+    window256 = sweep32.sweep_video_device_audio(*head, batch=bucket)
+    sweep32.max_phases = AvformerSweep.max_phases
+    route_err = float(np.abs(window256 - phase256).max())
+    if not np.allclose(window256, phase256, rtol=SWEEP_TOL[0],
+                       atol=SWEEP_TOL[1]):
+        fail(f"per-window route differs from the phase route by {route_err}")
+    t0 = time.perf_counter()
+    sweep32.sweep_video_device_audio(frames, wav, ts, batch=bucket)
+    wall32_s = time.perf_counter() - t0
+    del sweep32, model32, feats, windows, ext
+    torch.cuda.empty_cache()
+
+    # bf16 rate, device time and kernels, stages, memory
+    def run():
+        return sweep16.sweep_video_device_audio(frames, wav, ts, batch=bucket)
+    run()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        walls.append(time.perf_counter() - t0)
+    wall_s = float(np.median(walls))
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    events = [e for e in prof.key_averages()
+              if on_device(e) and e.device_time_total > 0]
+    device_ms = sum(e.device_time_total for e in events) / 1e3
+    kernels = sum(e.count for e in events)
+    events.sort(key=lambda e: e.device_time_total, reverse=True)
+    stages = stage_profile(torch, sweep16, run)
+
+    result = dict(
+        frames=n, image=IMAGE, t=FRAMES, dilation=cfg16.dilation,
+        bucket_cap=bucket, buckets=[SWEEP_BSIZE, n - SWEEP_BSIZE],
+        launches_per_bucket=counts.calls,
+        feature_windows=list(FEATURE_WINDOWS),
+        run_inference_sweep={"videos": 2, "rows": int(out.shape[0]),
+                             "launches": launches, "seconds": ris_s},
+        feature_max_abs_err=feat_err, feature_atol=FEATURE_ATOL,
+        fp32_vs_clip_max_abs_err=clip_err,
+        per_window_vs_phase_max_abs_err=route_err,
+        rtol=SWEEP_TOL[0], atol=SWEEP_TOL[1],
+        max_abs_diff_bf16_vs_fp32=float(np.abs(logits16 - logits32).max()),
+        label_frames_per_s_bf16=n / wall_s,
+        label_frames_per_s_fp32=n / wall32_s,
+        wall_s_per_video_bf16=walls,
+        device_ms_per_bucket_bf16=device_ms / n_buckets,
+        device_idle_share_bf16=1.0 - device_ms / (1e3 * wall_s),
+        device_kernels_per_bucket_bf16=kernels / n_buckets,
+        stage_device_ms_per_video_bf16=stages,
+        peak_memory_mb_bf16=peak_mb,
+        top=[{"name": e.key[:80], "ms_per_video": e.device_time_total / 1e3,
+              "calls_per_video": e.count} for e in events[:12]])
+    emit("sweep", **result)
     return launches
 
 
@@ -423,31 +696,36 @@ def main() -> int:
     emit("kernels", attention=attn, mel=mel)
 
     launches = phase_slice(torch, dev, batch)
+    sweep_launches = phase_sweep(torch, dev)
 
     from auformer_torch.ops import build
 
-    def per_forward(dtype: str) -> dict:
-        """Sums over one forward's attention calls (time x launches)."""
-        sites = [c for c in attn if c["dtype"] == dtype]
-        total = {key: sum(c[key] * c["launches_per_forward"] for c in sites)
+    def per_call(path: str, dtype: str) -> dict:
+        """Sums over one call's attention launches (time x launches)."""
+        sites = [c for c in attn if c["path"] == path and c["dtype"] == dtype]
+        total = {key: sum(c[key] * c["launches_per_call"] for c in sites)
                  for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
         total["bound_by"] = ("bytes" if all(c["bound_by"] == "bytes"
                                             for c in sites) else "operations")
         total["max_abs_err"] = max(c["max_abs_err"] for c in sites)
         return total
 
-    attn_sums = {d: per_forward(d) for d in ("bfloat16", "float32")}
+    dtypes = ("bfloat16", "float32")
+    per_bucket = {d: per_call("sweep", d) for d in dtypes}
+    per_forward = {d: per_call("slice", d) for d in dtypes}
     mel_main = mel[1]                       # the slice's input: feature_len
     print(json.dumps({"kernels": [
         {"name": "attention", "route": "cuda",
          "source": str(build.source("attention").relative_to(ROOT)),
          "replaces": "auformer/ops/attention.py:88",
-         "launches": launches["attention"],
-         **attn_sums["bfloat16"], "per_dtype": attn_sums},
+         "launches": launches["attention"] + sweep_launches["attention"],
+         **per_bucket["bfloat16"],
+         "max_abs_err": max(c["max_abs_err"] for c in attn),
+         "per_bucket": per_bucket, "per_forward": per_forward},
         {"name": "mel_frontend", "route": "cuda",
          "source": str(build.source("mel").relative_to(ROOT)),
          "replaces": "auformer/ops/audio_pallas.py:185",
-         "launches": launches["mel"],
+         "launches": launches["mel"] + sweep_launches["mel"],
          "max_abs_err": max(c["max_abs_err"] for c in mel),
          "ms": mel_main["ms"], "plain_ms": mel_main["plain_ms"],
          "bound_ms": mel_main["bound_ms"], "bound_by": mel_main["bound_by"],

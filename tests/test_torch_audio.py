@@ -4,21 +4,26 @@ The port's ``mel_frontend_reference`` (the plain version of the CUDA
 kernel) is held against ``mel_frontend_pallas`` in interpret mode and
 against ``audio_frontend(mel_bf16=True)``, at 2e-3 in normalized units as
 tests/test_audio_pallas.py holds the Pallas kernel. The fp32 plain chain is
-held against the JAX fp32 frontend at a short length. The CUDA kernel is
-held against the plain version on the card in tests/test_torch_cuda.py.
+held against the JAX fp32 frontend at a short length, and the left-aligned
+chain with ``reflect_end_patch`` (the dense sweep's per-window route)
+against the JAX package's at 2e-4. The CUDA kernel is held against the
+plain version on the card in tests/test_torch_cuda.py.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from auformer.ops import audio_host as jax_audio_host
 from auformer.ops.audio import audio_frontend as jax_frontend
+from auformer.ops.audio import reflect_end_patch as jax_reflect_end_patch
 from auformer.ops.audio_pallas import mel_frontend_pallas
 from auformer_torch.ops import audio as taudio
 from auformer_torch.ops import audio_kernel
 
 ATOL = 2e-3        # normalized units (0.04 dB); paths differ in sum order
 F32_ATOL = 1e-4    # both sides f32 throughout
+LEFT_ATOL = 2e-4   # left-aligned windows, normalized units
 
 
 def _left_padded(seed, n_valid, scale=0.05):
@@ -103,11 +108,83 @@ def test_frontend_dispatches_full_buffer_to_mel_frontend():
 
 
 def test_left_aligned_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        taudio.audio_frontend(torch.zeros(1, 441000), left_aligned=True)
-    with pytest.raises(NotImplementedError):
-        taudio.reflect_end_patch(torch.zeros(1, 441000),
-                                 torch.tensor([1000]))
+    """The mel kernel has no left-aligned mode (the Pallas kernel has none
+    either): a left-aligned (B, 441000) buffer runs the plain chain, in f32
+    unless ``mel_bf16``, never ``mel_frontend``."""
+    audio = torch.from_numpy(
+        (np.random.RandomState(6).randn(2, 441000) * 0.1).astype(np.float32))
+    flen = torch.tensor([1001, 300])
+    before = audio_kernel.mel_frontend.launches
+    got = taudio.audio_frontend(audio, flen, left_aligned=True)
+    assert audio_kernel.mel_frontend.launches == before
+    torch.testing.assert_close(
+        got, taudio.plain_frontend(audio, flen, left_aligned=True),
+        rtol=0, atol=0)
+    assert not torch.equal(
+        got, audio_kernel.mel_frontend_reference(audio, flen))
+
+
+LEFT_N_VALID = np.array([441, 513, 1000, 300_000, 441_000], np.int32)
+
+
+@pytest.fixture(scope="module")
+def left_aligned_windows():
+    """Left-aligned windows (valid samples first, zeros after) of each
+    length in LEFT_N_VALID, and the JAX package's reflect_end_patch and
+    left-aligned audio_frontend of them."""
+    rs = np.random.RandomState(8)
+    audio = (rs.randn(len(LEFT_N_VALID), 441000) * 0.1).astype(np.float32)
+    audio[np.arange(441000)[None, :] >= LEFT_N_VALID[:, None]] = 0.0
+    patched = np.array(jax_reflect_end_patch(jnp.asarray(audio),
+                                               jnp.asarray(LEFT_N_VALID)))
+    flen = (1 + LEFT_N_VALID // 441).astype(np.int32)
+    feats = {bf16: np.asarray(jax_frontend(
+        jnp.asarray(patched), jnp.asarray(flen), mel_bf16=bf16,
+        left_aligned=True)) for bf16 in (False, True)}
+    return audio, patched, flen, feats
+
+
+def test_reflect_end_patch_matches_jax(left_aligned_windows):
+    audio, patched, _, _ = left_aligned_windows
+    got = taudio.reflect_end_patch(torch.from_numpy(audio),
+                                   torch.from_numpy(LEFT_N_VALID))
+    np.testing.assert_array_equal(got.numpy(), patched)
+    # the end reflect: position nv + j holds sample nv - 2 - j
+    nv = int(LEFT_N_VALID[2])
+    np.testing.assert_array_equal(got[2, nv:nv + 512].numpy(),
+                                  audio[2, nv - 513:nv - 1][::-1])
+    assert not got[0, 441:].any()            # below 513 samples: no patch
+    np.testing.assert_array_equal(got[-1].numpy(), audio[-1])  # full window
+
+
+@pytest.mark.parametrize("mel_bf16", [False, True])
+def test_left_aligned_frontend_matches_jax(left_aligned_windows, mel_bf16):
+    """n_valid in {441, 513, 1000, 300000, 441000}: the port's left-aligned
+    frontend of the patched windows equals the JAX package's (f32 DFT: sum
+    order only; bf16 DFT operands: the same rounding on both sides)."""
+    _, patched, flen, feats = left_aligned_windows
+    got = taudio.audio_frontend(torch.from_numpy(patched),
+                                torch.from_numpy(flen), mel_bf16=mel_bf16,
+                                left_aligned=True)
+    assert got.shape == (len(flen), 1, 64, 1001)
+    np.testing.assert_allclose(got.numpy(), feats[mel_bf16], rtol=0,
+                               atol=LEFT_ATOL)
+
+
+def test_left_aligned_frontend_matches_reference_host(left_aligned_windows):
+    """For every window of at least 513 samples the patched left-aligned
+    frontend equals the reference's mel over the short window
+    (aff2compdataset.py:227-247, the JAX package's audio_host)."""
+    audio, patched, flen, _ = left_aligned_windows
+    got = taudio.audio_frontend(torch.from_numpy(patched),
+                                torch.from_numpy(flen), left_aligned=True)
+    for i, nv in enumerate(LEFT_N_VALID):
+        if nv < 513:
+            continue
+        ref = jax_audio_host.reference_audio_features(
+            audio[i:i + 1, :nv], 10, 10e-3, 441000, 64)[0]
+        np.testing.assert_allclose(got[i].numpy(), ref, rtol=1e-4,
+                                   atol=1e-4)
 
 
 def test_mel_frontend_rejects_other_lengths():

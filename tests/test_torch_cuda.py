@@ -18,6 +18,7 @@ from auformer_torch.infer import make_infer_fn
 from auformer_torch.nn import build_model
 from auformer_torch.ops import attention as tatt
 from auformer_torch.ops import audio_kernel
+from auformer_torch.sweep import AvformerSweep
 
 pytestmark = pytest.mark.cuda
 
@@ -237,3 +238,76 @@ def test_slice_on_the_card_matches_the_cpu(cuda_device):
     assert audio_kernel.mel_frontend.launches - mel == 1
     want = make_infer_fn(cfg, cpu_model, device="cpu")(batch)
     torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=2e-4)
+
+
+# attention sites of one full-width sweep bucket of 1280 label frames
+# (T=16, dilation 3): the trunk batch is 1280 + 48 history frames + the
+# black frame; (batch, tokens, head dim), 8 heads
+SWEEP_SITES = {"spatial": (1329, 49, 32), "temporal": (1280, 17, 64),
+               "au_tokens": (1280, 12, 32)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("site", sorted(SWEEP_SITES))
+def test_attention_kernel_at_sweep_sites(cuda_device, site, dtype):
+    b, n, d = SWEEP_SITES[site]
+    q, k, v = _qkv(n, d, b + n, cuda_device, dtype, b=b, layout="to_qkv")
+    _check_attention(q, k, v, d ** -0.5)
+
+
+SWEEP_CFG = dict(compute_dtype="float32", image_size=32, n_frames=4,
+                 dilation=2)
+
+
+def _sweep_video(n=20, seed=5):
+    rs = np.random.RandomState(seed)
+    return (rs.randint(0, 256, (n, 32, 32, 3)).astype(np.uint8),
+            (rs.randn(11 * 44100) * 0.1).astype(np.float32),
+            (np.arange(n) * 16 + 1) * 1000.0 / 30.0)
+
+
+def test_sweep_on_the_card_matches_the_cpu(cuda_device):
+    """Small-width sweep (32x32, T=4, dilation 2, bucket 8) on the phase
+    route: fp32 logits on the card equal the CPU port's; 11 attention
+    launches per bucket, no mel kernel."""
+    cfg = Config(**SWEEP_CFG)
+    torch.manual_seed(0)
+    cpu_model = build_model(cfg)
+    card_model = build_model(cfg)
+    card_model.load_state_dict(cpu_model.state_dict())
+    frames, wav, ts = _sweep_video()
+    card = AvformerSweep(cfg, card_model)
+    attn = tatt.fused_attention.launches
+    mel = audio_kernel.mel_frontend.launches
+    got = card.sweep_video_device_audio(frames, wav, ts, batch=8)
+    assert tatt.fused_attention.launches - attn == 11 * 3
+    assert audio_kernel.mel_frontend.launches == mel
+    want = AvformerSweep(cfg, cpu_model, device="cpu"
+                         ).sweep_video_device_audio(frames, wav, ts, batch=8)
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-4)
+
+
+def test_phase_route_matches_per_window_route_on_the_card(cuda_device):
+    """Features at 1e-4 in normalized units (f32 DFTs) and logits at rtol
+    2e-3 / atol 2e-4: the phase-mel tables against left-aligned windows."""
+    cfg = Config(**SWEEP_CFG)
+    torch.manual_seed(1)
+    sweep = AvformerSweep(cfg, build_model(cfg))
+    frames, wav, ts = _sweep_video(seed=6)
+    phase = sweep.sweep_video_device_audio(frames, wav, ts, batch=8)
+    sweep.max_phases = 0
+    per_window = sweep.sweep_video_device_audio(frames, wav, ts, batch=8)
+    np.testing.assert_allclose(per_window, phase, rtol=2e-3, atol=2e-4)
+
+    from auformer_torch.ops.phase_mel import (phase_mel_table, phase_plan,
+                                              phase_window_features)
+    starts, n_valid = sweep.audio_window_plan(ts, len(wav))
+    phases, base, sel = phase_plan(starts.astype(np.int64) - 441000, n_valid)
+    ext = torch.zeros(len(wav) + 2 * 441000 + 512, device=cuda_device)
+    ext[441000:441000 + len(wav)] = torch.from_numpy(wav).to(cuda_device)
+    on_card = [torch.from_numpy(a).to(cuda_device)
+               for a in (starts, n_valid, base, sel)]
+    feats = phase_window_features(
+        ext, phase_mel_table(ext, np.unique(phases)), *on_card)
+    windows = sweep.window_features(ext, on_card[0], on_card[1])
+    torch.testing.assert_close(feats, windows, rtol=0, atol=1e-4)

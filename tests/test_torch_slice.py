@@ -181,7 +181,9 @@ def test_port_imports_no_jax_and_no_auformer():
     code = (
         "import sys, auformer_torch, auformer_torch.infer, "
         "auformer_torch.core.weights, auformer_torch.ops, auformer_torch.nn, "
-        "auformer_torch.nn.avformer, auformer_torch.ops.build\n"
+        "auformer_torch.nn.avformer, auformer_torch.ops.build, "
+        "auformer_torch.sweep, auformer_torch.ops.phase_mel, "
+        "auformer_torch.ops.audio_host\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'auformer'))\n"
         "assert not bad, bad\n")
