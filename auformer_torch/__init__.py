@@ -8,7 +8,13 @@ by module and is tested against. It imports ``torch`` and numpy only.
                             short-sequence attention, each kernel with a
                             hand-written CUDA source under ``csrc/``
 - ``auformer_torch.nn``     avformer (two-stream aural-visual former)
-- ``auformer_torch.infer``  clip-batch inference and submission writers
+- ``auformer_torch.data``   FrameStores and their native JPEG reader, the
+                            split, the datasets, samplers and loader
+- ``auformer_torch.infer``  clip-batch and dense-sweep inference over
+                            arrays or a dataset, submission writers
+- ``auformer_torch.sweep``  the dense sweep (trunk once per frame)
+- ``auformer_torch.serve``  decode -> sweep streaming, the decode worker
+- ``auformer_torch.test_aff2``  the inference entry point
 
 Output convention (reference train.py:135-138): every model maps a batch
 dict to a ``(B, 21)`` tensor laid out ``[AU 0:12 | EX 12:19 | VA 19:21]``.

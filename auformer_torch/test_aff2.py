@@ -1,0 +1,57 @@
+"""Inference entry point (counterpart of the root test_aff2.py; reference
+test_aff2.py): loads the avformer weights, sweeps the test split of the
+Aff-Wild2-layout dataset that the flags name, and writes per-video AU
+submission txts and inference.pkl under ``results/`` in the working
+directory, on the GPU.
+
+    python -m auformer_torch.test_aff2 [flags as opts.py, e.g.
+        --data_backend synthetic]
+
+Weights: the first ``experiments/avformer/pretrain/*.pth`` (a reference
+checkpoint, e.g. the shipped best523.pth, test_aff2.py:18,62) through
+``load_reference_state_dict``, else random weights with a warning. The JAX
+package's orbax checkpoints (``best``/``latest``) are not read: checkpoints
+come with training (ROADMAP.md queue A4). ``AUFORMER_SWEEP=0`` selects the
+clip path (``run_inference``) instead of the dense sweep
+(``run_inference_sweep``, the default).
+"""
+from __future__ import annotations
+
+import glob
+import os
+
+import torch
+
+from .core.config import parse_opt
+from .core.weights import load_reference_state_dict, load_weights
+from .infer import run_inference, run_inference_sweep
+from .nn import build_model
+
+MODEL_PATH = os.path.join("experiments", "avformer", "pretrain")
+RESULT_PATH = "results"
+
+
+def main(argv: list[str] | None = None, device=None):
+    """Parse ``argv`` (default: the command line), run, and return the
+    (len(dataset), 21) prediction matrix. ``device``: ``cuda`` unless
+    given (the tests pass ``"cpu"``)."""
+    cfg = parse_opt(argv)
+    cfg.model_name = "avformer"
+    cfg.modality = "A;V"
+    cfg.task = "AU"
+    torch.manual_seed(cfg.seed)
+    model = build_model(cfg)
+    pths = sorted(glob.glob(os.path.join(MODEL_PATH, "*.pth")))
+    if pths:
+        load_weights(model, load_reference_state_dict(pths[0]))
+        print(f"Loading weight from: {pths[0]}")
+    else:
+        print("WARNING: no checkpoint found, using random init")
+    if os.environ.get("AUFORMER_SWEEP", "1") != "0":
+        return run_inference_sweep(cfg, model, result_path=RESULT_PATH,
+                                   device=device)
+    return run_inference(cfg, model, result_path=RESULT_PATH, device=device)
+
+
+if __name__ == "__main__":
+    main()

@@ -28,20 +28,40 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            per-window route against the phase route, label frames/s in
            bf16, device ms, kernels and ms by stage per bucket, idle share,
            peak memory, and the submission files of run_inference_sweep
+  dataset  a synthetic Aff-Wild2-layout test split written by the port's
+           fixtures (three videos of 2,100, 1,200 and 700 frames, 112x112
+           JPEG q90, 30 fps, wavs of each video's length + 0.5 s) and a
+           .pth of the seeded random weights; ``python -m
+           auformer_torch.test_aff2`` (its ``main``) over it in bf16: the
+           FrameStore, the native decoder in a decode worker process,
+           sweep_stream and the dense sweep, launch counts per bucket,
+           the submission files. Then in fp32: the dataset-fed sweep
+           against the array-fed run_inference_sweep on the same decoded
+           frames, dataset-fed run_inference (DataLoader, host features)
+           against the sweep on 64 label frames, the strict_parity sweep
+           of the 700-frame video, decoded frames against their source
+           images. Then the decoder, its rate alone, the worker's
+           start-up, the worker alone per video (decode against pipe
+           transfer), sweep_serve_benchmark's end-to-end label frames/s
+           (decode, wait and sweep seconds) through the worker and through
+           a decode thread, beside the array-fed rate, in bf16
 
 Then one JSON line of per-kernel results: for attention, sums over one
 sweep bucket's calls in bf16 (the main path's dtype), with the per-bucket
 sums in both dtypes (``per_bucket``) and the clip path's per-forward sums
-(``per_forward``); ``launches`` counts the slice's and the sweep's main
-path runs. Then the nvidia-smi name/power line, and last
-``{"ok": true, "device": {...}}``. Without a GPU, or outside a checkout of
-the repository, it exits non-zero and prints no result.
+(``per_forward``); ``launches`` counts the slice's, the sweep's and the
+dataset's main path runs (``launches_by_path``). Then the nvidia-smi
+name/power line, and last ``{"ok": true, "device": {...}}``. Without a GPU,
+or outside a checkout of the repository, it exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
 import copy
 import json
+import os
 import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -51,6 +71,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 SEED = 0
 BATCH = 8            # clips per forward
 FRAMES = 16
@@ -92,6 +113,17 @@ SLICE_TOL = (2e-3, 2e-4)  # rtol, atol: card fp32 vs CPU fp32 logits
 SWEEP_TOL = (2e-3, 2e-4)  # rtol, atol: fp32 sweep vs fp32 clip path
 FEATURE_ATOL = 1e-4       # normalized units: phase-mel vs per-window, f32
 
+# the dataset phase's test split: 4,000 label frames, past the decode
+# worker's threshold (2,000)
+DATASET_FRAMES = (2100, 1200, 700)
+PLUMBING_ATOL = 1e-6      # dataset-fed vs array-fed sweep, same frames
+# label frames of the clip-path check: video 0 rows whose 10 s window lies
+# whole inside its 70.5 s wav (10 s <= ts <= 65.5 s)
+CLIP_ROWS = range(1000, 1064)
+# decoded frame vs its source image, uint8 levels: JPEG q90 with 4:2:0
+# chroma of a gradient with a moving blob and N(0, 0.02) noise
+JPEG_MEAN_TOL, JPEG_MAX_TOL = 6.0, 48
+
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -104,6 +136,22 @@ def fail(msg: str) -> None:
 
 def on_device(event) -> bool:
     return str(event.device_type).endswith("CUDA")
+
+
+def warm_profiler(torch, dev) -> int:
+    """Profile a small matmul until a session records device time, at most
+    5 sessions (CUPTI has missed the device activity of a process's first
+    session on the card); returns the sessions it took."""
+    from torch.profiler import ProfilerActivity, profile
+    a = torch.randn(512, 512, device=dev)
+    for sessions in range(1, 6):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            a @ a
+            torch.cuda.synchronize()
+        if any(on_device(e) and e.device_time_total > 0
+               for e in prof.key_averages()):
+            return sessions
+    fail("the profiler recorded no device time in 5 sessions")
 
 
 def timed(torch, fn, iters: int, warmup: int = 3) -> tuple[float, float]:
@@ -676,6 +724,239 @@ def phase_sweep(torch, dev) -> dict:
     return launches
 
 
+def best_rate(torch, n: int, run, passes: int = 3) -> tuple[float, list]:
+    """(best n / wall s over ``passes`` runs, the walls) with the host
+    clock stopped after ``torch.cuda.synchronize()``."""
+    walls = []
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return n / min(walls), walls
+
+
+def phase_dataset(torch, dev) -> dict:
+    from auformer_torch import test_aff2
+    from auformer_torch.core.config import Config
+    from auformer_torch.core.weights import load_weights
+    from auformer_torch.data import Aff2TestDataset, native
+    from auformer_torch.data.fixtures import (fixture_frame,
+                                              generate_synthetic_dataset)
+    from auformer_torch.infer import run_inference, run_inference_sweep
+    from auformer_torch.nn import build_model
+    from auformer_torch.ops.attention import fused_attention
+    from auformer_torch.ops.audio_kernel import mel_frontend
+    from auformer_torch.serve import (DecodeWorker, decode_video_frames,
+                                      read_video_wav, sweep_serve_benchmark)
+    from auformer_torch.sweep import default_sweep_bucket, make_sweep
+
+    t_phase = time.perf_counter()
+    work = ROOT / ".cache" / "chip_smoke_dataset"
+    shutil.rmtree(work, ignore_errors=True)
+    root, labels, cache = (str(work / d) for d in ("root", "labels", "cache"))
+    t0 = time.perf_counter()
+    generate_synthetic_dataset(root, labels, n_videos=len(DATASET_FRAMES),
+                               frames_per_video=DATASET_FRAMES,
+                               image_size=IMAGE, seed=SEED,
+                               with_masks=False, splits=["test"])
+    fixture_s = time.perf_counter() - t0
+    n = sum(DATASET_FRAMES)
+    starts = np.cumsum((0,) + DATASET_FRAMES)
+    videos = {f"vid{i:03d}": k for i, k in enumerate(DATASET_FRAMES)}
+
+    cfg32 = Config(root=root, lmdb_label_dir=labels, cache_dir=cache,
+                   image_size=IMAGE, n_frames=FRAMES, batch_size=BATCH,
+                   compute_dtype="float32")
+    model32 = build_model(cfg32)
+    sd = random_reference_state_dict(model32, SEED)
+    load_weights(model32, sd)
+    pretrain = work / "experiments" / "avformer" / "pretrain"
+    pretrain.mkdir(parents=True)
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()},
+               pretrain / f"random_seed{SEED}.pth")
+
+    # the main path: python -m auformer_torch.test_aff2 over the split, in
+    # bf16 (the default), with the counts set to 0 just before it
+    bucket = default_sweep_bucket(dev)
+    sizer = make_sweep(cfg32, model32)
+    main_buckets = sum(-(-k // sizer._bucket_size(k, bucket))
+                       for k in DATASET_FRAMES)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        fused_attention.launches = 0
+        mel_frontend.launches = 0
+        t0 = time.perf_counter()
+        out16 = test_aff2.main(["--root", root, "--lmdb_label_dir", labels,
+                                "--cache_dir", cache,
+                                "--image_size", str(IMAGE),
+                                "--n_frames", str(FRAMES)])
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        launches = {"attention": fused_attention.launches,
+                    "mel": mel_frontend.launches}
+    finally:
+        os.chdir(cwd)
+    want = {"attention": ATTN_PER_CALL * main_buckets, "mel": 0}
+    if launches != want:
+        fail(f"test_aff2.main launched {launches}, expected {want}")
+    check_submission(str(work / "results"), videos, out16)
+    if out16.shape != (n, 21) or not np.isfinite(out16).all() \
+            or out16[:, 12:].any():
+        fail(f"test_aff2.main predictions {out16.shape} are not finite AU "
+             "logits")
+
+    # fp32: the dataset-fed sweep against the array-fed one on the same
+    # decoded frames, wavs and timestamps (the plumbing: Index, video_id,
+    # order)
+    ds = Aff2TestDataset(cfg32)
+    out_ds = run_inference_sweep(cfg32, model32, dataset=ds,
+                                 result_path=str(work / "fp32_dataset"))
+    items = []
+    for i, (vid, k) in enumerate(videos.items()):
+        rows = np.arange(starts[i], starts[i] + k)
+        items.append(dict(video_id=vid, Index=rows,
+                          frames=decode_video_frames(ds, rows, IMAGE, IMAGE),
+                          wav=read_video_wav(root, vid),
+                          timestamps_ms=np.asarray(ds.time_stamps)[rows]))
+    out_arr = run_inference_sweep(cfg32, model32, items,
+                                  result_path=str(work / "fp32_arrays"))
+    plumbing_err = float(np.abs(out_ds - out_arr).max())
+    if out_ds.shape != out_arr.shape or not plumbing_err <= PLUMBING_ATOL:
+        fail(f"dataset-fed sweep differs from the array-fed sweep by "
+             f"{plumbing_err}")
+
+    # decoded frames against the generator's source images
+    sample = [(i, t) for i, k in enumerate(DATASET_FRAMES)
+              for t in range(0, k, 50)]
+    decoded = np.stack([items[i]["frames"][t] for i, t in sample])
+    source = np.stack([fixture_frame(SEED, i, t, IMAGE) for i, t in sample])
+    jpeg = np.abs(decoded.astype(np.int16) - source)
+    jpeg_mean, jpeg_max = float(jpeg.mean()), int(jpeg.max())
+    if not (jpeg_mean <= JPEG_MEAN_TOL and jpeg_max <= JPEG_MAX_TOL):
+        fail(f"decoded frames are {jpeg_mean} (mean) / {jpeg_max} (max) "
+             "levels from their sources")
+
+    # dataset-fed run_inference (DataLoader, B=8, host features) against
+    # the sweep on label frames with whole 10 s windows
+    rows = np.array(CLIP_ROWS)
+    ds_clip = Aff2TestDataset(cfg32)
+    ds_clip.test_ids = np.zeros_like(ds_clip.test_ids)
+    ds_clip.test_ids[rows] = 1
+    out_clip = run_inference(cfg32, model32, dataset=ds_clip,
+                             result_path=str(work / "fp32_clip"))
+    clip_err = float(np.abs(out_clip[rows, :12] - out_ds[rows, :12]).max())
+    if not np.allclose(out_clip[rows, :12], out_ds[rows, :12],
+                       rtol=SWEEP_TOL[0], atol=SWEEP_TOL[1]):
+        fail(f"dataset-fed run_inference differs from the sweep by "
+             f"{clip_err}")
+
+    # the strict_parity sweep (per-window host features) on the 700-frame
+    # video
+    cfg_strict = Config(**{**cfg32.asdict(), "strict_parity": True})
+    ds_strict = Aff2TestDataset(cfg_strict)
+    last = np.arange(starts[-2], starts[-1])
+    ds_strict.test_ids = np.zeros_like(ds_strict.test_ids)
+    ds_strict.test_ids[last] = 1
+    t0 = time.perf_counter()
+    out_strict = run_inference_sweep(cfg_strict, model32, dataset=ds_strict,
+                                     result_path=str(work / "fp32_strict"))
+    strict_s = time.perf_counter() - t0
+    if not np.isfinite(out_strict[last]).all() \
+            or not out_strict[last, :12].any():
+        fail("the strict_parity sweep wrote no finite logits")
+    strict_diff = float(np.abs(out_strict[last, :12]
+                               - out_ds[last, :12]).max())
+    if not np.allclose(out_strict[last, :12], out_ds[last, :12],
+                       rtol=SWEEP_TOL[0], atol=SWEEP_TOL[1]):
+        fail(f"the strict_parity sweep differs from the default sweep by "
+             f"{strict_diff}")
+    del model32, sizer
+    torch.cuda.empty_cache()
+
+    # bf16 rates: the reader alone, the end-to-end pipeline (best of 3
+    # warm passes through one worker), the array-fed sweep on the same
+    # videos
+    cfg16 = Config(root=root, lmdb_label_dir=labels, cache_dir=cache,
+                   image_size=IMAGE, n_frames=FRAMES)
+    model16 = build_model(cfg16)
+    load_weights(model16, sd)
+    ds16 = Aff2TestDataset(cfg16)
+    keys0 = [ds16._store_key(p) for p in ds16.image_path[:DATASET_FRAMES[0]]]
+    reader_rate, reader_walls = best_rate(
+        torch, len(keys0),
+        lambda: ds16.native_image.decode_batch(keys0, IMAGE, IMAGE, 3))
+    keys = ("clips", "seconds", "decode_seconds", "wait_seconds",
+            "sweep_seconds", "clips_per_sec")
+    worker = DecodeWorker(cfg16)
+    try:
+        # the worker alone, one video at a time with the card idle: its
+        # decode clock against the wall from request to the parent's
+        # unpickled result (the rest is the pipe transfer)
+        alone = []
+        for nr in np.unique(ds16.video_db_nr[ds16.test_ids > 0]):
+            t0 = time.perf_counter()
+            worker.request(nr)
+            vid_idx, *_, dsec = worker.result()
+            alone.append({"frames": len(vid_idx), "decode_s": dsec,
+                          "wall_s": time.perf_counter() - t0})
+        sweep16 = make_sweep(cfg16, model16)
+        passes = []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            res = sweep_serve_benchmark(cfg16, model16, dataset=ds16,
+                                        bucket=bucket, sweep=sweep16,
+                                        decode_worker=worker)
+            passes.append({k: res[k] for k in keys})
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    finally:
+        worker.close()
+    # the same pipeline with the decode on a thread of this process
+    thread_passes = [
+        {k: v for k, v in sweep_serve_benchmark(
+            cfg16, model16, dataset=ds16, bucket=bucket, sweep=sweep16,
+            decode_worker=False).items() if k in keys} for _ in range(2)]
+    if any(p["clips"] != n for p in passes + thread_passes):
+        fail(f"sweep_serve_benchmark labelled {passes + thread_passes}, "
+             f"not {n} frames")
+    e2e = max(passes, key=lambda p: p["clips_per_sec"])
+    e2e_thread = max(thread_passes, key=lambda p: p["clips_per_sec"])
+    with tempfile.TemporaryDirectory() as tmp:
+        array_rate, array_walls = best_rate(
+            torch, n, lambda: run_inference_sweep(cfg16, model16, items, tmp,
+                                                  bucket=bucket))
+
+    emit("dataset", videos=list(DATASET_FRAMES), label_frames=n,
+         image=IMAGE, t=FRAMES, dilation=cfg16.dilation, bucket_cap=bucket,
+         decoder=native.decoder(), fixture_s=fixture_s,
+         test_aff2_main={"seconds": main_s, "launches": launches,
+                         "buckets": main_buckets,
+                         "launches_per_bucket": {
+                             k: v / main_buckets
+                             for k, v in launches.items()}},
+         plumbing_max_abs_err=plumbing_err, plumbing_atol=PLUMBING_ATOL,
+         clip_rows=[CLIP_ROWS.start, CLIP_ROWS.stop],
+         clip_vs_sweep_max_abs_err=clip_err, rtol=SWEEP_TOL[0],
+         atol=SWEEP_TOL[1], strict_frames=len(last), strict_s=strict_s,
+         strict_vs_default_max_abs_diff=strict_diff,
+         jpeg_frames=len(sample), jpeg_mean_abs=jpeg_mean,
+         jpeg_max_abs=jpeg_max, jpeg_tol=[JPEG_MEAN_TOL, JPEG_MAX_TOL],
+         reader_frames_per_s=reader_rate, reader_walls=reader_walls,
+         reader_threads=cfg16.host_threads,
+         worker_startup_s=worker.startup_seconds, worker_alone=alone,
+         e2e_passes=passes, e2e_thread_passes=thread_passes,
+         e2e_label_frames_per_s_bf16=e2e["clips_per_sec"],
+         e2e_thread_label_frames_per_s_bf16=e2e_thread["clips_per_sec"],
+         array_fed_label_frames_per_s_bf16=array_rate,
+         array_fed_walls=array_walls,
+         e2e_over_array_fed=e2e["clips_per_sec"] / array_rate,
+         peak_memory_mb_bf16=peak_mb,
+         phase_s=time.perf_counter() - t_phase)
+    shutil.rmtree(work, ignore_errors=True)   # the split and a 126 MB .pth
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -691,14 +972,20 @@ def main() -> int:
     phase_build()
 
     batch = make_batch(np.random.RandomState(SEED), BATCH)
+    sessions = warm_profiler(torch, dev)
     attn = attention_cases(torch, dev)
     mel = mel_cases(torch, dev, batch)
-    emit("kernels", attention=attn, mel=mel)
+    emit("kernels", attention=attn, mel=mel, profiler_warmup_sessions=sessions)
 
-    launches = phase_slice(torch, dev, batch)
-    sweep_launches = phase_sweep(torch, dev)
+    by_path = {"slice": phase_slice(torch, dev, batch),
+               "sweep": phase_sweep(torch, dev),
+               "dataset": phase_dataset(torch, dev)}
+    emit("done", seconds=time.perf_counter() - T_START)
 
     from auformer_torch.ops import build
+
+    def launches(name: str) -> int:
+        return sum(counts[name] for counts in by_path.values())
 
     def per_call(path: str, dtype: str) -> dict:
         """Sums over one call's attention launches (time x launches)."""
@@ -718,14 +1005,16 @@ def main() -> int:
         {"name": "attention", "route": "cuda",
          "source": str(build.source("attention").relative_to(ROOT)),
          "replaces": "auformer/ops/attention.py:88",
-         "launches": launches["attention"] + sweep_launches["attention"],
+         "launches": launches("attention"),
+         "launches_by_path": {p: c["attention"] for p, c in by_path.items()},
          **per_bucket["bfloat16"],
          "max_abs_err": max(c["max_abs_err"] for c in attn),
          "per_bucket": per_bucket, "per_forward": per_forward},
         {"name": "mel_frontend", "route": "cuda",
          "source": str(build.source("mel").relative_to(ROOT)),
          "replaces": "auformer/ops/audio_pallas.py:185",
-         "launches": launches["mel"] + sweep_launches["mel"],
+         "launches": launches("mel"),
+         "launches_by_path": {p: c["mel"] for p, c in by_path.items()},
          "max_abs_err": max(c["max_abs_err"] for c in mel),
          "ms": mel_main["ms"], "plain_ms": mel_main["plain_ms"],
          "bound_ms": mel_main["bound_ms"], "bound_by": mel_main["bound_by"],

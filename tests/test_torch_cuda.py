@@ -311,3 +311,68 @@ def test_phase_route_matches_per_window_route_on_the_card(cuda_device):
         ext, phase_mel_table(ext, np.unique(phases)), *on_card)
     windows = sweep.window_features(ext, on_card[0], on_card[1])
     torch.testing.assert_close(feats, windows, rtol=0, atol=1e-4)
+
+
+def test_native_reader_builds_and_decodes_on_this_host(cuda_device,
+                                                       tmp_path):
+    """The reader this host's JPEG library gives (libjpeg, else nvJPEG on
+    the card) builds, and decodes the frames its own encoder wrote (q90)
+    near their sources, colour and grayscale; a missing key, an empty key
+    and a corrupt value stay black with ok False."""
+    from auformer_torch.data import FrameStoreWriter, native
+    from auformer_torch.data.fixtures import fixture_frame
+
+    path = str(tmp_path / "store")
+    sources = [fixture_frame(0, 0, t, 32) for t in range(6)]
+    with FrameStoreWriter(path) as w:
+        for t, img in enumerate(sources):
+            w.put(f"v/{t}.jpg", native.encode_jpeg(img, 90))
+            w.put(f"g/{t}.jpg", native.encode_jpeg(img[:, :, 1], 90))
+        w.put("v/corrupt.jpg", b"\xff\xd8\xff\xe0 not a jpeg")
+    store = native.NativeFrameStore(path, n_threads=4)
+    assert store.decoder == native.decoder()
+    keys = [f"v/{t}.jpg" for t in range(6)] + ["v/missing.jpg", "",
+                                               "v/corrupt.jpg"]
+    frames, ok = store.decode_batch(keys, 32, 32, 3)
+    assert ok.tolist() == [True] * 6 + [False] * 3
+    assert not frames[6:].any()
+    err = np.abs(frames[:6].astype(np.int16) - np.stack(sources))
+    assert err.mean() < 6 and err.max() <= 48
+    gray, gok = store.decode_batch([f"g/{t}.jpg" for t in range(6)], 32, 32,
+                                   1)
+    assert gok.all()
+    gerr = np.abs(gray[..., 0].astype(np.int16) - np.stack(sources)[..., 1])
+    assert gerr.mean() < 6 and gerr.max() <= 48
+
+
+def test_dataset_fed_sweep_on_the_card_matches_the_cpu(cuda_device,
+                                                       tmp_path):
+    """run_inference_sweep over an Aff2TestDataset of the port's fixtures
+    (two 20-frame videos, 32x32): the decode thread, the native reader,
+    sweep_stream; fp32 logits on the card equal the CPU port's, with 11
+    attention launches per bucket and no mel kernel."""
+    from auformer_torch.data import Aff2TestDataset
+    from auformer_torch.data.fixtures import generate_synthetic_dataset
+    from auformer_torch.infer import run_inference_sweep
+
+    root, labels = str(tmp_path / "root"), str(tmp_path / "labels")
+    generate_synthetic_dataset(root, labels, n_videos=2,
+                               frames_per_video=[20, 13], image_size=32,
+                               splits=["test"])
+    cfg = Config(root=root, lmdb_label_dir=labels,
+                 cache_dir=str(tmp_path / "cache"), **SWEEP_CFG)
+    torch.manual_seed(2)
+    cpu_model = build_model(cfg)
+    card_model = build_model(cfg)
+    card_model.load_state_dict(cpu_model.state_dict())
+    attn = tatt.fused_attention.launches
+    mel = audio_kernel.mel_frontend.launches
+    got = run_inference_sweep(cfg, card_model, result_path=str(tmp_path / "a"),
+                              bucket=8, dataset=Aff2TestDataset(cfg))
+    assert tatt.fused_attention.launches - attn == 11 * (3 + 2)
+    assert audio_kernel.mel_frontend.launches == mel
+    want = run_inference_sweep(cfg, cpu_model, result_path=str(tmp_path / "b"),
+                               bucket=8, dataset=Aff2TestDataset(cfg),
+                               device="cpu")
+    assert got.shape == want.shape == (33, 21)
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-4)

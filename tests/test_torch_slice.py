@@ -178,15 +178,51 @@ def test_unported_models_raise():
 
 
 def test_port_imports_no_jax_and_no_auformer():
+    """Nor cv2 or PIL, which the card's machine lacks: the port decodes and
+    encodes JPEGs with its own native reader."""
     code = (
         "import sys, auformer_torch, auformer_torch.infer, "
         "auformer_torch.core.weights, auformer_torch.ops, auformer_torch.nn, "
         "auformer_torch.nn.avformer, auformer_torch.ops.build, "
         "auformer_torch.sweep, auformer_torch.ops.phase_mel, "
-        "auformer_torch.ops.audio_host\n"
+        "auformer_torch.ops.audio_host, auformer_torch.data, "
+        "auformer_torch.data.native, auformer_torch.data.fixtures, "
+        "auformer_torch.serve, auformer_torch.test_aff2\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'auformer'))\n"
+        "('jax', 'jaxlib', 'flax', 'auformer', 'cv2', 'PIL'))\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_a_dataset_whose_reader_does_not_build_raises(tmp_path):
+    """A dataset whose native reader cannot be built raises with the
+    compiler's error, in a fresh process (a built reader is kept per
+    process): no fallback decoder, no black frames."""
+    from auformer.data.fixtures import generate_synthetic_dataset
+
+    root, labels = str(tmp_path / "root"), str(tmp_path / "labels")
+    generate_synthetic_dataset(root, labels, n_videos=1, frames_per_video=4,
+                               image_size=32, splits=["test"])
+    src = tmp_path / "src"
+    src.mkdir()
+    (src / "framestore.h").write_text("")
+    (src / "framestore_reader.cpp").write_text("#error broken reader\n")
+    code = (
+        "import sys, pathlib\n"
+        "from auformer_torch.data import native\n"
+        f"native.SRC_DIR = pathlib.Path({str(src)!r})\n"
+        f"native.BUILD_DIR = pathlib.Path({str(tmp_path / 'build')!r})\n"
+        "from auformer_torch.core.config import Config\n"
+        "from auformer_torch.data import Aff2TestDataset\n"
+        f"cfg = Config(root={root!r}, lmdb_label_dir={labels!r}, "
+        f"cache_dir={str(tmp_path / 'cache')!r}, image_size=32)\n"
+        "try:\n"
+        "    Aff2TestDataset(cfg)\n"
+        "except RuntimeError as e:\n"
+        "    assert 'broken reader' in str(e), e\n"
+        "    sys.exit(7)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 7, proc.stderr + proc.stdout
