@@ -54,6 +54,12 @@ dataset's main path runs (``launches_by_path``). Then the nvidia-smi
 name/power line, and last ``{"ok": true, "device": {...}}``. Without a GPU,
 or outside a checkout of the repository, it exits non-zero and prints no
 result.
+
+Device times come from torch.profiler. A session that records no device
+time is run again, up to PROFILER_SESSIONS times; after that a kernel's
+``ms`` is its CUDA-event time and the other device numbers are null. The
+``kernels`` and ``done`` lines count the sessions, those without device
+time, and the cases timed by events.
 """
 from __future__ import annotations
 
@@ -81,6 +87,10 @@ HEADS = 8
 # H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+
+PROFILER_SESSIONS = 4  # profiler sessions tried per measurement
+PROFILER_LOG = {"sessions": 0, "sessions_without_device_time": 0,
+                "event_timed_cases": 0}
 
 # the dense sweep's synthetic video and the bucket the default (2048) cap
 # splits it into: 1280 + 820 label frames
@@ -138,28 +148,39 @@ def on_device(event) -> bool:
     return str(event.device_type).endswith("CUDA")
 
 
-def warm_profiler(torch, dev) -> int:
-    """Profile a small matmul until a session records device time, at most
-    5 sessions (CUPTI has missed the device activity of a process's first
-    session on the card); returns the sessions it took."""
+def recorded_device_time(prof) -> bool:
+    return any(on_device(e) and e.device_time_total > 0
+               for e in prof.key_averages())
+
+
+def device_profile(torch, run, cpu: bool = False,
+                   accept=recorded_device_time):
+    """A torch.profiler session around ``run()`` that ``accept`` takes (by
+    default: one that recorded device time), or None when
+    PROFILER_SESSIONS sessions in a row were not taken. CUPTI on the card
+    misses the device activity of a whole session now and then: the first
+    of a process's, and rarely a later one."""
     from torch.profiler import ProfilerActivity, profile
-    a = torch.randn(512, 512, device=dev)
-    for sessions in range(1, 6):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            a @ a
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu
+                                            else [])
+    for _ in range(PROFILER_SESSIONS):
+        PROFILER_LOG["sessions"] += 1
+        with profile(activities=activities) as prof:
+            run()
             torch.cuda.synchronize()
-        if any(on_device(e) and e.device_time_total > 0
-               for e in prof.key_averages()):
-            return sessions
-    fail("the profiler recorded no device time in 5 sessions")
+        if accept(prof):
+            return prof
+        PROFILER_LOG["sessions_without_device_time"] += 1
+    return None
 
 
 def timed(torch, fn, iters: int, warmup: int = 3) -> tuple[float, float]:
     """(device ms, event ms) per call of ``fn``. Device ms: the device time
-    of everything one call launches, from torch.profiler (CUPTI). Event ms:
-    CUDA events around ``iters`` back-to-back calls; where a call's kernels
-    are shorter than its host-side launch cost, this is the host's rate."""
-    from torch.profiler import ProfilerActivity, profile
+    of everything one call launches, from torch.profiler (CUPTI); the event
+    ms where no session recorded device time (counted in PROFILER_LOG).
+    Event ms: CUDA events around ``iters`` back-to-back calls; where a
+    call's kernels are shorter than its host-side launch cost, this is the
+    host's rate."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -171,14 +192,16 @@ def timed(torch, fn, iters: int, warmup: int = 3) -> tuple[float, float]:
     end.record()
     end.synchronize()
     event_ms = start.elapsed_time(end) / iters
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
+    prof = device_profile(torch, calls)
+    if prof is None:
+        PROFILER_LOG["event_timed_cases"] += 1
+        return event_ms, event_ms
     device_us = sum(e.device_time_total for e in prof.key_averages()
                     if on_device(e))
-    if device_us <= 0:
-        fail("the profiler recorded no device time")
     return device_us / iters / 1e3, event_ms
 
 
@@ -354,15 +377,17 @@ def clips_per_s(torch, infer, batch: dict, iters: int) -> float:
 
 
 def profile_forward(torch, infer, batch: dict) -> dict:
-    """Device time by kernel over 3 forwards (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device time by kernel over 3 forwards (torch.profiler); None where
+    no session recorded device time."""
     infer(batch)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def forwards():
         for _ in range(3):
             infer(batch)
-        torch.cuda.synchronize()
+    prof = device_profile(torch, forwards, cpu=True)
+    if prof is None:
+        return None
     events = [e for e in prof.key_averages()
               if on_device(e) and e.device_time_total > 0]
     events.sort(key=lambda e: e.device_time_total, reverse=True)
@@ -479,7 +504,9 @@ def phase_slice(torch, dev, batch: dict):
          max_abs_diff_bf16_vs_fp32=(logits16 - logits).abs().max().item(),
          clips_per_s={"float32": rate32, "bfloat16": rate16},
          wall_ms_per_forward_bf16=wall_ms,
-         device_idle_share_bf16=1.0 - prof["device_ms_per_forward"] / wall_ms,
+         device_idle_share_bf16=(
+             None if prof is None
+             else 1.0 - prof["device_ms_per_forward"] / wall_ms),
          peak_memory_mb_bf16=peak_mb, profile_bf16=prof,
          run_inference={"batches": len(batches),
                         "rows": int(out.shape[0])})
@@ -521,8 +548,10 @@ def stage_profile(torch, sweep, run) -> dict:
     launched inside it. Stages: the phase table (once per video), the
     phase-mel features (edge frames, gather, dB; a bucket minus its
     fused_sweep), the trunk, the audio resnet, and the heads (fused_sweep
-    minus trunk and audio: T-Former, AU_formers, fusion, window gather)."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    minus trunk and audio: T-Former, AU_formers, fusion, window gather).
+    None where no session attributed device time to every measured
+    range."""
+    from torch.profiler import record_function
     names = {"fused_sweep_phase_audio": "bucket",
              "fused_sweep": "fused_sweep", "frame_features": "trunk",
              "phase_mel_table": "table", "a_net": "audio_resnet"}
@@ -535,31 +564,34 @@ def stage_profile(torch, sweep, run) -> dict:
         return call
     for attr, label in names.items():
         setattr(sweep, attr, ranged(f"sweep/{label}", saved[attr]))
+
+    def range_ms(prof) -> dict:
+        us = {label: 0.0 for label in names.values()}
+        for e in prof.events():
+            label = e.name[len("sweep/"):]
+            if (e.name.startswith("sweep/") and label in us
+                    and str(e.device_type).endswith("CPU")):
+                us[label] += e.device_time_total
+        return {k: v / 1e3 for k, v in us.items()}
+
+    def attributed(prof) -> bool:
+        ms = range_ms(prof)
+        return min(ms["bucket"], ms["trunk"], ms["audio_resnet"]) > 0
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
+        prof = device_profile(torch, run, cpu=True, accept=attributed)
     finally:
         for attr, fn in saved.items():
             if attr == "a_net":
                 sweep.a_net = fn
             else:
                 delattr(sweep, attr)
-    us = {label: 0.0 for label in names.values()}
-    for e in prof.events():
-        label = e.name[len("sweep/"):]
-        if (e.name.startswith("sweep/") and label in us
-                and str(e.device_type).endswith("CPU")):
-            us[label] += e.device_time_total
-    ms = {k: v / 1e3 for k, v in us.items()}
-    stages = {"phase_table": ms["table"],
-              "phase_features": ms["bucket"] - ms["fused_sweep"],
-              "trunk": ms["trunk"], "audio_resnet": ms["audio_resnet"],
-              "heads": ms["fused_sweep"] - ms["trunk"] - ms["audio_resnet"]}
-    if min(ms["bucket"], ms["trunk"], ms["audio_resnet"]) <= 0:
-        fail(f"the profiler attributed no device time to a stage: {ms}")
-    return stages
+    if prof is None:
+        return None
+    ms = range_ms(prof)
+    return {"phase_table": ms["table"],
+            "phase_features": ms["bucket"] - ms["fused_sweep"],
+            "trunk": ms["trunk"], "audio_resnet": ms["audio_resnet"],
+            "heads": ms["fused_sweep"] - ms["trunk"] - ms["audio_resnet"]}
 
 
 def phase_sweep(torch, dev) -> dict:
@@ -684,16 +716,14 @@ def phase_sweep(torch, dev) -> dict:
         run()
         walls.append(time.perf_counter() - t0)
     wall_s = float(np.median(walls))
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.reset_peak_memory_stats()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
+    prof = device_profile(torch, run, cpu=True)
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
-    events = [e for e in prof.key_averages()
-              if on_device(e) and e.device_time_total > 0]
-    device_ms = sum(e.device_time_total for e in events) / 1e3
+    events = [] if prof is None else [
+        e for e in prof.key_averages()
+        if on_device(e) and e.device_time_total > 0]
+    device_ms = (None if prof is None
+                 else sum(e.device_time_total for e in events) / 1e3)
     kernels = sum(e.count for e in events)
     events.sort(key=lambda e: e.device_time_total, reverse=True)
     stages = stage_profile(torch, sweep16, run)
@@ -713,9 +743,12 @@ def phase_sweep(torch, dev) -> dict:
         label_frames_per_s_bf16=n / wall_s,
         label_frames_per_s_fp32=n / wall32_s,
         wall_s_per_video_bf16=walls,
-        device_ms_per_bucket_bf16=device_ms / n_buckets,
-        device_idle_share_bf16=1.0 - device_ms / (1e3 * wall_s),
-        device_kernels_per_bucket_bf16=kernels / n_buckets,
+        device_ms_per_bucket_bf16=(None if prof is None
+                                   else device_ms / n_buckets),
+        device_idle_share_bf16=(None if prof is None
+                                else 1.0 - device_ms / (1e3 * wall_s)),
+        device_kernels_per_bucket_bf16=(None if prof is None
+                                        else kernels / n_buckets),
         stage_device_ms_per_video_bf16=stages,
         peak_memory_mb_bf16=peak_mb,
         top=[{"name": e.key[:80], "ms_per_video": e.device_time_total / 1e3,
@@ -972,15 +1005,15 @@ def main() -> int:
     phase_build()
 
     batch = make_batch(np.random.RandomState(SEED), BATCH)
-    sessions = warm_profiler(torch, dev)
     attn = attention_cases(torch, dev)
     mel = mel_cases(torch, dev, batch)
-    emit("kernels", attention=attn, mel=mel, profiler_warmup_sessions=sessions)
+    emit("kernels", attention=attn, mel=mel, profiler=dict(PROFILER_LOG))
 
     by_path = {"slice": phase_slice(torch, dev, batch),
                "sweep": phase_sweep(torch, dev),
                "dataset": phase_dataset(torch, dev)}
-    emit("done", seconds=time.perf_counter() - T_START)
+    emit("done", seconds=time.perf_counter() - T_START,
+         profiler=PROFILER_LOG)
 
     from auformer_torch.ops import build
 
