@@ -3,18 +3,24 @@
 A second package beside the JAX one (``auformer``), which it mirrors module
 by module and is tested against. It imports ``torch`` and numpy only.
 
-- ``auformer_torch.core``   config (opts-compatible CLI), weight import
-- ``auformer_torch.ops``    clip preprocessing, the log-mel frontend and
-                            short-sequence attention, each kernel with a
-                            hand-written CUDA source under ``csrc/``
+- ``auformer_torch.core``   config (opts-compatible CLI), weight import,
+                            checkpoints, seeds, step timing
+- ``auformer_torch.ops``    clip preprocessing, the device AutoAugment,
+                            the log-mel frontend and short-sequence
+                            attention (with its gradient), each kernel
+                            with a hand-written CUDA source under ``csrc/``
 - ``auformer_torch.nn``     avformer (two-stream aural-visual former)
+- ``auformer_torch.losses`` / ``metrics``  the loss suites, the scores
 - ``auformer_torch.data``   FrameStores and their native JPEG reader, the
                             split, the datasets, samplers and loader
 - ``auformer_torch.infer``  clip-batch and dense-sweep inference over
                             arrays or a dataset, submission writers
 - ``auformer_torch.sweep``  the dense sweep (trunk once per frame)
 - ``auformer_torch.serve``  decode -> sweep streaming, the decode worker
-- ``auformer_torch.test_aff2``  the inference entry point
+- ``auformer_torch.parallel``  the train and eval steps
+- ``auformer_torch.train_lib``  the training loop
+- ``auformer_torch.test_aff2`` / ``train``  the inference and training
+                            entry points
 
 Output convention (reference train.py:135-138): every model maps a batch
 dict to a ``(B, 21)`` tensor laid out ``[AU 0:12 | EX 12:19 | VA 19:21]``.

@@ -1,7 +1,7 @@
 """The data layer (counterpart of auformer/data): FrameStores and their
 native reader, the split builder, the datasets, samplers and loader. The
-JAX package's wav arena is training-only and comes with training
-(ROADMAP.md queue A4)."""
+JAX package's wav arena (ROADMAP.md queue A12) and host augmentation (A10)
+are not ported."""
 from .framestore import FrameStore, FrameStoreWriter, open_store
 from .samplers import (DataLoader, Prefetcher, SubsetRandomSampler,
                        SubsetSequentialSampler, BlockShuffleSampler,

@@ -1,6 +1,5 @@
 """Aff2CompDataset: the dataset of labelled frames (counterpart of
-auformer/data/dataset.py; reference dataloader/aff2compdataset.py:16-292),
-the parts that inference uses.
+auformer/data/dataset.py; reference dataloader/aff2compdataset.py:16-292).
 
 Per sample: a 16-frame dilated uint8 face clip ending at the labelled frame,
 the AU/EX/VA labels of that frame (sentinels -1/-1/-5.0 when missing), and,
@@ -16,9 +15,15 @@ raw left-aligned window (``cfg.device_audio``).
     another way, and none is left black for want of a decoder;
   * audio features are the strict-parity numpy pipeline (ops/audio_host.py).
 
-The training-only parts of the JAX dataset (host augmentation, frame-dedup
-batches, the wav arena) raise ``NotImplementedError``: they come with
-training (ROADMAP.md, queue A4).
+Training reads the train and val ids, ``set_aug(False)`` and ``aug_seed``.
+Three parts of the JAX dataset are not ported and raise
+``NotImplementedError`` naming their ROADMAP.md item:
+
+  * host AutoAugment, ``set_aug(True)`` (A10): it is PIL's, which the
+    card's machine lacks, and a PIL-free version must be bit-exact with it;
+    train with ``--device_augment`` (ops/augment_device.py) instead;
+  * frame-dedup batches, ``set_frame_dedup`` / ``assemble_batch`` (A11);
+  * the wav arena, ``set_audio_arena`` (A12).
 """
 from __future__ import annotations
 
@@ -41,8 +46,7 @@ STORE_AU = "label_au"
 STORE_EX = "label_expr"
 STORE_VA = "label_va"
 
-_TRAINING_ONLY = ("{} is training-only and comes with training "
-                  "(ROADMAP.md queue A4)")
+_NOT_PORTED = "{} is not ported to auformer_torch yet (ROADMAP.md {})"
 
 
 class Aff2CompDataset:
@@ -90,6 +94,10 @@ class Aff2CompDataset:
         self.use_mask = "M" in cfg.modality
         self.use_audio = "A" in cfg.modality.split(";")
         self.modes = ["clip", "audio_features"]
+        self.aug = False
+        # the JAX package's per-epoch host augmentation seed: accepted, read
+        # by nothing here (host augmentation raises, queue A10)
+        self.aug_seed = 0
 
         # decoded-frame LRU: overlapping dilated windows re-read each frame
         # up to clip_len times during sequential sweeps; caching decoded
@@ -134,16 +142,24 @@ class Aff2CompDataset:
         self.modes = list(modes)
 
     def set_aug(self, aug: bool):
-        raise NotImplementedError(_TRAINING_ONLY.format("host augmentation"))
+        """Host AutoAugment: only ``False`` (none) is ported."""
+        if aug:
+            raise NotImplementedError(
+                _NOT_PORTED.format("host (PIL) augmentation", "queue A10")
+                + "; train with --device_augment")
+        self.aug = False
 
     def set_frame_dedup(self, on: bool):
-        raise NotImplementedError(_TRAINING_ONLY.format("frame-dedup batches"))
+        raise NotImplementedError(_NOT_PORTED.format("frame-dedup batches",
+                                                     "queue A11"))
 
     def assemble_batch(self, samples: list[dict]) -> dict:
-        raise NotImplementedError(_TRAINING_ONLY.format("frame-dedup batches"))
+        raise NotImplementedError(_NOT_PORTED.format("frame-dedup batches",
+                                                     "queue A11"))
 
     def set_audio_arena(self, arena) -> None:
-        raise NotImplementedError(_TRAINING_ONLY.format("the wav arena"))
+        raise NotImplementedError(_NOT_PORTED.format("the wav arena",
+                                                     "queue A12"))
 
     # -- store access ---------------------------------------------------------
     def _store_key(self, video_frame: str) -> str:

@@ -1,3 +1,3 @@
-from .registry import build_model, compute_dtype
+from .registry import build_model, compute_dtype, loss_suite
 
-__all__ = ["build_model", "compute_dtype"]
+__all__ = ["build_model", "compute_dtype", "loss_suite"]

@@ -70,6 +70,7 @@ class TwoStreamAuralVisualFormer(nn.Module):
     ``{"clip": (B,T,H,W,C) normalized, "audio_features": (B,1,64,T)}``."""
 
     modes = ("clip", "audio_features")
+    loss_key = "avformer"
 
     def __init__(self, modality: str = "A;V", task: str = "AU",
                  n_frames: int = 16, dropout: float = 0.2):

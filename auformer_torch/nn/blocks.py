@@ -11,8 +11,15 @@ dim_head == dim). Modules nest as the reference's
 Numeric choices that follow the JAX package, not the upstream torch code:
   * LayerNorm eps is 1e-6 (flax's default; the reference's torch LayerNorm
     uses 1e-5)
-  * BatchNorm is torch's own, eps 1e-5 and momentum 0.1, as in the JAX
-    package's ``BatchNorm``
+  * BatchNorm (``BatchNorm1d`` / ``BatchNorm2d``): eps 1e-5, momentum 0.1,
+    as the JAX package's ``BatchNorm``. In eval it is torch's own. In train
+    mode it normalizes with the biased batch variance, as torch does, and
+    also updates ``running_var`` with the BIASED one, as flax's
+    ``nn.BatchNorm`` does (torch's own would use the unbiased one)
+  * Dropout draws its mask from an explicit ``torch.Generator`` that the
+    train step hands every ``Dropout`` (``set_dropout_generator``), never
+    from the global RNG; in train mode with p > 0 and no generator it
+    raises
 """
 from __future__ import annotations
 
@@ -27,6 +34,65 @@ from ..ops.attention import fused_attention
 LAYER_NORM_EPS = 1e-6
 
 
+class _FlaxRunningVar:
+    """Train-mode BatchNorm whose running variance takes the biased batch
+    variance. torch updates ``rv <- (1 - m) rv + m * var * n / (n - 1)``;
+    scaling ``rv`` by n / (n - 1) before and by (n - 1) / n after turns
+    that into ``(1 - m) rv + m * var``, flax's update, without a second
+    pass over the input. Parameter and buffer names stay torch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = x.numel() // x.shape[1]
+        if not (self.training and self.track_running_stats) or n < 2:
+            return super().forward(x)
+        with torch.no_grad():
+            self.running_var.mul_(n / (n - 1))
+        out = super().forward(x)
+        with torch.no_grad():
+            self.running_var.mul_((n - 1) / n)
+        return out
+
+
+class BatchNorm1d(_FlaxRunningVar, nn.BatchNorm1d):
+    pass
+
+
+class BatchNorm2d(_FlaxRunningVar, nn.BatchNorm2d):
+    pass
+
+
+class Dropout(nn.Module):
+    """Inverted dropout whose mask comes from ``self.generator`` (set by
+    ``set_dropout_generator``): identity in eval or at p == 0."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        self.p = p
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("Dropout in train mode draws from an explicit "
+                               "generator: call set_dropout_generator first")
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self.p
+        return x * keep.to(x.dtype) / (1.0 - self.p)
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
+
+
+def set_dropout_generator(model: nn.Module,
+                          generator: torch.Generator | None) -> None:
+    """Hand every ``Dropout`` of ``model`` the generator its masks come
+    from (None detaches them)."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
 class FeedForward(nn.Module):
     """Linear -> GELU (tanh approximation, reference vformer.py:22-24)
     -> Dropout -> Linear -> Dropout."""
@@ -35,8 +101,7 @@ class FeedForward(nn.Module):
         super().__init__()
         self.net = nn.Sequential(
             nn.Linear(dim, hidden_dim), nn.GELU(approximate="tanh"),
-            nn.Dropout(dropout), nn.Linear(hidden_dim, dim),
-            nn.Dropout(dropout))
+            Dropout(dropout), nn.Linear(hidden_dim, dim), Dropout(dropout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.net(x)
@@ -57,8 +122,7 @@ class Attention(nn.Module):
         self.scale = dim_head ** -0.5
         self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
         project_out = not (heads == 1 and dim_head == dim)
-        self.to_out = (nn.Sequential(nn.Linear(inner, dim),
-                                     nn.Dropout(dropout))
+        self.to_out = (nn.Sequential(nn.Linear(inner, dim), Dropout(dropout))
                        if project_out else nn.Identity())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

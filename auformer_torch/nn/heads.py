@@ -17,7 +17,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .blocks import Transformer, token_logits, token_projection
+from .blocks import (BatchNorm1d, Transformer, token_logits,
+                     token_projection)
 
 
 class AUFormerHead(nn.Module):
@@ -28,7 +29,7 @@ class AUFormerHead(nn.Module):
                  heads: int = 8, dim_head: int = 32, mlp_dim: int = 256):
         super().__init__()
         self.n_tokens = n_tokens
-        self.AU_BN1 = nn.BatchNorm1d(input_dim)
+        self.AU_BN1 = BatchNorm1d(input_dim)
         for i in range(1, n_tokens + 1):
             setattr(self, f"AU_linear_p{i}", nn.Linear(input_dim, emb_dim))
         self.pos_embedding = nn.Parameter(torch.randn(1, n_tokens, emb_dim))

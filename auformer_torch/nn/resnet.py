@@ -9,7 +9,10 @@
 
 Layout: the trunks take NCHW tensors (torch's convention; the JAX package's
 are NHWC) and keep torchvision's parameter names (``conv1``, ``bn1``,
-``layer{i}.{j}.downsample.{0,1}``). BatchNorm: eps 1e-5, momentum 0.1.
+``layer{i}.{j}.downsample.{0,1}``). BatchNorm: eps 1e-5, momentum 0.1;
+in train mode it normalizes with the batch statistics and updates its
+running variance with the biased batch variance, as flax does
+(``blocks.BatchNorm2d``).
 MaxPool2d(3, 2, 1) pads with -inf, as the JAX ``stem_maxpool`` does. The
 JAX package's space-to-depth stem is a TPU layout trick with the same
 weights and is not ported.
@@ -19,7 +22,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .blocks import Transformer
+from .blocks import BatchNorm2d, Transformer
 
 
 def conv3x3(in_planes: int, planes: int, stride: int = 1) -> nn.Conv2d:
@@ -37,12 +40,12 @@ class BasicBlock(nn.Module):
                  downsample: bool = False):
         super().__init__()
         self.conv1 = conv3x3(in_planes, planes, stride)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.relu = nn.ReLU(inplace=True)
         self.conv2 = conv3x3(planes, planes)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.downsample = (nn.Sequential(conv1x1(in_planes, planes, stride),
-                                         nn.BatchNorm2d(planes))
+                                         BatchNorm2d(planes))
                            if downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -69,7 +72,7 @@ class ResNetStem(nn.Module):
     def __init__(self, in_channels: int, width: int = 64):
         super().__init__()
         self.conv1 = nn.Conv2d(in_channels, width, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(width)
+        self.bn1 = BatchNorm2d(width)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
 

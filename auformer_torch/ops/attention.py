@@ -11,6 +11,12 @@ arithmetic (all f32, P.V included, output cast to the input dtype, as the
 Pallas kernel does; the JAX package's ``_xla_attention`` instead casts P to
 V's dtype before P.V, so in bf16 the two JAX paths differ and the port
 follows the kernel).
+
+The gradient is an ``autograd.Function`` (``_FusedAttention``), the
+counterpart of the JAX package's ``custom_vjp``: the forward is the kernel
+(or the plain version on the CPU) and saves q, k and v; the backward
+recomputes S and P in f32 and returns dq, dk and dv in the input dtypes,
+plain PyTorch as ``_pallas_attention_bwd`` is plain XLA.
 """
 from __future__ import annotations
 
@@ -109,25 +115,32 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
                              f"16-byte aligned (strides {t.stride()})")
 
 
-def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float,
-                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(B, H, N, D) -> (B, H, N, D), a view of a (B, N, H, D) tensor.
+def attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, g: torch.Tensor,
+                                 scale: float):
+    """The gradient of ``attention_reference`` with respect to q, k and v
+    for the output gradient ``g`` (the JAX package's
+    ``_pallas_attention_bwd``): S and P recomputed in f32, then
+    dV = P^T g, dS = P * (g V^T - rowsum(g V^T * P)), dQ = dS K * scale,
+    dK = dS^T Q * scale, each cast to its input's dtype."""
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    p = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * scale, dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
-    A CPU tensor takes ``attention_reference``. A CUDA tensor takes the
-    kernel or raises (``check_kernel_inputs``), with no mask (no model on
-    the path passes one). q, k and v may be strided views, such as the
-    head split of a fused QKV projection: the kernel reads them in place.
-    ``fused_attention.launches`` counts kernel launches.
-    """
+
+def _attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float) -> torch.Tensor:
+    """The plain version on the CPU, the kernel (or an error) on CUDA."""
     out = output_buffer(q)
     if q.device.type == "cpu":
-        return out.copy_(attention_reference(q, k, v, scale, mask))
+        return out.copy_(attention_reference(q, k, v, scale))
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
-    if mask is not None:
-        raise NotImplementedError("fused_attention: the CUDA kernel takes "
-                                  "no mask")
     check_kernel_inputs(q, k, v)
     b, h, n, d = q.shape
     if b * h == 0:
@@ -148,4 +161,55 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+class _FusedAttention(torch.autograd.Function):
+    """``_attention_forward`` with the recomputing backward. Autocast is
+    off inside both: q, k and v reach the kernel in the one dtype the
+    projection gave them, and the backward's f32 products stay f32."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        with torch.autocast(q.device.type, enabled=False):
+            out = _attention_forward(q, k, v, scale)
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        if g.device.type == "cuda":
+            fused_attention.backward_calls += 1
+        with torch.autocast(g.device.type, enabled=False):
+            dq, dk, dv = attention_backward_reference(q, k, v, g, ctx.scale)
+        return dq, dk, dv, None
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, H, N, D) -> (B, H, N, D), a view of a (B, N, H, D) tensor.
+
+    A CPU tensor takes ``attention_reference``. A CUDA tensor takes the
+    kernel or raises (``check_kernel_inputs``), with no mask (no model on
+    the path passes one). q, k and v may be strided views, such as the
+    head split of a fused QKV projection: the kernel reads them in place.
+    Where autograd records, the call goes through ``_FusedAttention``, whose
+    backward recomputes in plain PyTorch. ``fused_attention.launches``
+    counts kernel launches, ``fused_attention.backward_calls`` the
+    backward's calls on CUDA tensors.
+    """
+    if mask is not None:
+        if q.device.type != "cpu":
+            raise NotImplementedError("fused_attention: the CUDA kernel "
+                                      "takes no mask")
+        return output_buffer(q).copy_(
+            attention_reference(q, k, v, scale, mask))
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FusedAttention.apply(q, k, v, scale)
+    return _attention_forward(q, k, v, scale)
+
+
 fused_attention.launches = 0
+fused_attention.backward_calls = 0

@@ -8,10 +8,11 @@ directory, on the GPU.
         --data_backend synthetic]
 
 Weights: the first ``experiments/avformer/pretrain/*.pth`` (a reference
-checkpoint, e.g. the shipped best523.pth, test_aff2.py:18,62) through
-``load_reference_state_dict``, else random weights with a warning. The JAX
-package's orbax checkpoints (``best``/``latest``) are not read: checkpoints
-come with training (ROADMAP.md queue A4). ``AUFORMER_SWEEP=0`` selects the
+checkpoint, e.g. the shipped best523.pth, test_aff2.py:18,62, or the
+``best.pth`` / ``latest.pth`` that ``python -m auformer_torch.train`` writes
+there) through ``load_reference_state_dict``, else random weights with a
+warning. The JAX package's orbax checkpoints are not read.
+``AUFORMER_SWEEP=0`` selects the
 clip path (``run_inference``) instead of the dense sweep
 (``run_inference_sweep``, the default).
 """

@@ -1,0 +1,29 @@
+"""Training entry point (counterpart of the root train.py; reference
+train.py:339-343), on the GPU:
+
+    python -m auformer_torch.train -t AU -mn avformer --device_augment \\
+        [flags as opts.py]
+
+Checkpoints go to ``{exp_dir}/pretrain/{latest,best}.pth`` in the reference
+layout; ``--resume`` reads ``latest.pth``.
+"""
+from __future__ import annotations
+
+from . import train_lib
+from .core.config import parse_opt
+
+
+def main(argv: list[str] | None = None, device=None):
+    """Parse ``argv`` (default: the command line), train, and return
+    ``(state, history)``. ``device``: ``cuda`` unless given (the tests pass
+    ``"cpu"``)."""
+    cfg = parse_opt(argv)
+    print(f"Task: {cfg.task}")
+    print("Model:", cfg.model_name)
+    print("Modality:", cfg.modality)
+    print("clip size", cfg.n_frames, cfg.image_size)
+    return train_lib.train(cfg, device=device)
+
+
+if __name__ == "__main__":
+    main()

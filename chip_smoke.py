@@ -45,12 +45,31 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            transfer), sweep_serve_benchmark's end-to-end label frames/s
            (decode, wait and sweep seconds) through the worker and through
            a decode thread, beside the array-fed rate, in bf16
+  train    a synthetic train/val split written by the port's fixtures
+           (videos of 1,500, 1,500, 600 and 100 frames: train, train,
+           val, test; 112x112 JPEG q90). Before any training: the
+           attention autograd Function (kernel forward, recomputing
+           backward) against autograd through the plain version at the
+           fusion head's and the spatial site in both dtypes, with forward,
+           backward, plain and SDPA forward+backward times; the fusion
+           head's to_qkv gradients after one backward of the full model
+           against the plain route's; one fp32 train step (B=4, dropout 0,
+           symmetric clips) against the same step on the CPU; the
+           augmentation stages at every op against the CPU. Then the main
+           path, ``python -m auformer_torch.train`` (its ``main``) at
+           B=64 in bf16 with --device_augment for 2 epochs (launch
+           counts), 1 epoch with --resume, 5 steps with --device_audio, a
+           30-step overfit of one batch, the checkpoint round trip, and
+           the numbers: clips/s, StepTimer data and step ms, device ms,
+           kernels and idle share per step, eval s, peak memory, loss per
+           epoch
 
 Then one JSON line of per-kernel results: for attention, sums over one
 sweep bucket's calls in bf16 (the main path's dtype), with the per-bucket
-sums in both dtypes (``per_bucket``) and the clip path's per-forward sums
-(``per_forward``); ``launches`` counts the slice's, the sweep's and the
-dataset's main path runs (``launches_by_path``). Then the nvidia-smi
+sums in both dtypes (``per_bucket``), the clip path's per-forward sums
+(``per_forward``) and the train step's forward and backward at the fusion
+head (``per_train_step``); ``launches`` counts the slice's, the sweep's,
+the dataset's and the train phase's main path runs (``launches_by_path``). Then the nvidia-smi
 name/power line, and last ``{"ok": true, "device": {...}}``. Without a GPU,
 or outside a checkout of the repository, it exits non-zero and prints no
 result.
@@ -133,6 +152,18 @@ CLIP_ROWS = range(1000, 1064)
 # decoded frame vs its source image, uint8 levels: JPEG q90 with 4:2:0
 # chroma of a gradient with a moving blob and N(0, 0.02) noise
 JPEG_MEAN_TOL, JPEG_MAX_TOL = 6.0, 48
+
+# the train phase's split: train, train, val, test; with downsample_rate 2
+# that is 23 steps of 64 clips per epoch and one val batch of 256
+TRAIN_FRAMES = (1500, 1500, 600, 100)
+TRAIN_BATCH = 64
+# attention gradient sites: (name, tokens, head dim, batch) with 8 heads
+GRAD_SITES = (("fusion_head", 12, 32, TRAIN_BATCH),
+              ("spatial", 49, 32, TRAIN_BATCH * FRAMES))
+ATTN_FWD_PER_STEP, ATTN_BWD_PER_STEP = 11, 3
+STEP_TOL = (2e-3, 2e-4)   # rtol, atol: card fp32 step vs CPU fp32 step
+STATS_TOL = (1e-3, 1e-4)  # BatchNorm running statistics after that step
+OVERFIT_STEPS = 30
 
 
 def emit(phase: str, **fields) -> None:
@@ -990,6 +1021,511 @@ def phase_dataset(torch, dev) -> dict:
     return launches
 
 
+def attention_grad_cases(torch, dev) -> list[dict]:
+    """The attention autograd Function (the kernel forward, the recomputing
+    backward) against autograd through the plain version, on the head
+    split of a fused QKV projection: the output and the projection's
+    gradient. Times per call: the kernel forward, the backward
+    (``attention_backward_reference``), the plain version's forward +
+    backward through autograd, and SDPA's forward + backward."""
+    import torch.nn.functional as F
+    from auformer_torch.ops.attention import (attention_backward_reference,
+                                              attention_reference,
+                                              fused_attention)
+    rs = np.random.RandomState(SEED + 5)
+    cases = []
+    for site, n, d, batch in GRAD_SITES:
+        base = rs.randn(batch, n, 3 * HEADS * d).astype(np.float32)
+        grad = rs.randn(batch, HEADS, n, d).astype(np.float32)
+        scale = d ** -0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.from_numpy(grad).to(dev, dtype)
+
+            def views(qkv):
+                return qkv.reshape(batch, n, 3, HEADS, d).permute(
+                    2, 0, 3, 1, 4).unbind(0)
+
+            results = []
+            for fn in (fused_attention, attention_reference):
+                qkv = torch.from_numpy(base).to(dev, dtype).requires_grad_()
+                out = fn(*views(qkv), scale)
+                out.backward(g)
+                results.append((out.detach().float(), qkv.grad.float()))
+            torch.cuda.synchronize()
+            dname = str(dtype).split(".")[-1]
+            rtol, atol = ATTN_TOL[dname]
+            errs = [(a - b).abs().max().item()
+                    for a, b in zip(*results)]
+            if not all(torch.allclose(a, b, rtol=rtol, atol=atol)
+                       for a, b in zip(*results)):
+                fail(f"attention gradient {site} {dname}: max |err| {errs}")
+
+            qkv = torch.from_numpy(base).to(dev, dtype).requires_grad_()
+            q, k, v = views(qkv.detach())
+            with torch.no_grad():
+                fwd, fwd_ev = timed(
+                    torch, lambda: fused_attention(q, k, v, scale), 50)
+            bwd, bwd_ev = timed(torch, lambda: attention_backward_reference(
+                q, k, v, g, scale), 50)
+            plain, plain_ev = timed(torch, lambda: torch.autograd.grad(
+                attention_reference(*views(qkv), scale), qkv, g), 20)
+            lib, lib_ev = timed(torch, lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(*views(qkv), scale=scale),
+                qkv, g), 20)
+            numel, size = q.numel(), q.element_size()
+            flops = 4 * batch * HEADS * n * n * d
+            peak = PEAK_FLOPS["f32" if dtype == torch.float32 else "bf16"]
+            # forward: q, k, v read, o written; backward: q, k, v and the
+            # output gradient read, dq, dk, dv written, 10 B H N^2 D f32
+            # operations (S recomputed, dV, dP, dQ, dK)
+            fb_ms, fb_by = bound(4 * numel * size, flops / peak)
+            bb_ms, bb_by = bound(7 * numel * size,
+                                 2.5 * flops / PEAK_FLOPS["f32"])
+            cases.append(dict(
+                site=site, dtype=dname, shape=[batch, HEADS, n, d],
+                max_abs_err_out=errs[0], max_abs_err_grad=errs[1],
+                rtol=rtol, atol=atol, forward_ms=fwd, backward_ms=bwd,
+                plain_fwd_bwd_ms=plain, library_fwd_bwd_ms=lib,
+                forward_bound_ms=fb_ms, forward_bound_by=fb_by,
+                backward_bound_ms=bb_ms, backward_bound_by=bb_by,
+                event_ms={"forward": fwd_ev, "backward": bwd_ev,
+                          "plain": plain_ev, "library": lib_ev}))
+    return cases
+
+
+def train_batch(rs, b: int, symmetric: bool = False) -> dict:
+    """uint8 clips (left-right symmetric ones: the random flip is the
+    identity), host features and labels with an ignored row."""
+    if symmetric:
+        half = rs.randint(0, 256, (b, FRAMES, IMAGE, IMAGE // 2, 3))
+        clip = np.concatenate([half, half[:, :, :, ::-1]], axis=3)
+    else:
+        clip = rs.randint(0, 256, (b, FRAMES, IMAGE, IMAGE, 3))
+    au = rs.randint(0, 2, (b, 12)).astype(np.int8)
+    au[0, 0] = -1
+    return {"clip": np.ascontiguousarray(clip.astype(np.uint8)),
+            "audio_features": rs.randn(b, 1, 64, 1001).astype(np.float32),
+            "AU": au, "EX": rs.randint(-1, 7, (b, 1)).astype(np.int8),
+            "VA": rs.uniform(-1, 1, (b, 2)).astype(np.float32)}
+
+
+def on(torch, batch: dict, dev) -> dict:
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def head_qkv_grads(torch, model, cfg, batch) -> dict:
+    """One train-mode forward and backward of the full model (frozen
+    streams, no flip, no dropout): the fusion head's to_qkv gradients."""
+    from auformer_torch.nn import loss_suite
+    from auformer_torch.parallel import step as tstep
+    tstep.make_optimizer(cfg, model)
+    model.train()
+    out = tstep._forward(cfg, model, tstep.prep_batch(batch, train=False))
+    loss, _ = tstep.task_loss(loss_suite(model), cfg.task, out,
+                              tstep._labels_of(batch))
+    loss.backward()
+    return {n: p.grad.detach().float() for n, p in model.named_parameters()
+            if n.startswith("au_head") and n.endswith("to_qkv.weight")}
+
+
+def model_gradient_check(torch, dev, sd) -> dict:
+    """Fault 1: after one backward of the full fp32 model (B=16) the fusion
+    head's to_qkv gradients are non-zero and equal the plain route's (every
+    attention through autograd of ``attention_reference``)."""
+    from auformer_torch.core.config import Config
+    from auformer_torch.core.weights import load_weights
+    from auformer_torch.nn import blocks, build_model
+    from auformer_torch.ops.attention import (attention_reference,
+                                              fused_attention, output_buffer)
+    cfg = Config(compute_dtype="float32", image_size=IMAGE, n_frames=FRAMES,
+                 dropout_rate=0.0)
+    batch = on(torch, train_batch(np.random.RandomState(SEED + 6), 16), dev)
+    grads = []
+    for route in ("kernel", "plain"):
+        model = build_model(cfg, dtype=torch.float32)
+        load_weights(model, sd)
+        model.to(dev)
+        if route == "plain":
+            blocks.fused_attention = (
+                lambda q, k, v, scale, mask=None:
+                output_buffer(q).copy_(attention_reference(q, k, v, scale)))
+        try:
+            before = (fused_attention.launches,
+                      fused_attention.backward_calls)
+            grads.append(head_qkv_grads(torch, model, cfg, batch))
+            counted = (fused_attention.launches - before[0],
+                       fused_attention.backward_calls - before[1])
+        finally:
+            blocks.fused_attention = fused_attention
+        if route == "kernel" and counted != (ATTN_FWD_PER_STEP,
+                                             ATTN_BWD_PER_STEP):
+            fail(f"one train forward/backward launched {counted}")
+        del model
+    kernel, plain = grads
+    errs = {}
+    for name, want in plain.items():
+        got = kernel[name]
+        errs[name] = (got - want).abs().max().item()
+        if not (got.abs().sum().item() > 0 and torch.allclose(
+                got, want, rtol=STEP_TOL[0],
+                atol=STEP_TOL[1] * want.abs().max().item())):
+            fail(f"fusion head {name} gradient: kernel route "
+                 f"{got.abs().sum().item()} vs plain, max |err| "
+                 f"{errs[name]}")
+    return {"layers": len(plain), "max_abs_err": max(errs.values()),
+            "grad_abs_sum": {n: g.abs().sum().item()
+                             for n, g in kernel.items()}}
+
+
+def card_vs_cpu_step(torch, dev, sd) -> dict:
+    """One fp32 train step (full width, B=4, dropout 0, symmetric clips, no
+    augmentation) on the card and on the CPU: the loss, every trainable
+    gradient, the fusion head's updated parameters (Adam's first step
+    moves each by +-lr, so an element whose gradient is ~0 may step
+    either way: 99.9 % within STEP_TOL, all within 2 lr) and every
+    BatchNorm statistic."""
+    from auformer_torch.core.config import Config
+    from auformer_torch.core.weights import load_weights
+    from auformer_torch.nn import build_model, loss_suite
+    from auformer_torch.parallel import step as tstep
+    cfg = Config(compute_dtype="float32", image_size=IMAGE, n_frames=FRAMES,
+                 dropout_rate=0.0, batch_size=4, learning_rate=1e-3)
+    batch = train_batch(np.random.RandomState(SEED + 7), 4, symmetric=True)
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        model = build_model(cfg, dtype=torch.float32)
+        load_weights(model, sd)
+        model.to(device)
+        state = tstep.create_train_state(cfg, model)
+        step = tstep.make_train_step(cfg, model, loss_suite(model))
+        grads = {}
+        apply = state.apply_gradients
+
+        def capture(state=state, grads=grads, apply=apply):
+            grads.update({n: p.grad.detach().cpu().clone()
+                          for n, p in state.model.named_parameters()
+                          if p.requires_grad})
+            apply()
+        state.apply_gradients = capture
+        t0 = time.perf_counter()
+        metrics = step(state, on(torch, batch, device),
+                       torch.Generator(device).manual_seed(SEED))
+        loss = float(metrics["loss"])
+        runs.append((loss, grads, {k: v.detach().cpu() for k, v in
+                                   model.state_dict().items()},
+                     time.perf_counter() - t0))
+    (loss_card, g_card, sd_card, _), (loss_cpu, g_cpu, sd_cpu, cpu_s) = runs
+    rtol, atol = STEP_TOL
+    if not abs(loss_card - loss_cpu) <= atol + rtol * abs(loss_cpu):
+        fail(f"fp32 train step loss {loss_card} on the card, {loss_cpu} on "
+             f"the CPU")
+    grad_err = max((g_card[n] - g).abs().max().item() for n, g in
+                   g_cpu.items())
+    if not all(torch.allclose(g_card[n], g, rtol=rtol, atol=atol)
+               for n, g in g_cpu.items()):
+        fail(f"fp32 train step gradients differ from the CPU by {grad_err}")
+    close, param_err, stats_err = [], 0.0, 0.0
+    for key, want in sd_cpu.items():
+        got = sd_card[key]
+        diff = (got.float() - want.float()).abs()
+        if key.startswith("au_head"):
+            param_err = max(param_err, diff.max().item())
+            close.append((diff <= atol + rtol * want.abs()).reshape(-1))
+        elif "running_" in key:
+            stats_err = max(stats_err, diff.max().item())
+            if not torch.allclose(got, want, rtol=STATS_TOL[0],
+                                  atol=STATS_TOL[1]):
+                fail(f"BatchNorm statistic {key} differs from the CPU by "
+                     f"{diff.max().item()}")
+        elif not torch.equal(got, want):
+            fail(f"frozen {key} moved in the train step")
+    share = torch.cat(close).float().mean().item()
+    if param_err > 2 * cfg.learning_rate or share < 0.999:
+        fail(f"updated fusion head parameters differ from the CPU: max "
+             f"{param_err}, {share} within tolerance")
+    return {"loss_card": loss_card, "loss_cpu": loss_cpu,
+            "grad_max_abs_err": grad_err, "param_max_abs_diff": param_err,
+            "param_share_within_tol": share,
+            "bn_stats_max_abs_err": stats_err, "rtol": rtol, "atol": atol,
+            "cpu_step_s": cpu_s}
+
+
+def augment_check(torch, dev) -> dict:
+    """Every op of the vocabulary at both signs through the augmentation
+    stages and a whole slot, on the card against the CPU (112x112 frames):
+    LUT ops and nearest warps exact, blends and bicubic warps +-1 level.
+    And augment_clips_device's time at the main path's (64, 16) clips."""
+    from auformer_torch.ops import augment_device as aug
+    rs = np.random.RandomState(SEED + 8)
+    ops = np.tile(np.arange(15), 4)
+    signed = np.isin(ops, [1, 2, 3, 4, 5, 9, 10, 13, 14])
+    mags = np.array([0, 0.2, 0.3, 0.3, 0.45, 26.67, 0, 5, 142.2, 0.6, 0.3,
+                     0, 0, 0.7, 0.5])[ops]
+    m = (mags * np.where(signed & (np.arange(len(ops)) >= 30), -1.0, 1.0)
+         ).astype(np.float32)
+    x = rs.randint(0, 256, (len(ops), IMAGE, IMAGE, 3)).astype(np.uint8)
+    x[::7] //= 3
+    cpu = [torch.from_numpy(a) for a in (x, ops, m)]
+    card = [a.to(dev) for a in cpu]
+    loose = torch.from_numpy(np.isin(ops, [1, 2, 13, 14]))
+    worst = {}
+    for name in ("_geo_stage", "_lut_stage", "_slot_apply"):
+        diff = (getattr(aug, name)(*card).cpu().int()
+                - getattr(aug, name)(*cpu).int()).abs().amax(dim=(1, 2, 3))
+        worst[name] = {"exact_ops": int(diff[~loose].max()),
+                       "blend_bicubic_ops": int(diff[loose].max())}
+        if diff[~loose].max() > 0 or diff[loose].max() > 1:
+            fail(f"augmentation {name} on the card differs from the CPU: "
+                 f"{worst[name]}")
+    factor = torch.from_numpy(1.0 + m)
+    for name in ("_color_stage", "_sharp_stage"):
+        d = (getattr(aug, name)(card[0], factor.to(dev)).cpu().int()
+             - getattr(aug, name)(cpu[0], factor).int()).abs().max().item()
+        worst[name] = d
+        if d > 1:
+            fail(f"augmentation {name} on the card differs from the CPU by "
+                 f"{d}")
+    clips = torch.from_numpy(rs.randint(
+        0, 256, (TRAIN_BATCH, FRAMES, IMAGE, IMAGE, 3)).astype(np.uint8)
+        ).to(dev)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    ms, ev = timed(torch, lambda: aug.augment_clips_device(clips, gen), 5,
+                   warmup=1)
+    return {"max_level_diff": worst, "augment_b64_ms": ms,
+            "augment_b64_event_ms": ev}
+
+
+def train_argv(work: Path, exp: str, *extra) -> list[str]:
+    return ["--root", str(work / "root"), "--lmdb_label_dir",
+            str(work / "labels"), "--cache_dir", str(work / "cache"),
+            "--exp_dir", str(work / exp), "--image_size", str(IMAGE),
+            "--n_frames", str(FRAMES), "--batch_size", str(TRAIN_BATCH),
+            "--downsample_rate", "2", "--epochs", "2", "--device_augment",
+            "--seed", str(SEED), *extra]
+
+
+def profile_steps(torch, dev, model, work: Path) -> dict:
+    """5 bf16 train steps on loader batches: device ms, kernels and the
+    idle share per step (torch.profiler), the wall per step, one step's
+    attention launches and backward calls; and the loader alone (4
+    threads: JPEG reads and host features) per batch, with the card
+    idle."""
+    from auformer_torch import train_lib
+    from auformer_torch.core.config import parse_opt
+    from auformer_torch.data import (Aff2CompDataset, DataLoader,
+                                     SubsetSequentialSampler)
+    from auformer_torch.nn import loss_suite
+    from auformer_torch.ops.attention import fused_attention
+    from auformer_torch.parallel import step as tstep
+    cfg = parse_opt(train_argv(work, "exp_profile"))
+    ds = Aff2CompDataset(cfg)
+    ds.set_modes(list(model.modes))
+    ids = np.nonzero(ds.train_ids)[0][::2][:5 * TRAIN_BATCH]
+    keys = train_lib.device_batch_keys(model, cfg)
+    t0 = time.perf_counter()
+    host = list(DataLoader(ds, TRAIN_BATCH, SubsetSequentialSampler(ids),
+                           num_threads=cfg.host_threads, drop_last=True))
+    loader_s = (time.perf_counter() - t0) / len(host)
+    batches = [train_lib.to_device(b, keys, dev) for b in host]
+    state = tstep.create_train_state(cfg, model)
+    step = tstep.make_train_step(cfg, model, loss_suite(model))
+    gen = torch.Generator(dev).manual_seed(SEED)
+
+    def run():
+        for b in batches:
+            step(state, b, gen)
+    run()
+    torch.cuda.synchronize()
+    fused_attention.launches = fused_attention.backward_calls = 0
+    step(state, batches[0], gen)
+    torch.cuda.synchronize()
+    per_step = {"forward": fused_attention.launches,
+                "backward": fused_attention.backward_calls}
+    if per_step != {"forward": ATTN_FWD_PER_STEP,
+                    "backward": ATTN_BWD_PER_STEP}:
+        fail(f"attention per train step {per_step}")
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    prof = device_profile(torch, run, cpu=True)
+    events = [] if prof is None else [
+        e for e in prof.key_averages()
+        if on_device(e) and e.device_time_total > 0]
+    events.sort(key=lambda e: e.device_time_total, reverse=True)
+    device_ms = (None if prof is None else
+                 sum(e.device_time_total for e in events) / 1e3 / len(batches))
+    return {"steps": len(batches), "wall_ms_per_step": wall_ms,
+            "loader_alone_s_per_batch": loader_s,
+            "device_ms_per_step": device_ms,
+            "device_idle_share": (None if device_ms is None
+                                  else 1.0 - device_ms / wall_ms),
+            "device_kernels_per_step": (None if prof is None else sum(
+                e.count for e in events) / len(batches)),
+            "attention_per_step": per_step,
+            "top": [{"name": e.key[:80],
+                     "ms_per_step": e.device_time_total / 1e3 / len(batches),
+                     "calls_per_step": e.count / len(batches)}
+                    for e in events[:15]]}
+
+
+def overfit(torch, dev, sd, work: Path) -> list[float]:
+    """OVERFIT_STEPS bf16 steps (no augmentation, dropout 0, lr 1e-3) of
+    the seeded model on one batch of the train split: the AU loss of
+    each."""
+    from auformer_torch import train_lib
+    from auformer_torch.core.config import parse_opt
+    from auformer_torch.core.weights import load_weights
+    from auformer_torch.data import (Aff2CompDataset, DataLoader,
+                                     SubsetSequentialSampler)
+    from auformer_torch.nn import build_model, loss_suite
+    from auformer_torch.parallel import step as tstep
+    cfg = parse_opt(train_argv(work, "exp_overfit", "--dropout_rate", "0",
+                               "--learning_rate", "1e-3"))
+    cfg.device_augment = False
+    model = build_model(cfg, dtype=torch.float32)
+    load_weights(model, sd)
+    model.to(dev)
+    ds = Aff2CompDataset(cfg)
+    ds.set_modes(list(model.modes))
+    ids = np.nonzero(ds.train_ids)[0][:TRAIN_BATCH]
+    batch = next(iter(DataLoader(ds, TRAIN_BATCH,
+                                 SubsetSequentialSampler(ids))))
+    batch = train_lib.to_device(batch, train_lib.device_batch_keys(
+        model, cfg), dev)
+    state = tstep.create_train_state(cfg, model)
+    step = tstep.make_train_step(cfg, model, loss_suite(model))
+    gen = torch.Generator(dev).manual_seed(SEED)
+    return [float(step(state, batch, gen)["loss"])
+            for _ in range(OVERFIT_STEPS)]
+
+
+def phase_train(torch, dev) -> tuple[dict, list]:
+    from auformer_torch import train, train_lib
+    from auformer_torch.core.config import Config, parse_opt
+    from auformer_torch.core.weights import (load_reference_state_dict,
+                                             load_weights)
+    from auformer_torch.data.fixtures import generate_synthetic_dataset
+    from auformer_torch.nn import build_model
+    from auformer_torch.ops.attention import fused_attention
+    from auformer_torch.ops.audio_kernel import mel_frontend
+    from auformer_torch.parallel import step as tstep
+
+    t_phase = time.perf_counter()
+    work = ROOT / ".cache" / "chip_smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    generate_synthetic_dataset(str(work / "root"), str(work / "labels"),
+                               n_videos=len(TRAIN_FRAMES),
+                               frames_per_video=TRAIN_FRAMES,
+                               image_size=IMAGE, seed=SEED, with_masks=False,
+                               splits=["train", "train", "val", "test"])
+    fixture_s = time.perf_counter() - t0
+
+    # before any training: the gradient checks
+    grad_cases = attention_grad_cases(torch, dev)
+    sd = random_reference_state_dict(
+        build_model(Config(compute_dtype="float32")), SEED)
+    model_grads = model_gradient_check(torch, dev, sd)
+    step_check = card_vs_cpu_step(torch, dev, sd)
+    aug = augment_check(torch, dev)
+    torch.cuda.empty_cache()
+
+    # the main path: python -m auformer_torch.train, bf16, --device_augment,
+    # 2 epochs, with the counts set to 0 just before it
+    torch.cuda.reset_peak_memory_stats()
+    fused_attention.launches = fused_attention.backward_calls = 0
+    mel_frontend.launches = 0
+    t0 = time.perf_counter()
+    state, history = train.main(train_argv(work, "exp"))
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = {"attention": fused_attention.launches,
+                "mel": mel_frontend.launches}
+    backward_calls = fused_attention.backward_calls
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    steps = sum(h["steps"] for h in history)
+    want = {"attention": ATTN_FWD_PER_STEP * (steps + len(history)),
+            "mel": 0}
+    if (len(history) != 2 or launches != want
+            or backward_calls != ATTN_BWD_PER_STEP * steps):
+        fail(f"train.main: {len(history)} epochs, {steps} steps, launches "
+             f"{launches} (expected {want}), backward calls "
+             f"{backward_calls}")
+    pretrain = work / "exp" / "pretrain"
+    for h in history:
+        if not (np.isfinite(h["loss"]) and np.isfinite(h["score"])
+                and set(h["scores"]) == {"EX", "AU", "VA", "loss"}):
+            fail(f"epoch {h['epoch']} has no finite loss and scores: {h}")
+    if not (pretrain / "latest.pth").is_file():
+        fail("train.main wrote no latest.pth")
+
+    # 1 epoch with --resume, then the checkpoint round trip: latest.pth
+    # into a fresh model against the trained model in memory, fp32 eval
+    state, resumed = train.main(train_argv(
+        work, "exp", "--resume", "--start_epoch", "2", "--epochs", "3"))
+    if [h["epoch"] for h in resumed] != [2]:
+        fail(f"--resume ran epochs {[h['epoch'] for h in resumed]}")
+    cfg32 = Config(compute_dtype="float32", image_size=IMAGE,
+                   n_frames=FRAMES)
+    fresh = build_model(cfg32, dtype=torch.float32)
+    load_weights(fresh, load_reference_state_dict(
+        str(pretrain / "latest.pth")))
+    fresh.to(dev).eval()
+    batch = on(torch, train_batch(np.random.RandomState(SEED + 9), 8), dev)
+    logits = []
+    for model in (state.model.eval(), fresh):
+        with torch.no_grad():
+            logits.append(tstep._forward(cfg32, model, tstep.prep_batch(
+                batch, train=False)))
+    ckpt_err = (logits[0] - logits[1]).abs().max().item()
+    if not (torch.isfinite(logits[0]).all() and ckpt_err <= 1e-5):
+        fail(f"latest.pth reloaded gives logits {ckpt_err} from the trained "
+             "model's")
+    del fresh
+
+    # 5 steps with --device_audio (raw windows, no arena)
+    cfg_audio = parse_opt(train_argv(work, "exp_audio", "--device_audio",
+                                     "--audio_arena_mb", "0", "--epochs",
+                                     "1"))
+    t0 = time.perf_counter()
+    audio_state, audio_hist = train_lib.train(cfg_audio,
+                                              max_steps_per_epoch=5)
+    audio_s = time.perf_counter() - t0
+    if audio_state.step != 5 or not np.isfinite(audio_hist[0]["loss"]):
+        fail(f"--device_audio ran {audio_state.step} steps")
+    del audio_state
+
+    prof = profile_steps(torch, dev, state.model, work)
+    losses = overfit(torch, dev, sd, work)
+    if not (np.isfinite(losses).all()
+            and np.mean(losses[-5:]) < 0.8 * np.mean(losses[:5])):
+        fail(f"the overfit run's AU loss did not fall: {losses}")
+
+    warm = history[1]
+    emit("train", videos=list(TRAIN_FRAMES), image=IMAGE, t=FRAMES,
+         batch=TRAIN_BATCH, fixture_s=fixture_s,
+         attention_gradient=grad_cases, model_gradient=model_grads,
+         card_vs_cpu_step=step_check, augmentation=aug,
+         main={"seconds": main_s, "epochs": len(history), "steps": steps,
+               "launches": launches, "backward_calls": backward_calls},
+         loss_per_epoch=[h["loss"] for h in history + resumed],
+         score_per_epoch=[h["score"] for h in history + resumed],
+         train_clips_per_s_epoch2=warm["steps"] * TRAIN_BATCH
+         / warm["seconds"],
+         step_timer_ms_epoch2={"data": warm["data_ms"],
+                               "step": warm["step_ms"]},
+         eval_s=[h["eval_seconds"] for h in history + resumed],
+         epoch_s=[h["seconds"] for h in history + resumed],
+         checkpoint_max_abs_err=ckpt_err,
+         device_audio={"steps": 5, "seconds": audio_s,
+                       "loss": audio_hist[0]["loss"]},
+         overfit_au_loss=losses, profile=prof, peak_memory_mb=peak_mb,
+         phase_s=time.perf_counter() - t_phase)
+    shutil.rmtree(work, ignore_errors=True)   # the split and the .pth files
+    return launches, grad_cases
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1012,6 +1548,7 @@ def main() -> int:
     by_path = {"slice": phase_slice(torch, dev, batch),
                "sweep": phase_sweep(torch, dev),
                "dataset": phase_dataset(torch, dev)}
+    by_path["train"], grad_cases = phase_train(torch, dev)
     emit("done", seconds=time.perf_counter() - T_START,
          profiler=PROFILER_LOG)
 
@@ -1034,6 +1571,14 @@ def main() -> int:
     per_bucket = {d: per_call("sweep", d) for d in dtypes}
     per_forward = {d: per_call("slice", d) for d in dtypes}
     mel_main = mel[1]                       # the slice's input: feature_len
+    # the train step at the fusion head: 3 forward launches, 3 backward
+    # calls (the head's layers; the frozen streams' 8 forwards are at the
+    # other sites)
+    per_train_step = {
+        c["dtype"]: {key: c[key] * ATTN_BWD_PER_STEP for key in (
+            "forward_ms", "backward_ms", "plain_fwd_bwd_ms",
+            "library_fwd_bwd_ms", "forward_bound_ms", "backward_bound_ms")}
+        for c in grad_cases if c["site"] == "fusion_head"}
     print(json.dumps({"kernels": [
         {"name": "attention", "route": "cuda",
          "source": str(build.source("attention").relative_to(ROOT)),
@@ -1042,7 +1587,8 @@ def main() -> int:
          "launches_by_path": {p: c["attention"] for p, c in by_path.items()},
          **per_bucket["bfloat16"],
          "max_abs_err": max(c["max_abs_err"] for c in attn),
-         "per_bucket": per_bucket, "per_forward": per_forward},
+         "per_bucket": per_bucket, "per_forward": per_forward,
+         "per_train_step": per_train_step},
         {"name": "mel_frontend", "route": "cuda",
          "source": str(build.source("mel").relative_to(ROOT)),
          "replaces": "auformer/ops/audio_pallas.py:185",

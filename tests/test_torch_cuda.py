@@ -376,3 +376,141 @@ def test_dataset_fed_sweep_on_the_card_matches_the_cpu(cuda_device,
                                device="cpu")
     assert got.shape == want.shape == (33, 21)
     np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-4)
+
+
+# -- training ------------------------------------------------------------------
+
+# attention sites of a B=64 train step (T=16): (batch, tokens, head dim),
+# 8 heads; the fusion head's is the one whose gradient trains
+TRAIN_SITES = {"fusion_head": (64, 12, 32), "spatial": (1024, 49, 32),
+               "temporal": (64, 17, 64)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("site", sorted(TRAIN_SITES))
+def test_attention_gradient_at_training_sites(cuda_device, site, dtype):
+    """The autograd Function (kernel forward, recomputing backward) on the
+    to_qkv head split against autograd through the plain version: forward
+    and q, k, v gradients; one kernel launch and one backward call."""
+    b, n, d = TRAIN_SITES[site]
+    rs = np.random.RandomState(b + n)
+    base = torch.from_numpy(rs.randn(b, n, 3 * 8 * d).astype(np.float32))
+    grad = torch.from_numpy(rs.randn(b, 8, n, d).astype(np.float32)).to(
+        cuda_device, dtype)
+    results = []
+    for fn in (tatt.fused_attention, tatt.attention_reference):
+        qkv = base.to(cuda_device, dtype).requires_grad_()
+        q, k, v = qkv.reshape(b, n, 3, 8, d).permute(2, 0, 3, 1, 4).unbind(0)
+        launches = tatt.fused_attention.launches
+        backward = tatt.fused_attention.backward_calls
+        out = fn(q, k, v, d ** -0.5)
+        out.backward(grad)
+        torch.cuda.synchronize()
+        if fn is tatt.fused_attention:
+            assert type(out.grad_fn).__name__ == "_FusedAttentionBackward"
+            assert tatt.fused_attention.launches == launches + 1
+            assert tatt.fused_attention.backward_calls == backward + 1
+        results.append((out.detach().float(), qkv.grad.float()))
+    rtol, atol = TOL[dtype]
+    for got, want in zip(*results):
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+
+
+def _symmetric_batch(seed, b=4, image=32):
+    rs = np.random.RandomState(seed)
+    half = rs.randint(0, 256, (b, 16, image, image // 2, 3)).astype(np.uint8)
+    au = rs.randint(0, 2, (b, 12)).astype(np.int8)
+    au[0, 0] = -1
+    return {"clip": np.concatenate([half, half[:, :, :, ::-1]], axis=3),
+            "audio_features": rs.randn(b, 1, 64, 1001).astype(np.float32),
+            "AU": au, "EX": rs.randint(-1, 7, (b, 1)).astype(np.int8),
+            "VA": rs.uniform(-1, 1, (b, 2)).astype(np.float32)}
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One fp32 avformer train step (32x32, B=4, dropout 0, symmetric clips
+    so the flip is the identity, no augmentation) on the card and on the
+    CPU: the loss, every trainable gradient (the fusion head's to_qkv ones
+    non-zero), the updated parameters (Adam's first step moves each by
+    +-lr, so an element whose gradient is ~0 may step either way: 99.9 %
+    within the tolerance, all within 2 lr) and every BatchNorm statistic."""
+    from auformer_torch.nn import loss_suite
+    from auformer_torch.parallel import step as tstep
+
+    cfg = Config(compute_dtype="float32", image_size=32, dropout_rate=0.0,
+                 batch_size=4, learning_rate=1e-3)
+    torch.manual_seed(4)
+    cpu_model = build_model(cfg, dtype=torch.float32)
+    card_model = build_model(cfg, dtype=torch.float32)
+    card_model.load_state_dict(cpu_model.state_dict())
+    card_model.to(cuda_device)
+    batch = _symmetric_batch(5)
+    grads, out = [], []
+    for model, dev in ((card_model, cuda_device), (cpu_model, "cpu")):
+        state = tstep.create_train_state(cfg, model)
+        step = tstep.make_train_step(cfg, model, loss_suite(model))
+        tensors = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                   for k, v in batch.items()}
+        hook = {}
+        orig = state.apply_gradients
+
+        def capture(orig=orig, state=state, hook=hook):
+            hook.update({n: p.grad.detach().cpu().clone()
+                         for n, p in state.model.named_parameters()
+                         if p.requires_grad})
+            orig()
+        state.apply_gradients = capture
+        attn = tatt.fused_attention.backward_calls
+        metrics = step(state, tensors, torch.Generator(dev).manual_seed(0))
+        if dev != "cpu":
+            assert tatt.fused_attention.backward_calls - attn == 3
+        grads.append(hook)
+        out.append((float(metrics["loss"]),
+                    {k: v.cpu() for k, v in model.state_dict().items()}))
+    (loss_card, sd_card), (loss_cpu, sd_cpu) = out
+    assert loss_card == pytest.approx(loss_cpu, rel=2e-3, abs=2e-4)
+    qkv = "au_head.corr_transformer.layers.0.0.fn.fn.to_qkv.weight"
+    assert grads[0][qkv].abs().sum() > 0
+    for name, g in grads[1].items():
+        torch.testing.assert_close(grads[0][name], g, rtol=2e-3, atol=2e-4)
+    close = []
+    for key, want in sd_cpu.items():
+        got = sd_card[key]
+        if key.startswith("au_head"):
+            diff = (got - want).abs()
+            assert diff.max() <= 2 * cfg.learning_rate, key
+            close.append((diff <= 2e-4 + 2e-3 * want.abs()).reshape(-1))
+        else:
+            torch.testing.assert_close(got.float(), want.float(), rtol=1e-3,
+                                       atol=1e-4)
+    assert torch.cat(close).float().mean() >= 0.999
+
+
+def test_augmentation_stages_on_the_card_match_the_cpu(cuda_device):
+    """Every op of the vocabulary at both signs through the four stages
+    and a whole slot, on the card against the CPU: LUT ops and the nearest
+    warps exact, blends and bicubic warps +-1 level."""
+    from auformer_torch.ops import augment_device as aug
+    rs = np.random.RandomState(6)
+    ops = np.tile(np.arange(15), 4)
+    signs = np.where(np.arange(len(ops)) >= 30, -1.0, 1.0)
+    mags = np.array([0, 0.2, 0.3, 0.3, 0.45, 26.67, 0, 5, 142.2, 0.6, 0.3,
+                     0, 0, 0.7, 0.5])[ops]
+    signed = np.isin(ops, [1, 2, 3, 4, 5, 9, 10, 13, 14])
+    m = (mags * np.where(signed, signs, 1.0)).astype(np.float32)
+    x = rs.randint(0, 256, (len(ops), 112, 112, 3)).astype(np.uint8)
+    x[::7] //= 3                                # narrow histograms too
+    args = [torch.from_numpy(a) for a in (x, ops, m)]
+    card_args = [a.to(cuda_device) for a in args]
+    loose = torch.from_numpy(np.isin(ops, [1, 2, 13, 14]))
+    for name in ("_geo_stage", "_lut_stage", "_slot_apply"):
+        got = getattr(aug, name)(*card_args).cpu()
+        want = getattr(aug, name)(*args)
+        diff = (got.int() - want.int()).abs().amax(dim=(1, 2, 3))
+        assert (diff[~loose] == 0).all(), (name, diff)
+        assert (diff[loose] <= 1).all(), (name, diff)
+    factor = torch.from_numpy((1.0 + m).astype(np.float32))
+    for name in ("_color_stage", "_sharp_stage"):
+        got = getattr(aug, name)(card_args[0], factor.to(cuda_device)).cpu()
+        want = getattr(aug, name)(args[0], factor)
+        assert (got.int() - want.int()).abs().max() <= 1

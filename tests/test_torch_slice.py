@@ -178,8 +178,10 @@ def test_unported_models_raise():
 
 
 def test_port_imports_no_jax_and_no_auformer():
-    """Nor cv2 or PIL, which the card's machine lacks: the port decodes and
-    encodes JPEGs with its own native reader."""
+    """Nor cv2, PIL, sklearn, optax, orbax or matplotlib, which the card's
+    machine lacks: the port decodes and encodes JPEGs with its own native
+    reader, scores with its own numpy metrics, steps with torch's Adam and
+    checkpoints with torch.save."""
     code = (
         "import sys, auformer_torch, auformer_torch.infer, "
         "auformer_torch.core.weights, auformer_torch.ops, auformer_torch.nn, "
@@ -187,9 +189,15 @@ def test_port_imports_no_jax_and_no_auformer():
         "auformer_torch.sweep, auformer_torch.ops.phase_mel, "
         "auformer_torch.ops.audio_host, auformer_torch.data, "
         "auformer_torch.data.native, auformer_torch.data.fixtures, "
-        "auformer_torch.serve, auformer_torch.test_aff2\n"
+        "auformer_torch.serve, auformer_torch.test_aff2, "
+        "auformer_torch.losses, auformer_torch.metrics, "
+        "auformer_torch.parallel.step, auformer_torch.ops.augment_device, "
+        "auformer_torch.core.checkpointing, auformer_torch.core.prng, "
+        "auformer_torch.core.observability, auformer_torch.train_lib, "
+        "auformer_torch.train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'auformer', 'cv2', 'PIL'))\n"
+        "('jax', 'jaxlib', 'flax', 'auformer', 'cv2', 'PIL', 'sklearn', "
+        "'optax', 'orbax', 'matplotlib'))\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
