@@ -15,7 +15,8 @@ raw left-aligned window (``cfg.device_audio``).
     another way, and none is left black for want of a decoder;
   * audio features are the strict-parity numpy pipeline (ops/audio_host.py).
 
-Training reads the train and val ids, ``set_aug(False)`` and ``aug_seed``.
+Training reads the train and val ids; the dataset never augments (the
+train step does, ``--device_augment``), so ``set_aug(False)`` is a no-op.
 Three parts of the JAX dataset are not ported and raise
 ``NotImplementedError`` naming their ROADMAP.md item:
 
@@ -94,10 +95,6 @@ class Aff2CompDataset:
         self.use_mask = "M" in cfg.modality
         self.use_audio = "A" in cfg.modality.split(";")
         self.modes = ["clip", "audio_features"]
-        self.aug = False
-        # the JAX package's per-epoch host augmentation seed: accepted, read
-        # by nothing here (host augmentation raises, queue A10)
-        self.aug_seed = 0
 
         # decoded-frame LRU: overlapping dilated windows re-read each frame
         # up to clip_len times during sequential sweeps; caching decoded
@@ -142,12 +139,12 @@ class Aff2CompDataset:
         self.modes = list(modes)
 
     def set_aug(self, aug: bool):
-        """Host AutoAugment: only ``False`` (none) is ported."""
+        """Host AutoAugment: the dataset never augments, so ``False`` is
+        the only setting and changes nothing."""
         if aug:
             raise NotImplementedError(
                 _NOT_PORTED.format("host (PIL) augmentation", "queue A10")
                 + "; train with --device_augment")
-        self.aug = False
 
     def set_frame_dedup(self, on: bool):
         raise NotImplementedError(_NOT_PORTED.format("frame-dedup batches",

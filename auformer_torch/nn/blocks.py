@@ -37,19 +37,23 @@ LAYER_NORM_EPS = 1e-6
 class _FlaxRunningVar:
     """Train-mode BatchNorm whose running variance takes the biased batch
     variance. torch updates ``rv <- (1 - m) rv + m * var * n / (n - 1)``;
-    scaling ``rv`` by n / (n - 1) before and by (n - 1) / n after turns
-    that into ``(1 - m) rv + m * var``, flax's update, without a second
-    pass over the input. Parameter and buffer names stay torch's."""
+    running that update on ``rv * n / (n - 1)`` and scaling the result by
+    (n - 1) / n turns it into ``(1 - m) rv + m * var``, flax's update,
+    without a second pass over the input. The update runs on a copy, as
+    autograd keeps the tensor the op was given. Parameter and buffer names
+    stay torch's."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = x.numel() // x.shape[1]
         if not (self.training and self.track_running_stats) or n < 2:
             return super().forward(x)
+        self._check_input_dim(x)
+        self.num_batches_tracked.add_(1)
+        running_var = self.running_var * (n / (n - 1))
+        out = F.batch_norm(x, self.running_mean, running_var, self.weight,
+                           self.bias, True, self.momentum, self.eps)
         with torch.no_grad():
-            self.running_var.mul_(n / (n - 1))
-        out = super().forward(x)
-        with torch.no_grad():
-            self.running_var.mul_((n - 1) / n)
+            self.running_var.copy_(running_var * ((n - 1) / n))
         return out
 
 
@@ -183,20 +187,48 @@ class Transformer(nn.Module):
         return x
 
 
+def _autocast_dtype(x: torch.Tensor) -> torch.dtype | None:
+    """The dtype autocast computes in on ``x``'s device, None where it is
+    off."""
+    kind = x.device.type
+    return (torch.get_autocast_dtype(kind)
+            if torch.is_autocast_enabled(kind) else None)
+
+
+def _f32_product(x: torch.Tensor, weight: torch.Tensor,
+                 equation: str) -> torch.Tensor:
+    """``einsum(equation, x, weight)`` with an f32 result, as the JAX
+    package's ``preferred_element_type=float32`` contractions give it: under
+    autocast both operands are first rounded to its dtype (products of bf16
+    values are exact in f32, so the f32 einsum equals an f32-accumulating
+    bf16 one); otherwise they are taken in their own dtypes."""
+    dtype = _autocast_dtype(x)
+    if dtype is not None:
+        x, weight = x.to(dtype), weight.to(dtype)
+    with torch.autocast(x.device.type, enabled=False):
+        return torch.einsum(equation, x.float(), weight.float())
+
+
 def token_projection(x: torch.Tensor,
                      linears: Sequence[nn.Linear]) -> torch.Tensor:
     """The JAX package's ``TokenProjection``: N per-token linears (the
     reference's ``AU_linear_p*``, heads.py:264-275) run as ONE matmul,
-    (B, D) -> (B, N, E)."""
+    (B, D) -> (B, N, E). Under autocast the result is f32, as JAX's is
+    (f32 accumulation plus the f32 bias), so the AU heads' residual stream
+    stays f32 as in JAX; otherwise it is in the parameters' dtype."""
     weight = torch.cat([lin.weight for lin in linears])
     bias = torch.cat([lin.bias for lin in linears])
-    return F.linear(x, weight, bias).reshape(x.shape[0], len(linears), -1)
+    if _autocast_dtype(x) is None:
+        y = F.linear(x, weight, bias)
+    else:
+        y = _f32_product(x, weight, "bd,ed->be") + bias.float()
+    return y.reshape(x.shape[0], len(linears), -1)
 
 
 def token_logits(tokens: torch.Tensor,
                  linears: Sequence[nn.Linear]) -> torch.Tensor:
     """The JAX package's ``TokenLogits``: N per-token bias-free scalar
-    linears (``AU_linear_last*``, heads.py:278-289) as one f32 contraction,
-    (B, N, E) -> (B, N)."""
+    linears (``AU_linear_last*``, heads.py:278-289) as one contraction with
+    an f32 result, (B, N, E) -> (B, N)."""
     weight = torch.cat([lin.weight for lin in linears])          # (N, E)
-    return torch.einsum("bne,ne->bn", tokens.float(), weight.float())
+    return _f32_product(tokens, weight, "bne,ne->bn")

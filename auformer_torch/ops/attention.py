@@ -12,7 +12,7 @@ Pallas kernel does; the JAX package's ``_xla_attention`` instead casts P to
 V's dtype before P.V, so in bf16 the two JAX paths differ and the port
 follows the kernel).
 
-The gradient is an ``autograd.Function`` (``_FusedAttention``), the
+Every maskless call is an ``autograd.Function`` (``_FusedAttention``), the
 counterpart of the JAX package's ``custom_vjp``: the forward is the kernel
 (or the plain version on the CPU) and saves q, k and v; the backward
 recomputes S and P in f32 and returns dq, dk and dv in the input dtypes,
@@ -194,10 +194,10 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel or raises (``check_kernel_inputs``), with no mask (no model on
     the path passes one). q, k and v may be strided views, such as the
     head split of a fused QKV projection: the kernel reads them in place.
-    Where autograd records, the call goes through ``_FusedAttention``, whose
-    backward recomputes in plain PyTorch. ``fused_attention.launches``
-    counts kernel launches, ``fused_attention.backward_calls`` the
-    backward's calls on CUDA tensors.
+    Every maskless call goes through ``_FusedAttention``, whose backward
+    recomputes in plain PyTorch (where autograd records nothing, it is the
+    forward alone). ``fused_attention.launches`` counts kernel launches,
+    ``fused_attention.backward_calls`` the backward's calls on CUDA tensors.
     """
     if mask is not None:
         if q.device.type != "cpu":
@@ -205,10 +205,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                       "takes no mask")
         return output_buffer(q).copy_(
             attention_reference(q, k, v, scale, mask))
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return _FusedAttention.apply(q, k, v, scale)
-    return _attention_forward(q, k, v, scale)
+    return _FusedAttention.apply(q, k, v, scale)
 
 
 fused_attention.launches = 0

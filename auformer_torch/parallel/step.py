@@ -7,8 +7,10 @@ reference's loop body, train.py:202-244), on one device.
     there too;
   * parameters and BatchNorm statistics stay f32; under
     ``compute_dtype=bfloat16`` the forward runs in ``torch.autocast``
-    (bf16 convolutions and matmuls, f32 norms and losses), the counterpart
-    of the JAX modules' ``dtype`` with f32 ``param_dtype``;
+    (bf16 convolutions and matmuls, f32 norms and losses, the AU heads'
+    token projection and logits f32 from bf16 operands), the counterpart
+    of the JAX modules' ``dtype`` with f32 ``param_dtype`` (ROADMAP.md C
+    names the two places where the rounding departs from flax's);
   * the streams the reference freezes (avformer.py:78-85: ``audio_model``
     and ``video_model``) get ``requires_grad=False`` and stay out of the
     optimizer, which equals the JAX package's ``set_to_zero`` partition: only

@@ -192,7 +192,6 @@ def train(cfg: Config, dataset=None, max_steps_per_epoch: int | None = None,
     epochs = epochs if epochs is not None else cfg.epochs
     history = []
     recorder = RecorderMeter(max(epochs, 1))
-    dataset.set_aug(False)              # augmentation runs in the step
     for epoch in range(start_epoch, epochs):
         np.random.shuffle(downsample)
         train_ids = np.nonzero(dataset.train_ids * downsample)[0]

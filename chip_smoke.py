@@ -67,12 +67,13 @@ Phases, each printing one JSON line (any failed check exits non-zero):
 Then one JSON line of per-kernel results: for attention, sums over one
 sweep bucket's calls in bf16 (the main path's dtype), with the per-bucket
 sums in both dtypes (``per_bucket``), the clip path's per-forward sums
-(``per_forward``) and the train step's forward and backward at the fusion
-head (``per_train_step``); ``launches`` counts the slice's, the sweep's,
-the dataset's and the train phase's main path runs (``launches_by_path``). Then the nvidia-smi
-name/power line, and last ``{"ok": true, "device": {...}}``. Without a GPU,
-or outside a checkout of the repository, it exits non-zero and prints no
-result.
+(``per_forward``) and the train step (``train_step``: per call at the
+fusion head's site beside its launches per step, and the traced device ms
+per step of the kernel and of the backward); ``launches`` counts the
+slice's, the sweep's, the dataset's and the train phase's main path runs
+(``launches_by_path``). Then the nvidia-smi name/power line, and last
+``{"ok": true, "device": {...}}``. Without a GPU, or outside a checkout
+of the repository, it exits non-zero and prints no result.
 
 Device times come from torch.profiler. A session that records no device
 time is run again, up to PROFILER_SESSIONS times; after that a kernel's
@@ -161,6 +162,7 @@ TRAIN_BATCH = 64
 GRAD_SITES = (("fusion_head", 12, 32, TRAIN_BATCH),
               ("spatial", 49, 32, TRAIN_BATCH * FRAMES))
 ATTN_FWD_PER_STEP, ATTN_BWD_PER_STEP = 11, 3
+ATTN_HEAD_FWD_PER_STEP = 3              # of the 11: the fusion head's layers
 STEP_TOL = (2e-3, 2e-4)   # rtol, atol: card fp32 step vs CPU fp32 step
 STATS_TOL = (1e-3, 1e-4)  # BatchNorm running statistics after that step
 OVERFIT_STEPS = 30
@@ -1355,6 +1357,16 @@ def profile_steps(torch, dev, model, work: Path) -> dict:
     events.sort(key=lambda e: e.device_time_total, reverse=True)
     device_ms = (None if prof is None else
                  sum(e.device_time_total for e in events) / 1e3 / len(batches))
+
+    def traced(matches) -> dict | None:
+        """Device ms and calls per step of the trace's events ``matches``
+        takes (a CPU op's device time: the kernels it launched)."""
+        if prof is None:
+            return None
+        found = [e for e in prof.key_averages() if matches(e)]
+        return {"ms_per_step": sum(e.device_time_total for e in found)
+                / 1e3 / len(batches),
+                "calls_per_step": sum(e.count for e in found) / len(batches)}
     return {"steps": len(batches), "wall_ms_per_step": wall_ms,
             "loader_alone_s_per_batch": loader_s,
             "device_ms_per_step": device_ms,
@@ -1363,6 +1375,14 @@ def profile_steps(torch, dev, model, work: Path) -> dict:
             "device_kernels_per_step": (None if prof is None else sum(
                 e.count for e in events) / len(batches)),
             "attention_per_step": per_step,
+            # the attention kernel's launches at every site of the step, and
+            # the recomputing backward (plain PyTorch) at the fusion head
+            "attention_in_step": {
+                "kernel": traced(lambda e: on_device(e)
+                                 and "attention_" in e.key
+                                 and "_kernel" in e.key),
+                "backward": traced(lambda e: not on_device(e) and e.key
+                                   == "_FusedAttentionBackward")},
             "top": [{"name": e.key[:80],
                      "ms_per_step": e.device_time_total / 1e3 / len(batches),
                      "calls_per_step": e.count / len(batches)}
@@ -1400,7 +1420,7 @@ def overfit(torch, dev, sd, work: Path) -> list[float]:
             for _ in range(OVERFIT_STEPS)]
 
 
-def phase_train(torch, dev) -> tuple[dict, list]:
+def phase_train(torch, dev) -> tuple[dict, list, dict]:
     from auformer_torch import train, train_lib
     from auformer_torch.core.config import Config, parse_opt
     from auformer_torch.core.weights import (load_reference_state_dict,
@@ -1523,7 +1543,7 @@ def phase_train(torch, dev) -> tuple[dict, list]:
          overfit_au_loss=losses, profile=prof, peak_memory_mb=peak_mb,
          phase_s=time.perf_counter() - t_phase)
     shutil.rmtree(work, ignore_errors=True)   # the split and the .pth files
-    return launches, grad_cases
+    return launches, grad_cases, prof["attention_in_step"]
 
 
 def main() -> int:
@@ -1548,7 +1568,7 @@ def main() -> int:
     by_path = {"slice": phase_slice(torch, dev, batch),
                "sweep": phase_sweep(torch, dev),
                "dataset": phase_dataset(torch, dev)}
-    by_path["train"], grad_cases = phase_train(torch, dev)
+    by_path["train"], grad_cases, attention_in_step = phase_train(torch, dev)
     emit("done", seconds=time.perf_counter() - T_START,
          profiler=PROFILER_LOG)
 
@@ -1571,14 +1591,21 @@ def main() -> int:
     per_bucket = {d: per_call("sweep", d) for d in dtypes}
     per_forward = {d: per_call("slice", d) for d in dtypes}
     mel_main = mel[1]                       # the slice's input: feature_len
-    # the train step at the fusion head: 3 forward launches, 3 backward
-    # calls (the head's layers; the frozen streams' 8 forwards are at the
-    # other sites)
-    per_train_step = {
-        c["dtype"]: {key: c[key] * ATTN_BWD_PER_STEP for key in (
-            "forward_ms", "backward_ms", "plain_fwd_bwd_ms",
-            "library_fwd_bwd_ms", "forward_bound_ms", "backward_bound_ms")}
-        for c in grad_cases if c["site"] == "fusion_head"}
+    # the train step: per call at the fusion head's site, which takes 3 of
+    # the step's 11 forward launches and all 3 backward calls, beside the
+    # trace's device time of the kernel (all 11) and of the backward per
+    # step
+    train_step = {
+        "fusion_head_per_call": {
+            c["dtype"]: {key: c[key] for key in (
+                "forward_ms", "backward_ms", "plain_fwd_bwd_ms",
+                "library_fwd_bwd_ms", "forward_bound_ms",
+                "backward_bound_ms")}
+            for c in grad_cases if c["site"] == "fusion_head"},
+        "launches_per_step": {"forward": ATTN_FWD_PER_STEP,
+                              "forward_fusion_head": ATTN_HEAD_FWD_PER_STEP,
+                              "backward": ATTN_BWD_PER_STEP},
+        "traced_bf16": attention_in_step}
     print(json.dumps({"kernels": [
         {"name": "attention", "route": "cuda",
          "source": str(build.source("attention").relative_to(ROOT)),
@@ -1588,7 +1615,7 @@ def main() -> int:
          **per_bucket["bfloat16"],
          "max_abs_err": max(c["max_abs_err"] for c in attn),
          "per_bucket": per_bucket, "per_forward": per_forward,
-         "per_train_step": per_train_step},
+         "train_step": train_step},
         {"name": "mel_frontend", "route": "cuda",
          "source": str(build.source("mel").relative_to(ROOT)),
          "replaces": "auformer/ops/audio_pallas.py:185",

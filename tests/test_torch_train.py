@@ -11,6 +11,10 @@
     ``make_train_step(..., mesh=None)``: loss, fusion-head gradients,
     parameters and BatchNorm statistics after 3 steps, a 5-step loss
     trajectory;
+  * bf16: each kind of module of the step under autocast against the flax
+    module with dtype=bfloat16 (outputs, dtypes and gradients, with an f32
+    control that must miss the tolerance), and one bf16 step against
+    JAX's;
   * ``train_lib.train`` on the port's fixtures with ``device="cpu"``:
     checkpoints, curves, scores, resume, determinism; the checkpoint loads
     into the JAX package and into the port's ``test_aff2``;
@@ -24,6 +28,7 @@ packages; the JAX step is compiled once per module.
 import functools
 import json
 import os
+from typing import Callable, NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -31,12 +36,18 @@ import numpy as np
 import pytest
 import torch
 from flax import linen as fnn
+from jax.experimental import pallas as pl
 
 from auformer.core.config import Config as JaxConfig
 from auformer.core.torch_import import (convert_avformer, convert_checkpoint,
                                         load_torch_state_dict, merge_into)
+from auformer.nn import blocks as jblocks
 from auformer.nn import build_model as jax_build_model
 from auformer.nn import example_batch, loss_suite as jax_loss_suite
+from auformer.nn.heads import AUFormerHead, FormerAUHead
+from auformer.nn.resnet import BasicBlock
+from auformer.nn.vformer import TFormer
+from auformer.ops import attention as jattention
 from auformer.ops.attention import _pallas_attention_bwd
 from auformer.parallel import step as jstep
 from auformer_torch import train as train_entry
@@ -406,6 +417,256 @@ def test_train_steps_match_jax(jax_setup, synthetic_avformer_sd):
             _check_adam_params(trained, 3)
     assert state.step == 5
     np.testing.assert_allclose(losses, losses_j, *LOSS_TOL)
+
+
+# -- bf16: the JAX modules' casts -----------------------------------------------
+
+def _kernel_attention(q, k, v, scale):
+    """The Pallas attention kernel in interpret mode, as
+    tests/test_attention.py runs it on the CPU: one program over every
+    (batch*head) row. On the CPU the JAX package's dispatch takes the XLA
+    path instead, which rounds P to bf16 before P.V; the TPU kernel (and
+    the port's CUDA kernel) keeps P in f32."""
+    b, h, n, d = q.shape
+    spec = pl.BlockSpec((b * h, n, d), lambda i: (0, 0, 0))
+    out = pl.pallas_call(
+        functools.partial(jattention._attn_kernel, scale=scale),
+        out_shape=jax.ShapeDtypeStruct((b * h, n, d), q.dtype), grid=(1,),
+        in_specs=[spec] * 3, out_specs=spec, interpret=True)(
+            *(t.reshape(b * h, n, d) for t in (q, k, v)))
+    return out.reshape(b, h, n, d)
+
+
+@functools.partial(jax.custom_vjp, nondiff_argnums=(3,))
+def _kernel_attention_ad(q, k, v, scale):
+    return _kernel_attention(q, k, v, scale)
+
+
+_kernel_attention_ad.defvjp(
+    lambda q, k, v, scale: (_kernel_attention(q, k, v, scale), (q, k, v)),
+    _pallas_attention_bwd)
+
+
+@pytest.fixture
+def jax_bf16_reference(monkeypatch):
+    """The JAX modules as the bf16 comparisons run them: attention through
+    the Pallas kernel and its custom_vjp backward (the TPU path), and the
+    one elementwise chain where the port deliberately departs, GELU,
+    evaluated in f32 and rounded once as the port's is (the JAX CPU
+    backend rounds each of its primitives to bf16)."""
+    monkeypatch.setattr(jblocks, "fused_attention",
+                        lambda q, k, v, scale, mask=None, use_pallas=False:
+                        _kernel_attention_ad(q, k, v, scale))
+    monkeypatch.setattr(jblocks, "tanh_gelu", lambda x: jax.nn.gelu(
+        x.astype(jnp.float32), approximate=True).astype(x.dtype))
+
+
+# The other departure: a Linear's bias. flax's bf16 Dense rounds x.W to
+# bf16 and then adds the bias rounded to bf16, two roundings; the port's
+# fused bias add rounds once. With the Linear biases zero the second
+# rounding is exact and the two agree; their gradients are still compared.
+DENSE_BIASES = ("to_out.0.bias", "net.0.bias", "net.3.bias")
+
+
+@pytest.fixture(scope="module")
+def bf16_weights():
+    """Reference-layout weights from the port's own initialisation (well
+    conditioned: bf16 rounding moves the outputs by ~1e-3, not chaotically
+    as the 0.1-scale synthetic weights do), Linear biases zero; and the
+    JAX variables made from them."""
+    torch.manual_seed(11)
+    model = build_model(Config(**STEP_CFG), dtype=torch.float32)
+    sd = {k: v.numpy().copy() for k, v in model.state_dict().items()
+          if not k.endswith("num_batches_tracked")}
+    for key in sd:
+        if key.endswith(DENSE_BIASES):
+            sd[key] = np.zeros_like(sd[key])
+    return sd, convert_avformer(sd)
+
+
+def _tree_rel(got: dict, want: dict, keys) -> float:
+    """||got - want|| / ||want|| over the leaves ``keys``."""
+    num = sum(float(np.sum((got[k] - want[k]) ** 2)) for k in keys)
+    return (num / sum(float(np.sum(want[k] ** 2)) for k in keys)) ** 0.5
+
+
+class Bf16Case(NamedTuple):
+    port: str                 # the port's module path in avformer
+    jax: Callable             # dtype -> the flax module
+    jax_path: tuple           # its variables' path in avformer's
+    shape: tuple              # input shape
+    out_shape: tuple          # output shape (of the cotangent)
+    in_bf16: bool             # the input arrives in the compute dtype
+    train: bool               # train-mode BatchNorm
+    mapper: str | None        # Exporter mapper of the gradients; None:
+    #                           forward only
+    out_tol: float            # norm-relative, against JAX's bf16 result
+    grad_tol: float | None
+
+
+BF16_CASES = {
+    # conv + train-mode BatchNorm with a downsample, bf16 in and out
+    "resnet_block": Bf16Case(
+        "audio_model.audio_model.resnet.layer2.0",
+        lambda d: BasicBlock(128, 2, True, d),
+        ("audio_model", "audio_model", "resnet", "layer2", "block0"),
+        (8, 64, 8, 8), (8, 128, 4, 4), True, True, "resnet_block",
+        1e-3, 2e-2),
+    # train-mode BatchNorm1d over a B=64 batch, the f32 TokenProjection
+    # and residual stream, the f32 TokenLogits
+    "au_former": Bf16Case(
+        "video_model.au_head", lambda d: AUFormerHead(input_dim=512, dtype=d),
+        ("video_model", "au_head"), (64, 512), (64, 12), True, True,
+        "au_former", 2e-3, 3e-3),
+    # the trainable fusion head: f32 tokens in, f32 logits out
+    "fusion_head": Bf16Case(
+        "au_head", lambda d: FormerAUHead(emb_dim=256, dropout=0.0, dtype=d),
+        ("au_head",), (16, 12, 256), (16, 12), False, False,
+        "former_au_head", 1e-3, 2e-3),
+    # a bf16 residual stream (the trunk's side); frozen in training, so
+    # forward only
+    "t_former": Bf16Case(
+        "video_model.video_model.t_former",
+        lambda d: TFormer(num_patches=16, dtype=d),
+        ("video_model", "video_model", "t_former"), (8, 16, 512), (8, 512),
+        True, False, None, 3e-3, None),
+}
+
+
+def _rel(got, want) -> float:
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _jax_bf16(case: Bf16Case, variables, x, ct):
+    """JAX's bf16 module, op by op (no jit: every flax module rounds where
+    its dtype says, with no fusion keeping excess precision): the output
+    and the parameter gradients of sum(out * ct), in the port's names and
+    layouts (a 4-d input is NCHW to the port, NHWC to flax)."""
+    nhwc = x.ndim == 4
+    if nhwc:
+        x = x.transpose(0, 2, 3, 1)
+    module = case.jax(jnp.bfloat16)
+    params, stats = variables["params"], variables["batch_stats"]
+    for key in case.jax_path:
+        params, stats = params[key], stats.get(key, {})
+    xj = jnp.asarray(x).astype(jnp.bfloat16 if case.in_bf16 else jnp.float32)
+    kwargs = {"train": True} if case.train else {}
+
+    def f(p):
+        out, _ = module.apply({"params": p, "batch_stats": stats}, xj,
+                              mutable=["batch_stats"], **kwargs)
+        out = out[0] if isinstance(out, tuple) else out
+        if nhwc:
+            out = out.transpose(0, 3, 1, 2)
+        return jnp.sum(out.astype(jnp.float32) * ct), out
+    if case.mapper is None:
+        return f(params)[1], {}
+    (_, out), grads = jax.value_and_grad(f, has_aux=True)(params)
+    exporter = Exporter({"params": {"m": jax.tree_util.tree_map(np.asarray,
+                                                                grads)},
+                         "batch_stats": {"m": stats}})
+    getattr(exporter, case.mapper)("m", "m")
+    return out, {k[2:]: v.numpy() for k, v in exporter.sd.items()
+                 if "running_" not in k}
+
+
+def _port_run(case: Bf16Case, sd, x, ct, autocast: bool):
+    """The port's module from ``sd``, under bf16 autocast or in f32: the
+    output and the parameter gradients of sum(out * ct)."""
+    model = build_model(Config(**STEP_CFG), dtype=torch.float32)
+    load_weights(model, sd)
+    module = model.get_submodule(case.port).train(case.train)
+    xt = torch.from_numpy(x)
+    if case.in_bf16 and autocast:
+        xt = xt.bfloat16()
+    with torch.autocast("cpu", dtype=torch.bfloat16, enabled=autocast):
+        out = module(xt)
+    out = out[0] if isinstance(out, tuple) else out
+    if case.mapper is not None:
+        (out.float() * torch.from_numpy(ct)).sum().backward()
+    return out, {n: p.grad.numpy() for n, p in module.named_parameters()
+                 if p.grad is not None}
+
+
+@pytest.mark.parametrize("name", sorted(BF16_CASES))
+def test_bf16_modules_match_flax(name, bf16_weights, jax_bf16_reference):
+    """Each kind of module of the step under bf16 autocast against the flax
+    module with dtype=bfloat16 on the same inputs: the output's dtype, the
+    output and the gradients within the case's tolerance, and the f32 port
+    (the control) outside it, so the tolerance tells the JAX modules' casts
+    from none. A Linear's bias gradient is held to 5e-2 apart: flax sums
+    its bf16 cotangent in bf16 (up to 2.4e-2 from the port's here), the
+    port in f32."""
+    case = BF16_CASES[name]
+    sd, variables = bf16_weights
+    rs = np.random.RandomState(12)
+    x = rs.randn(*case.shape).astype(np.float32)
+    if name == "resnet_block":
+        x = np.abs(x)                           # a post-ReLU activation
+    ct = rs.randn(*case.out_shape).astype(np.float32)
+    want, want_grads = _jax_bf16(case, variables, x, ct)
+    got, grads = _port_run(case, sd, x, ct, autocast=True)
+    control, control_grads = _port_run(case, sd, x, ct, autocast=False)
+    assert str(got.dtype).split(".")[-1] == str(want.dtype)
+    want = np.asarray(want.astype(jnp.float32))
+    err = _rel(got.detach().float().numpy(), want)
+    control_err = _rel(control.detach().numpy(), want)
+    assert err <= case.out_tol < control_err, (err, control_err)
+    if case.mapper is None:
+        return
+    assert set(grads) == set(want_grads)
+    biases = [k for k in want_grads if k.endswith(DENSE_BIASES)]
+    rest = [k for k in want_grads if k not in biases]
+    err = _tree_rel(grads, want_grads, rest)
+    control_err = _tree_rel(control_grads, want_grads, rest)
+    assert err <= case.grad_tol < control_err, (err, control_err)
+    for key in biases:
+        assert _rel(grads[key], want_grads[key]) <= 5e-2, key
+
+
+def test_bf16_train_step_matches_jax(bf16_weights, jax_bf16_reference):
+    """One bf16 avformer train-mode forward and backward against JAX's
+    (compute_dtype=bfloat16): loss within 1e-2, the fusion head's gradients
+    within 1e-1 (norm-relative). At this level the frozen streams'
+    train-mode BatchNorm (B=4 rows in AU_BN1, large means in the trunk)
+    amplifies bf16 rounding noise: an f32 step lands as close to JAX's bf16
+    one (here: logits 2.6e-2 and gradients 2.6e-2 from JAX's in f32, 3.3e-2
+    and 3.7e-2 in bf16), so this test holds the bf16 path end to end, and
+    the module cases above are the ones that tell the casts apart."""
+    sd, variables = bf16_weights
+    cfg_j = JaxConfig(use_pallas=False,
+                      **{**STEP_CFG, "compute_dtype": "bfloat16"})
+    model_j = jax_build_model(cfg_j)
+    suite_j = jax_loss_suite(model_j)
+    batch = _symmetric_batch(13)
+
+    def loss_fn(params):
+        x = jstep.prep_batch(batch, train=False)
+        out, _ = model_j.apply(
+            {"params": params, "batch_stats": variables["batch_stats"]},
+            {k: x[k] for k in model_j.modes}, train=True,
+            rngs={"dropout": jax.random.PRNGKey(0)}, mutable=["batch_stats"])
+        return jstep.task_loss(suite_j, "AU", out, jstep._labels_of(batch))[0]
+    want_loss, grads = jax.jit(jax.value_and_grad(loss_fn))(
+        variables["params"])
+    exporter = Exporter({"params": jax.tree_util.tree_map(np.asarray, grads)})
+    exporter.former_au_head("au_head", "au_head")
+
+    cfg = Config(**{**STEP_CFG, "compute_dtype": "bfloat16"})
+    model = build_model(cfg, dtype=torch.float32)
+    load_weights(model, sd)
+    tstep.make_optimizer(cfg, model)
+    model.train()
+    out = tstep._forward(cfg, model, tstep.prep_batch(_tensors(batch),
+                                                      train=False))
+    loss, _ = tstep.task_loss(loss_suite(model), "AU", out,
+                              tstep._labels_of(_tensors(batch)))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-2)
+    named = dict(model.named_parameters())
+    want = {k: v.numpy() for k, v in exporter.sd.items()}
+    assert _tree_rel({k: named[k].grad.numpy() for k in want}, want,
+                     list(want)) <= 1e-1
 
 
 def test_prep_batch_device_audio_matches_jax():
