@@ -207,12 +207,20 @@ class NativeFrameStore:
         return ctypes.string_at(ptr, size.value)
 
     def decode_batch(self, keys: list[str | None], height: int, width: int,
-                     channels: int = 3) -> tuple[np.ndarray, np.ndarray]:
-        """Decode JPEGs for keys -> (n, H, W, C) uint8 + (n,) ok flags.
-        None/empty keys, missing keys, undecodable or wrongly sized JPEGs
-        stay black with ok=False."""
+                     channels: int = 3, out: np.ndarray | None = None
+                     ) -> tuple[np.ndarray, np.ndarray]:
+        """Decode JPEGs for keys -> (n, H, W, C) uint8 + (n,) ok flags, into
+        ``out`` when given (a C-contiguous uint8 array of that shape, e.g.
+        rows of a shared frame ring). None/empty keys, missing keys,
+        undecodable or wrongly sized JPEGs stay black with ok=False."""
         n = len(keys)
-        out = np.zeros((n, height, width, channels), np.uint8)
+        shape = (n, height, width, channels)
+        if out is None:
+            out = np.zeros(shape, np.uint8)
+        elif (out.shape != shape or out.dtype != np.uint8
+              or not out.flags.c_contiguous):
+            raise ValueError(f"decode_batch needs a C-contiguous uint8 "
+                             f"{shape} output, got {out.dtype} {out.shape}")
         ok = np.zeros(n, np.uint8)
         if n == 0:
             return out, ok.astype(bool)
@@ -223,7 +231,9 @@ class NativeFrameStore:
                                          self.n_threads):
             raise RuntimeError(f"{self.decoder} decode of {n} frames failed "
                                "on the device")
-        return out, ok.astype(bool)
+        ok = ok.astype(bool)
+        out[~ok] = 0
+        return out, ok
 
     def close(self) -> None:
         if self._h:

@@ -23,7 +23,7 @@ import torch
 from .core.config import Config
 from .data import DataLoader, SubsetSequentialSampler
 from .data.testset import Aff2TestDataset
-from .nn.registry import compute_dtype
+from .nn.registry import compute_autocast, compute_dtype, prepare_inference
 from .ops.audio import HOP_LENGTH, audio_frontend, reflect_end_patch
 from .ops.preprocess import normalize_clip
 
@@ -126,8 +126,13 @@ def resolve_device(device) -> torch.device:
 
 
 def make_infer_fn(cfg: Config, model: torch.nn.Module, device=None):
-    """Move ``model`` to the device in ``cfg.compute_dtype`` (in place), in
-    eval mode, and return ``infer(batch) -> (B, 21) float32`` on the device.
+    """Move ``model`` to the device for inference (in place,
+    ``prepare_inference``: f32 parameters, under bf16 its convolution and
+    Linear weights rounded once), in eval mode, and return ``infer(batch)
+    -> (B, 21) float32`` on the device. The model runs under
+    ``compute_autocast`` (bf16 by ``cfg.compute_dtype``, as the train step
+    does); the audio features are computed outside it, in f32 (the mel
+    kernel's DFT in bf16 under ``cfg.mel_bf16``).
 
     ``batch``: ``clip`` (B, T, H, W, C) uint8, plus one of: precomputed
     ``audio_features`` (B, 1, 64, 1001); under ``cfg.device_audio``, the
@@ -140,7 +145,7 @@ def make_infer_fn(cfg: Config, model: torch.nn.Module, device=None):
     """
     device = resolve_device(device)
     dtype = compute_dtype(cfg)
-    model.to(device=device, dtype=dtype).eval()
+    prepare_inference(cfg, model, device)
 
     def put(value) -> torch.Tensor:
         return torch.as_tensor(value).to(device)
@@ -161,9 +166,12 @@ def make_infer_fn(cfg: Config, model: torch.nn.Module, device=None):
                 put(batch["audio"]).float().contiguous(),
                 None if flen is None else put(flen),
                 mel_bf16=cfg.mel_bf16)
-        x = {"clip": normalize_clip(put(batch["clip"]), dtype=dtype),
+        # f32 normalisation, as JAX's prep_batch; the first convolution
+        # rounds the clip to the compute dtype
+        x = {"clip": normalize_clip(put(batch["clip"])),
              "audio_features": feats.to(dtype)}
-        return model(x).float()
+        with compute_autocast(cfg, device):
+            return model(x).float()
 
     return infer
 

@@ -33,7 +33,7 @@ import torch
 from ..core.config import Config
 from ..losses import LossSuite
 from ..nn.blocks import set_dropout_generator
-from ..nn.registry import compute_dtype
+from ..nn.registry import compute_autocast
 from ..ops.audio import HOP_LENGTH, audio_frontend, reflect_end_patch
 from ..ops.augment_device import augment_clips_device
 from ..ops.preprocess import normalize_clip, random_flip_clips
@@ -168,8 +168,7 @@ def _forward(cfg: Config, model: torch.nn.Module, x: dict) -> torch.Tensor:
     device = next(model.parameters()).device
     modes = set(getattr(model, "modes", x.keys()))
     x = {k: v for k, v in x.items() if k in modes}
-    with torch.autocast(device.type, dtype=torch.bfloat16,
-                        enabled=compute_dtype(cfg) == torch.bfloat16):
+    with compute_autocast(cfg, device):
         return model(x).float()
 
 

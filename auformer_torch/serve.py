@@ -10,15 +10,18 @@ device forward; predictions demux to per-video rows on the host.
   * ``sweep_stream`` / ``sweep_serve_benchmark``: the dense sweep, one
     video at a time, video *i+1* decoding (in a ``DecodeWorker`` process
     past a few thousand clips) while the card sweeps video *i*, results
-    fetched in groups on a fetch thread, yielded in video order.
+    fetched in groups on a fetch thread, yielded in video order;
+  * ``sweep_serve_benchmark(packed=True)``: the same through
+    ``packed.packed_sweep_stream``, buckets packed across videos, the
+    worker decoding slices straight into a shared frame ring
+    (``DecodeWorker.attach_arena`` / ``request_slice`` / ``slice_result``).
 
-Not ported here: the packed cross-video buckets and the decode worker's
-arena/slice protocol (``auformer/packed.py``, ROADMAP.md queue A5), and the
-data-parallel mesh (A7).
+Not ported here: the data-parallel mesh (ROADMAP.md queue A7).
 """
 from __future__ import annotations
 
 import contextlib
+import mmap
 import os
 import threading
 import time
@@ -40,16 +43,17 @@ from .ops import audio_host
 WORKER_MIN_CLIPS = 2000
 
 
-def decode_video_frames(dataset, vid_idx, h: int, w: int) -> np.ndarray:
+def decode_video_frames(dataset, vid_idx, h: int, w: int,
+                        out: np.ndarray | None = None) -> np.ndarray:
     """(N, h, w, 3) uint8 frames for the given dataset rows, by one batched
-    native decode; missing or undecodable keys stay black, as in the
-    datasets' clips."""
+    native decode into ``out`` when given (rows of a frame ring); missing or
+    undecodable keys stay black, as in the datasets' clips."""
     if dataset.native_image is None:
         raise FileNotFoundError(
             f"no image store under {dataset.cfg.lmdb_label_dir}: the port "
             "reads frames from FrameStores only")
     keys = [dataset._store_key(dataset.image_path[i]) for i in vid_idx]
-    frames, _ok = dataset.native_image.decode_batch(keys, h, w, 3)
+    frames, _ok = dataset.native_image.decode_batch(keys, h, w, 3, out=out)
     return frames
 
 
@@ -113,11 +117,20 @@ def _load_video(dataset, test_idx, video_nr, image_size: int):
 
 
 def _decode_worker_main(conn, cfg: Config) -> None:
-    """Decode-worker child: serve (vid_idx, frames, wav, ts, decode_s) per
-    requested video db-nr until a ``None`` request; an exception goes back
-    as ``("error", traceback)``. The child builds its own
-    ``Aff2TestDataset(cfg)``, so the parent's dataset is the one ``cfg``
-    describes.
+    """Decode-worker child: serve requests until a ``None`` one; an
+    exception goes back as ``("error", traceback)``. The child builds its
+    own ``Aff2TestDataset(cfg)``, so the parent's dataset is the one
+    ``cfg`` describes. Requests:
+
+      * a video db-nr: reply (vid_idx, frames, wav, ts, decode_s), the
+        whole video through the pipe;
+      * ``("arena", capacity, h, w)`` followed by the fd of a
+        ``packed.FrameArena``'s shared memory: map that ring (replacing any
+        earlier one), reply ``"arena_ok"``;
+      * ``("slice", video_nr, a, b, base, want_wav)``: decode the video's
+        test rows [a, b) straight into ring rows [base, base + b - a),
+        reply (wav or None, decode_s); the frames cross the process
+        boundary only through the ring.
 
     A separate PROCESS, not a thread: decode runs on its own interpreter
     lock and scheduler share, whatever the parent's threads do (the
@@ -133,13 +146,39 @@ def _decode_worker_main(conn, cfg: Config) -> None:
         conn.close()
         return
     conn.send("ready")  # startup handshake: imports + dataset ctor done
+    size = cfg.image_size
+    ring = ring_map = None
     while True:
         req = conn.recv()
         if req is None:
             conn.close()
             return
         try:
-            conn.send(_load_video(ds, test_idx, req, cfg.image_size))
+            if isinstance(req, tuple) and req[0] == "arena":
+                from multiprocessing import reduction
+                _tag, cap, h, w = req
+                fd = reduction.recv_handle(conn)
+                ring = None
+                if ring_map is not None:
+                    ring_map.close()
+                try:
+                    ring_map = mmap.mmap(fd, cap * h * w * 3)
+                finally:
+                    os.close(fd)
+                ring = np.frombuffer(ring_map, np.uint8).reshape(cap, h, w,
+                                                                 3)
+                conn.send("arena_ok")
+            elif isinstance(req, tuple) and req[0] == "slice":
+                _tag, video_nr, a, b, base, want_wav = req
+                t0 = time.perf_counter()
+                vid_idx = test_idx[ds.video_db_nr[test_idx] == video_nr]
+                decode_video_frames(ds, vid_idx[a:b], size, size,
+                                    out=ring[base:base + (b - a)])
+                wav = read_video_wav(ds.audio_dir, os.path.dirname(
+                    ds.image_path[vid_idx[0]])) if want_wav else None
+                conn.send((wav, time.perf_counter() - t0))
+            else:
+                conn.send(_load_video(ds, test_idx, req, size))
         except Exception:
             conn.send(("error", traceback.format_exc()))
 
@@ -184,6 +223,26 @@ class DecodeWorker:
         if isinstance(msg, tuple) and msg and isinstance(msg[0], str):
             raise RuntimeError(f"decode worker failed:\n{msg[1]}")
         return msg
+
+    # -- the packed route's slice protocol (packed.py) -----------------------
+    def attach_arena(self, arena) -> None:
+        """Map ``arena``'s ring in the child (its fd goes over the pipe's
+        socket); raises when the child cannot."""
+        from multiprocessing import reduction
+        self._conn.send(("arena",) + arena.buf.shape[:3])
+        reduction.send_handle(self._conn, arena.fd, self._proc.pid)
+        reply = self.result()
+        if reply != "arena_ok":
+            raise RuntimeError(f"decode worker did not map the ring: {reply}")
+
+    def request_slice(self, video_nr, a: int, b: int, base: int,
+                      want_wav: bool) -> None:
+        self._conn.send(("slice", video_nr, int(a), int(b), int(base),
+                         bool(want_wav)))
+
+    def slice_result(self):
+        """(wav or None, decode_s) of the oldest slice request."""
+        return self.result()
 
     def close(self) -> None:
         try:
@@ -362,25 +421,22 @@ def sweep_serve_benchmark(cfg: Config, model: torch.nn.Module, dataset=None,
                           decode_worker=None, packed: bool = False,
                           device=None) -> dict:
     """End-to-end decode -> dense-sweep label frames/s through
-    :func:`sweep_stream` (store reads, JPEG decode and wav reads
-    included). Returns clip counts and the rate, plus the ``sweep`` and
-    the ``decode_worker`` for reuse across passes (a caller that does not
-    reuse the worker closes it).
+    :func:`sweep_stream`, or with ``packed`` through
+    ``packed.packed_sweep_stream`` (store reads, JPEG decode and wav reads
+    included). Returns clip counts and the rate, the stream's ``stats``,
+    plus the ``sweep`` and the ``decode_worker`` for reuse across passes
+    (a caller that does not reuse the worker closes it).
 
     It sweeps zeros of the first video's length before the clock starts
     (allocator, cuDNN's algorithm choice): steady state is what a sweep of
     a whole test split runs at. The worker's start-up, from
     ``WORKER_MIN_CLIPS`` test clips, is also set-up before the clock;
-    per-video decode is always inside it. ``packed=True`` (the JAX
-    package's cross-video buckets) is not ported."""
+    per-video decode is always inside it."""
     import wave
 
+    from .packed import packed_sweep_stream
     from .sweep import default_sweep_bucket, make_sweep
 
-    if packed:
-        raise NotImplementedError(
-            "packed cross-video sweep buckets are not ported to "
-            "auformer_torch; ROADMAP.md queue A5 (serving) lists them")
     dataset = Aff2TestDataset(cfg) if dataset is None else dataset
     sweep = sweep or make_sweep(cfg, model, device=device)
     bucket = bucket or default_sweep_bucket(sweep.device)
@@ -407,15 +463,15 @@ def sweep_serve_benchmark(cfg: Config, model: torch.nn.Module, dataset=None,
         decode_worker = DecodeWorker(cfg)
 
     stats: dict = {}
+    stream = packed_sweep_stream if packed else sweep_stream
     t0 = time.perf_counter()
-    for _ in sweep_stream(cfg, model, dataset=dataset, bucket=bucket,
-                          sweep=sweep, decode_worker=decode_worker,
-                          stats=stats):
+    for _ in stream(cfg, model, dataset=dataset, bucket=bucket, sweep=sweep,
+                    decode_worker=decode_worker, stats=stats):
         pass
     dt = time.perf_counter() - t0
     return {"clips": stats["clips"], "seconds": dt,
             "decode_seconds": stats["decode_seconds"],
             "wait_seconds": stats["wait_seconds"],
             "sweep_seconds": stats["sweep_seconds"], "sweep": sweep,
-            "decode_worker": stats.get("decode_worker"),
+            "decode_worker": stats.get("decode_worker"), "stats": stats,
             "clips_per_sec": stats["clips"] / dt if dt > 0 else 0.0}

@@ -23,10 +23,14 @@ timestamps need more than ``max_phases`` hop-grid phases take the
 per-window left-aligned frontend instead (``fused_sweep_device_audio``).
 Both are plain PyTorch, as they are plain XLA in the JAX package.
 
+Buckets packed across videos (``fused_sweep_packed``, driven by
+packed.py) compute their phase-mel tables from a bucket-local wav buffer.
+The shared-audio variant (``sweep_video_shared_audio``: one global mel per
+video, windows snapped to the hop grid) is opt-in and approximate.
+
 Every compute method runs eagerly under ``torch.inference_mode()``; the
 JAX package's jit and weight-pytree plumbing has no counterpart here. The
-data-parallel mesh and the shared-audio and packed variants are not ported
-(ROADMAP.md, queue A).
+data-parallel mesh is not ported (ROADMAP.md, queue A7).
 """
 from __future__ import annotations
 
@@ -35,11 +39,13 @@ import torch
 
 from .core.config import Config
 from .infer import resolve_device
-from .nn.registry import compute_dtype
+from .nn.registry import compute_autocast, compute_dtype, prepare_inference
 from .ops import audio_host
-from .ops.audio import HOP_LENGTH, audio_frontend, reflect_end_patch
-from .ops.phase_mel import (MAX_PHASES, phase_mel_table, phase_plan,
-                            phase_window_features)
+from .ops.audio import (HOP_LENGTH, amplitude_to_db, audio_frontend,
+                        mel_spectrogram, normalize_spec, reflect_end_patch)
+from .ops.phase_mel import (MAX_PHASES, phase_mel_table, phase_mel_table_span,
+                            phase_plan, phase_window_features)
+from .packed import PACK_PRE, PACK_TAIL
 from .ops.preprocess import normalize_clip
 
 #: windows per frontend call on the per-window route: bounds its f32
@@ -191,8 +197,9 @@ class AvformerSweep(SweepBase):
 
     Takes the port's ``TwoStreamAuralVisualFormer`` with its weights
     loaded, moves it to ``device`` (``cuda`` unless the caller names
-    another) in ``cfg.compute_dtype``, in place and in eval mode, and runs
-    its submodules."""
+    another) for inference, in place (``prepare_inference``), and runs its
+    submodules under ``compute_autocast`` (bf16 by ``cfg.compute_dtype``);
+    the audio features are computed outside it, in f32."""
 
     out_dim = 12
     needs_audio = True
@@ -209,7 +216,7 @@ class AvformerSweep(SweepBase):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = compute_dtype(cfg)
-        model.to(device=self.device, dtype=self.dtype).eval()
+        prepare_inference(cfg, model, self.device)
         video = model.video_model
         self.trunk = video.video_model.s_former
         self.tformer = video.video_model.t_former
@@ -222,7 +229,8 @@ class AvformerSweep(SweepBase):
     def frame_features(self, frames_u8: torch.Tensor) -> torch.Tensor:
         """(N, H, W, 3) uint8 -> (N, 512) S-Former trunk features."""
         x = normalize_clip(frames_u8, dtype=self.dtype)
-        return self.trunk(x.permute(0, 3, 1, 2))
+        with compute_autocast(self.cfg, self.device):
+            return self.trunk(x.permute(0, 3, 1, 2))
 
     @torch.inference_mode()
     def head_forward(self, gathered_feats: torch.Tensor,
@@ -230,13 +238,14 @@ class AvformerSweep(SweepBase):
                      time_major: bool = False) -> torch.Tensor:
         """(N, T, 512) gathered frame features + (N, 1, M, T) audio features
         (or (N, T, M, 1) with ``time_major``) -> (N, 12) float32 logits."""
-        pooled = self.tformer(gathered_feats)
-        _, v_tokens = self.v_head(pooled)
-        a_feat = self.a_net(audio_features.to(self.dtype),
-                            time_major=time_major)
-        _, a_tokens = self.a_head(a_feat)
-        fused = torch.cat([a_tokens, v_tokens], dim=2)
-        return self.f_head(fused).float()
+        with compute_autocast(self.cfg, self.device):
+            pooled = self.tformer(gathered_feats)
+            _, v_tokens = self.v_head(pooled)
+            a_feat = self.a_net(audio_features.to(self.dtype),
+                                time_major=time_major)
+            _, a_tokens = self.a_head(a_feat)
+            fused = torch.cat([a_tokens, v_tokens], dim=2)
+            return self.f_head(fused).float()
 
     @torch.inference_mode()
     def fused_sweep(self, frames_u8: torch.Tensor,
@@ -300,6 +309,81 @@ class AvformerSweep(SweepBase):
                                       out_frames=self.cfg.mel_frames,
                                       time_major=True)
         return self.fused_sweep(frames_u8, feats, idx, time_major=True)
+
+    @torch.inference_mode()
+    def fused_sweep_packed(self, frames_u8, wav_buf, phases, starts, n_valid,
+                           base, phase_sel, idx) -> torch.Tensor:
+        """A bucket of clips from several videos (packed.py assembles it):
+        the phase-mel tables of ``phases`` (host ints, the distinct live
+        phases of the bucket's windows) over the packed wav buffer, the
+        windows' features from them, then the sweep.
+
+        wav_buf: [zeros(PACK_PRE) | per-video segments at 441-aligned
+        offsets | zeros(PACK_TAIL)]; starts and base are buffer and grid
+        coordinates in that layout."""
+        t_g = (wav_buf.shape[-1] - PACK_PRE - PACK_TAIL) // HOP_LENGTH + 2
+        tables = phase_mel_table_span(wav_buf, phases, pre=PACK_PRE, t_g=t_g,
+                                      n_mels=self.cfg.n_mels)
+        feats = phase_window_features(wav_buf, tables, starts, n_valid, base,
+                                      phase_sel,
+                                      out_frames=self.cfg.mel_frames,
+                                      time_major=True)
+        return self.fused_sweep(frames_u8, feats, idx, time_major=True)
+
+    @torch.inference_mode()
+    def fused_sweep_shared_audio(self, frames_u8, mel_shared, mel_cols,
+                                 idx) -> torch.Tensor:
+        """A bucket with shared-spectrogram audio (opt-in, approximate): each
+        window's (n_mels, 1001) map is a column gather of the video's one
+        power mel ``mel_shared`` (n_mels, T) at ``mel_cols`` (N, 1001), then
+        the per-window dB floor and the normalization."""
+        mel_win = mel_shared[:, mel_cols.to(torch.int64)].permute(1, 0, 2)
+        feats = normalize_spec(amplitude_to_db(mel_win))[:, None]
+        return self.fused_sweep(frames_u8, feats, idx)
+
+    def shared_audio_plan(self, timestamps_ms: np.ndarray,
+                          total_samples: int) -> np.ndarray:
+        """(N, 1001) int32 columns of a padded global mel laid out as
+        [1001 zero columns | the video's mel | 1001 zero columns]; window
+        offsets snap to the 441-sample hop grid, up to 5 ms from the
+        reference's per-window grid."""
+        cfg = self.cfg
+        n = len(timestamps_ms)
+        t_total = 1 + total_samples // HOP_LENGTH
+        cols = np.zeros((n, cfg.mel_frames), np.int32)
+        k = np.arange(cfg.mel_frames)
+        for i, ts in enumerate(np.asarray(timestamps_ms)):
+            offset, nsamp = audio_host.audio_window_params(
+                float(ts), cfg.sample_rate, cfg.sample_len_frames,
+                cfg.audio_shift_samples)
+            nsamp = min(nsamp, max(total_samples - offset, 0))
+            g0 = int(round(offset / float(HOP_LENGTH)))
+            idx = g0 + 1 + nsamp // HOP_LENGTH + k
+            cols[i] = np.clip(idx, 0, t_total + 2 * cfg.mel_frames - 1)
+        return cols
+
+    def sweep_video_shared_audio(self, frames_u8: np.ndarray,
+                                 wav: np.ndarray,
+                                 timestamps_ms: np.ndarray,
+                                 batch: int = 512) -> np.ndarray:
+        """Dense sweep with the approximate shared-spectrogram audio: ONE
+        power mel of the whole wav (L,) on the device, then per-window
+        column gathers. frames_u8 (N, H, W, 3) -> (N, 12) logits."""
+        n = frames_u8.shape[0]
+        wav = np.asarray(wav, np.float32).reshape(-1)
+        with torch.inference_mode():
+            mel = mel_spectrogram(self._to_device(wav)[None])[0]
+            pad = mel.new_zeros((mel.shape[0], self.cfg.mel_frames))
+            mel_padded = torch.cat([pad, mel, pad], dim=1)
+        cols = self.shared_audio_plan(timestamps_ms, wav.shape[0])
+        pending = []
+        for s, cur, bsize, frames_chunk, rows in self._buckets(
+                n, frames_u8, batch):
+            cc = self._pad_rows(cols[s:s + cur], bsize)
+            frames_chunk, cc, rows = self._to_device(frames_chunk, cc, rows)
+            pending.append((s, cur, self.fused_sweep_shared_audio(
+                frames_chunk, mel_padded, cc, rows)))
+        return self.fetch_many([(n, pending)])[0]
 
     @torch.inference_mode()
     def phase_mel_table(self, wav_ext: torch.Tensor,

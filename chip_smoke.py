@@ -18,8 +18,9 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            random reference-layout weights from a seed): launch counts of
            one bf16 (the default) and one fp32 forward, fp32 logits against
            the same port on the CPU, clips/s in fp32 and bf16, a profiled
-           bf16 forward (device time, kernels per forward), and
-           run_inference into a temporary directory
+           bf16 forward (device time, kernels per forward), the same with
+           f32 convolution and Linear weights (autocast's per-call casts),
+           and run_inference into a temporary directory
   sweep    the full-width dense sweep of a synthetic 2,100-frame video
            (30 fps timestamps, 70 s wav; buckets of 1280 and 820 label
            frames): launch counts per bucket and of run_inference_sweep,
@@ -27,7 +28,10 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            fp32 sweep logits against the fp32 clip path, the forced
            per-window route against the phase route, label frames/s in
            bf16, device ms, kernels and ms by stage per bucket, idle share,
-           peak memory, and the submission files of run_inference_sweep
+           peak memory, the submission files of run_inference_sweep, and
+           the same bf16 sweep with f32 convolution and Linear weights,
+           which autocast casts at every call (prepare_inference rounds
+           them once)
   dataset  a synthetic Aff-Wild2-layout test split written by the port's
            fixtures (three videos of 2,100, 1,200 and 700 frames, 112x112
            JPEG q90, 30 fps, wavs of each video's length + 0.5 s) and a
@@ -45,6 +49,18 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            transfer), sweep_serve_benchmark's end-to-end label frames/s
            (decode, wait and sweep seconds) through the worker and through
            a decode thread, beside the array-fed rate, in bf16
+  packed   on the same split, before it is removed: the packed
+           cross-video route (packed_sweep_stream) in fp32 against the
+           per-video sweep_stream through the decode worker's registered
+           shared ring and through a thread, and with one video's
+           timestamps jittered onto the per-video fallback route; launches
+           per packed bucket; the ring (backing, size, registration), its
+           releases (made, blocked on their copy's event), host bytes
+           copied into chunks per bucket; sweep_serve_benchmark(packed=True)
+           label frames/s in bf16 through the worker (the main path) and a
+           thread beside the per-video and array-fed rates; then
+           postprocess.main over test_aff2.main's submission, each video's
+           frame count from a meta.json side file
   train    a synthetic train/val split written by the port's fixtures
            (videos of 1,500, 1,500, 600 and 100 frames: train, train,
            val, test; 112x112 JPEG q90). Before any training: the
@@ -66,12 +82,13 @@ Phases, each printing one JSON line (any failed check exits non-zero):
 
 Then one JSON line of per-kernel results: for attention, sums over one
 sweep bucket's calls in bf16 (the main path's dtype), with the per-bucket
-sums in both dtypes (``per_bucket``), the clip path's per-forward sums
+sums in both dtypes (``per_bucket``, and ``per_packed_bucket`` for a full
+2048-clip packed bucket), the clip path's per-forward sums
 (``per_forward``) and the train step (``train_step``: per call at the
 fusion head's site beside its launches per step, and the traced device ms
 per step of the kernel and of the backward); ``launches`` counts the
-slice's, the sweep's, the dataset's and the train phase's main path runs
-(``launches_by_path``). Then the nvidia-smi name/power line, and last
+slice's, the sweep's, the dataset's, the packed and the train phase's main
+path runs (``launches_by_path``). Then the nvidia-smi name/power line, and last
 ``{"ok": true, "device": {...}}``. Without a GPU, or outside a checkout
 of the repository, it exits non-zero and prints no result.
 
@@ -112,6 +129,8 @@ PROFILER_SESSIONS = 4  # profiler sessions tried per measurement
 PROFILER_LOG = {"sessions": 0, "sessions_without_device_time": 0,
                 "event_timed_cases": 0}
 
+# a full packed bucket: the default cap (2048 label frames on CUDA)
+PACKED_BUCKET = 2048
 # the dense sweep's synthetic video and the bucket the default (2048) cap
 # splits it into: 1280 + 820 label frames
 SWEEP_FRAMES = 2100
@@ -135,7 +154,11 @@ ATTENTION_SITES = (("slice", "spatial", 49, 32, BATCH * FRAMES, 1),
                    ("sweep", "spatial", 49, 32,
                     SWEEP_BSIZE + LABEL_FRAME + 1, 1),
                    ("sweep", "temporal", 17, 64, SWEEP_BSIZE, 3),
-                   ("sweep", "au_tokens", 12, 32, SWEEP_BSIZE, 7))
+                   ("sweep", "au_tokens", 12, 32, SWEEP_BSIZE, 7),
+                   ("packed", "spatial", 49, 32,
+                    PACKED_BUCKET + LABEL_FRAME + 1, 1),
+                   ("packed", "temporal", 17, 64, PACKED_BUCKET, 3),
+                   ("packed", "au_tokens", 12, 32, PACKED_BUCKET, 7))
 ATTN_PER_CALL = 11
 ATTN_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-3)}
 MEL_ATOL = 2e-3          # normalized units (0.04 dB): sum order only
@@ -511,6 +534,16 @@ def phase_slice(torch, dev, batch: dict):
     torch.cuda.reset_peak_memory_stats()
     prof = profile_forward(torch, infer16, on_card)
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    # the same forward with f32 convolution and Linear weights: autocast
+    # casts each at every call
+    model_casts = build_model(cfg16)
+    load_weights(model_casts, sd)
+    infer_casts = make_infer_fn(cfg16, model_casts)
+    f32_weights(torch, model_casts)
+    casts_diff = (infer_casts(on_card) - logits16).abs().max().item()
+    prof_casts = profile_forward(torch, infer_casts, on_card)
+    rate_casts = clips_per_s(torch, infer_casts, on_card, 20)
+    del model_casts, infer_casts
 
     rs = np.random.RandomState(SEED + 2)
     batches = []
@@ -541,6 +574,15 @@ def phase_slice(torch, dev, batch: dict):
              None if prof is None
              else 1.0 - prof["device_ms_per_forward"] / wall_ms),
          peak_memory_mb_bf16=peak_mb, profile_bf16=prof,
+         per_call_casts_bf16={
+             "max_abs_diff_vs_rounded_once": casts_diff,
+             "clips_per_s": rate_casts,
+             "device_ms_per_forward": (
+                 None if prof_casts is None
+                 else prof_casts["device_ms_per_forward"]),
+             "device_kernels_per_forward": (
+                 None if prof_casts is None
+                 else prof_casts["device_kernels_per_forward"])},
          run_inference={"batches": len(batches),
                         "rows": int(out.shape[0])})
     return launches
@@ -557,13 +599,26 @@ def sweep_video(seed: int):
     return frames, wav, np.arange(SWEEP_FRAMES) * 1000.0 / 30.0
 
 
-class BucketCounts:
-    """Launch counts per bucket: wraps a sweep's ``fused_sweep`` (called
-    once per bucket) and records the launches each call adds."""
+def f32_weights(torch, model) -> int:
+    """Give every Conv2d and Linear weight of ``model`` back its f32 dtype
+    (the values ``prepare_inference`` rounded to bf16), so that autocast
+    casts each at every call; returns how many."""
+    mods = [m for m in model.modules()
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    for m in mods:
+        m.weight.data = m.weight.data.float()
+    return len(mods)
 
-    def __init__(self, sweep, fused_attention, mel_frontend):
+
+class BucketCounts:
+    """Launch counts per bucket: wraps a sweep's ``method`` (called once
+    per bucket: ``fused_sweep``, or ``fused_sweep_packed`` per packed
+    bucket) and records the launches each call adds."""
+
+    def __init__(self, sweep, fused_attention, mel_frontend,
+                 method: str = "fused_sweep"):
         self.calls = []
-        inner = sweep.fused_sweep
+        inner = getattr(sweep, method)
 
         def counted(*args, **kwargs):
             before = fused_attention.launches, mel_frontend.launches
@@ -572,7 +627,7 @@ class BucketCounts:
                 {"attention": fused_attention.launches - before[0],
                  "mel": mel_frontend.launches - before[1]})
             return out
-        sweep.fused_sweep = counted
+        setattr(sweep, method, counted)
 
 
 def stage_profile(torch, sweep, run) -> dict:
@@ -761,6 +816,20 @@ def phase_sweep(torch, dev) -> dict:
     events.sort(key=lambda e: e.device_time_total, reverse=True)
     stages = stage_profile(torch, sweep16, run)
 
+    # prepare_inference rounded every convolution and Linear weight to bf16
+    # once; with f32 weights autocast makes the same casts at every call:
+    # the same logits, and the device time says what those casts cost
+    precast = f32_weights(torch, model16)
+    logits_pre = run()
+    pre_rate, pre_walls = best_rate(torch, n, run)
+    prof_pre = device_profile(torch, run, cpu=True)
+    device_pre = (None if prof_pre is None else sum(
+        e.device_time_total for e in prof_pre.key_averages()
+        if on_device(e)) / 1e3)
+    kernels_pre = (None if prof_pre is None else sum(
+        e.count for e in prof_pre.key_averages()
+        if on_device(e) and e.device_time_total > 0))
+
     result = dict(
         frames=n, image=IMAGE, t=FRAMES, dilation=cfg16.dilation,
         bucket_cap=bucket, buckets=[SWEEP_BSIZE, n - SWEEP_BSIZE],
@@ -784,6 +853,15 @@ def phase_sweep(torch, dev) -> dict:
                                         else kernels / n_buckets),
         stage_device_ms_per_video_bf16=stages,
         peak_memory_mb_bf16=peak_mb,
+        per_call_casts_bf16={
+            "weights": precast,
+            "max_abs_diff_vs_rounded_once": float(
+                np.abs(logits_pre - logits16).max()),
+            "device_ms_per_bucket": (None if device_pre is None
+                                     else device_pre / n_buckets),
+            "device_kernels_per_bucket": (None if kernels_pre is None
+                                          else kernels_pre / n_buckets),
+            "label_frames_per_s": pre_rate, "walls": pre_walls},
         top=[{"name": e.key[:80], "ms_per_video": e.device_time_total / 1e3,
               "calls_per_video": e.count} for e in events[:12]])
     emit("sweep", **result)
@@ -1019,7 +1097,199 @@ def phase_dataset(torch, dev) -> dict:
          e2e_over_array_fed=e2e["clips_per_sec"] / array_rate,
          peak_memory_mb_bf16=peak_mb,
          phase_s=time.perf_counter() - t_phase)
+    packed_launches = phase_packed(
+        torch, dev, work, cfg32, cfg16, sd, videos,
+        {"worker": e2e["clips_per_sec"],
+         "thread": e2e_thread["clips_per_sec"], "array_fed": array_rate})
     shutil.rmtree(work, ignore_errors=True)   # the split and a 126 MB .pth
+    return launches, packed_launches
+
+
+def same_stream(got: list, want: list, what: str) -> float:
+    """Two streams yield the same videos in the same order with the same
+    rows; fp32 logits within SWEEP_TOL. Returns the max |difference|."""
+    if [v for _, v, _ in got] != [v for _, v, _ in want]:
+        fail(f"{what}: videos {[v for _, v, _ in got]}, expected "
+             f"{[v for _, v, _ in want]}")
+    err = 0.0
+    for (gi, vid, gl), (wi, _, wl) in zip(got, want):
+        if not np.array_equal(gi, wi) or gl.shape != (len(wi), 12) \
+                or not np.isfinite(gl).all():
+            fail(f"{what}: rows or logits of {vid} malformed")
+        err = max(err, float(np.abs(gl - wl).max()))
+        if not np.allclose(gl, wl, rtol=SWEEP_TOL[0], atol=SWEEP_TOL[1]):
+            fail(f"{what}: {vid} differs from the per-video stream by {err}")
+    return err
+
+
+def phase_packed(torch, dev, work: Path, cfg32, cfg16, sd, videos: dict,
+                 per_video_rates: dict) -> dict:
+    """The packed cross-video route on the dataset phase's split: fp32
+    packed = per-video through the decode worker's registered ring and
+    through a thread, one video on the per-video fallback route; launches
+    per packed bucket; the ring, its releases and chunk copies; bf16
+    label frames/s of sweep_serve_benchmark(packed=True) through the worker
+    (the main path, counts set to 0 just before its first pass) and a
+    thread; then the submission's postprocess over test_aff2.main's
+    files."""
+    from auformer_torch import postprocess
+    from auformer_torch.core.weights import load_weights
+    from auformer_torch.data import Aff2TestDataset
+    from auformer_torch.nn import build_model
+    from auformer_torch.ops.attention import fused_attention
+    from auformer_torch.ops.audio_kernel import mel_frontend
+    from auformer_torch.packed import packed_sweep_stream
+    from auformer_torch.serve import (DecodeWorker, sweep_serve_benchmark,
+                                      sweep_stream)
+    from auformer_torch.sweep import default_sweep_bucket, make_sweep
+
+    t_phase = time.perf_counter()
+    bucket = default_sweep_bucket(dev)
+    n = sum(videos.values())
+    model32 = build_model(cfg32)
+    load_weights(model32, sd)
+    sweep32 = make_sweep(cfg32, model32)
+    ds = Aff2TestDataset(cfg32)
+    ref = list(sweep_stream(cfg32, model32, dataset=ds, bucket=bucket,
+                            sweep=sweep32, decode_worker=False))
+    counts = BucketCounts(sweep32, fused_attention, mel_frontend,
+                          "fused_sweep_packed")
+    runs = {}
+    worker = DecodeWorker(cfg32)
+    try:
+        for route, decoder in (("worker", worker), ("thread", False)):
+            stats = {}
+            got = list(packed_sweep_stream(cfg32, model32, dataset=ds,
+                                           bucket=bucket, sweep=sweep32,
+                                           decode_worker=decoder,
+                                           stats=stats))
+            runs[route] = {"max_abs_err": same_stream(
+                got, ref, f"fp32 packed ({route})"),
+                **{k: stats[k] for k in (
+                    "buckets", "rows_dispatched", "rows_padded", "arena",
+                    "releases", "chunk_copy_bytes", "fallback_videos")}}
+            if not stats["arena"]["registered"] or \
+                    stats["releases"]["made"] != stats["buckets"]:
+                fail(f"packed ({route}): ring {stats['arena']}, releases "
+                     f"{stats['releases']} for {stats['buckets']} buckets")
+    finally:
+        worker.close()
+    per_bucket = [{"attention": ATTN_PER_CALL, "mel": 0}] * len(counts.calls)
+    if not counts.calls or counts.calls != per_bucket:
+        fail(f"launches per packed bucket {counts.calls}")
+
+    # one video (the second, 1,200 frames) with jittered timestamps past
+    # 5 s: more hop-grid phases than max_phases, the per-video route
+    ds_fb = Aff2TestDataset(cfg32)
+    ts = np.asarray(ds_fb.time_stamps, np.float64).copy()
+    rows = np.nonzero(np.asarray(ds_fb.video_db_nr) == sorted(
+        set(np.asarray(ds_fb.video_db_nr)))[1])[0]
+    rs = np.random.RandomState(SEED + 10)
+    late = rows[ts[rows] > 5000.0]
+    ts[late] += rs.uniform(0.0, 9.9, len(late))
+    ds_fb.time_stamps = ts
+    ref_fb = list(sweep_stream(cfg32, model32, dataset=ds_fb, bucket=bucket,
+                               sweep=sweep32, decode_worker=False))
+    stats_fb = {}
+    got_fb = list(packed_sweep_stream(cfg32, model32, dataset=ds_fb,
+                                      bucket=bucket, sweep=sweep32,
+                                      decode_worker=False, stats=stats_fb))
+    fb_err = same_stream(got_fb, ref_fb, "fp32 packed with a fallback video")
+    if stats_fb["fallback_videos"] != 1:
+        fail(f"{stats_fb['fallback_videos']} videos took the fallback route")
+    del model32, sweep32, ref, ref_fb, got_fb
+    torch.cuda.empty_cache()
+
+    # bf16 rates through sweep_serve_benchmark(packed=True)
+    model16 = build_model(cfg16)
+    load_weights(model16, sd)
+    sweep16 = make_sweep(cfg16, model16)
+    ds16 = Aff2TestDataset(cfg16)
+    keys = ("clips", "seconds", "decode_seconds", "wait_seconds",
+            "sweep_seconds", "clips_per_sec")
+    stat_keys = ("buckets", "rows_dispatched", "rows_padded",
+                 "chunk_copy_bytes", "releases", "arena")
+    worker = DecodeWorker(cfg16)
+    passes, thread_passes = [], []
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(3):
+            if i == 0:
+                fused_attention.launches = 0
+                mel_frontend.launches = 0
+            res = sweep_serve_benchmark(cfg16, model16, dataset=ds16,
+                                        bucket=bucket, sweep=sweep16,
+                                        decode_worker=worker, packed=True)
+            if i == 0:
+                torch.cuda.synchronize()
+                launches = {"attention": fused_attention.launches,
+                            "mel": mel_frontend.launches}
+                main_buckets = res["stats"]["buckets"]
+            passes.append({**{k: res[k] for k in keys},
+                           **{k: res["stats"][k] for k in stat_keys}})
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    finally:
+        worker.close()
+    for _ in range(3):
+        res = sweep_serve_benchmark(cfg16, model16, dataset=ds16,
+                                    bucket=bucket, sweep=sweep16,
+                                    decode_worker=False, packed=True)
+        thread_passes.append({k: res[k] for k in keys})
+    # the warm-up sweep before each pass launches 11 per bucket too
+    warm = -(-videos["vid000"] // sweep16._bucket_size(videos["vid000"],
+                                                       bucket))
+    want = {"attention": ATTN_PER_CALL * (main_buckets + warm), "mel": 0}
+    if launches != want:
+        fail(f"sweep_serve_benchmark(packed=True) launched {launches}, "
+             f"expected {want}")
+    if any(p["clips"] != n for p in passes + thread_passes):
+        fail(f"packed passes labelled {[p['clips'] for p in passes]}")
+    best = max(passes, key=lambda p: p["clips_per_sec"])
+    best_thread = max(thread_passes, key=lambda p: p["clips_per_sec"])
+
+    # the submission's postprocess: test_aff2.main's sparse files expanded
+    # to each video's frame count (its meta.json side file: 25 frames more
+    # than were detected), no video decoder
+    aligned, video_dir = work / "aligned", work / "videos"
+    video_dir.mkdir()
+    for path in ds16.image_path:
+        (aligned / os.path.dirname(path)).mkdir(parents=True, exist_ok=True)
+        (aligned / path).touch()
+    for vid, k in videos.items():
+        (video_dir / f"{vid}.mp4").touch()
+        (video_dir / f"{vid}.mp4meta.json").write_text(
+            json.dumps({"num_frames": k + 25, "fps": 30.0}))
+    t0 = time.perf_counter()
+    postprocess.main(["--predictions", str(work / "results"),
+                      "--frames_root", str(aligned), "--video_dir",
+                      str(video_dir), "--out_dir", str(work / "dense"),
+                      "--tasks", "au"])
+    post_s = time.perf_counter() - t0
+    for vid, k in videos.items():
+        lines = Path(work, "dense", "au", f"{vid}.txt").read_text(
+            ).splitlines()
+        if len(lines) != k + 26 or not lines[0].startswith("AU1,AU2"):
+            fail(f"postprocess wrote {len(lines)} lines for {vid}, "
+                 f"expected {k + 26}")
+
+    emit("packed", videos=list(videos.values()), label_frames=n,
+         bucket_cap=bucket, fp32=runs, launches_per_packed_bucket=counts.calls,
+         fallback={"videos": stats_fb["fallback_videos"],
+                   "max_abs_err": fb_err,
+                   "rows_padded": stats_fb["rows_padded"],
+                   "arena_frames": stats_fb["arena"]["frames"]},
+         rtol=SWEEP_TOL[0], atol=SWEEP_TOL[1],
+         main={"launches": launches, "packed_buckets": main_buckets,
+               "warmup_buckets": warm},
+         e2e_passes=passes, e2e_thread_passes=thread_passes,
+         e2e_label_frames_per_s_bf16=best["clips_per_sec"],
+         e2e_thread_label_frames_per_s_bf16=best_thread["clips_per_sec"],
+         per_video_label_frames_per_s_bf16=per_video_rates,
+         rows_padded_share=best["rows_padded"] / best["rows_dispatched"],
+         peak_memory_mb_bf16=peak_mb,
+         postprocess={"videos": len(videos), "seconds": post_s,
+                      "frames_per_video": [k + 25 for k in videos.values()]},
+         phase_s=time.perf_counter() - t_phase)
     return launches
 
 
@@ -1566,8 +1836,8 @@ def main() -> int:
     emit("kernels", attention=attn, mel=mel, profiler=dict(PROFILER_LOG))
 
     by_path = {"slice": phase_slice(torch, dev, batch),
-               "sweep": phase_sweep(torch, dev),
-               "dataset": phase_dataset(torch, dev)}
+               "sweep": phase_sweep(torch, dev)}
+    by_path["dataset"], by_path["packed"] = phase_dataset(torch, dev)
     by_path["train"], grad_cases, attention_in_step = phase_train(torch, dev)
     emit("done", seconds=time.perf_counter() - T_START,
          profiler=PROFILER_LOG)
@@ -1589,6 +1859,7 @@ def main() -> int:
 
     dtypes = ("bfloat16", "float32")
     per_bucket = {d: per_call("sweep", d) for d in dtypes}
+    per_packed_bucket = {d: per_call("packed", d) for d in dtypes}
     per_forward = {d: per_call("slice", d) for d in dtypes}
     mel_main = mel[1]                       # the slice's input: feature_len
     # the train step: per call at the fusion head's site, which takes 3 of
@@ -1614,7 +1885,8 @@ def main() -> int:
          "launches_by_path": {p: c["attention"] for p, c in by_path.items()},
          **per_bucket["bfloat16"],
          "max_abs_err": max(c["max_abs_err"] for c in attn),
-         "per_bucket": per_bucket, "per_forward": per_forward,
+         "per_bucket": per_bucket, "per_packed_bucket": per_packed_bucket,
+         "per_forward": per_forward,
          "train_step": train_step},
         {"name": "mel_frontend", "route": "cuda",
          "source": str(build.source("mel").relative_to(ROOT)),

@@ -378,6 +378,93 @@ def test_dataset_fed_sweep_on_the_card_matches_the_cpu(cuda_device,
     np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-4)
 
 
+# -- packed serving -------------------------------------------------------------
+
+def test_frame_arena_ring_is_page_locked(cuda_device):
+    """The ring is registered with cudaHostRegister: torch sees it pinned,
+    a non_blocking copy of a ring view reads it; close() unregisters."""
+    from auformer_torch.packed import FrameArena
+
+    arena = FrameArena(64, 16, 16, device=cuda_device)
+    try:
+        assert arena.registered and arena.backing == "memfd"
+        ring = torch.from_numpy(arena.buf)
+        assert ring.is_pinned()
+        arena.buf[:] = np.arange(64, dtype=np.uint8)[:, None, None, None]
+        got = ring[8:40].to(cuda_device, non_blocking=True)
+        torch.cuda.synchronize()
+        assert got[:, 0, 0, 0].tolist() == list(range(8, 40))
+    finally:
+        arena.close()
+    assert not arena.registered
+
+
+def test_arena_release_waits_for_its_copy(cuda_device):
+    """A copy held back on its stream (a device sleep before it) keeps its
+    rows: polling releases nothing, the blocking path waits on that copy's
+    event and then releases."""
+    from auformer_torch.packed import ArenaReleases, FrameArena
+
+    arena = FrameArena(64, 16, 16, device=cuda_device)
+    try:
+        arena.alloc(0, 32)
+        stream = torch.cuda.Stream(cuda_device)
+        with torch.cuda.stream(stream):
+            torch.cuda._sleep(200_000_000)
+            got = torch.from_numpy(arena.buf[:32]).to(cuda_device,
+                                                     non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(stream)
+        releases = ArenaReleases(arena)
+        releases.push(copied, 24)
+        assert not releases.reap() and arena._free_g == 0
+        assert releases.reap(block=True) and copied.query()
+        assert arena._free_g == 24 and releases.blocked == 1
+        assert got.shape == (32, 16, 16, 3)
+    finally:
+        torch.cuda.synchronize()
+        arena.close()
+
+
+def test_packed_stream_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """packed_sweep_stream over three small videos (32x32, bucket 16) on the
+    card through the registered ring: fp32 logits
+    equal the per-video stream's on the CPU; 11 attention launches per
+    packed bucket, no mel kernel; every release after its copy."""
+    from auformer_torch.data import Aff2TestDataset
+    from auformer_torch.data.fixtures import generate_synthetic_dataset
+    from auformer_torch.packed import packed_sweep_stream
+    from auformer_torch.serve import sweep_stream
+
+    root, labels = str(tmp_path / "root"), str(tmp_path / "labels")
+    generate_synthetic_dataset(root, labels, n_videos=3,
+                               frames_per_video=[40, 13, 27], image_size=32,
+                               splits=["test"])
+    cfg = Config(root=root, lmdb_label_dir=labels,
+                 cache_dir=str(tmp_path / "cache"), **SWEEP_CFG)
+    torch.manual_seed(3)
+    cpu_model = build_model(cfg)
+    card_model = build_model(cfg)
+    card_model.load_state_dict(cpu_model.state_dict())
+    attn = tatt.fused_attention.launches
+    mel = audio_kernel.mel_frontend.launches
+    stats = {}
+    got = list(packed_sweep_stream(cfg, card_model,
+                                   dataset=Aff2TestDataset(cfg), bucket=16,
+                                   decode_worker=False, stats=stats))
+    assert tatt.fused_attention.launches - attn == 11 * stats["buckets"]
+    assert stats["buckets"] == 5 and stats["rows_padded"] == 0
+    assert audio_kernel.mel_frontend.launches == mel
+    assert stats["arena"]["registered"]
+    assert stats["releases"]["made"] == stats["buckets"]
+    want = list(sweep_stream(cfg, cpu_model, dataset=Aff2TestDataset(cfg),
+                             bucket=16, decode_worker=False, device="cpu"))
+    assert [v for _, v, _ in got] == [v for _, v, _ in want]
+    for (gi, _, gl), (wi, _, wl) in zip(got, want):
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_allclose(gl, wl, rtol=2e-3, atol=2e-4)
+
+
 # -- training ------------------------------------------------------------------
 
 # attention sites of a B=64 train step (T=16): (batch, tokens, head dim),

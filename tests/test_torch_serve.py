@@ -184,13 +184,15 @@ def test_sweep_stream_matches_jax(dirs, port_model, jax_stream,
 
 
 def test_unported_serving_paths_raise(dirs, port_model):
+    """The data-parallel mesh raises naming ROADMAP A7 on both routes."""
+    from auformer_torch.packed import packed_sweep_stream
     _, cfg = _cfgs(dirs)
     with pytest.raises(NotImplementedError, match="A7"):
         next(serve.sweep_stream(cfg, port_model, mesh=object(),
                                 device="cpu"))
-    with pytest.raises(NotImplementedError, match="A5"):
-        serve.sweep_serve_benchmark(cfg, port_model, packed=True,
-                                    device="cpu")
+    with pytest.raises(NotImplementedError, match="A7"):
+        next(packed_sweep_stream(cfg, port_model, mesh=object(),
+                                 device="cpu"))
 
 
 @pytest.mark.parametrize("device_audio", [False, True])

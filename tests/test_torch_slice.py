@@ -194,7 +194,9 @@ def test_port_imports_no_jax_and_no_auformer():
         "auformer_torch.parallel.step, auformer_torch.ops.augment_device, "
         "auformer_torch.core.checkpointing, auformer_torch.core.prng, "
         "auformer_torch.core.observability, auformer_torch.train_lib, "
-        "auformer_torch.train\n"
+        "auformer_torch.train, auformer_torch.packed, "
+        "auformer_torch.postprocess, auformer_torch.data.ingest, "
+        "auformer_torch.data.utils\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'auformer', 'cv2', 'PIL', 'sklearn', "
         "'optax', 'orbax', 'matplotlib'))\n"

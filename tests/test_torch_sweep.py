@@ -166,6 +166,22 @@ def test_per_window_route_matches_jax(port_sweep, jax_side, video):
     np.testing.assert_allclose(got, jax_side["phase"], rtol=RTOL, atol=ATOL)
 
 
+def test_shared_audio_sweep_matches_jax(port_sweep, jax_side, video):
+    """The opt-in approximate mode (one power mel per video, windows
+    snapped to the hop grid): its column plan equals JAX's exactly, its
+    logits within the tolerance."""
+    f, w, ts = video["frames"], video["wav"], video["ts"]
+    np.testing.assert_array_equal(
+        port_sweep.shared_audio_plan(ts, len(w)),
+        jax_side["sweep"].shared_audio_plan(ts, len(w)))
+    got = port_sweep.sweep_video_shared_audio(f, w, ts, batch=BUCKET)
+    assert got.shape == (N, 12) and got.dtype == np.float32
+    np.testing.assert_allclose(
+        got, jax_side["sweep"].sweep_video_shared_audio(f, w, ts,
+                                                        batch=BUCKET),
+        rtol=RTOL, atol=ATOL)
+
+
 def test_sweep_matches_the_clip_path(port_model, port_sweep, video):
     """Every label frame: the port's sweep on the phase route equals the
     port's clip path (make_infer_fn) on the window's clip, assembled from
