@@ -2,14 +2,18 @@
 
 The port's modules carry the reference's own parameter names, so a reference
 checkpoint loads with ``load_state_dict``. ``state_dict_from_jax`` goes the
-other way from the JAX package's ``core/torch_import.py::convert_avformer``:
-it takes the JAX ``{"params", "batch_stats"}`` tree (as numpy arrays) and
-returns the port's state dict:
+other way from the JAX package's ``core/torch_import.py`` converters
+(``convert_avformer``, ``convert_vformer``, ``convert_audio_only``,
+``convert_resnet_image``, ``convert_sformer``, ``convert_tformer``,
+``convert_dsformer``, ``convert_vggformer``): it takes the JAX
+``{"params", "batch_stats"}`` tree (as numpy arrays) of a model and
+returns the port's state dict for it:
 
   * conv kernels HWIO -> OIHW; dense kernels (I, O) -> weights (O, I)
   * BatchNorm/LayerNorm ``scale`` -> ``weight``; ``mean``/``var`` ->
     ``running_mean``/``running_var``
-  * ``TokenProjection`` splits into 12 linears, ``TokenLogits`` into 12 rows
+  * ``TokenProjection`` splits into N linears, ``TokenLogits`` into N rows
+    (12 for an AU head, 2 for the VA head)
 """
 from __future__ import annotations
 
@@ -90,34 +94,73 @@ class Exporter:
             self.linear(f"{t1}.fn.net.0", f"{j}/mlp/fc1")
             self.linear(f"{t1}.fn.net.3", f"{j}/mlp/fc2")
 
-    def token_proj(self, tpre: str, jpath: str) -> None:
-        """(D, 12*E) TokenProjection -> AU_linear_p1..p12 (E, D)."""
+    def token_proj(self, tpre: str, jpath: str, n: int = NUM_AU,
+                   stem: str = "AU") -> None:
+        """(D, n*E) TokenProjection -> {stem}_linear_p1..p{n} (E, D)."""
         p = self._node(self.params, jpath)
-        kernels = np.split(np.asarray(p["kernel"]), NUM_AU, axis=1)
-        biases = np.split(np.asarray(p["bias"]), NUM_AU)
-        for i in range(NUM_AU):
-            self._put(_join(tpre, f"AU_linear_p{i + 1}.weight", "."),
+        kernels = np.split(np.asarray(p["kernel"]), n, axis=1)
+        biases = np.split(np.asarray(p["bias"]), n)
+        for i in range(n):
+            self._put(_join(tpre, f"{stem}_linear_p{i + 1}.weight", "."),
                       kernels[i].T)
-            self._put(_join(tpre, f"AU_linear_p{i + 1}.bias", "."),
+            self._put(_join(tpre, f"{stem}_linear_p{i + 1}.bias", "."),
                       biases[i])
 
-    def token_logits(self, tpre: str, jpath: str) -> None:
-        """(12, E) TokenLogits -> AU_linear_last1..last12 (1, E)."""
+    def token_logits(self, tpre: str, jpath: str, stem: str = "AU") -> None:
+        """(n, E) TokenLogits -> {stem}_linear_last1..last{n} (1, E)."""
         kernel = np.asarray(self._node(self.params, jpath)["kernel"])
         for i, row in enumerate(kernel):
-            self._put(_join(tpre, f"AU_linear_last{i + 1}.weight", "."),
+            self._put(_join(tpre, f"{stem}_linear_last{i + 1}.weight", "."),
                       row[None, :])
 
-    def au_former(self, tpre: str, jpre: str) -> None:
-        """AUFormerHead -> reference AU_former (heads.py:258-339)."""
-        self.batchnorm(_join(tpre, "AU_BN1", "."),
+    def au_former(self, tpre: str, jpre: str, n: int = NUM_AU,
+                  stem: str = "AU") -> None:
+        """AUFormerHead -> reference AU_former (heads.py:258-339); with
+        n=2, stem="VA" VAFormerHead -> VA_former (heads.py:341-372)."""
+        self.batchnorm(_join(tpre, f"{stem}_BN1", "."),
                        _join(jpre, "input_bn/bn", "/"))
-        self.token_proj(tpre, _join(jpre, "token_proj", "/"))
+        self.token_proj(tpre, _join(jpre, "token_proj", "/"), n, stem)
         self.raw(_join(tpre, "pos_embedding", "."),
                  _join(jpre, "pos_embedding", "/"))
         self.transformer(_join(tpre, "corr_transformer", "."),
                          _join(jpre, "corr_transformer", "/"))
+        self.token_logits(tpre, _join(jpre, "token_logits", "/"), stem)
+
+    def va_former(self, tpre: str, jpre: str) -> None:
+        self.au_former(tpre, jpre, n=2, stem="VA")
+
+    def mlp_head(self, tpre: str, jpre: str) -> None:
+        """MLPHead (bn1, fc1, bn2, fc2) -> the reference's
+        Sequential(BN1d, Linear, BN1d, Linear)."""
+        self.batchnorm(f"{tpre}.0", f"{jpre}/bn1/bn")
+        self.linear(f"{tpre}.1", f"{jpre}/fc1")
+        self.batchnorm(f"{tpre}.2", f"{jpre}/bn2/bn")
+        self.linear(f"{tpre}.3", f"{jpre}/fc2")
+
+    def au_multihead(self, tpre: str, jpre: str) -> None:
+        """AUMultihead -> AU_BN1, AU_linear_p/last{i}, AU_inter."""
+        self.batchnorm(_join(tpre, "AU_BN1", "."),
+                       _join(jpre, "input_bn/bn", "/"))
+        self.token_proj(tpre, _join(jpre, "token_proj", "/"))
         self.token_logits(tpre, _join(jpre, "token_logits", "/"))
+        if "inter" in self._node(self.params, jpre):
+            self.linear(_join(tpre, "AU_inter", "."),
+                        _join(jpre, "inter", "/"))
+
+    def dense_head(self, tpre: str, jpre: str) -> None:
+        """EXPHead / VAHead: bn1, fc1, [inter,] bn2, fc2."""
+        for name in ("fc1", "inter", "fc2"):
+            if name in self._node(self.params, jpre):
+                self.linear(_join(tpre, name, "."), _join(jpre, name, "/"))
+        for name in ("bn1", "bn2"):
+            self.batchnorm(_join(tpre, name, "."), _join(jpre, f"{name}/bn",
+                                                         "/"))
+
+    def multitask_head(self, tpre: str, jpre: str) -> None:
+        self.au_multihead(_join(tpre, "au_head", "."),
+                          _join(jpre, "au_head", "/"))
+        for name in ("exp_head", "va_head"):
+            self.dense_head(_join(tpre, name, "."), _join(jpre, name, "/"))
 
     def former_au_head(self, tpre: str, jpre: str) -> None:
         self.raw(_join(tpre, "pos_embedding", "."),
@@ -160,11 +203,28 @@ class Exporter:
         self.transformer(_join(tpre, "spatial_transformer", "."),
                          _join(jpre, "transformer", "/"))
 
+    def bottleneck(self, tpre: str, jpre: str) -> None:
+        for i in (1, 2, 3):
+            self.conv2d(f"{tpre}.conv{i}", f"{jpre}/conv{i}")
+            self.batchnorm(f"{tpre}.bn{i}", f"{jpre}/bn{i}/bn")
+        if "ds_conv" in self._node(self.params, jpre):
+            self.conv2d(f"{tpre}.downsample.0", f"{jpre}/ds_conv")
+            self.batchnorm(f"{tpre}.downsample.1", f"{jpre}/ds_bn/bn")
 
-def state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """JAX TwoStreamAuralVisualFormer variables -> the port's (reference
-    layout) avformer state dict; the inverse of ``convert_avformer``."""
-    e = Exporter(variables)
+    def vgg_trunk(self, tpre: str, jpre: str) -> None:
+        """VGGFace2Extractor (layer{i}_block{j}) -> the reference's
+        resnet50 naming (layer{i}.{j})."""
+        self.conv2d(f"{tpre}.conv1", f"{jpre}/conv1")
+        self.batchnorm(f"{tpre}.bn1", f"{jpre}/bn1/bn")
+        node = self._node(self.params, jpre)
+        for li in range(1, 5):
+            blocks = sum(1 for k in node if k.startswith(f"layer{li}_block"))
+            for bi in range(blocks):
+                self.bottleneck(f"{tpre}.layer{li}.{bi}",
+                                f"{jpre}/layer{li}_block{bi}")
+
+
+def _export_avformer(e: Exporter) -> None:
     e.resnet18("audio_model.audio_model.resnet",
                "audio_model/audio_model/resnet")
     e.au_former("audio_model.au_head", "audio_model/au_head")
@@ -175,6 +235,80 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]
     e.au_former("video_model.au_head", "video_model/au_head")
     if "au_head" in e.params:
         e.former_au_head("au_head", "au_head")
+
+
+def _export_vformer(e: Exporter) -> None:
+    e.resformer("video_model.s_former", "video_model/s_former")
+    e.tformer("video_model.t_former", "video_model/t_former")
+    e.mlp_head("fc", "fc")
+
+
+def _export_audio(e: Exporter) -> None:
+    e.resnet18("audio_model.resnet", "audio_model/resnet")
+    if "au_head" in e.params:
+        e.au_former("au_head", "au_head")
+
+
+def _export_resnet(e: Exporter) -> None:
+    e.resnet18("base_model", "base_model")
+    e.linear("fc.1", "fc")
+
+
+def _export_sformer(e: Exporter) -> None:
+    e.resformer("base_model", "base_model")
+    e.mlp_head("fc", "fc")
+    if "au_head" in e.params:
+        e.au_former("au_head", "au_head")
+    if "va_head" in e.params:
+        e.va_former("va_head", "va_head")
+
+
+def _export_tformer(e: Exporter) -> None:
+    e.resformer("video_model.s_former", "video_model/s_former")
+    e.au_former("video_model.au_head", "video_model/au_head")
+    e.tformer("video_model.t_former", "video_model/t_former")
+    e.mlp_head("fc", "fc")
+    e.former_au_head("au_head", "au_head")
+
+
+def _export_dsformer(e: Exporter) -> None:
+    e.resformer("rgb_model", "rgb_model")
+    e.resformer("mask_model", "mask_model")
+    e.mlp_head("fc", "fc")
+
+
+def _export_vggformer(e: Exporter) -> None:
+    s = "video_model.s_former"
+    e.vgg_trunk(f"{s}.VGG_model", "s_former/VGG_model")
+    e.conv2d(f"{s}.conv", "s_former/conv")
+    e.raw(f"{s}.pos_embedding", "s_former/pos_embedding")
+    e.transformer(f"{s}.spatial_transformer", "s_former/spatial_transformer")
+    e.tformer("video_model.t_former", "t_former")
+    e.linear("fc.0", "fc1")
+    e.batchnorm("fc.1", "fc_bn/bn")
+    e.linear("fc.3", "fc2")
+
+
+#: model name -> the mapper of its whole tree (the inverse of the JAX
+#: package's ``CONVERTERS`` entry of that name)
+EXPORTERS = {"avformer": _export_avformer, "vformer": _export_vformer,
+             "audio": _export_audio, "resnet": _export_resnet,
+             "sformer": _export_sformer, "tformer": _export_tformer,
+             "dsformer": _export_dsformer, "vggformer": _export_vggformer}
+
+
+def state_dict_from_jax(variables: Mapping[str, Any],
+                        model_name: str = "avformer"
+                        ) -> dict[str, torch.Tensor]:
+    """JAX variables of ``model_name`` -> the port's (reference layout)
+    state dict; the inverse of that model's converter in
+    ``core/torch_import.py``."""
+    if model_name not in EXPORTERS:
+        raise NotImplementedError(
+            f"no state dict export for {model_name!r}: ROADMAP.md queue A6 "
+            "(the rest of the model zoo) lists it")
+    e = Exporter(variables)
+    EXPORTERS[model_name](e)
     return e.sd
 
 

@@ -134,42 +134,49 @@ def make_infer_fn(cfg: Config, model: torch.nn.Module, device=None):
     does); the audio features are computed outside it, in f32 (the mel
     kernel's DFT in bf16 under ``cfg.mel_bf16``).
 
-    ``batch``: ``clip`` (B, T, H, W, C) uint8, plus one of: precomputed
+    ``batch``: the inputs of the model's ``modes`` (the JAX package's
+    ``make_infer_fn`` filters by them): ``clip`` (B, T, H, W, C) uint8
+    where the model takes clips; where it takes audio, one of: precomputed
     ``audio_features`` (B, 1, 64, 1001); under ``cfg.device_audio``, the
     loader's LEFT-aligned raw windows ``audio`` (B, 1, L) or (B, L) with
     ``audio_len`` (B,) valid samples, whose features the device computes
     (``reflect_end_patch`` + the left-aligned frontend, as the JAX
     package's ``prep_batch`` does); or ``audio`` (B, L) float32 raw
     right-aligned audio with optional ``feature_len`` (B,) valid mel
-    frames. Arrays may be numpy or tensors.
+    frames, whose features the mel kernel computes on the card. Arrays may
+    be numpy or tensors.
     """
     device = resolve_device(device)
     dtype = compute_dtype(cfg)
     prepare_inference(cfg, model, device)
+    modes = set(model.modes)
 
     def put(value) -> torch.Tensor:
         return torch.as_tensor(value).to(device)
 
-    @torch.inference_mode()
-    def infer(batch: Mapping) -> torch.Tensor:
+    def audio_features(batch: Mapping) -> torch.Tensor:
         if "audio_features" in batch:
-            feats = put(batch["audio_features"])
-        elif cfg.device_audio and "audio_len" in batch:
+            return put(batch["audio_features"])
+        if cfg.device_audio and "audio_len" in batch:
             n_valid = put(batch["audio_len"]).reshape(-1).to(torch.int64)
             raw = put(batch["audio"]).float().reshape(n_valid.shape[0], -1)
-            feats = audio_frontend(reflect_end_patch(raw, n_valid),
-                                   1 + n_valid // HOP_LENGTH,
-                                   mel_bf16=cfg.mel_bf16, left_aligned=True)
-        else:
-            flen = batch.get("feature_len")
-            feats = audio_frontend(
-                put(batch["audio"]).float().contiguous(),
-                None if flen is None else put(flen),
-                mel_bf16=cfg.mel_bf16)
-        # f32 normalisation, as JAX's prep_batch; the first convolution
-        # rounds the clip to the compute dtype
-        x = {"clip": normalize_clip(put(batch["clip"])),
-             "audio_features": feats.to(dtype)}
+            return audio_frontend(reflect_end_patch(raw, n_valid),
+                                  1 + n_valid // HOP_LENGTH,
+                                  mel_bf16=cfg.mel_bf16, left_aligned=True)
+        flen = batch.get("feature_len")
+        return audio_frontend(put(batch["audio"]).float().contiguous(),
+                              None if flen is None else put(flen),
+                              mel_bf16=cfg.mel_bf16)
+
+    @torch.inference_mode()
+    def infer(batch: Mapping) -> torch.Tensor:
+        x = {}
+        if "audio_features" in modes:
+            x["audio_features"] = audio_features(batch).to(dtype)
+        if "clip" in modes:
+            # f32 normalisation, as JAX's prep_batch; the first convolution
+            # rounds the clip to the compute dtype
+            x["clip"] = normalize_clip(put(batch["clip"]))
         with compute_autocast(cfg, device):
             return model(x).float()
 
@@ -205,9 +212,9 @@ def _testset(cfg: Config, dataset):
 
 
 def model_inputs(batch: Mapping) -> dict:
-    """The entries of a batch that the forward reads (``make_infer_fn``):
-    the clip with the host features, or the clip with raw audio and its
-    lengths."""
+    """The entries of a batch that the forward may read (``make_infer_fn``
+    takes those of the model's modes): the clip with the host features, or
+    the clip with raw audio and its lengths."""
     keys = (("clip", "audio_features") if "audio_features" in batch else
             ("clip", "audio", "feature_len", "audio_len"))
     return {k: np.asarray(batch[k]) for k in keys if k in batch}
@@ -300,9 +307,11 @@ def run_inference_sweep(cfg: Config, model: torch.nn.Module,
 
     Each item of ``videos`` is one video: ``video_id`` (str), ``Index``
     (N,) dataset rows, ``frames`` (N, H, W, 3) uint8, ``wav`` (L,) float32
-    mono and ``timestamps_ms`` (N,). With ``cfg.strict_parity`` the item
-    carries ``audio_features`` (N, 1, 64, 1001) host features instead of
-    ``wav`` and ``timestamps_ms``, and ``sweep_video`` runs on them.
+    mono and ``timestamps_ms`` (N,); a sweep that takes no audio
+    (vformer, the single-frame models: ``needs_audio`` False) reads
+    neither. With ``cfg.strict_parity`` and an audio sweep the item carries
+    ``audio_features`` (N, 1, 64, 1001) host features instead of ``wav``
+    and ``timestamps_ms``, and ``sweep_video`` runs on them.
     Otherwise each video is dispatched (``dispatch_video``: audio computed
     on the device from one wav upload) and the logits come back with one
     grouped ``fetch_many`` per ``FETCH_GROUP_CLIPS`` clips.
@@ -311,23 +320,26 @@ def run_inference_sweep(cfg: Config, model: torch.nn.Module,
     ``Aff2TestDataset`` of ``cfg``) is swept: through
     ``serve.sweep_stream`` (one-ahead decode, in a worker process from
     ``serve.WORKER_MIN_CLIPS`` test clips), or under ``cfg.strict_parity``
-    through ``host_feature_videos``.
+    with an audio sweep through ``host_feature_videos``.
 
-    Writes per-video AU txts + ``inference.pkl`` and returns the
-    prediction matrix, the AU columns filled: (max Index + 1, 21) for
-    ``videos``, (len(dataset), 21) for a dataset.
+    Writes the submission files of ``cfg.task`` (AU txts always, EX and VA
+    where the sweep gives those columns) + ``inference.pkl`` and returns
+    the prediction matrix, the sweep's ``out_dim`` columns filled:
+    (max Index + 1, 21) for ``videos``, (len(dataset), 21) for a
+    dataset.
     """
     from .sweep import default_sweep_bucket, make_sweep
 
     device = resolve_device(device)
     sweep = make_sweep(cfg, model, device=device)
     bucket = bucket or default_sweep_bucket(device)
+    strict = cfg.strict_parity and sweep.needs_audio
     n_rows = None
     stream = None
     if videos is None:
         dataset = _testset(cfg, dataset)
         n_rows = len(dataset)
-        if cfg.strict_parity:
+        if strict:
             videos = host_feature_videos(dataset, cfg.image_size)
         else:
             from .serve import sweep_stream
@@ -355,15 +367,15 @@ def run_inference_sweep(cfg: Config, model: torch.nn.Module,
                 emit(video_id, vid_idx, logits)
         else:
             for video in videos:
-                if cfg.strict_parity:
+                if strict:
                     emit(video["video_id"], video["Index"], sweep.sweep_video(
                         np.asarray(video["frames"]),
                         np.asarray(video["audio_features"], np.float32),
                         batch=bucket))
                     continue
                 pending.append((video, sweep.dispatch_video(
-                    np.asarray(video["frames"]), wav=video["wav"],
-                    timestamps_ms=video["timestamps_ms"], batch=bucket)))
+                    np.asarray(video["frames"]), wav=video.get("wav"),
+                    timestamps_ms=video.get("timestamps_ms"), batch=bucket)))
                 if sum(h[0] for _, h in pending) >= FETCH_GROUP_CLIPS:
                     drain()
             drain()

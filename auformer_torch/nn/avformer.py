@@ -6,6 +6,9 @@ reference models/avformer.py).
                                                    -> (B,12,128)
   concat on the feature dim, audio tokens first -> (B,12,256)
   -> FormerAUHead -> 12 AU logits; out (B,21): AU slice filled, EX/VA zero.
+
+``AudioOnly`` is the audio model (reference audio.py:42-114): the audio
+stream's resnet18 and AU_former alone, its logits in the AU slice.
 """
 from __future__ import annotations
 
@@ -14,7 +17,16 @@ from torch import nn
 
 from .heads import AUFormerHead, FormerAUHead
 from .resnet import ResNet18
-from .vformer import VideoModel
+from .vformer import VideoModel, modality_channels
+
+
+def au_slice(logits: torch.Tensor | None, b: int,
+             device: torch.device) -> torch.Tensor:
+    """(B, 21) float32 output with the 12 AU ``logits`` (None: zeros) in
+    its first columns and zeros in the EX/VA columns."""
+    zeros = torch.zeros((b, 21 if logits is None else 9),
+                        dtype=torch.float32, device=device)
+    return zeros if logits is None else torch.cat([logits.float(), zeros], 1)
 
 
 class AudioModel(nn.Module):
@@ -84,16 +96,33 @@ class TwoStreamAuralVisualFormer(nn.Module):
 
     @property
     def num_channels(self) -> int:
-        if "M" in self.modality:
-            return 4 if "V" in self.modality else 1
-        return 3
+        return modality_channels(self.modality)
 
     def forward(self, x: dict) -> torch.Tensor:
         audio_tokens = self.audio_model(x["audio_features"])
         video_tokens = self.video_model(x["clip"])
         fused = torch.cat([audio_tokens, video_tokens], dim=2)
-        out = torch.zeros((fused.shape[0], 21), dtype=torch.float32,
-                          device=fused.device)
-        if self.task == "AU":
-            out[:, :12] = self.au_head(fused).float()
-        return out
+        return au_slice(self.au_head(fused) if self.task == "AU" else None,
+                        fused.shape[0], fused.device)
+
+
+class AudioOnly(nn.Module):
+    """audio (reference audio.py:42-114): log-mel -> resnet18 -> AU_former,
+    its 12 logits in the AU slice of a (B, 21) output."""
+
+    modes = ("audio_features",)
+    loss_key = "audio"
+
+    def __init__(self, modality: str = "A", task: str = "AU",
+                 dropout: float = 0.2):
+        super().__init__()
+        self.modality = modality
+        self.task = task
+        self.audio_model = AudioModel()
+        if task == "AU":
+            self.au_head = AUFormerHead(dropout=dropout)
+
+    def forward(self, x: dict) -> torch.Tensor:
+        feats = self.audio_model(x["audio_features"])
+        return au_slice(self.au_head(feats)[0] if self.task == "AU" else None,
+                        feats.shape[0], feats.device)

@@ -1,7 +1,13 @@
-"""Model registry (counterpart of auformer/nn/registry.py). Only avformer is
-ported so far; ROADMAP.md queues the rest of the zoo."""
+"""Model registry (counterpart of auformer/nn/registry.py; dispatch as the
+reference's train.py:292-315). Ported: avformer, vformer, sformer, tformer,
+dsformer, vggformer, audio and the resnet baseline, which is also the
+fallback for unknown names. van, emonet, i3d, mc3d and tsav raise, naming
+ROADMAP.md queue A6."""
 from __future__ import annotations
 
+from typing import Any
+
+import numpy as np
 import torch
 
 from ..core.config import Config
@@ -35,6 +41,8 @@ def prepare_inference(cfg: Config, model: torch.nn.Module,
     is then an inference model: its rounded weights do not return to f32
     values."""
     model.to(device=device, dtype=torch.float32).eval()
+    # every convolution and Linear of the zoo is a Conv2d or a Linear
+    # (ROADMAP.md A6: the 3-d models bring Conv3d)
     if compute_dtype(cfg) == torch.bfloat16:
         for m in model.modules():
             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
@@ -42,20 +50,75 @@ def prepare_inference(cfg: Config, model: torch.nn.Module,
     return model
 
 
+#: zoo models whose convolution families are not ported yet
+UNPORTED_MODELS = ("van", "emonet", "i3d", "mc3d", "tsav")
+#: models whose clip is one frame (the JAX package's example_batch)
+SINGLE_FRAME = ("sformer", "dsformer", "van", "emonet", "resnet")
+
+
+def _build(cfg: Config) -> torch.nn.Module:
+    name, modality, task = cfg.model_name, cfg.modality, cfg.task
+    if name in UNPORTED_MODELS:
+        raise NotImplementedError(
+            f"model {name!r} is not ported to auformer_torch yet; "
+            f"ROADMAP.md queue A6 (the rest of the model zoo) lists it")
+    if name == "avformer":
+        from .avformer import TwoStreamAuralVisualFormer
+        return TwoStreamAuralVisualFormer(modality, task, cfg.n_frames,
+                                          cfg.dropout_rate)
+    if name == "vformer":
+        from .vformer import VisualFormer
+        return VisualFormer(modality, task, cfg.n_frames)
+    if name == "vggformer":
+        from .vggformer import VGGVisualFormer
+        return VGGVisualFormer(modality, task, cfg.n_frames)
+    if name == "tformer":
+        from .tformer import SpatialTemporalFormer
+        return SpatialTemporalFormer(modality, task, cfg.n_frames,
+                                     cfg.dropout_rate)
+    if name == "sformer":
+        from .sformer import SpatialFormer
+        return SpatialFormer(modality, task, cfg.dropout_rate)
+    if name == "dsformer":
+        from .dual_sformer import DualSpatialFormer
+        return DualSpatialFormer(modality, task)
+    if name == "audio":
+        from .avformer import AudioOnly
+        return AudioOnly(modality, task, cfg.dropout_rate)
+    from .resnet_image import ImageResNetModel
+    return ImageResNetModel(task, cfg.clip_channels)
+
+
 def build_model(cfg: Config,
                 dtype: torch.dtype | None = None) -> torch.nn.Module:
-    """The model named by ``cfg.model_name``, on the CPU, with random
+    """The model named by ``cfg.model_name`` (the resnet baseline for an
+    unknown name, as the reference's dispatch), on the CPU, with random
     weights, in ``dtype`` (default float32: inference and training keep f32
     parameters and compute under ``compute_autocast``)."""
-    if cfg.model_name != "avformer":
-        raise NotImplementedError(
-            f"model {cfg.model_name!r} is not ported to auformer_torch yet; "
-            f"ROADMAP.md (queue A, the rest of the model zoo) lists it")
-    from .avformer import TwoStreamAuralVisualFormer
-    model = TwoStreamAuralVisualFormer(
-        modality=cfg.modality, task=cfg.task, n_frames=cfg.n_frames,
-        dropout=cfg.dropout_rate)
-    return model.to(dtype or torch.float32)
+    return _build(cfg).to(dtype or torch.float32)
+
+
+def example_batch(cfg: Config, batch_size: int | None = None,
+                  rng: np.random.RandomState | None = None
+                  ) -> dict[str, Any]:
+    """A correctly shaped numpy input dict for the configured model (the
+    JAX package's ``example_batch``): a normalized-scale clip (T = 1 for
+    the single-frame models; none for ``audio``) and, where the model or
+    ``cfg.use_audio`` takes them, audio features."""
+    rng = rng or np.random.RandomState(0)
+    b = batch_size or cfg.batch_size
+    name = cfg.model_name
+    t = 1 if name in SINGLE_FRAME else cfg.n_frames
+    c = cfg.clip_channels if "V" in cfg.modality or "M" in cfg.modality \
+        else 3
+    x: dict[str, Any] = {}
+    if name != "audio":
+        x["clip"] = rng.randn(b, t, cfg.image_size, cfg.image_size,
+                              c).astype(np.float32)
+    if cfg.use_audio or name in ("avformer", "audio", "tsav"):
+        x["audio_features"] = rng.randn(b, 1, cfg.n_mels,
+                                        cfg.mel_frames).astype(np.float32)
+    return x
 
 
 def loss_suite(model) -> LossSuite:

@@ -545,10 +545,10 @@ def packed_sweep_stream(cfg, model: torch.nn.Module, dataset=None,
     dataset = Aff2TestDataset(cfg) if dataset is None else dataset
     sweep = sweep or make_sweep(cfg, model, device=device)
     if not hasattr(sweep, "fused_sweep_packed"):
-        raise NotImplementedError(
-            f"no packed buckets for {type(sweep).__name__}: only the "
-            "audio-bearing AvformerSweep packs videos; ROADMAP.md queue A6 "
-            "(the rest of the model zoo) lists the other sweeps")
+        raise ValueError(
+            "packed_sweep_stream requires an audio-bearing sweep with a "
+            "fused packed program (AvformerSweep); use serve.sweep_stream "
+            f"for {type(sweep).__name__}")
     bucket = bucket or default_sweep_bucket(sweep.device)
     size = cfg.image_size
     test_idx, videos, counts = _test_videos(dataset)

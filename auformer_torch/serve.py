@@ -104,14 +104,16 @@ def serve_benchmark(cfg: Config, model: torch.nn.Module, dataset=None,
             "clips_per_sec": n / dt if dt > 0 else 0.0}
 
 
-def _load_video(dataset, test_idx, video_nr, image_size: int):
+def _load_video(dataset, test_idx, video_nr, image_size: int,
+                want_wav: bool = True):
     """(vid_idx, frames, wav, timestamps, decode seconds) of one test
-    video."""
+    video; the wav is None, and not read, without ``want_wav`` (a sweep
+    that takes no audio)."""
     t0 = time.perf_counter()
     vid_idx = test_idx[dataset.video_db_nr[test_idx] == video_nr]
     video_id = os.path.dirname(dataset.image_path[vid_idx[0]])
     frames = decode_video_frames(dataset, vid_idx, image_size, image_size)
-    wav = read_video_wav(dataset.audio_dir, video_id)
+    wav = read_video_wav(dataset.audio_dir, video_id) if want_wav else None
     ts = np.asarray(dataset.time_stamps)[vid_idx]
     return vid_idx, frames, wav, ts, time.perf_counter() - t0
 
@@ -122,8 +124,8 @@ def _decode_worker_main(conn, cfg: Config) -> None:
     own ``Aff2TestDataset(cfg)``, so the parent's dataset is the one
     ``cfg`` describes. Requests:
 
-      * a video db-nr: reply (vid_idx, frames, wav, ts, decode_s), the
-        whole video through the pipe;
+      * ``("video", video_nr, want_wav)``: reply (vid_idx, frames, wav or
+        None, ts, decode_s), the whole video through the pipe;
       * ``("arena", capacity, h, w)`` followed by the fd of a
         ``packed.FrameArena``'s shared memory: map that ring (replacing any
         earlier one), reply ``"arena_ok"``;
@@ -178,7 +180,9 @@ def _decode_worker_main(conn, cfg: Config) -> None:
                     ds.image_path[vid_idx[0]])) if want_wav else None
                 conn.send((wav, time.perf_counter() - t0))
             else:
-                conn.send(_load_video(ds, test_idx, req, size))
+                _tag, video_nr, want_wav = req
+                conn.send(_load_video(ds, test_idx, video_nr, size,
+                                      want_wav))
         except Exception:
             conn.send(("error", traceback.format_exc()))
 
@@ -214,11 +218,12 @@ class DecodeWorker:
         #: seconds from spawn to the child's handshake
         self.startup_seconds = time.perf_counter() - t0
 
-    def request(self, video_nr) -> None:
-        self._conn.send(video_nr)
+    def request(self, video_nr, want_wav: bool = True) -> None:
+        self._conn.send(("video", video_nr, bool(want_wav)))
 
     def result(self):
-        """(vid_idx, frames, wav, ts, decode_s) of the oldest request."""
+        """(vid_idx, frames, wav or None, ts, decode_s) of the oldest
+        request."""
         msg = self._conn.recv()
         if isinstance(msg, tuple) and msg and isinstance(msg[0], str):
             raise RuntimeError(f"decode worker failed:\n{msg[1]}")
@@ -273,7 +278,9 @@ def sweep_stream(cfg: Config, model: torch.nn.Module, dataset=None,
 
     Per video, every test frame is decoded once, the trunk runs once per
     frame, and windows are feature gathers on the device (sweep.py); the
-    audio is computed on the device from one wav upload. Video *i+1*
+    audio is computed on the device from one wav upload, and a sweep that
+    takes no audio (``needs_audio`` False: vformer, the single-frame
+    models) reads no wav. Video *i+1*
     decodes while the card sweeps video *i*: in ``decode_worker`` (a
     ``DecodeWorker``; one is started, and closed at the end, when None and
     the split holds ``WORKER_MIN_CLIPS`` clips or more), else on a thread
@@ -313,6 +320,7 @@ def sweep_stream(cfg: Config, model: torch.nn.Module, dataset=None,
     dispatch_stream = torch.cuda.current_stream(sweep.device) if on_card \
         else None
 
+    want_wav = sweep.needs_audio
     worker = decode_worker or None  # False = forced thread
     owns_worker = (worker is None and decode_worker is not False and videos
                    and sum(counts) >= WORKER_MIN_CLIPS)
@@ -372,18 +380,19 @@ def sweep_stream(cfg: Config, model: torch.nn.Module, dataset=None,
         """One-ahead decode of every video, in the worker process or on a
         thread: the same overlap either way."""
         if worker is not None:
-            worker.request(videos[0])
+            worker.request(videos[0], want_wav)
             for i in range(len(videos)):
                 tw = time.perf_counter()
                 vid_idx, frames, wav, ts, dsec = worker.result()
                 st["wait_seconds"] += time.perf_counter() - tw
                 st["decode_seconds"] += dsec
                 if i + 1 < len(videos):
-                    worker.request(videos[i + 1])
+                    worker.request(videos[i + 1], want_wav)
                 yield vid_idx, frames, wav, ts
         else:
             def load(video_nr):
-                return _load_video(dataset, test_idx, video_nr, size)
+                return _load_video(dataset, test_idx, video_nr, size,
+                                   want_wav)
 
             with ThreadPoolExecutor(max_workers=1) as ex:
                 nxt = ex.submit(load, videos[0])
@@ -427,9 +436,10 @@ def sweep_serve_benchmark(cfg: Config, model: torch.nn.Module, dataset=None,
     plus the ``sweep`` and the ``decode_worker`` for reuse across passes
     (a caller that does not reuse the worker closes it).
 
-    It sweeps zeros of the first video's length before the clock starts
-    (allocator, cuDNN's algorithm choice): steady state is what a sweep of
-    a whole test split runs at. The worker's start-up, from
+    It sweeps zeros of the first video's length (and, for a sweep that
+    takes audio, of its wav's) before the clock starts (allocator, cuDNN's
+    algorithm choice): steady state is what a sweep of a whole test split
+    runs at. The worker's start-up, from
     ``WORKER_MIN_CLIPS`` test clips, is also set-up before the clock;
     per-video decode is always inside it."""
     import wave
@@ -443,7 +453,7 @@ def sweep_serve_benchmark(cfg: Config, model: torch.nn.Module, dataset=None,
     size = cfg.image_size
     test_idx, videos, counts = _test_videos(dataset)
 
-    if videos:
+    if videos and sweep.needs_audio:
         n0 = counts[0]
         vid_idx0 = test_idx[dataset.video_db_nr[test_idx] == videos[0]]
         video_id0 = os.path.dirname(dataset.image_path[vid_idx0[0]])
@@ -457,6 +467,9 @@ def sweep_serve_benchmark(cfg: Config, model: torch.nn.Module, dataset=None,
         sweep.sweep_video_device_audio(
             np.zeros((n0, size, size, 3), np.uint8),
             np.zeros(wav_len, np.float32), np.zeros(n0), batch=bucket)
+    elif videos:
+        sweep.sweep_video(np.zeros((counts[0], size, size, 3), np.uint8),
+                          batch=bucket)
 
     if decode_worker is None and videos \
             and sum(counts) >= WORKER_MIN_CLIPS:

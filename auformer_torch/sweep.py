@@ -28,6 +28,13 @@ packed.py) compute their phase-mel tables from a bucket-local wav buffer.
 The shared-audio variant (``sweep_video_shared_audio``: one global mel per
 video, windows snapped to the hop grid) is opt-in and approximate.
 
+``VformerSweep`` is the same restructuring of the visual-only vformer
+(trunk once per frame, window gathers into the T-Former and the BN-MLP
+head; 4 attention launches per bucket, all 21 logits). ``SingleFrameSweep``
+serves the single-frame zoo models (sformer, resnet; vggformer only at
+``n_frames == 1``): each frame forwards once through the whole model in
+buckets padded to multiples of 256 frames.
+
 Every compute method runs eagerly under ``torch.inference_mode()``; the
 JAX package's jit and weight-pytree plumbing has no counterpart here. The
 data-parallel mesh is not ported (ROADMAP.md, queue A7).
@@ -192,6 +199,13 @@ class SweepBase:
         return _fetch_concat(handles, self.out_dim)
 
 
+def _refuse_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "the data-parallel sweep is not ported to auformer_torch; "
+            "ROADMAP.md queue A7 (multi-process) lists it")
+
+
 class AvformerSweep(SweepBase):
     """Frame-feature-cached avformer executor (task 'AU', modality 'A;V').
 
@@ -209,10 +223,7 @@ class AvformerSweep(SweepBase):
 
     def __init__(self, cfg: Config, model: torch.nn.Module, mesh=None,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the data-parallel sweep is not ported to auformer_torch; "
-                "ROADMAP.md queue A7 (multi-process) lists it")
+        _refuse_mesh(mesh)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = compute_dtype(cfg)
@@ -511,12 +522,155 @@ class AvformerSweep(SweepBase):
         return self.fetch_many([(n, pending)])[0]
 
 
+class VformerSweep(SweepBase):
+    """Frame-feature-cached vformer executor (visual-only, all 21 logits).
+
+    The avformer restructuring without the audio stream: the S-Former
+    trunk runs once per frame (the black frame as the last row of each
+    bucket's trunk batch), clip windows become feature gathers feeding the
+    T-Former and the BN-MLP head. Takes the port's ``VisualFormer`` with
+    its weights loaded and moves it to ``device`` for inference, in place
+    (``prepare_inference``)."""
+
+    out_dim = 21
+    needs_audio = False
+
+    def __init__(self, cfg: Config, model: torch.nn.Module, mesh=None,
+                 device=None):
+        _refuse_mesh(mesh)
+        if "M" in cfg.modality:
+            raise NotImplementedError(
+                "VformerSweep decodes RGB frames only (modality 'V')")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = compute_dtype(cfg)
+        prepare_inference(cfg, model, self.device)
+        self.trunk = model.video_model.s_former
+        self.tformer = model.video_model.t_former
+        self.head = model.fc
+
+    @torch.inference_mode()
+    def frame_features(self, frames_u8: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, 3) uint8 -> (N, 512) S-Former trunk features."""
+        x = normalize_clip(frames_u8, dtype=self.dtype)
+        with compute_autocast(self.cfg, self.device):
+            return self.trunk(x.permute(0, 3, 1, 2))
+
+    @torch.inference_mode()
+    def fused_sweep(self, frames_u8: torch.Tensor,
+                    idx: torch.Tensor) -> torch.Tensor:
+        """One bucket: the trunk once per frame plus the black frame, the
+        window gather, the T-Former and the head -> (N, 21) float32."""
+        black = frames_u8.new_zeros((1,) + tuple(frames_u8.shape[1:]))
+        feats = self.frame_features(torch.cat([frames_u8, black]))
+        with compute_autocast(self.cfg, self.device):
+            return self.head(self.tformer(feats[idx])).float()
+
+    def dispatch_video(self, frames_u8: np.ndarray, wav=None,
+                       timestamps_ms=None, batch: int = 512):
+        """Queue a video's buckets on the device (``wav`` and
+        ``timestamps_ms`` are accepted and not read); returns a handle for
+        :meth:`fetch_many`."""
+        n = frames_u8.shape[0]
+        pending = []
+        for s, cur, _bsize, frames_chunk, rows in self._buckets(
+                n, frames_u8, batch):
+            frames_chunk, rows = self._to_device(frames_chunk, rows)
+            pending.append((s, cur, self.fused_sweep(frames_chunk, rows)))
+        return (n, pending)
+
+    def sweep_video(self, frames_u8: np.ndarray,
+                    batch: int = 512) -> np.ndarray:
+        """frames_u8 (N, H, W, 3) -> (N, 21) logits, one fetch."""
+        return self.fetch_many([self.dispatch_video(frames_u8,
+                                                    batch=batch)])[0]
+
+
+#: RGB zoo models whose prediction depends on ONE frame (the JAX package's
+#: list): for them the per-frame forward is the whole model. dsformer is
+#: single-frame too but takes the mask channel, which serving does not
+#: decode. vggformer is temporal unless ``n_frames == 1`` (ROADMAP.md C4).
+SINGLE_FRAME_MODELS = ("sformer", "van", "vggformer", "emonet", "resnet")
+
+
+class SingleFrameSweep(SweepBase):
+    """Batched per-frame executor for the single-frame zoo models: each
+    frame forwards once through the whole model, in buckets padded to a
+    multiple of 256 frames (at most ``batch``)."""
+
+    out_dim = 21
+    needs_audio = False
+
+    def __init__(self, cfg: Config, model: torch.nn.Module, mesh=None,
+                 device=None):
+        _refuse_mesh(mesh)
+        if cfg.model_name not in SINGLE_FRAME_MODELS:
+            raise ValueError(f"{cfg.model_name} is not single-frame")
+        if "M" in cfg.modality:
+            raise NotImplementedError(
+                "serving decode assembles RGB frames only (modality 'V')")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = compute_dtype(cfg)
+        self.model = prepare_inference(cfg, model, self.device)
+
+    @torch.inference_mode()
+    def fused_sweep(self, frames_u8: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, 3) uint8 -> (N, 21) float32, one frame per clip."""
+        x = {"clip": normalize_clip(frames_u8, dtype=self.dtype)[:, None]}
+        with compute_autocast(self.cfg, self.device):
+            return self.model(x).float()
+
+    def dispatch_video(self, frames_u8: np.ndarray, wav=None,
+                       timestamps_ms=None, batch: int = 512):
+        """Queue a video's buckets (``wav`` and ``timestamps_ms`` are
+        accepted and not read); a bucket's frames pad with black frames to
+        a multiple of ``bucket_quantum`` (256)."""
+        n = frames_u8.shape[0]
+        q = self.bucket_quantum
+        pending = []
+        for s in range(0, n, batch):
+            cur = min(batch, n - s)
+            chunk = frames_u8[s:s + cur]
+            pad = min(batch, -(-cur // q) * q) - cur
+            if pad:
+                chunk = np.concatenate(
+                    [chunk, np.zeros((pad,) + chunk.shape[1:], np.uint8)])
+            pending.append((s, cur, self.fused_sweep(self._to_device(chunk))))
+        return (n, pending)
+
+    def sweep_video(self, frames_u8: np.ndarray,
+                    batch: int = 512) -> np.ndarray:
+        """frames_u8 (N, H, W, 3) -> (N, 21) logits, one fetch."""
+        return self.fetch_many([self.dispatch_video(frames_u8,
+                                                    batch=batch)])[0]
+
+
 def make_sweep(cfg: Config, model: torch.nn.Module, mesh=None,
                device=None) -> SweepBase:
-    """The sweep executor for ``cfg.model_name``: avformer only so far."""
-    if cfg.model_name == "avformer":
+    """The sweep executor for ``cfg.model_name``, routed as the JAX
+    package's ``make_sweep``: avformer, vformer, and the single-frame RGB
+    models. Two departures: vggformer takes ``SingleFrameSweep`` only at
+    ``n_frames == 1`` (ROADMAP.md C4: its TFormer reshapes the frame
+    features to (-1, n_frames, 512)), and van and emonet raise until their
+    models are ported (queue A6)."""
+    name = cfg.model_name
+    if name == "avformer":
         return AvformerSweep(cfg, model, mesh=mesh, device=device)
+    if name == "vformer":
+        return VformerSweep(cfg, model, mesh=mesh, device=device)
+    if name in ("van", "emonet"):
+        raise NotImplementedError(
+            f"model {name!r} is not ported to auformer_torch yet; ROADMAP.md "
+            "queue A6 (the rest of the model zoo) lists it")
+    if name == "vggformer" and cfg.n_frames != 1:
+        raise ValueError(
+            "vggformer is temporal (its TFormer takes n_frames frame "
+            f"features per clip, n_frames={cfg.n_frames}), so the "
+            "single-frame sweep cannot serve it; serve it through "
+            "run_inference, or set n_frames=1 for the single-frame sweep")
+    if name in SINGLE_FRAME_MODELS and "M" not in cfg.modality:
+        return SingleFrameSweep(cfg, model, mesh=mesh, device=device)
     raise NotImplementedError(
-        f"no dense-sweep executor for model {cfg.model_name!r} in "
-        "auformer_torch yet; ROADMAP.md queue A6 (the rest of the model "
-        "zoo, VformerSweep, SingleFrameSweep) lists it")
+        f"no dense-sweep executor for model '{name}'; use run_inference "
+        "(clip-batched) instead")

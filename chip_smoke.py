@@ -61,6 +61,21 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            thread beside the per-video and array-fed rates; then
            postprocess.main over test_aff2.main's submission, each video's
            frame count from a meta.json side file
+  zoo      the other served models at full width (random reference-layout
+           weights from the seed): vformer, sformer (tasks AU and VA),
+           tformer, dsformer, vggformer (T=16, or T=1 for the single-frame
+           models, dilation 3), audio (raw audio, the mel kernel) and the
+           resnet baseline. Per model, a B=8 clip forward: launch counts of
+           one bf16 forward (the main path) and one fp32, fp32 logits on
+           the card against the same port on the CPU, bf16 against fp32,
+           clips/s and device ms per forward in bf16. Then the sweep
+           phase's 2,100-frame video through VformerSweep (fp32 against
+           the fp32 clip path on 16 label frames, launches per bucket,
+           bf16 label frames/s, device ms and kernels per bucket) and
+           through SingleFrameSweep for sformer (fp32 against its clip
+           forward on 64 frames, label frames/s), and run_inference_sweep
+           of vformer over the dataset phase's split through the decode
+           worker (the submission files); the split is removed after it
   train    a synthetic train/val split written by the port's fixtures
            (videos of 1,500, 1,500, 600 and 100 frames: train, train,
            val, test; 112x112 JPEG q90). Before any training: the
@@ -87,8 +102,10 @@ sums in both dtypes (``per_bucket``, and ``per_packed_bucket`` for a full
 (``per_forward``) and the train step (``train_step``: per call at the
 fusion head's site beside its launches per step, and the traced device ms
 per step of the kernel and of the backward); ``launches`` counts the
-slice's, the sweep's, the dataset's, the packed and the train phase's main
-path runs (``launches_by_path``). Then the nvidia-smi name/power line, and last
+slice's, the sweep's, the dataset's, the packed, the zoo and the train
+phase's main path runs (``launches_by_path``; ``zoo`` sums the zoo
+phase's bf16 main path runs), and ``zoo_sites`` lists the zoo's attention
+sites in both dtypes. Then the nvidia-smi name/power line, and last
 ``{"ok": true, "device": {...}}``. Without a GPU, or outside a checkout
 of the repository, it exits non-zero and prints no result.
 
@@ -158,7 +175,14 @@ ATTENTION_SITES = (("slice", "spatial", 49, 32, BATCH * FRAMES, 1),
                    ("packed", "spatial", 49, 32,
                     PACKED_BUCKET + LABEL_FRAME + 1, 1),
                    ("packed", "temporal", 17, 64, PACKED_BUCKET, 3),
-                   ("packed", "au_tokens", 12, 32, PACKED_BUCKET, 7))
+                   ("packed", "au_tokens", 12, 32, PACKED_BUCKET, 7),
+                   # the zoo's new sites, per B=8 clip forward of its model
+                   ("zoo", "sformer_va_head", 2, 32, BATCH, 2),
+                   ("zoo", "tformer_au_tokens", 12, 32, BATCH * FRAMES, 2),
+                   ("zoo", "tformer_temporal_1536", 17, 64, BATCH, 3),
+                   ("zoo", "vggformer_spatial", 16, 32, BATCH * FRAMES, 1),
+                   ("zoo", "audio_au_tokens", 12, 32, BATCH, 2),
+                   ("zoo", "dsformer_spatial", 49, 32, BATCH, 2))
 ATTN_PER_CALL = 11
 ATTN_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-3)}
 MEL_ATOL = 2e-3          # normalized units (0.04 dB): sum order only
@@ -176,6 +200,21 @@ CLIP_ROWS = range(1000, 1064)
 # decoded frame vs its source image, uint8 levels: JPEG q90 with 4:2:0
 # chroma of a gradient with a moving blob and N(0, 0.02) noise
 JPEG_MEAN_TOL, JPEG_MAX_TOL = 6.0, 48
+
+# the zoo phase: (case, model, modality, task, frames per clip, attention
+# and mel launches per clip forward)
+ZOO_MODELS = (("vformer", "vformer", "V", "AU", FRAMES, 4, 0),
+              ("sformer_au", "sformer", "V", "AU", 1, 3, 0),
+              ("sformer_va", "sformer", "V", "VA", 1, 3, 0),
+              ("tformer", "tformer", "V", "AU", FRAMES, 9, 0),
+              ("dsformer", "dsformer", "V;M", "AU", 1, 2, 0),
+              ("vggformer", "vggformer", "V", "AU", FRAMES, 4, 0),
+              ("audio", "audio", "A", "AU", FRAMES, 2, 1),
+              ("resnet", "resnet", "V", "AU", 1, 0, 0))
+VFORMER_ATTN_PER_BUCKET = 4     # 1 spatial + 3 temporal
+SFORMER_ATTN_PER_BUCKET = 3     # 1 spatial + 2 AU tokens
+ZOO_BF16_REL = 5e-2       # card bf16 vs card fp32 logits, norm-relative
+SINGLE_FRAME_ROWS = 64    # sformer's clip-path check: the first 64 frames
 
 # the train phase's split: train, train, val, test; with downsample_rate 2
 # that is 23 steps of 64 clips per epoch and one val batch of 256
@@ -880,7 +919,7 @@ def best_rate(torch, n: int, run, passes: int = 3) -> tuple[float, list]:
     return n / min(walls), walls
 
 
-def phase_dataset(torch, dev) -> dict:
+def phase_dataset(torch, dev) -> tuple[dict, dict, dict]:
     from auformer_torch import test_aff2
     from auformer_torch.core.config import Config
     from auformer_torch.core.weights import load_weights
@@ -1101,8 +1140,9 @@ def phase_dataset(torch, dev) -> dict:
         torch, dev, work, cfg32, cfg16, sd, videos,
         {"worker": e2e["clips_per_sec"],
          "thread": e2e_thread["clips_per_sec"], "array_fed": array_rate})
-    shutil.rmtree(work, ignore_errors=True)   # the split and a 126 MB .pth
-    return launches, packed_launches
+    split = dict(work=work, root=root, lmdb_label_dir=labels,
+                 cache_dir=cache, videos=videos)
+    return launches, packed_launches, split
 
 
 def same_stream(got: list, want: list, what: str) -> float:
@@ -1290,6 +1330,279 @@ def phase_packed(torch, dev, work: Path, cfg32, cfg16, sd, videos: dict,
          postprocess={"videos": len(videos), "seconds": post_s,
                       "frames_per_video": [k + 25 for k in videos.values()]},
          phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def zoo_batch(rs, name: str, modality: str, t: int) -> dict:
+    """B=8 inputs of a zoo model: uint8 clips of its frames and channels
+    (4 for dsformer's RGB + mask), or raw right-aligned audio with its
+    feature lengths for the audio model (``make_batch``'s)."""
+    if name == "audio":
+        batch = make_batch(rs, BATCH)
+        return {"audio": batch["audio"], "feature_len": batch["feature_len"]}
+    channels = 4 if modality == "V;M" else 3
+    return {"clip": rs.randint(0, 256, (BATCH, t, IMAGE, IMAGE, channels),
+                               dtype=np.uint8)}
+
+
+def profile_calls(torch, run, calls: int) -> dict | None:
+    """Device ms and kernels per call over one ``run()`` of ``calls``
+    calls (torch.profiler); None where no session recorded device time."""
+    prof = device_profile(torch, run)
+    if prof is None:
+        return None
+    events = [e for e in prof.key_averages()
+              if on_device(e) and e.device_time_total > 0]
+    return {"device_ms": sum(e.device_time_total for e in events)
+            / 1e3 / calls,
+            "kernels": sum(e.count for e in events) / calls}
+
+
+def phase_zoo(torch, dev, split: dict) -> dict:
+    """The zoo's clip forwards, VformerSweep, SingleFrameSweep and
+    vformer's run_inference_sweep over the dataset phase's split. Returns
+    the launches of the bf16 main path runs, each counted from 0 just
+    before it and read just after."""
+    from auformer_torch import serve
+    from auformer_torch.core.config import Config
+    from auformer_torch.core.weights import load_weights
+    from auformer_torch.data import Aff2TestDataset
+    from auformer_torch.infer import make_infer_fn, run_inference_sweep
+    from auformer_torch.nn import build_model
+    from auformer_torch.ops.attention import fused_attention
+    from auformer_torch.ops.audio_kernel import mel_frontend
+    from auformer_torch.sweep import (SingleFrameSweep, VformerSweep,
+                                      default_sweep_bucket)
+
+    t_phase = time.perf_counter()
+    launches = {"attention": 0, "mel": 0}
+
+    def counted(run, want: dict, what: str, main: bool = True):
+        fused_attention.launches = 0
+        mel_frontend.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        got = {"attention": fused_attention.launches,
+               "mel": mel_frontend.launches}
+        if got != want:
+            fail(f"zoo {what} launched {got}, expected {want}")
+        if main:
+            for key in launches:
+                launches[key] += got[key]
+        return out
+
+    def configs(name, modality, task, t, **kw):
+        kw = dict(model_name=name, modality=modality, task=task, n_frames=t,
+                  dilation=3 if t > 1 else 1, image_size=IMAGE,
+                  batch_size=BATCH, **kw)
+        return Config(compute_dtype="float32", **kw), Config(**kw)
+
+    def loaded(cfg, sd):
+        model = build_model(cfg)
+        load_weights(model, sd)
+        return model
+
+    rs = np.random.RandomState(SEED + 7)
+    models, weights = {}, {}
+    for case, name, modality, task, t, n_attn, n_mel in ZOO_MODELS:
+        cfg32, cfg16 = configs(name, modality, task, t)
+        model32 = build_model(cfg32)
+        sd = random_reference_state_dict(model32, SEED)
+        load_weights(model32, sd)
+        weights[case] = sd
+        cpu_model = copy.deepcopy(model32)
+        batch = zoo_batch(rs, name, modality, t)
+        on_card = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        want = {"attention": n_attn, "mel": n_mel}
+        infer16 = make_infer_fn(cfg16, loaded(cfg16, sd))
+        logits16 = counted(lambda: infer16(on_card), want, f"{case} bf16")
+        infer32 = make_infer_fn(cfg32, model32)
+        logits = counted(lambda: infer32(on_card), want, f"{case} fp32",
+                         main=False).cpu()
+        t0 = time.perf_counter()
+        cpu_logits = make_infer_fn(cfg32, cpu_model, device="cpu")(batch)
+        cpu_s = time.perf_counter() - t0
+        err = (logits - cpu_logits).abs().max().item()
+        if logits.shape != (BATCH, 21) or not torch.isfinite(logits).all():
+            fail(f"zoo {case}: logits {tuple(logits.shape)} not finite")
+        if not torch.allclose(logits, cpu_logits, rtol=SLICE_TOL[0],
+                              atol=SLICE_TOL[1]):
+            fail(f"zoo {case}: fp32 logits on the card differ from the CPU "
+                 f"port by {err}")
+        if name == "audio" and logits[:, 12:].abs().max().item() != 0.0:
+            fail("zoo audio: the EX/VA slices are not zero")
+        rel16 = ((logits16.float().cpu() - logits).norm()
+                 / logits.norm()).item()
+        if not (torch.isfinite(logits16).all() and rel16 <= ZOO_BF16_REL):
+            fail(f"zoo {case}: bf16 logits {rel16} (norm-relative) from "
+                 "fp32")
+        rate16 = clips_per_s(torch, infer16, on_card, 20)
+        prof = profile_calls(torch, lambda: [infer16(on_card)
+                                             for _ in range(3)], 3)
+        models[case] = dict(
+            model=name, modality=modality, task=task, frames=t,
+            launches_per_forward=want, max_abs_err_fp32_vs_cpu=err,
+            cpu_forward_s=cpu_s, bf16_vs_fp32_rel=rel16,
+            clips_per_s_bf16=rate16,
+            wall_ms_per_forward_bf16=1e3 * BATCH / rate16,
+            device_ms_per_forward_bf16=(None if prof is None
+                                        else prof["device_ms"]),
+            device_kernels_per_forward_bf16=(None if prof is None
+                                             else prof["kernels"]))
+        del model32, cpu_model, infer16, infer32, on_card
+        torch.cuda.empty_cache()
+
+    # vformer's dense sweep of the sweep phase's video
+    frames, _, _ = sweep_video(SEED + 3)
+    n = SWEEP_FRAMES
+    bucket = default_sweep_bucket(dev)
+    cfg32, cfg16 = configs("vformer", "V", "AU", FRAMES)
+    model32 = loaded(cfg32, weights["vformer"])
+    sweep32 = VformerSweep(cfg32, model32)
+    n_buckets = -(-n // sweep32._bucket_size(n, bucket))
+    logits32 = sweep32.sweep_video(frames, batch=bucket)
+    sel = np.array(FEATURE_WINDOWS)
+    idx = sweep32.window_indices(n)[sel]                  # black slot = n
+    clips = np.where((idx == n)[..., None, None, None], 0,
+                     frames[np.minimum(idx, n - 1)])
+    infer32 = make_infer_fn(cfg32, model32)
+    clip_logits = np.concatenate([
+        infer32({"clip": clips[i:i + BATCH]}).cpu().numpy()
+        for i in range(0, len(sel), BATCH)])
+    vf_err = float(np.abs(logits32[sel] - clip_logits).max())
+    if logits32.shape != (n, 21) or not np.allclose(
+            logits32[sel], clip_logits, rtol=SWEEP_TOL[0],
+            atol=SWEEP_TOL[1]):
+        fail(f"zoo: the fp32 vformer sweep differs from its clip path by "
+             f"{vf_err}")
+    del sweep32, model32, infer32
+    sweep16 = VformerSweep(cfg16, loaded(cfg16, weights["vformer"]))
+    counts = BucketCounts(sweep16, fused_attention, mel_frontend)
+    logits16 = counted(lambda: sweep16.sweep_video(frames, batch=bucket),
+                       {"attention": VFORMER_ATTN_PER_BUCKET * n_buckets,
+                        "mel": 0}, "vformer sweep")
+    del sweep16.fused_sweep
+    if counts.calls != [{"attention": VFORMER_ATTN_PER_BUCKET,
+                         "mel": 0}] * n_buckets:
+        fail(f"zoo: vformer sweep launches per bucket {counts.calls}")
+    if not np.isfinite(logits16).all():
+        fail("zoo: the bf16 vformer sweep is not finite")
+    vf_rate, vf_walls = best_rate(
+        torch, n, lambda: sweep16.sweep_video(frames, batch=bucket))
+    vf_prof = profile_calls(
+        torch, lambda: sweep16.sweep_video(frames, batch=bucket), n_buckets)
+    # the host's share of a sweep: seconds in _to_device (pinned staging
+    # and the queued copies of each bucket's frames and rows)
+    staging = []
+    plain_to_device = sweep16._to_device
+
+    def staged(*arrays):
+        t0 = time.perf_counter()
+        out = plain_to_device(*arrays)
+        staging.append(time.perf_counter() - t0)
+        return out
+    sweep16._to_device = staged
+    t0 = time.perf_counter()
+    sweep16.sweep_video(frames, batch=bucket)
+    torch.cuda.synchronize()
+    staged_wall = time.perf_counter() - t0
+    del sweep16._to_device
+    vformer_sweep = dict(
+        frames=n, buckets=n_buckets, launches_per_bucket=counts.calls,
+        fp32_vs_clip_max_abs_err=vf_err, rows=list(FEATURE_WINDOWS),
+        rtol=SWEEP_TOL[0], atol=SWEEP_TOL[1],
+        max_abs_diff_bf16_vs_fp32=float(np.abs(logits16 - logits32).max()),
+        label_frames_per_s_bf16=vf_rate, walls=vf_walls,
+        device_ms_per_bucket_bf16=(None if vf_prof is None
+                                   else vf_prof["device_ms"]),
+        device_idle_share_bf16=(None if vf_prof is None else 1.0 - (
+            vf_prof["device_ms"] * n_buckets / (1e3 * min(vf_walls)))),
+        host_to_device_s=sum(staging), host_to_device_wall_s=staged_wall,
+        device_kernels_per_bucket_bf16=(None if vf_prof is None
+                                        else vf_prof["kernels"]))
+    del sweep16
+    torch.cuda.empty_cache()
+
+    # sformer through SingleFrameSweep: every frame of the same video
+    cfg32, cfg16 = configs("sformer", "V", "AU", 1)
+    model32 = loaded(cfg32, weights["sformer_au"])
+    sweep32 = SingleFrameSweep(cfg32, model32)
+    sf32 = sweep32.sweep_video(frames, batch=bucket)
+    rows = frames[:SINGLE_FRAME_ROWS, None]
+    infer32 = make_infer_fn(cfg32, model32)
+    sf_clip = np.concatenate([infer32({"clip": rows[i:i + BATCH]}).cpu(
+        ).numpy() for i in range(0, SINGLE_FRAME_ROWS, BATCH)])
+    sf_err = float(np.abs(sf32[:SINGLE_FRAME_ROWS] - sf_clip).max())
+    if sf32.shape != (n, 21) or not np.allclose(
+            sf32[:SINGLE_FRAME_ROWS], sf_clip, rtol=SWEEP_TOL[0],
+            atol=SWEEP_TOL[1]):
+        fail(f"zoo: sformer's SingleFrameSweep differs from its clip "
+             f"forward by {sf_err}")
+    del sweep32, model32, infer32
+    sweep16 = SingleFrameSweep(cfg16, loaded(cfg16, weights["sformer_au"]))
+    sf_buckets = -(-n // bucket)
+    sf16 = counted(lambda: sweep16.sweep_video(frames, batch=bucket),
+                   {"attention": SFORMER_ATTN_PER_BUCKET * sf_buckets,
+                    "mel": 0}, "sformer sweep")
+    if not np.isfinite(sf16).all():
+        fail("zoo: the bf16 sformer sweep is not finite")
+    sf_rate, sf_walls = best_rate(
+        torch, n, lambda: sweep16.sweep_video(frames, batch=bucket))
+    sf_prof = profile_calls(
+        torch, lambda: sweep16.sweep_video(frames, batch=bucket), sf_buckets)
+    sformer_sweep = dict(
+        frames=n, buckets=sf_buckets, fp32_vs_clip_max_abs_err=sf_err,
+        clip_rows=SINGLE_FRAME_ROWS, label_frames_per_s_bf16=sf_rate,
+        walls=sf_walls,
+        device_ms_per_bucket_bf16=(None if sf_prof is None
+                                   else sf_prof["device_ms"]),
+        device_kernels_per_bucket_bf16=(None if sf_prof is None
+                                        else sf_prof["kernels"]))
+    del sweep16
+    torch.cuda.empty_cache()
+
+    # vformer's run_inference_sweep over the dataset phase's split, in
+    # bf16 through the decode worker (4,000 test clips)
+    cfg = Config(model_name="vformer", modality="V", task="AU",
+                 n_frames=FRAMES, image_size=IMAGE,
+                 **{k: split[k] for k in ("root", "lmdb_label_dir",
+                                          "cache_dir")})
+    model = loaded(cfg, weights["vformer"])
+    dataset = Aff2TestDataset(cfg)
+    sizer = VformerSweep(cfg, model)
+    ds_buckets = sum(-(-k // sizer._bucket_size(k, bucket))
+                     for k in split["videos"].values())
+    workers = []
+
+    class CountedWorker(serve.DecodeWorker):
+        def __init__(self, cfg):
+            super().__init__(cfg)
+            workers.append(self.startup_seconds)
+    serve.DecodeWorker, plain_worker = CountedWorker, serve.DecodeWorker
+    result_dir = str(split["work"] / "zoo_vformer")
+    try:
+        t0 = time.perf_counter()
+        out = counted(lambda: run_inference_sweep(
+            cfg, model, dataset=dataset, result_path=result_dir),
+            {"attention": VFORMER_ATTN_PER_BUCKET * ds_buckets, "mel": 0},
+            "vformer run_inference_sweep")
+        ds_s = time.perf_counter() - t0
+    finally:
+        serve.DecodeWorker = plain_worker
+    if len(workers) != 1:
+        fail(f"zoo: run_inference_sweep started {len(workers)} decode "
+             "workers, not 1")
+    check_submission(result_dir, split["videos"], out)
+    if not np.isfinite(out).all() or not out[:, 12:].any():
+        fail("zoo: vformer's submission logits are not finite 21-column rows")
+    emit("zoo", batch=BATCH, image=IMAGE, tol=list(SLICE_TOL),
+         bf16_rel_tol=ZOO_BF16_REL, models=models,
+         vformer_sweep=vformer_sweep, sformer_sweep=sformer_sweep,
+         vformer_dataset={"label_frames": int(out.shape[0]),
+                          "buckets": ds_buckets, "seconds": ds_s,
+                          "label_frames_per_s_bf16": out.shape[0] / ds_s,
+                          "worker_startup_s": workers[0]},
+         launches=launches, phase_s=time.perf_counter() - t_phase)
     return launches
 
 
@@ -1837,7 +2150,9 @@ def main() -> int:
 
     by_path = {"slice": phase_slice(torch, dev, batch),
                "sweep": phase_sweep(torch, dev)}
-    by_path["dataset"], by_path["packed"] = phase_dataset(torch, dev)
+    by_path["dataset"], by_path["packed"], split = phase_dataset(torch, dev)
+    by_path["zoo"] = phase_zoo(torch, dev, split)
+    shutil.rmtree(split["work"], ignore_errors=True)  # the split, the .pth
     by_path["train"], grad_cases, attention_in_step = phase_train(torch, dev)
     emit("done", seconds=time.perf_counter() - T_START,
          profiler=PROFILER_LOG)
@@ -1887,7 +2202,12 @@ def main() -> int:
          "max_abs_err": max(c["max_abs_err"] for c in attn),
          "per_bucket": per_bucket, "per_packed_bucket": per_packed_bucket,
          "per_forward": per_forward,
-         "train_step": train_step},
+         "train_step": train_step,
+         "zoo_sites": {
+             c["site"] + "_" + c["dtype"]: {key: c[key] for key in (
+                 "shape", "launches_per_call", "ms", "plain_ms",
+                 "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+             for c in attn if c["path"] == "zoo"}},
         {"name": "mel_frontend", "route": "cuda",
          "source": str(build.source("mel").relative_to(ROOT)),
          "replaces": "auformer/ops/audio_pallas.py:185",

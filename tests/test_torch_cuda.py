@@ -601,3 +601,88 @@ def test_augmentation_stages_on_the_card_match_the_cpu(cuda_device):
         got = getattr(aug, name)(card_args[0], factor.to(cuda_device)).cpu()
         want = getattr(aug, name)(args[0], factor)
         assert (got.int() - want.int()).abs().max() <= 1
+
+
+# -- the model zoo --------------------------------------------------------------
+
+# (model, modality, task, frames per clip, attention and mel launches per
+# clip forward)
+ZOO = {"vformer": ("vformer", "V", "AU", 4, 4, 0),
+       "sformer_au": ("sformer", "V", "AU", 1, 3, 0),
+       "sformer_va": ("sformer", "V", "VA", 1, 3, 0),
+       "tformer": ("tformer", "V", "AU", 4, 9, 0),
+       "dsformer": ("dsformer", "V;M", "AU", 1, 2, 0),
+       "vggformer": ("vggformer", "V", "AU", 4, 4, 0),
+       "audio": ("audio", "A", "AU", 4, 2, 1),
+       "resnet": ("resnet", "V", "AU", 1, 0, 0)}
+
+
+def _zoo_pair(case, **kw):
+    """The config and a CPU and a card copy of one zoo model (64x64, B=2)
+    on the same seeded weights."""
+    name, modality, task, t, _, _ = ZOO[case]
+    cfg = Config(model_name=name, modality=modality, task=task, n_frames=t,
+                 dilation=1, image_size=64, compute_dtype="float32", **kw)
+    torch.manual_seed(0)
+    cpu_model = build_model(cfg).eval()
+    card_model = build_model(cfg)
+    card_model.load_state_dict(cpu_model.state_dict())
+    return cfg, cpu_model, card_model
+
+
+@pytest.mark.parametrize("case", sorted(ZOO))
+def test_zoo_model_on_the_card_matches_the_cpu(cuda_device, case):
+    """A B=2 clip forward of each zoo model through make_infer_fn's default
+    device: fp32 logits equal the CPU port's; the launches per forward of
+    chip_smoke's table."""
+    cfg, cpu_model, card_model = _zoo_pair(case)
+    name, modality, _, t, n_attn, n_mel = ZOO[case]
+    rs = np.random.RandomState(4)
+    if name == "audio":
+        batch = {"audio": (rs.randn(2, 441000) * 0.1).astype(np.float32)}
+    else:
+        channels = 4 if modality == "V;M" else 3
+        batch = {"clip": rs.randint(0, 256, (2, t, 64, 64, channels)
+                                    ).astype(np.uint8)}
+    attn, mel = tatt.fused_attention.launches, audio_kernel.mel_frontend.launches
+    got = make_infer_fn(cfg, card_model)(batch)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and got.shape == (2, 21)
+    assert tatt.fused_attention.launches - attn == n_attn
+    assert audio_kernel.mel_frontend.launches - mel == n_mel
+    want = make_infer_fn(cfg, cpu_model, device="cpu")(batch)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=2e-4)
+
+
+# the zoo's new attention sites at full width, B=8 clips of T=16:
+# (batch, tokens, head dim), 8 heads
+ZOO_SITES = {"va_head": (8, 2, 32), "vgg_spatial": (128, 16, 32),
+             "tformer_au_tokens": (128, 12, 32),
+             "tformer_temporal_1536": (8, 17, 64)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("site", sorted(ZOO_SITES))
+def test_attention_kernel_at_zoo_sites(cuda_device, site, dtype):
+    b, n, d = ZOO_SITES[site]
+    q, k, v = _qkv(n, d, b + n, cuda_device, dtype, b=b, layout="to_qkv")
+    _check_attention(q, k, v, d ** -0.5)
+
+
+def test_zoo_sweeps_on_the_card_match_the_cpu(cuda_device):
+    """VformerSweep (T=4, dilation 1, bucket 8: 4 attention launches per
+    bucket) and sformer's SingleFrameSweep (3 per bucket) on the card
+    against the CPU port's, fp32."""
+    from auformer_torch.sweep import make_sweep
+    frames = _sweep_video(n=20)[0]
+    frames = np.repeat(np.repeat(frames, 2, axis=1), 2, axis=2)  # 64x64
+    for case, per_bucket, buckets in (("vformer", 4, 3),
+                                      ("sformer_au", 3, 3)):
+        cfg, cpu_model, card_model = _zoo_pair(case)
+        attn = tatt.fused_attention.launches
+        got = make_sweep(cfg, card_model).sweep_video(frames, batch=8)
+        assert tatt.fused_attention.launches - attn == per_bucket * buckets
+        want = make_sweep(cfg, cpu_model, device="cpu").sweep_video(
+            frames, batch=8)
+        assert got.shape == want.shape == (20, 21)
+        np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-4)

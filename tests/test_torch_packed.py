@@ -291,7 +291,7 @@ def test_packed_refusals(setup):
     with pytest.raises(NotImplementedError, match="A7"):
         next(packed_sweep_stream(setup["cfg"], setup["model"],
                                  mesh=object(), device="cpu"))
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="use serve.sweep_stream"):
         next(packed_sweep_stream(setup["cfg"], setup["model"],
                                  dataset=Aff2TestDataset(setup["cfg"]),
                                  sweep=torch.nn.Identity(), device="cpu"))

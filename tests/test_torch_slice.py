@@ -174,7 +174,7 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked(port_model):
 
 def test_unported_models_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(Config(**dict(CFG, model_name="vformer")))
+        build_model(Config(**dict(CFG, model_name="van")))
 
 
 def test_port_imports_no_jax_and_no_auformer():
@@ -196,7 +196,9 @@ def test_port_imports_no_jax_and_no_auformer():
         "auformer_torch.core.observability, auformer_torch.train_lib, "
         "auformer_torch.train, auformer_torch.packed, "
         "auformer_torch.postprocess, auformer_torch.data.ingest, "
-        "auformer_torch.data.utils\n"
+        "auformer_torch.data.utils, auformer_torch.nn.sformer, "
+        "auformer_torch.nn.dual_sformer, auformer_torch.nn.tformer, "
+        "auformer_torch.nn.vggformer, auformer_torch.nn.resnet_image\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'auformer', 'cv2', 'PIL', 'sklearn', "
         "'optax', 'orbax', 'matplotlib'))\n"

@@ -291,5 +291,5 @@ def test_unported_sweeps_raise(port_model):
         AvformerSweep(Config(**CFG), port_model, mesh=object(),
                       device="cpu")
     with pytest.raises(NotImplementedError, match="A6"):
-        make_sweep(Config(**dict(CFG, model_name="vformer")), port_model,
+        make_sweep(Config(**dict(CFG, model_name="van")), port_model,
                    device="cpu")
