@@ -177,7 +177,11 @@ def build_parser() -> argparse.ArgumentParser:
 
     model = p.add_argument_group(title="Model Parameters")
     model.add_argument("--dropout_rate", type=float, default=0.2)
-    model.add_argument("--model_name", "-mn", type=str, default="avformer")
+    model.add_argument(
+        "--model_name", "-mn", type=str, default="avformer",
+        help="avformer, vformer, sformer, tformer, dsformer, vggformer, "
+             "audio, van, emonet, i3d, mc3d, tsav or resnet (any other name "
+             "builds the resnet baseline)")
 
     training = p.add_argument_group(title="Training Parameters")
     training.add_argument("--seed", default=123, type=int)

@@ -3,13 +3,13 @@
 The port's modules carry the reference's own parameter names, so a reference
 checkpoint loads with ``load_state_dict``. ``state_dict_from_jax`` goes the
 other way from the JAX package's ``core/torch_import.py`` converters
-(``convert_avformer``, ``convert_vformer``, ``convert_audio_only``,
-``convert_resnet_image``, ``convert_sformer``, ``convert_tformer``,
-``convert_dsformer``, ``convert_vggformer``): it takes the JAX
+(``CONVERTERS``: every model of the zoo): it takes the JAX
 ``{"params", "batch_stats"}`` tree (as numpy arrays) of a model and
 returns the port's state dict for it:
 
-  * conv kernels HWIO -> OIHW; dense kernels (I, O) -> weights (O, I)
+  * conv kernels HWIO -> OIHW, 3-d ones THWIO -> OITHW (with the bias
+    where the JAX convolution has one); dense kernels (I, O) -> weights
+    (O, I)
   * BatchNorm/LayerNorm ``scale`` -> ``weight``; ``mean``/``var`` ->
     ``running_mean``/``running_var``
   * ``TokenProjection`` splits into N linears, ``TokenLogits`` into N rows
@@ -56,9 +56,20 @@ class Exporter:
         if bias:
             self._put(_join(tkey, "bias", "."), p["bias"])
 
+    def _conv(self, tkey: str, jpath: str, axes: tuple) -> None:
+        p = self._node(self.params, jpath)
+        self._put(_join(tkey, "weight", "."),
+                  np.asarray(p["kernel"]).transpose(axes))
+        if "bias" in p:
+            self._put(_join(tkey, "bias", "."), p["bias"])
+
     def conv2d(self, tkey: str, jpath: str) -> None:
-        kernel = np.asarray(self._node(self.params, jpath)["kernel"])
-        self._put(_join(tkey, "weight", "."), kernel.transpose(3, 2, 0, 1))
+        """(kH, kW, in, out) -> (out, in, kH, kW)."""
+        self._conv(tkey, jpath, (3, 2, 0, 1))
+
+    def conv3d(self, tkey: str, jpath: str) -> None:
+        """(kT, kH, kW, in, out) -> (out, in, kT, kH, kW)."""
+        self._conv(tkey, jpath, (4, 3, 0, 1, 2))
 
     def batchnorm(self, tkey: str, jpath: str) -> None:
         p = self._node(self.params, jpath)
@@ -223,6 +234,56 @@ class Exporter:
                 self.bottleneck(f"{tpre}.layer{li}.{bi}",
                                 f"{jpre}/layer{li}_block{bi}")
 
+    def van_block(self, tpre: str, jpre: str) -> None:
+        """VanBlock: BN, attention (proj_1, LKA, proj_2), BN, MLP, the
+        layer scales; every convolution with its bias."""
+        self.batchnorm(f"{tpre}.norm1", f"{jpre}/norm1/bn")
+        self.conv2d(f"{tpre}.attn.proj_1", f"{jpre}/attn/proj_1")
+        for conv in ("conv0", "conv_spatial", "conv1"):
+            self.conv2d(f"{tpre}.attn.spatial_gating_unit.{conv}",
+                        f"{jpre}/attn/spatial_gating_unit/{conv}")
+        self.conv2d(f"{tpre}.attn.proj_2", f"{jpre}/attn/proj_2")
+        self.batchnorm(f"{tpre}.norm2", f"{jpre}/norm2/bn")
+        self.conv2d(f"{tpre}.mlp.fc1", f"{jpre}/mlp/fc1")
+        self.conv2d(f"{tpre}.mlp.dwconv.dwconv", f"{jpre}/mlp/dwconv/dwconv")
+        self.conv2d(f"{tpre}.mlp.fc2", f"{jpre}/mlp/fc2")
+        self.raw(f"{tpre}.layer_scale_1", f"{jpre}/layer_scale_1")
+        self.raw(f"{tpre}.layer_scale_2", f"{jpre}/layer_scale_2")
+
+    def emonet_convblock(self, tpre: str, jpre: str) -> None:
+        """EmoNet's ConvBlock: three bias-free 3x3 convolutions and the
+        downsample Sequential(IN, ReLU, 1x1 conv)'s ``.2``."""
+        for conv in ("conv1", "conv2", "conv3"):
+            self.conv2d(f"{tpre}.{conv}", f"{jpre}/{conv}")
+        if "downsample" in self._node(self.params, jpre):
+            self.conv2d(f"{tpre}.downsample.2", f"{jpre}/downsample")
+
+    def unit3d(self, tpre: str, jpre: str) -> None:
+        self.conv3d(f"{tpre}.conv3d", f"{jpre}/conv3d")
+        self.batchnorm(f"{tpre}.bn", f"{jpre}/bn")
+
+    def _downsample3d(self, tpre: str, jpre: str) -> None:
+        if "ds_conv" in self._node(self.params, jpre):
+            self.conv3d(f"{tpre}.downsample.0", f"{jpre}/ds_conv")
+            self.batchnorm(f"{tpre}.downsample.1", f"{jpre}/ds_bn")
+
+    def mc3d_block(self, tpre: str, jpre: str) -> None:
+        """mc3d's BasicBlock3D -> torchvision's conv{1,2}.{0,1}."""
+        for i in (1, 2):
+            self.conv3d(f"{tpre}.conv{i}.0", f"{jpre}/conv{i}")
+            self.batchnorm(f"{tpre}.conv{i}.1", f"{jpre}/bn{i}")
+        self._downsample3d(tpre, jpre)
+
+    def r2plus1d_block(self, tpre: str, jpre: str) -> None:
+        """R2Plus1DBlock -> torchvision's Conv2Plus1D Sequentials
+        ``conv{1,2}.0.{0,1,3}`` and their BNs ``conv{1,2}.1``."""
+        for i in (1, 2):
+            self.conv3d(f"{tpre}.conv{i}.0.0", f"{jpre}/conv{i}_s")
+            self.batchnorm(f"{tpre}.conv{i}.0.1", f"{jpre}/conv{i}_bn_mid")
+            self.conv3d(f"{tpre}.conv{i}.0.3", f"{jpre}/conv{i}_t")
+            self.batchnorm(f"{tpre}.conv{i}.1", f"{jpre}/bn{i}")
+        self._downsample3d(tpre, jpre)
+
 
 def _export_avformer(e: Exporter) -> None:
     e.resnet18("audio_model.audio_model.resnet",
@@ -289,12 +350,97 @@ def _export_vggformer(e: Exporter) -> None:
     e.linear("fc.3", "fc2")
 
 
+def _export_van(e: Exporter) -> None:
+    node = e.params["base_model"]
+    for i in range(1, 5):
+        pe, pj = f"base_model.patch_embed{i}", f"base_model/patch_embed{i}"
+        e.conv2d(f"{pe}.proj", f"{pj}/proj")
+        e.batchnorm(f"{pe}.norm", f"{pj}/norm/bn")
+        blocks = sum(1 for k in node if k.startswith(f"block{i}_"))
+        for j in range(blocks):
+            e.van_block(f"base_model.block{i}.{j}", f"base_model/block{i}_{j}")
+        e.layernorm(f"base_model.norm{i}", f"base_model/norm{i}")
+    e.mlp_head("fc", "fc")
+    e.au_former("au_head", "au_head")
+
+
+def _export_emonet(e: Exporter) -> None:
+    node = e.params["base_model"]
+    e.conv2d("base_model.conv1", "base_model/conv1")
+    for name in ("conv2", "conv3", "conv4"):
+        e.emonet_convblock(f"base_model.{name}", f"base_model/{name}")
+    modules = sum(1 for k in node if k.startswith("top_m_"))
+    for i in range(modules):
+        for block in node[f"m{i}"]:          # b1_4 ... b3_1, b2_plus_1
+            e.emonet_convblock(f"base_model.m{i}.{block}",
+                               f"base_model/m{i}/{block}")
+        e.emonet_convblock(f"base_model.top_m_{i}", f"base_model/top_m_{i}")
+        for conv in (f"conv_last{i}", f"l{i}", f"bl{i}", f"al{i}"):
+            if conv in node:
+                e.conv2d(f"base_model.{conv}", f"base_model/{conv}")
+    e.conv2d("base_model.conv1x1_input_emo_2",
+             "base_model/conv1x1_input_emo_2")
+    blocks = sum(1 for k in node if k.startswith("emo_convs_"))
+    for bi in range(blocks):               # emo_net_2 = [ConvBlock, MaxPool]
+        e.emonet_convblock(f"base_model.emo_net_2.{2 * bi}",
+                           f"base_model/emo_convs_{bi}")
+    e.linear("base_model.emo_fc_2.0", "base_model/emo_fc_1")
+    e.batchnorm("base_model.emo_fc_2.1", "base_model/emo_fc_bn")
+    e.linear("base_model.emo_fc_2.3", "base_model/emo_fc_2")
+    e.au_former("base_model.au_head", "base_model/au_head")
+
+
+def _export_fc_bn_fc(e: Exporter) -> None:
+    """fc1, fc_bn, fc2 -> the reference's Sequential(Linear, BN1d,
+    Linear)."""
+    e.linear("fc.0", "fc1")
+    e.batchnorm("fc.1", "fc_bn")
+    e.linear("fc.2", "fc2")
+
+
+def _export_i3d(e: Exporter) -> None:
+    for unit, node in e.params["video_model"].items():
+        if unit.startswith("Mixed_"):
+            for branch in node:
+                e.unit3d(f"video_model.{unit}.{branch}",
+                         f"video_model/{unit}/{branch}")
+        else:
+            e.unit3d(f"video_model.{unit}", f"video_model/{unit}")
+    _export_fc_bn_fc(e)
+
+
+def _export_mc3d(e: Exporter) -> None:
+    e.conv3d("video_model.stem.0", "video_model/stem_conv")
+    e.batchnorm("video_model.stem.1", "video_model/stem_bn")
+    for li in range(1, 5):
+        for bi in range(2):
+            e.mc3d_block(f"video_model.layer{li}.{bi}",
+                         f"video_model/layer{li}_block{bi}")
+    _export_fc_bn_fc(e)
+
+
+def _export_tsav(e: Exporter) -> None:
+    e.resnet18("audio_model.resnet", "audio_model/resnet")
+    t, j = "video_model.r2plus1d", "video_model"
+    e.conv3d(f"{t}.stem.0", f"{j}/stem_s")
+    e.batchnorm(f"{t}.stem.1", f"{j}/stem_bn1")
+    e.conv3d(f"{t}.stem.3", f"{j}/stem_t")
+    e.batchnorm(f"{t}.stem.4", f"{j}/stem_bn2")
+    for li in range(1, 5):
+        for bi in range(2):
+            e.r2plus1d_block(f"{t}.layer{li}.{bi}",
+                             f"{j}/layer{li}_block{bi}")
+    e.linear("fc.1", "fc")
+
+
 #: model name -> the mapper of its whole tree (the inverse of the JAX
 #: package's ``CONVERTERS`` entry of that name)
 EXPORTERS = {"avformer": _export_avformer, "vformer": _export_vformer,
              "audio": _export_audio, "resnet": _export_resnet,
              "sformer": _export_sformer, "tformer": _export_tformer,
-             "dsformer": _export_dsformer, "vggformer": _export_vggformer}
+             "dsformer": _export_dsformer, "vggformer": _export_vggformer,
+             "van": _export_van, "emonet": _export_emonet, "i3d": _export_i3d,
+             "mc3d": _export_mc3d, "tsav": _export_tsav}
 
 
 def state_dict_from_jax(variables: Mapping[str, Any],
@@ -305,8 +451,8 @@ def state_dict_from_jax(variables: Mapping[str, Any],
     ``core/torch_import.py``."""
     if model_name not in EXPORTERS:
         raise NotImplementedError(
-            f"no state dict export for {model_name!r}: ROADMAP.md queue A6 "
-            "(the rest of the model zoo) lists it")
+            f"no state dict export for {model_name!r}; available: "
+            f"{sorted(EXPORTERS)}")
     e = Exporter(variables)
     EXPORTERS[model_name](e)
     return e.sd

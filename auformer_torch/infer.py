@@ -23,7 +23,8 @@ import torch
 from .core.config import Config
 from .data import DataLoader, SubsetSequentialSampler
 from .data.testset import Aff2TestDataset
-from .nn.registry import compute_autocast, compute_dtype, prepare_inference
+from .nn.registry import (compute_autocast, compute_dtype, output_table,
+                          prepare_inference)
 from .ops.audio import HOP_LENGTH, audio_frontend, reflect_end_patch
 from .ops.preprocess import normalize_clip
 
@@ -129,7 +130,8 @@ def make_infer_fn(cfg: Config, model: torch.nn.Module, device=None):
     """Move ``model`` to the device for inference (in place,
     ``prepare_inference``: f32 parameters, under bf16 its convolution and
     Linear weights rounded once), in eval mode, and return ``infer(batch)
-    -> (B, 21) float32`` on the device. The model runs under
+    -> (B, 21) float32`` on the device (``output_table``'s layout: tsav's
+    22 columns are mapped, ROADMAP.md C5). The model runs under
     ``compute_autocast`` (bf16 by ``cfg.compute_dtype``, as the train step
     does); the audio features are computed outside it, in f32 (the mel
     kernel's DFT in bf16 under ``cfg.mel_bf16``).
@@ -178,7 +180,7 @@ def make_infer_fn(cfg: Config, model: torch.nn.Module, device=None):
             # rounds the clip to the compute dtype
             x["clip"] = normalize_clip(put(batch["clip"]))
         with compute_autocast(cfg, device):
-            return model(x).float()
+            return output_table(model(x).float())
 
     return infer
 

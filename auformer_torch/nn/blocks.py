@@ -16,10 +16,18 @@ Numeric choices that follow the JAX package, not the upstream torch code:
     mode it normalizes with the biased batch variance, as torch does, and
     also updates ``running_var`` with the BIASED one, as flax's
     ``nn.BatchNorm`` does (torch's own would use the unbiased one)
-  * Dropout draws its mask from an explicit ``torch.Generator`` that the
-    train step hands every ``Dropout`` (``set_dropout_generator``), never
-    from the global RNG; in train mode with p > 0 and no generator it
-    raises
+  * ``BatchNorm3d`` is the same BatchNorm over (B, C, T, H, W); its eps
+    and momentum are set per module (i3d's ``Unit3D``: eps 1e-3, torch
+    momentum 0.01 = flax 0.99)
+  * Dropout (and ``DropPath``, stochastic depth) draws its mask from an
+    explicit ``torch.Generator`` that the train step hands every
+    ``Dropout`` (``set_dropout_generator``), never from the global RNG; in
+    train mode with p > 0 and no generator it raises
+
+The convolution families' helpers: ``ConvSame`` and ``max_pool_same``
+pad as flax's ``padding="SAME"`` and the JAX package's TF-SAME pool do,
+asymmetrically where the stride asks for it (torch's own ``padding`` is
+symmetric); ``instance_norm`` is EmoNet's affine-free InstanceNorm.
 """
 from __future__ import annotations
 
@@ -65,6 +73,10 @@ class BatchNorm2d(_FlaxRunningVar, nn.BatchNorm2d):
     pass
 
 
+class BatchNorm3d(_FlaxRunningVar, nn.BatchNorm3d):
+    pass
+
+
 class Dropout(nn.Module):
     """Inverted dropout whose mask comes from ``self.generator`` (set by
     ``set_dropout_generator``): identity in eval or at p == 0."""
@@ -88,10 +100,26 @@ class Dropout(nn.Module):
         return f"p={self.p}"
 
 
+class DropPath(Dropout):
+    """Stochastic depth (timm's DropPath, auformer/nn/van.py:26-33): one
+    keep/drop draw per sample, kept samples scaled by 1 / (1 - p)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("DropPath in train mode draws from an "
+                               "explicit generator: call "
+                               "set_dropout_generator first")
+        keep = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1),
+                          generator=self.generator, device=x.device) >= self.p
+        return x * keep.to(x.dtype) / (1.0 - self.p)
+
+
 def set_dropout_generator(model: nn.Module,
                           generator: torch.Generator | None) -> None:
-    """Hand every ``Dropout`` of ``model`` the generator its masks come
-    from (None detaches them)."""
+    """Hand every ``Dropout`` (and ``DropPath``) of ``model`` the generator
+    its masks come from (None detaches them)."""
     for m in model.modules():
         if isinstance(m, Dropout):
             m.generator = generator
@@ -232,3 +260,70 @@ def token_logits(tokens: torch.Tensor,
     an f32 result, (B, N, E) -> (B, N)."""
     weight = torch.cat([lin.weight for lin in linears])          # (N, E)
     return _f32_product(tokens, weight, "bne,ne->bn")
+
+
+# -- the convolution families' helpers -------------------------------------
+
+def same_pads(sizes: Sequence[int], kernel: Sequence[int],
+              stride: Sequence[int]) -> list[tuple[int, int]]:
+    """(before, after) per spatial axis of flax's / TF's ``padding="SAME"``
+    (``lax.padtype_to_pads``, dilation 1): the output has ceil(size /
+    stride) samples, and an odd total pads one more after than before."""
+    pads = []
+    for size, k, s in zip(sizes, kernel, stride):
+        total = max((-(-size // s) - 1) * s + k - size, 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
+
+
+def _torch_pad(pads: Sequence[tuple[int, int]]) -> list[int]:
+    """``F.pad``'s argument for (before, after) per axis, first axis first."""
+    return [p for before_after in reversed(pads) for p in before_after]
+
+
+class ConvSame(nn.Conv3d):
+    """``Conv3d`` with flax's ``padding="SAME"`` (i3d's ``Unit3D``): padded
+    by the convolution itself where the padding is symmetric, by ``F.pad``
+    first where it is not (stride 2 over an even size pads (k//2 - 1,
+    k//2): the I3D stem at 16x112x112 pads (2, 3) on every axis, where
+    ``Conv3d(padding=3)`` would shift every output by a sample)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel: Sequence[int], stride: Sequence[int] = (1, 1, 1),
+                 bias: bool = False):
+        super().__init__(in_channels, out_channels, tuple(kernel),
+                         tuple(stride), padding=0, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pads = same_pads(x.shape[2:], self.kernel_size, self.stride)
+        if all(a == b for a, b in pads):
+            return F.conv3d(x, self.weight, self.bias, self.stride,
+                            [a for a, _ in pads])
+        return F.conv3d(F.pad(x, _torch_pad(pads)), self.weight, self.bias,
+                        self.stride)
+
+
+def max_pool_same(x: torch.Tensor, kernel: Sequence[int],
+                  stride: Sequence[int]) -> torch.Tensor:
+    """TF-SAME max pool over (T, H, W) of a (B, C, T, H, W) tensor
+    (auformer/nn/i3d.py:46-58): padded with -inf, asymmetrically where the
+    stride asks for it ((0, 1) for the (1,3,3)/(1,2,2) pools at 56)."""
+    pads = same_pads(x.shape[2:], kernel, stride)
+    if all(a == b and 2 * a <= k for (a, b), k in zip(pads, kernel)):
+        return F.max_pool3d(x, tuple(kernel), tuple(stride),
+                            [a for a, _ in pads])
+    return F.max_pool3d(F.pad(x, _torch_pad(pads), value=float("-inf")),
+                        tuple(kernel), tuple(stride))
+
+
+def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """torch ``InstanceNorm2d(affine=False)`` as the JAX package computes it
+    (auformer/nn/emonet.py:29-33) on a (B, C, H, W) tensor: per sample and
+    channel over (H, W), with the biased variance. The mean and variance
+    are taken in f32 and rounded once to ``x``'s dtype, the normalisation
+    runs in that dtype, as ``jnp.mean`` / ``jnp.var`` of a bf16 array and
+    the bf16 arithmetic after them do."""
+    xf = x.float()
+    mean = xf.mean(dim=(2, 3), keepdim=True)
+    var = xf.var(dim=(2, 3), keepdim=True, correction=0)
+    return (x - mean.to(x.dtype)) / torch.sqrt(var.to(x.dtype) + eps)

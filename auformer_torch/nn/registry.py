@@ -1,8 +1,8 @@
 """Model registry (counterpart of auformer/nn/registry.py; dispatch as the
-reference's train.py:292-315). Ported: avformer, vformer, sformer, tformer,
-dsformer, vggformer, audio and the resnet baseline, which is also the
-fallback for unknown names. van, emonet, i3d, mc3d and tsav raise, naming
-ROADMAP.md queue A6."""
+reference's train.py:292-315): every model of the JAX package's zoo,
+avformer, vformer, sformer, tformer, dsformer, vggformer, audio, van,
+emonet, i3d, mc3d, tsav and the resnet baseline, which is also the
+fallback for unknown names."""
 from __future__ import annotations
 
 from typing import Any
@@ -41,27 +41,33 @@ def prepare_inference(cfg: Config, model: torch.nn.Module,
     is then an inference model: its rounded weights do not return to f32
     values."""
     model.to(device=device, dtype=torch.float32).eval()
-    # every convolution and Linear of the zoo is a Conv2d or a Linear
-    # (ROADMAP.md A6: the 3-d models bring Conv3d)
+    # every convolution and Linear of the zoo is one of these
     if compute_dtype(cfg) == torch.bfloat16:
         for m in model.modules():
-            if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d,
+                              torch.nn.Linear)):
                 m.weight.data = m.weight.data.bfloat16()
     return model
 
 
-#: zoo models whose convolution families are not ported yet
-UNPORTED_MODELS = ("van", "emonet", "i3d", "mc3d", "tsav")
+def output_table(logits: torch.Tensor) -> torch.Tensor:
+    """A model's output in the (B, 21) layout [12 AU | 7 EX | 2 VA] that
+    the losses, the evaluation and the submission writers read. tsav's 22
+    columns [12 AU | 8 EX | 2 VA] map to columns [0:12 | 12:19 | 20:22]
+    (ROADMAP.md C5: the JAX package reads its columns 19 and 20 as VA, the
+    8th EX logit and valence); every other model's 21 columns pass as they
+    are."""
+    if logits.shape[1] == 22:
+        return torch.cat([logits[:, :19], logits[:, 20:]], dim=1)
+    return logits
+
+
 #: models whose clip is one frame (the JAX package's example_batch)
 SINGLE_FRAME = ("sformer", "dsformer", "van", "emonet", "resnet")
 
 
 def _build(cfg: Config) -> torch.nn.Module:
     name, modality, task = cfg.model_name, cfg.modality, cfg.task
-    if name in UNPORTED_MODELS:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to auformer_torch yet; "
-            f"ROADMAP.md queue A6 (the rest of the model zoo) lists it")
     if name == "avformer":
         from .avformer import TwoStreamAuralVisualFormer
         return TwoStreamAuralVisualFormer(modality, task, cfg.n_frames,
@@ -85,6 +91,21 @@ def _build(cfg: Config) -> torch.nn.Module:
     if name == "audio":
         from .avformer import AudioOnly
         return AudioOnly(modality, task, cfg.dropout_rate)
+    if name == "van":
+        from .van import SpatialVAN
+        return SpatialVAN(modality, task)
+    if name == "emonet":
+        from .emonet import ImageEmoNetModel
+        return ImageEmoNetModel(modality, task)
+    if name == "i3d":
+        from .i3d import VisualI3DModel
+        return VisualI3DModel(modality, task)
+    if name == "mc3d":
+        from .mc3d import VisualMC3DModel
+        return VisualMC3DModel(modality, task)
+    if name == "tsav":
+        from .tsav import TwoStreamAuralVisualModel
+        return TwoStreamAuralVisualModel(modality, task)
     from .resnet_image import ImageResNetModel
     return ImageResNetModel(task, cfg.clip_channels)
 

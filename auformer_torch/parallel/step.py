@@ -33,7 +33,7 @@ import torch
 from ..core.config import Config
 from ..losses import LossSuite
 from ..nn.blocks import set_dropout_generator
-from ..nn.registry import compute_autocast
+from ..nn.registry import compute_autocast, output_table
 from ..ops.audio import HOP_LENGTH, audio_frontend, reflect_end_patch
 from ..ops.augment_device import augment_clips_device
 from ..ops.preprocess import normalize_clip, random_flip_clips
@@ -163,13 +163,13 @@ def task_loss(suite: LossSuite, task: str, out, labels):
 
 
 def _forward(cfg: Config, model: torch.nn.Module, x: dict) -> torch.Tensor:
-    """The model's (B, 21) f32 output, under bf16 autocast when
-    ``cfg.compute_dtype`` asks for it."""
+    """The model's f32 output in the (B, 21) layout (``output_table``),
+    under bf16 autocast when ``cfg.compute_dtype`` asks for it."""
     device = next(model.parameters()).device
     modes = set(getattr(model, "modes", x.keys()))
     x = {k: v for k, v in x.items() if k in modes}
     with compute_autocast(cfg, device):
-        return model(x).float()
+        return output_table(model(x).float())
 
 
 def make_train_step(cfg: Config, model: torch.nn.Module,

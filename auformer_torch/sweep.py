@@ -650,19 +650,15 @@ def make_sweep(cfg: Config, model: torch.nn.Module, mesh=None,
                device=None) -> SweepBase:
     """The sweep executor for ``cfg.model_name``, routed as the JAX
     package's ``make_sweep``: avformer, vformer, and the single-frame RGB
-    models. Two departures: vggformer takes ``SingleFrameSweep`` only at
-    ``n_frames == 1`` (ROADMAP.md C4: its TFormer reshapes the frame
-    features to (-1, n_frames, 512)), and van and emonet raise until their
-    models are ported (queue A6)."""
+    models (sformer, van, emonet, the resnet baseline). One departure:
+    vggformer takes ``SingleFrameSweep`` only at ``n_frames == 1``
+    (ROADMAP.md C4: its TFormer reshapes the frame features to
+    (-1, n_frames, 512))."""
     name = cfg.model_name
     if name == "avformer":
         return AvformerSweep(cfg, model, mesh=mesh, device=device)
     if name == "vformer":
         return VformerSweep(cfg, model, mesh=mesh, device=device)
-    if name in ("van", "emonet"):
-        raise NotImplementedError(
-            f"model {name!r} is not ported to auformer_torch yet; ROADMAP.md "
-            "queue A6 (the rest of the model zoo) lists it")
     if name == "vggformer" and cfg.n_frames != 1:
         raise ValueError(
             "vggformer is temporal (its TFormer takes n_frames frame "

@@ -4,6 +4,12 @@ train.py:339-343), on the GPU:
     python -m auformer_torch.train -t AU -mn avformer --device_augment \\
         [flags as opts.py]
 
+``-mn`` takes every model of the zoo (avformer, vformer, sformer,
+tformer, dsformer, vggformer, audio, van, emonet, i3d, mc3d, tsav,
+resnet); the single-frame models (sformer, dsformer, van, emonet, resnet)
+train with ``--n_frames 1``, emonet at a multiple of 64 (``--image_size
+256``, its full width).
+
 Checkpoints go to ``{exp_dir}/pretrain/{latest,best}.pth`` in the reference
 layout; ``--resume`` reads ``latest.pth``.
 """

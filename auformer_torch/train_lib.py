@@ -13,8 +13,8 @@ the card; the entry point raises without a GPU unless given
 Flags of the JAX package that the port does not run raise, naming their
 ROADMAP.md item: ``steps_per_dispatch > 1`` (A13), ``frame_dedup`` (A11),
 the wav arena (``device_audio`` with ``audio_arena_mb > 0``, A12),
-``profile_dir`` (A14), host augmentation (no ``device_augment``, A10),
-models other than avformer (A6).
+``profile_dir`` (A14), host augmentation (no ``device_augment``, A10).
+Every model of the zoo trains; only avformer freezes its streams.
 """
 from __future__ import annotations
 
@@ -64,9 +64,6 @@ def check_supported(cfg: Config) -> None:
     """Raise for the JAX package's training options the port does not run,
     each naming its ROADMAP.md item."""
     unported = [
-        (cfg.model_name != "avformer",
-         f"training model {cfg.model_name!r} (queue A6, the rest of the "
-         f"model zoo)"),
         (not cfg.device_augment,
          "host (PIL) augmentation (queue A10); pass --device_augment"),
         (int(cfg.steps_per_dispatch or 1) > 1,

@@ -63,19 +63,23 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            frame count from a meta.json side file
   zoo      the other served models at full width (random reference-layout
            weights from the seed): vformer, sformer (tasks AU and VA),
-           tformer, dsformer, vggformer (T=16, or T=1 for the single-frame
-           models, dilation 3), audio (raw audio, the mel kernel) and the
+           tformer, dsformer, vggformer, i3d, mc3d (T=16, or T=1 for the
+           single-frame models, dilation 3), van, emonet (256x256, its
+           full width), audio and tsav (raw audio, the mel kernel) and the
            resnet baseline. Per model, a B=8 clip forward: launch counts of
            one bf16 forward (the main path) and one fp32, fp32 logits on
            the card against the same port on the CPU, bf16 against fp32,
-           clips/s and device ms per forward in bf16. Then the sweep
-           phase's 2,100-frame video through VformerSweep (fp32 against
-           the fp32 clip path on 16 label frames, launches per bucket,
-           bf16 label frames/s, device ms and kernels per bucket) and
-           through SingleFrameSweep for sformer (fp32 against its clip
-           forward on 64 frames, label frames/s), and run_inference_sweep
-           of vformer over the dataset phase's split through the decode
-           worker (the submission files); the split is removed after it
+           clips/s, device ms and idle share per forward in bf16. Then
+           the sweep phase's 2,100-frame video through VformerSweep (fp32
+           against the fp32 clip path on 16 label frames, launches per
+           bucket, bf16 label frames/s, device ms and kernels per bucket) and
+           through SingleFrameSweep for sformer and van, and a synthetic
+           1,024-frame 256x256 array through emonet's (fp32 against each
+           model's clip forward on 64 frames, launches per bucket, label
+           frames/s, device ms per bucket, peak memory), and
+           run_inference_sweep of vformer over the dataset phase's split
+           through the decode worker (the submission files); the split is
+           removed after it
   train    a synthetic train/val split written by the port's fixtures
            (videos of 1,500, 1,500, 600 and 100 frames: train, train,
            val, test; 112x112 JPEG q90). Before any training: the
@@ -93,7 +97,16 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            30-step overfit of one batch, the checkpoint round trip, and
            the numbers: clips/s, StepTimer data and step ms, device ms,
            kernels and idle share per step, eval s, peak memory, loss per
-           epoch
+           epoch. Then the zoo: one fp32 train step of each of the twelve
+           other models (64x64, T=2 or 1, B=4, dropout 0) on the card
+           against the CPU; the main path ``python -m auformer_torch.train
+           --model_name vformer --device_augment`` (its ``main``) at B=64
+           in bf16 for 1 epoch (4 attention launches and 4 backward calls
+           per step), its checkpoint round trip, 5 profiled steps with the
+           attention forward and backward device ms per step at each site
+           (spatial and temporal); and 3 bf16 steps of every other zoo
+           model at full width (emonet 256x256) on ready device batches:
+           attention per step, device ms, kernels and peak memory
 
 Then one JSON line of per-kernel results: for attention, sums over one
 sweep bucket's calls in bf16 (the main path's dtype), with the per-bucket
@@ -101,7 +114,10 @@ sums in both dtypes (``per_bucket``, and ``per_packed_bucket`` for a full
 2048-clip packed bucket), the clip path's per-forward sums
 (``per_forward``) and the train step (``train_step``: per call at the
 fusion head's site beside its launches per step, and the traced device ms
-per step of the kernel and of the backward); ``launches`` counts the
+per step of the kernel and of the backward; ``vformer``: per call at its
+spatial and temporal sites in both dtypes, beside SDPA's forward +
+backward, and the trace's forward and backward device ms per step by
+site); ``launches`` counts the
 slice's, the sweep's, the dataset's, the packed, the zoo and the train
 phase's main path runs (``launches_by_path``; ``zoo`` sums the zoo
 phase's bf16 main path runs), and ``zoo_sites`` lists the zoo's attention
@@ -154,6 +170,10 @@ SWEEP_FRAMES = 2100
 SWEEP_WAV_SECS = 70
 SWEEP_BSIZE = 1280
 SECOND_FRAMES = 300  # a second, shorter video for run_inference_sweep
+# emonet's SingleFrameSweep: a synthetic 256x256 frame array in buckets of
+# 512 (the zoo phase)
+EMONET_FRAMES = 1024
+EMONET_SWEEP_BUCKET = 512
 LABEL_FRAME = 48     # T=16, dilation 3
 # 16 label frames whose windows are held against the per-window route and
 # the clip path: short (ts < 10 s), full, truncated by the end of the file
@@ -182,7 +202,10 @@ ATTENTION_SITES = (("slice", "spatial", 49, 32, BATCH * FRAMES, 1),
                    ("zoo", "tformer_temporal_1536", 17, 64, BATCH, 3),
                    ("zoo", "vggformer_spatial", 16, 32, BATCH * FRAMES, 1),
                    ("zoo", "audio_au_tokens", 12, 32, BATCH, 2),
-                   ("zoo", "dsformer_spatial", 49, 32, BATCH, 2))
+                   ("zoo", "dsformer_spatial", 49, 32, BATCH, 2),
+                   # emonet's AU head over a SingleFrameSweep bucket
+                   ("zoo", "emonet_sweep_au_tokens", 12, 32,
+                    EMONET_SWEEP_BUCKET, 2))
 ATTN_PER_CALL = 11
 ATTN_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-3)}
 MEL_ATOL = 2e-3          # normalized units (0.04 dB): sum order only
@@ -210,9 +233,18 @@ ZOO_MODELS = (("vformer", "vformer", "V", "AU", FRAMES, 4, 0),
               ("dsformer", "dsformer", "V;M", "AU", 1, 2, 0),
               ("vggformer", "vggformer", "V", "AU", FRAMES, 4, 0),
               ("audio", "audio", "A", "AU", FRAMES, 2, 1),
-              ("resnet", "resnet", "V", "AU", 1, 0, 0))
+              ("resnet", "resnet", "V", "AU", 1, 0, 0),
+              ("van", "van", "V", "AU", 1, 2, 0),
+              ("emonet", "emonet", "V", "AU", 1, 2, 0),
+              ("i3d", "i3d", "V", "AU", FRAMES, 0, 0),
+              ("mc3d", "mc3d", "V", "AU", FRAMES, 0, 0),
+              ("tsav", "tsav", "A;V", "AU", FRAMES, 0, 1))
+# emonet's full width: its hourglass needs a multiple of 64
+ZOO_IMAGE = {"emonet": 256}
 VFORMER_ATTN_PER_BUCKET = 4     # 1 spatial + 3 temporal
 SFORMER_ATTN_PER_BUCKET = 3     # 1 spatial + 2 AU tokens
+# van's and emonet's SingleFrameSweep: the AU head's 2 per bucket
+SINGLE_FRAME_ATTN_PER_BUCKET = {"van": 2, "emonet": 2}
 ZOO_BF16_REL = 5e-2       # card bf16 vs card fp32 logits, norm-relative
 SINGLE_FRAME_ROWS = 64    # sformer's clip-path check: the first 64 frames
 
@@ -222,12 +254,35 @@ TRAIN_FRAMES = (1500, 1500, 600, 100)
 TRAIN_BATCH = 64
 # attention gradient sites: (name, tokens, head dim, batch) with 8 heads
 GRAD_SITES = (("fusion_head", 12, 32, TRAIN_BATCH),
-              ("spatial", 49, 32, TRAIN_BATCH * FRAMES))
+              ("spatial", 49, 32, TRAIN_BATCH * FRAMES),
+              ("temporal", 17, 64, TRAIN_BATCH))
 ATTN_FWD_PER_STEP, ATTN_BWD_PER_STEP = 11, 3
 ATTN_HEAD_FWD_PER_STEP = 3              # of the 11: the fusion head's layers
 STEP_TOL = (2e-3, 2e-4)   # rtol, atol: card fp32 step vs CPU fp32 step
 STATS_TOL = (1e-3, 1e-4)  # BatchNorm running statistics after that step
 OVERFIT_STEPS = 30
+# vformer through train.main: 1 spatial + 3 temporal attention layers, all
+# trained (forward launches, backward calls per step); its sites (tokens,
+# head dim) for the per-site trace
+VFORMER_SITES = {"spatial": (49, 32), "temporal": (17, 64)}
+# the card-vs-CPU fp32 step of every non-avformer model: 64x64 (emonet's
+# multiple of 64), T=2 (or 1), B=4, dropout 0. Each gradient is held
+# within STEP_TOL's rtol of its norm, plus the atol per element, plus 3x
+# the largest move of the CPU gradient when the weights move by 1e-6 of
+# themselves (ZOO_STEP_MOVES seeded draws): a ReLU that flips within f32
+# noise of 0 moves a small batch's first-layer gradient by ~1/sqrt(its
+# output positions), so i3d's gradients move 1-2 % under such a draw, by
+# 2.7-7.5 in norm (~360) for its stem (tests/test_torch_zoo_train.py)
+ZOO_STEP = dict(image=64, frames=2, batch=4)
+ZOO_STEP_MOVES = 3
+# (model, modality) of every zoo model but avformer, once each
+ZOO_STEP_MODELS = tuple(dict.fromkeys(
+    (name, modality) for _, name, modality, *_ in ZOO_MODELS))
+# attention per train step of each zoo model: every layer trains, so its
+# forward launches (ZOO_MODELS) and as many backward calls
+ZOO_TRAIN_ATTN = {name: attn for _, name, _, _, _, attn, _ in ZOO_MODELS}
+VFORMER_ATTN_PER_STEP = (ZOO_TRAIN_ATTN["vformer"],) * 2
+ZOO_TRAIN_STEPS = 3      # bf16 steps per model at full width, B=64
 
 
 def emit(phase: str, **fields) -> None:
@@ -1333,16 +1388,21 @@ def phase_packed(torch, dev, work: Path, cfg32, cfg16, sd, videos: dict,
     return launches
 
 
-def zoo_batch(rs, name: str, modality: str, t: int) -> dict:
-    """B=8 inputs of a zoo model: uint8 clips of its frames and channels
-    (4 for dsformer's RGB + mask), or raw right-aligned audio with its
-    feature lengths for the audio model (``make_batch``'s)."""
-    if name == "audio":
-        batch = make_batch(rs, BATCH)
-        return {"audio": batch["audio"], "feature_len": batch["feature_len"]}
-    channels = 4 if modality == "V;M" else 3
-    return {"clip": rs.randint(0, 256, (BATCH, t, IMAGE, IMAGE, channels),
-                               dtype=np.uint8)}
+def zoo_batch(rs, name: str, modality: str, t: int,
+              image: int = IMAGE) -> dict:
+    """B=8 inputs of a zoo model: uint8 clips of its frames, channels (4
+    for dsformer's RGB + mask) and width, and raw right-aligned audio with
+    its feature lengths (``make_batch``'s) for the models that take audio
+    (audio, tsav)."""
+    batch = {}
+    if name in ("audio", "tsav"):
+        audio = make_batch(rs, BATCH)
+        batch.update(audio=audio["audio"], feature_len=audio["feature_len"])
+    if name != "audio":
+        channels = 4 if modality == "V;M" else 3
+        batch["clip"] = rs.randint(0, 256, (BATCH, t, image, image, channels),
+                                   dtype=np.uint8)
+    return batch
 
 
 def profile_calls(torch, run, calls: int) -> dict | None:
@@ -1393,8 +1453,9 @@ def phase_zoo(torch, dev, split: dict) -> dict:
 
     def configs(name, modality, task, t, **kw):
         kw = dict(model_name=name, modality=modality, task=task, n_frames=t,
-                  dilation=3 if t > 1 else 1, image_size=IMAGE,
-                  batch_size=BATCH, **kw)
+                  dilation=3 if t > 1 else 1,
+                  image_size=ZOO_IMAGE.get(name, IMAGE), batch_size=BATCH,
+                  **kw)
         return Config(compute_dtype="float32", **kw), Config(**kw)
 
     def loaded(cfg, sd):
@@ -1411,7 +1472,7 @@ def phase_zoo(torch, dev, split: dict) -> dict:
         load_weights(model32, sd)
         weights[case] = sd
         cpu_model = copy.deepcopy(model32)
-        batch = zoo_batch(rs, name, modality, t)
+        batch = zoo_batch(rs, name, modality, t, cfg32.image_size)
         on_card = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
         want = {"attention": n_attn, "mel": n_mel}
         infer16 = make_infer_fn(cfg16, loaded(cfg16, sd))
@@ -1441,12 +1502,15 @@ def phase_zoo(torch, dev, split: dict) -> dict:
                                              for _ in range(3)], 3)
         models[case] = dict(
             model=name, modality=modality, task=task, frames=t,
-            launches_per_forward=want, max_abs_err_fp32_vs_cpu=err,
+            image=cfg32.image_size, launches_per_forward=want,
+            max_abs_err_fp32_vs_cpu=err,
             cpu_forward_s=cpu_s, bf16_vs_fp32_rel=rel16,
             clips_per_s_bf16=rate16,
             wall_ms_per_forward_bf16=1e3 * BATCH / rate16,
             device_ms_per_forward_bf16=(None if prof is None
                                         else prof["device_ms"]),
+            device_idle_share_bf16=(None if prof is None else 1.0 - prof[
+                "device_ms"] * rate16 / (1e3 * BATCH)),
             device_kernels_per_forward_bf16=(None if prof is None
                                              else prof["kernels"]))
         del model32, cpu_model, infer16, infer32, on_card
@@ -1561,6 +1625,63 @@ def phase_zoo(torch, dev, split: dict) -> dict:
     del sweep16
     torch.cuda.empty_cache()
 
+    # van on the same video and emonet on a synthetic 256x256 frame array
+    # through SingleFrameSweep: fp32 against each's fp32 clip forward on the
+    # first 64 frames, then the bf16 sweep's launches, label frames/s and
+    # device ms per bucket
+    single_frame = {}
+    emonet_frames = np.random.RandomState(SEED + 8).randint(
+        0, 256, (EMONET_FRAMES, ZOO_IMAGE["emonet"], ZOO_IMAGE["emonet"], 3),
+        dtype=np.uint8)
+    for case, video, sf_bucket in (("van", frames, bucket),
+                                   ("emonet", emonet_frames,
+                                    EMONET_SWEEP_BUCKET)):
+        cfg32, cfg16 = configs(case, "V", "AU", 1)
+        model32 = loaded(cfg32, weights[case])
+        sweep32 = SingleFrameSweep(cfg32, model32)
+        got32 = sweep32.sweep_video(video, batch=sf_bucket)
+        rows = video[:SINGLE_FRAME_ROWS, None]
+        infer32 = make_infer_fn(cfg32, model32)
+        clip32 = np.concatenate([infer32({"clip": rows[i:i + BATCH]}).cpu(
+            ).numpy() for i in range(0, SINGLE_FRAME_ROWS, BATCH)])
+        err = float(np.abs(got32[:SINGLE_FRAME_ROWS] - clip32).max())
+        if got32.shape != (len(video), 21) or not np.allclose(
+                got32[:SINGLE_FRAME_ROWS], clip32, rtol=SWEEP_TOL[0],
+                atol=SWEEP_TOL[1]):
+            fail(f"zoo: {case}'s SingleFrameSweep differs from its clip "
+                 f"forward by {err}")
+        del sweep32, model32, infer32
+        sweep16 = SingleFrameSweep(cfg16, loaded(cfg16, weights[case]))
+        n_video = len(video)
+        n_sf = -(-n_video // sf_bucket)
+        got16 = counted(
+            lambda: sweep16.sweep_video(video, batch=sf_bucket),
+            {"attention": SINGLE_FRAME_ATTN_PER_BUCKET[case] * n_sf,
+             "mel": 0}, f"{case} sweep")
+        if not np.isfinite(got16).all():
+            fail(f"zoo: the bf16 {case} sweep is not finite")
+        torch.cuda.reset_peak_memory_stats()
+        rate, walls = best_rate(
+            torch, n_video, lambda: sweep16.sweep_video(video,
+                                                        batch=sf_bucket))
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+        prof = profile_calls(
+            torch, lambda: sweep16.sweep_video(video, batch=sf_bucket), n_sf)
+        single_frame[case] = dict(
+            frames=n_video, image=int(video.shape[1]), bucket=sf_bucket,
+            buckets=n_sf, fp32_vs_clip_max_abs_err=err,
+            clip_rows=SINGLE_FRAME_ROWS, label_frames_per_s_bf16=rate,
+            walls=walls, peak_memory_mb=peak_mb,
+            bf16_vs_fp32_max_abs_diff=float(np.abs(got16 - got32).max()),
+            device_ms_per_bucket_bf16=(None if prof is None
+                                       else prof["device_ms"]),
+            device_idle_share_bf16=(None if prof is None else 1.0 - (
+                prof["device_ms"] * n_sf / (1e3 * min(walls)))),
+            device_kernels_per_bucket_bf16=(None if prof is None
+                                            else prof["kernels"]))
+        del sweep16
+        torch.cuda.empty_cache()
+
     # vformer's run_inference_sweep over the dataset phase's split, in
     # bf16 through the decode worker (4,000 test clips)
     cfg = Config(model_name="vformer", modality="V", task="AU",
@@ -1598,6 +1719,7 @@ def phase_zoo(torch, dev, split: dict) -> dict:
     emit("zoo", batch=BATCH, image=IMAGE, tol=list(SLICE_TOL),
          bf16_rel_tol=ZOO_BF16_REL, models=models,
          vformer_sweep=vformer_sweep, sformer_sweep=sformer_sweep,
+         single_frame_sweeps=single_frame,
          vformer_dataset={"label_frames": int(out.shape[0]),
                           "buckets": ds_buckets, "seconds": ds_s,
                           "label_frames_per_s_bf16": out.shape[0] / ds_s,
@@ -1889,10 +2011,47 @@ def train_argv(work: Path, exp: str, *extra) -> list[str]:
             "--seed", str(SEED), *extra]
 
 
-def profile_steps(torch, dev, model, work: Path) -> dict:
+class attention_site_ranges:
+    """While active, each attention forward (the kernel) and backward (the
+    plain recompute) runs inside a profiler range named by its site,
+    ``attention_{fwd,bwd}_N{tokens}_D{dim}``: the trace's device time per
+    site (a forward's from the range's device-side span, which holds its
+    one kernel; a backward's from the kernels of the plain ops inside it).
+    Instrumentation of this script; the port is untouched."""
+
+    def __init__(self, torch):
+        from auformer_torch.ops import attention as tatt
+        self.torch, self.tatt = torch, tatt
+
+    def __enter__(self):
+        tatt, record = self.tatt, self.torch.profiler.record_function
+        self.plain = (tatt._attention_forward,
+                      tatt.attention_backward_reference)
+        fwd, bwd = self.plain
+
+        def forward(q, k, v, scale):
+            with record(f"attention_fwd_N{q.shape[2]}_D{q.shape[3]}"):
+                return fwd(q, k, v, scale)
+
+        def backward(q, k, v, g, scale):
+            with record(f"attention_bwd_N{q.shape[2]}_D{q.shape[3]}"):
+                return bwd(q, k, v, g, scale)
+        tatt._attention_forward = forward
+        tatt.attention_backward_reference = backward
+        return self
+
+    def __exit__(self, *exc):
+        (self.tatt._attention_forward,
+         self.tatt.attention_backward_reference) = self.plain
+
+
+def profile_steps(torch, dev, model, work: Path, argv: list,
+                  per_step_want: tuple, sites: dict) -> dict:
     """5 bf16 train steps on loader batches: device ms, kernels and the
     idle share per step (torch.profiler), the wall per step, one step's
-    attention launches and backward calls; and the loader alone (4
+    attention launches and backward calls (``per_step_want``), the
+    attention forward and backward device ms per step at each of
+    ``sites`` (name -> (tokens, head dim)); and the loader alone (4
     threads: JPEG reads and host features) per batch, with the card
     idle."""
     from auformer_torch import train_lib
@@ -1902,7 +2061,7 @@ def profile_steps(torch, dev, model, work: Path) -> dict:
     from auformer_torch.nn import loss_suite
     from auformer_torch.ops.attention import fused_attention
     from auformer_torch.parallel import step as tstep
-    cfg = parse_opt(train_argv(work, "exp_profile"))
+    cfg = parse_opt(argv)
     ds = Aff2CompDataset(cfg)
     ds.set_modes(list(model.modes))
     ids = np.nonzero(ds.train_ids)[0][::2][:5 * TRAIN_BATCH]
@@ -1926,31 +2085,45 @@ def profile_steps(torch, dev, model, work: Path) -> dict:
     torch.cuda.synchronize()
     per_step = {"forward": fused_attention.launches,
                 "backward": fused_attention.backward_calls}
-    if per_step != {"forward": ATTN_FWD_PER_STEP,
-                    "backward": ATTN_BWD_PER_STEP}:
-        fail(f"attention per train step {per_step}")
+    if per_step != dict(zip(("forward", "backward"), per_step_want)):
+        fail(f"attention per train step of {cfg.model_name}: {per_step}")
     t0 = time.perf_counter()
     run()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
-    prof = device_profile(torch, run, cpu=True)
+    with attention_site_ranges(torch):
+        prof = device_profile(torch, run, cpu=True)
+    # the ranges' device-side spans overlap the kernels they hold: kernels
+    # only in the step's totals
     events = [] if prof is None else [
         e for e in prof.key_averages()
-        if on_device(e) and e.device_time_total > 0]
+        if on_device(e) and e.device_time_total > 0
+        and not e.key.startswith(("attention_fwd_N", "attention_bwd_N"))]
     events.sort(key=lambda e: e.device_time_total, reverse=True)
     device_ms = (None if prof is None else
                  sum(e.device_time_total for e in events) / 1e3 / len(batches))
 
     def traced(matches) -> dict | None:
         """Device ms and calls per step of the trace's events ``matches``
-        takes (a CPU op's device time: the kernels it launched)."""
+        takes (a CPU op's or range's device time: the kernels it
+        launched)."""
         if prof is None:
             return None
         found = [e for e in prof.key_averages() if matches(e)]
         return {"ms_per_step": sum(e.device_time_total for e in found)
                 / 1e3 / len(batches),
                 "calls_per_step": sum(e.count for e in found) / len(batches)}
-    return {"steps": len(batches), "wall_ms_per_step": wall_ms,
+
+    def forward_span(name):
+        """The device-side span of a forward range: its one kernel (the
+        ctypes launch belongs to no CPU op)."""
+        return traced(lambda e: on_device(e) and e.key == name)
+
+    def backward_kernels(name):
+        """The kernels of a backward range's plain ops."""
+        return traced(lambda e: not on_device(e) and e.key == name)
+    return {"model": cfg.model_name, "steps": len(batches),
+            "wall_ms_per_step": wall_ms,
             "loader_alone_s_per_batch": loader_s,
             "device_ms_per_step": device_ms,
             "device_idle_share": (None if device_ms is None
@@ -1959,17 +2132,200 @@ def profile_steps(torch, dev, model, work: Path) -> dict:
                 e.count for e in events) / len(batches)),
             "attention_per_step": per_step,
             # the attention kernel's launches at every site of the step, and
-            # the recomputing backward (plain PyTorch) at the fusion head
+            # the recomputing backward (plain PyTorch) at every trained site
             "attention_in_step": {
                 "kernel": traced(lambda e: on_device(e)
                                  and "attention_" in e.key
                                  and "_kernel" in e.key),
                 "backward": traced(lambda e: not on_device(e) and e.key
-                                   == "_FusedAttentionBackward")},
+                                   == "_FusedAttentionBackward"),
+                "by_site": {site: {
+                    "forward": forward_span(f"attention_fwd_N{n}_D{d}"),
+                    "backward": backward_kernels(
+                        f"attention_bwd_N{n}_D{d}")}
+                    for site, (n, d) in sites.items()}},
             "top": [{"name": e.key[:80],
                      "ms_per_step": e.device_time_total / 1e3 / len(batches),
                      "calls_per_step": e.count / len(batches)}
                     for e in events[:15]]}
+
+
+def zoo_step_batch(rs, name: str, modality: str, t: int, image: int,
+                   b: int, symmetric: bool = True) -> dict:
+    """A train batch of a zoo model: uint8 clips (left-right symmetric:
+    the random flip is the identity) of its frames and channels, host
+    audio features where it takes audio, labels with an ignored row."""
+    batch = {}
+    if name != "audio":
+        channels = 4 if modality == "V;M" else 3
+        if symmetric:
+            half = rs.randint(0, 256, (b, t, image, image // 2, channels))
+            clip = np.concatenate([half, half[:, :, :, ::-1]], axis=3)
+        else:
+            clip = rs.randint(0, 256, (b, t, image, image, channels))
+        batch["clip"] = np.ascontiguousarray(clip.astype(np.uint8))
+    if name in ("audio", "tsav"):
+        batch["audio_features"] = rs.randn(b, 1, 64, 1001).astype(np.float32)
+    au = rs.randint(0, 2, (b, 12)).astype(np.int8)
+    au[0, 0] = -1
+    batch.update(AU=au, EX=rs.randint(-1, 7, (b, 1)).astype(np.int8),
+                 VA=rs.uniform(-1, 1, (b, 2)).astype(np.float32))
+    return batch
+
+
+def zoo_card_vs_cpu_steps(torch, dev) -> dict:
+    """One fp32 train step (ZOO_STEP's size, dropout 0, no augmentation,
+    symmetric clips) of each non-avformer model on the card and on the
+    CPU: the loss, every gradient (the bound of ZOO_STEP's comment) and
+    every BatchNorm statistic after the step."""
+    from auformer_torch.core.config import Config
+    from auformer_torch.core.weights import load_weights
+    from auformer_torch.nn import build_model, loss_suite
+    from auformer_torch.nn.registry import SINGLE_FRAME
+    from auformer_torch.parallel import step as tstep
+    rtol, atol = STEP_TOL
+    results = {}
+    for i, (name, modality) in enumerate(ZOO_STEP_MODELS):
+        t = 1 if name in SINGLE_FRAME else ZOO_STEP["frames"]
+        cfg = Config(model_name=name, modality=modality, task="AU",
+                     n_frames=t, dilation=1, image_size=ZOO_STEP["image"],
+                     compute_dtype="float32", dropout_rate=0.0,
+                     batch_size=ZOO_STEP["batch"], learning_rate=1e-3)
+        sd = random_reference_state_dict(build_model(cfg), SEED + i)
+        rs = np.random.RandomState(SEED + 20 + i)
+        batch = zoo_step_batch(rs, name, modality, t, ZOO_STEP["image"],
+                               ZOO_STEP["batch"])
+        moved = [{k: (v * (1 + 1e-6 * rs.randn(*v.shape))).astype(np.float32)
+                  for k, v in sd.items()} for _ in range(ZOO_STEP_MOVES)]
+        runs = []
+        for weights, device in ((sd, dev), (sd, torch.device("cpu")),
+                                *((w, torch.device("cpu")) for w in moved)):
+            model = build_model(cfg)
+            load_weights(model, weights)
+            model.to(device)
+            state = tstep.create_train_state(cfg, model)
+            step = tstep.make_train_step(cfg, model, loss_suite(model))
+            grads = {}
+            apply = state.apply_gradients
+
+            def capture(model=model, grads=grads, apply=apply):
+                # tformer's inner AU head's logit weights take no part in
+                # the loss: no gradient
+                grads.update({n: (torch.zeros(p.shape) if p.grad is None
+                                  else p.grad.detach().cpu().clone())
+                              for n, p in model.named_parameters()})
+                apply()
+            state.apply_gradients = capture
+            t0 = time.perf_counter()
+            loss = float(step(state, on(torch, batch, device),
+                              torch.Generator(device).manual_seed(SEED))[
+                                  "loss"])
+            runs.append((loss, grads, {k: v.detach().cpu() for k, v in
+                                       model.state_dict().items()
+                                       if "running_" in k},
+                         time.perf_counter() - t0))
+            del model, state
+        (loss_card, g_card, st_card, card_s), (loss_cpu, g_cpu, st_cpu,
+                                               cpu_s) = runs[:2]
+        if not (np.isfinite(loss_card)
+                and abs(loss_card - loss_cpu) <= atol + rtol * abs(loss_cpu)):
+            fail(f"zoo step {name}: fp32 loss {loss_card} on the card, "
+                 f"{loss_cpu} on the CPU")
+        worst = 0.0
+        for key, want in g_cpu.items():
+            bound = (rtol * want.norm().item()
+                     + atol * want.numel() ** 0.5
+                     + 3 * max((want - run[1][key]).norm().item()
+                               for run in runs[2:]))
+            excess = (g_card[key] - want).norm().item() / bound
+            worst = max(worst, excess)
+            if excess > 1.0:
+                fail(f"zoo step {name}: gradient {key} on the card differs "
+                     f"from the CPU by {(g_card[key] - want).norm().item()}"
+                     f" (bound {bound})")
+        stats_err = 0.0
+        for key, want in st_cpu.items():
+            stats_err = max(stats_err,
+                            (st_card[key] - want).abs().max().item())
+            if not torch.allclose(st_card[key], want, rtol=STATS_TOL[0],
+                                  atol=STATS_TOL[1]):
+                fail(f"zoo step {name}: BatchNorm statistic {key} differs "
+                     f"from the CPU by {stats_err}")
+        results[name] = {"loss_card": loss_card, "loss_cpu": loss_cpu,
+                         "grad_worst_share_of_bound": worst,
+                         "tensors": len(g_cpu),
+                         "bn_stats_max_abs_err": stats_err,
+                         "card_step_s": card_s, "cpu_step_s": cpu_s}
+        torch.cuda.empty_cache()
+    return results
+
+
+def zoo_train_steps(torch, dev) -> dict:
+    """ZOO_TRAIN_STEPS bf16 train steps (--device_augment, B=64) of each
+    zoo model but avformer and vformer at full width (112x112, or emonet's
+    256x256; T=16, or 1) on ready device batches, after one warm-up step:
+    attention launches and backward calls per step (ZOO_TRAIN_ATTN),
+    device ms and kernels per step, wall ms per step, peak memory."""
+    from auformer_torch.core.config import Config
+    from auformer_torch.core.weights import load_weights
+    from auformer_torch.nn import build_model, loss_suite
+    from auformer_torch.nn.registry import SINGLE_FRAME
+    from auformer_torch.ops.attention import fused_attention
+    from auformer_torch.parallel import step as tstep
+    results = {}
+    for i, (name, modality) in enumerate(ZOO_STEP_MODELS):
+        if name == "vformer":
+            continue
+        t = 1 if name in SINGLE_FRAME else FRAMES
+        image = ZOO_IMAGE.get(name, IMAGE)
+        cfg = Config(model_name=name, modality=modality, task="AU",
+                     n_frames=t, image_size=image, batch_size=TRAIN_BATCH,
+                     device_augment=True)
+        model = build_model(cfg)
+        load_weights(model, random_reference_state_dict(model, SEED + i))
+        model.to(dev)
+        batch = on(torch, zoo_step_batch(np.random.RandomState(SEED + 40 + i),
+                                         name, modality, t, image,
+                                         TRAIN_BATCH, symmetric=False), dev)
+        state = tstep.create_train_state(cfg, model)
+        step = tstep.make_train_step(cfg, model, loss_suite(model))
+        gen = torch.Generator(dev).manual_seed(SEED)
+        torch.cuda.reset_peak_memory_stats()
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+        fused_attention.launches = fused_attention.backward_calls = 0
+        losses = [step(state, batch, gen)["loss"]]
+        torch.cuda.synchronize()
+        want = ZOO_TRAIN_ATTN[name]
+        if (fused_attention.launches, fused_attention.backward_calls) != (
+                want, want):
+            fail(f"zoo train step {name}: attention {fused_attention.launches}"
+                 f" launches, {fused_attention.backward_calls} backward "
+                 f"calls, expected {want} each")
+        t0 = time.perf_counter()
+        losses += [step(state, batch, gen)["loss"]
+                   for _ in range(ZOO_TRAIN_STEPS - 1)]
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / (ZOO_TRAIN_STEPS - 1)
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+        losses = [float(v) for v in losses]
+        if not np.isfinite(losses).all():
+            fail(f"zoo train step {name}: losses {losses}")
+        prof = profile_calls(torch, lambda: [step(state, batch, gen) for _ in
+                                             range(ZOO_TRAIN_STEPS)],
+                             ZOO_TRAIN_STEPS)
+        results[name] = {
+            "frames": t, "image": image, "losses": losses,
+            "attention_per_step": want, "wall_ms_per_step": wall_ms,
+            "device_ms_per_step": None if prof is None else prof["device_ms"],
+            "device_kernels_per_step": (None if prof is None
+                                        else prof["kernels"]),
+            "device_idle_share": (None if prof is None
+                                  else 1.0 - prof["device_ms"] / wall_ms),
+            "peak_memory_mb": peak_mb}
+        del model, state, step, batch
+        torch.cuda.empty_cache()
+    return results
 
 
 def overfit(torch, dev, sd, work: Path) -> list[float]:
@@ -2099,11 +2455,72 @@ def phase_train(torch, dev) -> tuple[dict, list, dict]:
         fail(f"--device_audio ran {audio_state.step} steps")
     del audio_state
 
-    prof = profile_steps(torch, dev, state.model, work)
+    prof = profile_steps(torch, dev, state.model, work,
+                         train_argv(work, "exp_profile"),
+                         (ATTN_FWD_PER_STEP, ATTN_BWD_PER_STEP),
+                         {"spatial": (49, 32), "temporal": (17, 64),
+                          "au_tokens": (12, 32)})
     losses = overfit(torch, dev, sd, work)
     if not (np.isfinite(losses).all()
             and np.mean(losses[-5:]) < 0.8 * np.mean(losses[:5])):
         fail(f"the overfit run's AU loss did not fall: {losses}")
+
+    del state
+    torch.cuda.empty_cache()
+
+    # the zoo: one fp32 step of every non-avformer model on the card
+    # against the CPU; then the main path python -m auformer_torch.train
+    # --model_name vformer (1 epoch, bf16, --device_augment), its launches
+    # counted from 0 just before it; then its profiled steps and 3 bf16
+    # steps of every other zoo model at full width
+    zoo_steps = zoo_card_vs_cpu_steps(torch, dev)
+    vf_argv = train_argv(work, "exp_vformer", "--model_name", "vformer",
+                         "--modality", "V", "--epochs", "1")
+    torch.cuda.reset_peak_memory_stats()
+    fused_attention.launches = fused_attention.backward_calls = 0
+    mel_frontend.launches = 0
+    t0 = time.perf_counter()
+    vf_state, vf_history = train.main(vf_argv)
+    torch.cuda.synchronize()
+    vf_s = time.perf_counter() - t0
+    vf_launches = {"attention": fused_attention.launches,
+                   "mel": mel_frontend.launches}
+    vf_backward = fused_attention.backward_calls
+    vf_peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    vf_steps = sum(h["steps"] for h in vf_history)
+    fwd, bwd = VFORMER_ATTN_PER_STEP
+    vf_want = {"attention": fwd * (vf_steps + len(vf_history)), "mel": 0}
+    if (len(vf_history) != 1 or vf_launches != vf_want
+            or vf_backward != bwd * vf_steps):
+        fail(f"train.main --model_name vformer: {len(vf_history)} epochs, "
+             f"{vf_steps} steps, launches {vf_launches} (expected "
+             f"{vf_want}), backward calls {vf_backward}")
+    h = vf_history[0]
+    if not (np.isfinite(h["loss"]) and np.isfinite(h["score"])):
+        fail(f"vformer epoch has no finite loss and score: {h}")
+    cfg_vf = Config(model_name="vformer", modality="V",
+                    compute_dtype="float32", image_size=IMAGE,
+                    n_frames=FRAMES)
+    fresh = build_model(cfg_vf, dtype=torch.float32)
+    load_weights(fresh, load_reference_state_dict(
+        str(work / "exp_vformer" / "pretrain" / "latest.pth")))
+    fresh.to(dev).eval()
+    batch = on(torch, train_batch(np.random.RandomState(SEED + 10), 8), dev)
+    vf_logits = []
+    for model in (vf_state.model.eval(), fresh):
+        with torch.no_grad():
+            vf_logits.append(tstep._forward(cfg_vf, model, tstep.prep_batch(
+                batch, train=False)))
+    vf_ckpt_err = (vf_logits[0] - vf_logits[1]).abs().max().item()
+    if not (torch.isfinite(vf_logits[0]).all() and vf_ckpt_err <= 1e-5):
+        fail(f"vformer's latest.pth reloaded gives logits {vf_ckpt_err} "
+             "from the trained model's")
+    del fresh
+    vf_prof = profile_steps(torch, dev, vf_state.model, work, vf_argv,
+                            VFORMER_ATTN_PER_STEP, VFORMER_SITES)
+    del vf_state
+    torch.cuda.empty_cache()
+    zoo_train = zoo_train_steps(torch, dev)
 
     warm = history[1]
     emit("train", videos=list(TRAIN_FRAMES), image=IMAGE, t=FRAMES,
@@ -2124,9 +2541,24 @@ def phase_train(torch, dev) -> tuple[dict, list, dict]:
          device_audio={"steps": 5, "seconds": audio_s,
                        "loss": audio_hist[0]["loss"]},
          overfit_au_loss=losses, profile=prof, peak_memory_mb=peak_mb,
+         zoo_card_vs_cpu_step=zoo_steps,
+         vformer={"seconds": vf_s, "steps": vf_steps,
+                  "launches": vf_launches, "backward_calls": vf_backward,
+                  "loss": h["loss"], "score": h["score"],
+                  "train_clips_per_s": h["steps"] * TRAIN_BATCH
+                  / h["seconds"],
+                  "step_timer_ms": {"data": h["data_ms"],
+                                    "step": h["step_ms"]},
+                  "epoch_s": h["seconds"], "eval_s": h["eval_seconds"],
+                  "checkpoint_max_abs_err": vf_ckpt_err,
+                  "peak_memory_mb": vf_peak_mb, "profile": vf_prof},
+         zoo_train_steps=zoo_train,
          phase_s=time.perf_counter() - t_phase)
     shutil.rmtree(work, ignore_errors=True)   # the split and the .pth files
-    return launches, grad_cases, prof["attention_in_step"]
+    launches = {key: launches[key] + vf_launches[key] for key in launches}
+    return launches, grad_cases, {
+        "avformer": prof["attention_in_step"],
+        "vformer": vf_prof["attention_in_step"]}
 
 
 def main() -> int:
@@ -2191,7 +2623,20 @@ def main() -> int:
         "launches_per_step": {"forward": ATTN_FWD_PER_STEP,
                               "forward_fusion_head": ATTN_HEAD_FWD_PER_STEP,
                               "backward": ATTN_BWD_PER_STEP},
-        "traced_bf16": attention_in_step}
+        "traced_bf16": attention_in_step["avformer"],
+        # vformer trains every attention layer: per call at its spatial
+        # and temporal sites, and the trace's device ms per step by site
+        "vformer": {
+            "launches_per_step": dict(zip(("forward", "backward"),
+                                          VFORMER_ATTN_PER_STEP)),
+            "per_call": {
+                c["site"] + "_" + c["dtype"]: {key: c[key] for key in (
+                    "shape", "forward_ms", "backward_ms", "plain_fwd_bwd_ms",
+                    "library_fwd_bwd_ms", "forward_bound_ms",
+                    "forward_bound_by", "backward_bound_ms",
+                    "backward_bound_by")}
+                for c in grad_cases if c["site"] in VFORMER_SITES},
+            "traced_bf16": attention_in_step["vformer"]}}
     print(json.dumps({"kernels": [
         {"name": "attention", "route": "cuda",
          "source": str(build.source("attention").relative_to(ROOT)),

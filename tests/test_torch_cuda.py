@@ -614,20 +614,42 @@ ZOO = {"vformer": ("vformer", "V", "AU", 4, 4, 0),
        "dsformer": ("dsformer", "V;M", "AU", 1, 2, 0),
        "vggformer": ("vggformer", "V", "AU", 4, 4, 0),
        "audio": ("audio", "A", "AU", 4, 2, 1),
-       "resnet": ("resnet", "V", "AU", 1, 0, 0)}
+       "resnet": ("resnet", "V", "AU", 1, 0, 0),
+       "van": ("van", "V", "AU", 1, 2, 0),
+       "emonet": ("emonet", "V", "AU", 1, 2, 0),
+       "i3d": ("i3d", "V", "AU", 4, 0, 0),
+       "mc3d": ("mc3d", "V", "AU", 4, 0, 0),
+       "tsav": ("tsav", "A;V", "AU", 4, 0, 1)}
+CONV_ZOO = ("emonet", "i3d", "mc3d", "tsav", "van")
 
 
 def _zoo_pair(case, **kw):
     """The config and a CPU and a card copy of one zoo model (64x64, B=2)
     on the same seeded weights."""
     name, modality, task, t, _, _ = ZOO[case]
-    cfg = Config(model_name=name, modality=modality, task=task, n_frames=t,
-                 dilation=1, image_size=64, compute_dtype="float32", **kw)
+    cfg = Config(**{**dict(model_name=name, modality=modality, task=task,
+                           n_frames=t, dilation=1, image_size=64,
+                           compute_dtype="float32"), **kw})
     torch.manual_seed(0)
     cpu_model = build_model(cfg).eval()
     card_model = build_model(cfg)
     card_model.load_state_dict(cpu_model.state_dict())
     return cfg, cpu_model, card_model
+
+
+def _zoo_batch(case, b=2):
+    """uint8 clips of the model's frames and channels and/or raw
+    right-aligned audio (the mel kernel's input)."""
+    name, modality, _, t, _, _ = ZOO[case]
+    rs = np.random.RandomState(4)
+    batch = {}
+    if name in ("audio", "tsav"):
+        batch["audio"] = (rs.randn(b, 441000) * 0.1).astype(np.float32)
+    if name != "audio":
+        channels = 4 if modality == "V;M" else 3
+        batch["clip"] = rs.randint(0, 256, (b, t, 64, 64, channels)
+                                   ).astype(np.uint8)
+    return batch
 
 
 @pytest.mark.parametrize("case", sorted(ZOO))
@@ -637,13 +659,7 @@ def test_zoo_model_on_the_card_matches_the_cpu(cuda_device, case):
     chip_smoke's table."""
     cfg, cpu_model, card_model = _zoo_pair(case)
     name, modality, _, t, n_attn, n_mel = ZOO[case]
-    rs = np.random.RandomState(4)
-    if name == "audio":
-        batch = {"audio": (rs.randn(2, 441000) * 0.1).astype(np.float32)}
-    else:
-        channels = 4 if modality == "V;M" else 3
-        batch = {"clip": rs.randint(0, 256, (2, t, 64, 64, channels)
-                                    ).astype(np.uint8)}
+    batch = _zoo_batch(case)
     attn, mel = tatt.fused_attention.launches, audio_kernel.mel_frontend.launches
     got = make_infer_fn(cfg, card_model)(batch)
     torch.cuda.synchronize()
@@ -686,3 +702,101 @@ def test_zoo_sweeps_on_the_card_match_the_cpu(cuda_device):
             frames, batch=8)
         assert got.shape == want.shape == (20, 21)
         np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.parametrize("case", CONV_ZOO)
+def test_prepare_inference_rounds_conv3d_once(cuda_device, case):
+    """Under bf16, prepare_inference rounds every Conv2d, Conv3d and Linear
+    weight once; the logits equal, bit for bit, those of f32 weights that
+    autocast casts at every call."""
+    from auformer_torch.nn.registry import compute_autocast, output_table
+    from auformer_torch.ops.audio import audio_frontend
+    from auformer_torch.ops.preprocess import normalize_clip
+    cfg, _, card_model = _zoo_pair(case, compute_dtype="bfloat16")
+    per_call = build_model(cfg)
+    per_call.load_state_dict(card_model.state_dict())
+    per_call.to(cuda_device).eval()
+    batch = _zoo_batch(case)
+    got = make_infer_fn(cfg, card_model)(batch)
+    convs = (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.Linear)
+    assert all(m.weight.dtype == torch.bfloat16
+               for m in card_model.modules() if isinstance(m, convs))
+    assert any(isinstance(m, torch.nn.Conv3d) for m in card_model.modules()) \
+        == (case in ("i3d", "mc3d", "tsav"))
+    x = {}
+    if "clip" in batch:
+        x["clip"] = normalize_clip(torch.from_numpy(batch["clip"]).to(
+            cuda_device))
+    if "audio" in batch:
+        x["audio_features"] = audio_frontend(
+            torch.from_numpy(batch["audio"]).to(cuda_device),
+            mel_bf16=cfg.mel_bf16).bfloat16()
+    with torch.inference_mode(), compute_autocast(cfg, cuda_device):
+        want = output_table(per_call(x).float())
+    assert torch.equal(got, want)
+
+
+def _step_grads(cfg, model, batch, dev):
+    """Loss, gradients (before Adam) and state dict of one fp32 train
+    step."""
+    from auformer_torch.nn import loss_suite
+    from auformer_torch.parallel import step as tstep
+    state = tstep.create_train_state(cfg, model)
+    step = tstep.make_train_step(cfg, model, loss_suite(model))
+    grads = {}
+    apply = state.apply_gradients
+
+    def capture():
+        grads.update({n: p.grad.detach().cpu().clone()
+                      for n, p in model.named_parameters()})
+        apply()
+    state.apply_gradients = capture
+    tensors = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+               for k, v in batch.items()}
+    loss = float(step(state, tensors, torch.Generator(dev).manual_seed(0))[
+        "loss"])
+    return loss, grads, {k: v.cpu() for k, v in model.state_dict().items()}
+
+
+@pytest.mark.parametrize("case", CONV_ZOO + ("vformer",))
+def test_zoo_train_step_on_the_card_matches_the_cpu(cuda_device, case):
+    """One fp32 train step (64x64, B=4, dropout 0, left-right symmetric
+    clips, host audio features) on the card and on the CPU: the loss and
+    the BatchNorm statistics within 2e-3 / 1e-3; each gradient within
+    2e-3 of its norm plus 3x the CPU gradient's largest move when the
+    weights move by 1e-6 of themselves (3 seeded draws: a ReLU that flips
+    within f32 noise of 0 moves a 3-d model's gradients by ~1 %:
+    tests/test_torch_zoo_train.py)."""
+    name, modality, _, t, _, _ = ZOO[case]
+    cfg, cpu_model, card_model = _zoo_pair(case, dropout_rate=0.0,
+                                           batch_size=4, learning_rate=1e-3)
+    rs = np.random.RandomState(8)
+    half = rs.randint(0, 256, (4, t, 64, 32, 3)).astype(np.uint8)
+    au = rs.randint(0, 2, (4, 12)).astype(np.int8)
+    au[0, 0] = -1
+    batch = {"clip": np.concatenate([half, half[:, :, :, ::-1]], axis=3),
+             "AU": au, "EX": rs.randint(-1, 7, (4, 1)).astype(np.int8),
+             "VA": rs.uniform(-1, 1, (4, 2)).astype(np.float32)}
+    if name == "tsav":
+        batch["audio_features"] = rs.randn(4, 1, 64, 1001).astype(np.float32)
+    weights = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    gen = torch.Generator().manual_seed(9)
+    moves = []
+    for _ in range(3):
+        moved = build_model(cfg)
+        moved.load_state_dict({k: v * (1 + 1e-6 * torch.randn(
+            v.shape, generator=gen)) if v.is_floating_point() else v
+            for k, v in weights.items()})
+        moves.append(_step_grads(cfg, moved, batch, "cpu")[1])
+    loss_card, g_card, sd_card = _step_grads(cfg, card_model.to(cuda_device),
+                                             batch, cuda_device)
+    loss_cpu, g_cpu, sd_cpu = _step_grads(cfg, cpu_model, batch, "cpu")
+    assert loss_card == pytest.approx(loss_cpu, rel=2e-3, abs=2e-4)
+    for key, want in g_cpu.items():
+        bound = (2e-3 * want.norm() + 2e-4 * want.numel() ** 0.5
+                 + 3 * max((want - g[key]).norm() for g in moves))
+        assert (g_card[key] - want).norm() <= bound, key
+    for key, want in sd_cpu.items():
+        if "running_" in key:
+            torch.testing.assert_close(sd_card[key], want, rtol=1e-3,
+                                       atol=1e-4)

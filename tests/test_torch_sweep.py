@@ -290,6 +290,6 @@ def test_unported_sweeps_raise(port_model):
     with pytest.raises(NotImplementedError, match="A7"):
         AvformerSweep(Config(**CFG), port_model, mesh=object(),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        make_sweep(Config(**dict(CFG, model_name="van")), port_model,
+    with pytest.raises(NotImplementedError, match="use run_inference"):
+        make_sweep(Config(**dict(CFG, model_name="i3d")), port_model,
                    device="cpu")

@@ -827,7 +827,6 @@ def test_entry_point_refuses_the_cpu_unasked(fixture_dirs):
     (["--frame_dedup"], "A11"),
     (["--device_audio"], "A12"),
     (["--profile_dir", "trace"], "A14"),
-    (["--model_name", "vformer"], "A6"),
 ])
 def test_unported_flags_raise(fixture_dirs, flags, item):
     base, root, labels = fixture_dirs

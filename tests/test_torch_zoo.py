@@ -151,12 +151,6 @@ def test_example_batch_matches_jax():
     assert example_batch(Config(**single), 2)["clip"].shape[1] == 1
 
 
-@pytest.mark.parametrize("name", ["van", "emonet", "i3d", "mc3d", "tsav"])
-def test_unported_models_raise_naming_a6(name):
-    with pytest.raises(NotImplementedError, match="A6"):
-        build_model(Config(model_name=name))
-
-
 def test_unknown_names_fall_back_to_the_resnet_baseline():
     """As the reference's dispatch (train.py:315); the first convolution
     takes the clip's channels, as JAX's shape-inferred one does."""
@@ -169,17 +163,29 @@ def test_unknown_names_fall_back_to_the_resnet_baseline():
         build_model(Config(model_name="dsformer", modality="V"))
 
 
-@pytest.mark.parametrize("case", sorted(MODELS))
+# the convolution families (tests/test_torch_zoo_conv.py): id -> (model,
+# modality, task, frames per clip)
+CONV_MODELS = {"van": ("van", "V", "AU", 1),
+               "emonet": ("emonet", "V", "AU", 1),
+               "i3d": ("i3d", "V", "AU", 4), "mc3d": ("mc3d", "V", "AU", 4),
+               "tsav": ("tsav", "A;V", "AU", 4)}
+
+
+@pytest.mark.parametrize("case", sorted(MODELS) + sorted(CONV_MODELS))
 def test_prepare_inference_rounds_every_conv_and_linear(case):
-    """Under bf16 every Conv2d and Linear weight of the model is rounded
-    once; every other parameter and statistic stays f32."""
-    cfg = Config(**dict(zoo_config(case), compute_dtype="bfloat16"))
+    """Under bf16 every Conv2d, Conv3d and Linear weight of the model is
+    rounded once; every other parameter and statistic stays f32; the zoo
+    has no other convolution kind."""
+    name, modality, task, t = {**MODELS, **CONV_MODELS}[case]
+    cfg = Config(model_name=name, modality=modality, task=task, n_frames=t,
+                 image_size=IMAGE, compute_dtype="bfloat16")
     model = prepare_inference(cfg, build_model(cfg), torch.device("cpu"))
+    convs = (torch.nn.Conv2d, torch.nn.Conv3d)
     kinds = {type(m) for m in model.modules() if not list(m.children())}
-    assert not any(k.__name__.startswith("Conv") and k is not torch.nn.Conv2d
-                   for k in kinds)
+    assert not any(k.__name__.startswith("Conv")
+                   and not issubclass(k, convs) for k in kinds)
     rounded = {f"{n}.weight" for n, m in model.named_modules()
-               if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))}
+               if isinstance(m, convs + (torch.nn.Linear,))}
     for name, t in model.state_dict().items():
         if not name.endswith("num_batches_tracked"):
             want = torch.bfloat16 if name in rounded else torch.float32

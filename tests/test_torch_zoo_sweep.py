@@ -142,22 +142,18 @@ def test_vggformer_sweep_is_single_frame_only(frames):
 
 
 @pytest.mark.parametrize("name,exc,match", [
-    ("van", NotImplementedError, "A6"),
-    ("emonet", NotImplementedError, "A6"),
     ("tformer", NotImplementedError, "use run_inference"),
     ("dsformer", NotImplementedError, "use run_inference"),
     ("audio", NotImplementedError, "use run_inference"),
 ])
 def test_models_without_a_sweep_raise(name, exc, match):
-    """van and emonet wait for their port; the models JAX gives no sweep
-    raise as JAX does."""
+    """The models JAX gives no sweep raise as JAX does."""
     cfg = Config(**dict(SINGLE, model_name=name,
                         modality="V;M" if name == "dsformer" else "V"))
     with pytest.raises(exc, match=match):
         make_sweep(cfg, torch.nn.Identity(), device="cpu")
-    if name not in ("van", "emonet"):
-        with pytest.raises(exc, match=match):
-            jax_sweep_module.make_sweep(JaxConfig(**cfg.asdict()), {})
+    with pytest.raises(exc, match=match):
+        jax_sweep_module.make_sweep(JaxConfig(**cfg.asdict()), {})
 
 
 def _read(result_dir: str, task_dir: str, video_id: str) -> str:
