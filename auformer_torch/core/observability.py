@@ -1,19 +1,24 @@
-"""Step timing and training curves (counterpart of
+"""Step timing, profiler traces and training curves (counterpart of
 auformer/core/observability.py; reference train.py:22-82).
 
   * ``StepTimer``: per-step host timing split into data wait and step
     (the t1/t2 pattern of train.py:197-205);
+  * ``profile``: a ``torch.profiler`` scope that writes a Chrome trace
+    into a directory (``--profile_dir``: steps 10-15 of training's first
+    epoch, ``train_lib.train``);
   * ``RecorderMeter``: epoch-indexed loss/accuracy curves, written as
     ``curves.json``. The JAX package's optional matplotlib plot is not
-    ported (the card's machine has no matplotlib), nor its profiler scope
-    (``profile_dir`` raises in ``train_lib``).
+    ported (the card's machine has no matplotlib).
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import time
 
 import numpy as np
+import torch
 
 
 class StepTimer:
@@ -31,6 +36,22 @@ class StepTimer:
         now = time.perf_counter()
         self.step_time = now - self._t
         self._t = now
+
+
+@contextlib.contextmanager
+def profile(trace_dir: str, device: torch.device):
+    """``torch.profiler`` scope over the host's activity and, on a CUDA
+    device, the card's; on exit it writes ``trace_<time>_<pid>.json``
+    (Chrome trace format) into ``trace_dir``."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(
+        trace_dir, f"trace_{time.strftime('%Y%m%d_%H%M%S')}_"
+        f"{os.getpid()}.json"))
 
 
 class RecorderMeter:

@@ -1,7 +1,7 @@
 """The data layer (counterpart of auformer/data): FrameStores and their
-native reader, the split builder, the datasets, samplers and loader. The
-JAX package's wav arena (ROADMAP.md queue A12) and host augmentation (A10)
-are not ported."""
+native reader, the split builder, the datasets, samplers and loader, and
+the wav arena (wav_arena.py). The JAX package's host augmentation
+(ROADMAP.md queue A10) is not ported."""
 from .framestore import FrameStore, FrameStoreWriter, open_store
 from .samplers import (DataLoader, Prefetcher, SubsetRandomSampler,
                        SubsetSequentialSampler, BlockShuffleSampler,

@@ -13,18 +13,20 @@ raw left-aligned window (``cfg.device_audio``).
     (data/native: libjpeg or nvJPEG, whichever the host has). A reader that
     cannot be built makes the constructor raise: no frame is ever decoded
     another way, and none is left black for want of a decoder;
-  * audio features are the strict-parity numpy pipeline (ops/audio_host.py).
+  * audio features are the strict-parity numpy pipeline (ops/audio_host.py);
+  * frame-dedup batches (``set_frame_dedup``): samples carry their
+    window's store keys, and ``assemble_batch`` turns a batch of them into
+    a pool of unique frames plus a (B, T) window map, which the train step
+    expands on the card (``parallel/step.py::expand_dedup_batch``);
+  * the wav arena (``set_audio_arena``, data/wav_arena.py): device-audio
+    samples carry int32 arena offsets instead of raw windows.
 
 Training reads the train and val ids; the dataset never augments (the
 train step does, ``--device_augment``), so ``set_aug(False)`` is a no-op.
-Three parts of the JAX dataset are not ported and raise
-``NotImplementedError`` naming their ROADMAP.md item:
-
-  * host AutoAugment, ``set_aug(True)`` (A10): it is PIL's, which the
-    card's machine lacks, and a PIL-free version must be bit-exact with it;
-    train with ``--device_augment`` (ops/augment_device.py) instead;
-  * frame-dedup batches, ``set_frame_dedup`` / ``assemble_batch`` (A11);
-  * the wav arena, ``set_audio_arena`` (A12).
+Host AutoAugment, ``set_aug(True)``, is not ported and raises
+``NotImplementedError`` naming ROADMAP.md A10: it is PIL's, which the
+card's machine lacks, and a PIL-free version must be bit-exact with it;
+train with ``--device_augment`` (ops/augment_device.py) instead.
 """
 from __future__ import annotations
 
@@ -89,12 +91,18 @@ class Aff2CompDataset:
         self.audio_shift_samples = cfg.audio_shift_samples
         self.n_mels = cfg.n_mels
         self.audio_on_device = bool(cfg.device_audio)
+        # set_audio_arena: device-audio samples then carry int32 (offset,
+        # n_valid) into the wav arena instead of the raw window
+        self.wav_arena = None
 
         self._load_split()
 
         self.use_mask = "M" in cfg.modality
         self.use_audio = "A" in cfg.modality.split(";")
         self.modes = ["clip", "audio_features"]
+        # set_frame_dedup: samples carry clip_keys, and DataLoader calls
+        # assemble_batch once per batch
+        self.frame_dedup = False
 
         # decoded-frame LRU: overlapping dilated windows re-read each frame
         # up to clip_len times during sequential sweeps; caching decoded
@@ -147,16 +155,22 @@ class Aff2CompDataset:
                 + "; train with --device_augment")
 
     def set_frame_dedup(self, on: bool):
-        raise NotImplementedError(_NOT_PORTED.format("frame-dedup batches",
-                                                     "queue A11"))
-
-    def assemble_batch(self, samples: list[dict]) -> dict:
-        raise NotImplementedError(_NOT_PORTED.format("frame-dedup batches",
-                                                     "queue A11"))
+        """Unique-frame batches: samples carry ``clip_keys`` and the
+        loader assembles ``frames`` (U_pad, H, W, C) + ``clip_idx`` (B, T)
+        per batch (``assemble_batch``); the train step expands the windows
+        with one gather. Overlapping dilated windows then cost one decode
+        and one frame of host-to-device copy each instead of clip_len of
+        both. Host augmentation is per sample, so callers gate this on
+        ``cfg.device_augment``."""
+        self.frame_dedup = bool(on)
 
     def set_audio_arena(self, arena) -> None:
-        raise NotImplementedError(_NOT_PORTED.format("the wav arena",
-                                                     "queue A12"))
+        """Switch device-audio samples to arena offsets
+        (data/wav_arena.py): int32 ``audio_ofs`` / ``audio_len`` instead of
+        the raw (1, sample_len) float32 window, so no wav read per sample
+        and 1.76 MB less host-to-device copy per clip. None reverts to
+        shipping windows."""
+        self.wav_arena = arena
 
     # -- store access ---------------------------------------------------------
     def _store_key(self, video_frame: str) -> str:
@@ -215,41 +229,83 @@ class Aff2CompDataset:
                 c.popitem(last=False)
 
     def _decode_into(self, reader, keys, prefix: str, channels: int):
-        """Decode the keys missing from the LRU (namespaced by ``prefix``)
-        with one batched native call and cache the ones that decoded;
-        missing keys leave the frame black (the reader reports ok=False)."""
+        """The decoded frame of each key, None where it stays black: LRU
+        hits (keys namespaced by ``prefix``), and one batched native
+        decode of the misses, which are cached; a key missing from the
+        store stays black (the reader reports ok=False)."""
         h, w = self.input_size
-        miss = [k if (k is not None and self._cache_get(prefix + k) is None)
-                else None for k in keys]
-        if any(m is not None for m in miss):
-            frames, ok = reader.decode_batch(miss, h, w, channels)
-            for i, (m, good) in enumerate(zip(miss, ok)):
-                if m is not None and good:
-                    self._cache_put(prefix + m, frames[i])
-        return [None if k is None else self._cache_get(prefix + k)
-                for k in keys]
+        got = [None if k is None else self._cache_get(prefix + k)
+               for k in keys]
+        miss = [i for i, (k, f) in enumerate(zip(keys, got))
+                if k is not None and f is None]
+        if miss:
+            frames, ok = reader.decode_batch([keys[i] for i in miss], h, w,
+                                             channels)
+            for j, i in enumerate(miss):
+                if ok[j]:
+                    self._cache_put(prefix + keys[i], frames[j])
+                    got[i] = frames[j]
+        return got
 
-    def get_clip(self, index: int) -> np.ndarray:
+    def _fill(self, out: np.ndarray, keys: list[str | None]) -> None:
+        """Decode the frames of ``keys`` into the rows of ``out`` (the
+        mask into channel 3 under ``V;M``); a None key leaves its row
+        black."""
         if self.native_image is None:
             raise FileNotFoundError(
                 f"no image store under {self.cfg.lmdb_label_dir}: the port "
                 "reads frames from FrameStores only")
-        channels = 4 if self.use_mask else 3
-        h, w = self.input_size
-        clip = np.zeros((self.clip_len, h, w, channels), np.uint8)
-        keys = self._clip_keys(index)
         for i, frame in enumerate(
                 self._decode_into(self.native_image, keys, "", 3)):
             if frame is not None:
-                clip[i, :, :, 0:3] = frame
+                out[i, :, :, 0:3] = frame
         if self.use_mask and self.native_mask is not None:
             # masks ride the same LRU as the RGB frames ("m:" keys), so
             # overlapping windows reuse decoded masks
             for i, mask in enumerate(
                     self._decode_into(self.native_mask, keys, "m:", 1)):
                 if mask is not None:
-                    clip[i, :, :, 3] = mask[:, :, 0]
+                    out[i, :, :, 3] = mask[:, :, 0]
+
+    def get_clip(self, index: int) -> np.ndarray:
+        h, w = self.input_size
+        clip = np.zeros((self.clip_len, h, w, 4 if self.use_mask else 3),
+                        np.uint8)
+        self._fill(clip, self._clip_keys(index))
         return clip
+
+    # -- frame-dedup batch assembly -------------------------------------------
+    def assemble_batch(self, samples: list[dict]) -> dict:
+        """The collate of frame-dedup batches: the B*T window keys become
+        a pool of unique frames, and the batch carries
+
+          frames   (U_pad, H, W, C) uint8; slot 0 stays black (the frame of
+                   an out-of-range or other-video window position); U_pad
+                   rounds up to 64, as in the JAX package, whose expander
+                   compiles one program per size
+          clip_idx (B, T) int32: window -> pool slot; 0 where the dense
+                   clip's frame is black
+
+        ``frames[clip_idx]`` equals the dense ``get_clip`` per sample,
+        bitwise. Decoding goes through the LRU, with one native batched
+        decode of the misses."""
+        from .samplers import collate
+        h, w = self.input_size
+        key_slot: dict[str, int] = {}
+        clip_idx = np.zeros((len(samples), self.clip_len), np.int32)
+        for b, s in enumerate(samples):
+            for t, k in enumerate(s.pop("clip_keys")):
+                if k is not None:
+                    # slot 0 stays black
+                    clip_idx[b, t] = key_slot.setdefault(k, len(key_slot) + 1)
+        u_pad = max(64, -(-(len(key_slot) + 1) // 64) * 64)
+        frames = np.zeros((u_pad, h, w, 4 if self.use_mask else 3),
+                          np.uint8)
+        self._fill(frames[1:], list(key_slot))
+        out = collate(samples)
+        out["frames"] = frames
+        out["clip_idx"] = clip_idx
+        return out
 
     # -- audio (aff2compdataset.py:214-247) -----------------------------------
     def _wav_path(self, video_id: str) -> str:
@@ -298,14 +354,22 @@ class Aff2CompDataset:
         data = {"Index": index}
         video_id = os.path.dirname(self.image_path[index])
         current = self.image_path[index]
-        clip = self.get_clip(index)
+        if self.frame_dedup:
+            data["clip_keys"] = self._clip_keys(index)
+        else:
+            data["clip"] = self.get_clip(index)  # uint8 (T,H,W,C)
         data["AU"] = self.get_label(current, "au")
         data["EX"] = self.get_label(current, "ex")
         data["VA"] = self.get_label(current, "va")
-        data["clip"] = clip  # uint8 (T,H,W,C); the device normalizes
 
         if self.use_audio and "audio_features" in self.modes:
-            if self.audio_on_device:
+            if self.audio_on_device and self.wav_arena is not None:
+                ofs, n_valid = self.wav_arena.window(
+                    video_id, self.time_stamps[index], self.sample_rate,
+                    self.audio_shift_samples)
+                data["audio_ofs"] = np.int32(ofs)
+                data["audio_len"] = np.int32(n_valid)
+            elif self.audio_on_device:
                 audio, n_valid = self.get_audio_window(video_id, index)
                 data["audio"] = audio
                 data["audio_len"] = np.int32(n_valid)

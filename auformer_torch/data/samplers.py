@@ -139,26 +139,38 @@ class DataLoader:
         return -(-n // self.batch_size)
 
     def __iter__(self) -> Iterator[dict]:
+        # frame-dedup batches are assembled as a unit (a pool of unique
+        # frames and a (B, T) map, dataset.assemble_batch), so a batch is
+        # one pool task and the decode runs in parallel inside the native
+        # batched decoder; otherwise per-sample tasks and collate
+        assemble = (self.dataset.assemble_batch
+                    if getattr(self.dataset, "frame_dedup", False) else None)
         with ThreadPoolExecutor(self.num_threads) as pool:
             pending: queue.Queue = queue.Queue()
             batch_iter = self._batches()
+
+            def load_batch(idxs):
+                return assemble([self.dataset[i] for i in idxs])
 
             def submit_next():
                 try:
                     idxs = next(batch_iter)
                 except StopIteration:
                     return False
-                pending.put([pool.submit(self.dataset.__getitem__, i)
-                             for i in idxs])
+                if assemble is not None:
+                    pending.put([pool.submit(load_batch, idxs)])
+                else:
+                    pending.put([pool.submit(self.dataset.__getitem__, i)
+                                 for i in idxs])
                 return True
 
             for _ in range(self.prefetch_batches):
                 if not submit_next():
                     break
             while not pending.empty():
-                samples = [f.result() for f in pending.get()]
+                done = [f.result() for f in pending.get()]
                 submit_next()
-                yield collate(samples)
+                yield done[0] if assemble is not None else collate(done)
 
 
 class Prefetcher:

@@ -2,9 +2,10 @@
 reference's loop body, train.py:202-244), on one device.
 
   * uint8 clips are augmented (``--device_augment``), normalized and
-    flipped on the device inside the step; under ``--device_audio`` the
-    log-mel features of the loader's left-aligned raw windows are computed
-    there too;
+    flipped on the device inside the step; a frame-dedup batch's clips are
+    gathered from its pool of unique frames first; under
+    ``--device_audio`` the log-mel features of the left-aligned raw windows
+    (the loader's, or gathered from the wav arena) are computed there too;
   * parameters and BatchNorm statistics stay f32; under
     ``compute_dtype=bfloat16`` the forward runs in ``torch.autocast``
     (bf16 convolutions and matmuls, f32 norms and losses, the AU heads'
@@ -19,9 +20,8 @@ reference's loop body, train.py:202-244), on one device.
   * the step's randomness (augmentation, flip, dropout, in that order) is
     drawn from one ``torch.Generator`` that the caller passes.
 
-Not ported: ``make_multi_train_step`` (``steps_per_dispatch > 1``), the
-frame-dedup expander and the wav arena gather; ``train_lib`` raises for
-their flags, naming their ROADMAP items.
+Not ported: ``make_multi_train_step`` (``steps_per_dispatch > 1``);
+``train_lib`` raises for its flag, naming ROADMAP.md A13.
 """
 from __future__ import annotations
 
@@ -114,23 +114,66 @@ def create_train_state(cfg: Config, model: torch.nn.Module) -> TrainState:
     return TrainState(cfg, model, make_optimizer(cfg, model))
 
 
+def gather_arena_windows(arena: torch.Tensor, ofs: torch.Tensor,
+                         n_valid: torch.Tensor, sample_len: int
+                         ) -> torch.Tensor:
+    """(B,) arena offsets and valid counts -> (B, sample_len) float32
+    left-aligned windows, bitwise equal to the host-built buffers of
+    ``Aff2CompDataset.get_audio_window`` (zeros past n_valid, so a slice
+    that runs into the next video in the packed arena is zeroed back).
+    Rows of the strided view ``arena.unfold(0, sample_len, 1)``: only the
+    output is written. The dataset makes every offset within
+    ``[0, len(arena) - sample_len]`` (``WavArena.window``); an index past
+    the view raises, where JAX's ``dynamic_slice`` would clamp."""
+    windows = arena.unfold(0, sample_len, 1)
+    raw = windows.index_select(0, ofs.reshape(-1).long())
+    past = (torch.arange(sample_len, device=raw.device)[None, :]
+            >= n_valid.reshape(-1, 1).long())
+    return raw.masked_fill_(past, 0.0)
+
+
+def expand_dedup_batch(batch: Mapping[str, torch.Tensor]) -> dict:
+    """A frame-dedup batch's (U_pad, H, W, C) pool ``frames`` and (B, T)
+    window map ``clip_idx`` -> (B, T, H, W, C) ``clip``: one gather,
+    bitwise equal to the dense clips ``get_clip`` assembles on the host
+    (data/dataset.py::assemble_batch). The other entries pass untouched,
+    and a dense batch passes as it is."""
+    out = dict(batch)
+    if "frames" in out and "clip_idx" in out:
+        frames, clip_idx = out.pop("frames"), out.pop("clip_idx")
+        out["clip"] = frames.index_select(
+            0, clip_idx.reshape(-1).long()).view(*clip_idx.shape,
+                                                 *frames.shape[1:])
+    return out
+
+
 def prep_batch(batch: Mapping[str, torch.Tensor], train: bool,
                generator: torch.Generator | None = None,
                device_augment: bool = False,
-               device_audio: bool = False) -> dict:
-    """Device-side preprocessing: under ``device_audio`` the log-mel of the
-    loader's left-aligned raw windows (``reflect_end_patch`` + the
-    left-aligned frontend); then, for a uint8 clip, the AutoAugment
+               device_audio: bool = False,
+               arena: torch.Tensor | None = None,
+               sample_len: int = 441000) -> dict:
+    """Device-side preprocessing: the clips of a frame-dedup batch
+    (``expand_dedup_batch``); under ``device_audio`` the log-mel of the
+    left-aligned raw windows, shipped by the loader or, with ``arena``,
+    gathered from it by the batch's ``audio_ofs`` (``reflect_end_patch``
+    + the left-aligned frontend); then, for a uint8 clip, the AutoAugment
     (train, ``device_augment``, RGB clips), /255 + normalize, and the
     train-time whole-clip flip. Eval never augments."""
-    x = dict(batch)
-    if device_audio and "audio_features" not in x and "audio" in x \
-            and "audio_len" in x:
-        raw = x["audio"][:, 0, :].float()
+    x = expand_dedup_batch(batch)
+    if device_audio and "audio_features" not in x and "audio_len" in x:
         n_valid = x["audio_len"].reshape(-1).long()
-        x["audio_features"] = audio_frontend(
-            reflect_end_patch(raw, n_valid),
-            feature_len=1 + n_valid // HOP_LENGTH, left_aligned=True)
+        if arena is not None and "audio_ofs" in x:
+            raw = gather_arena_windows(arena, x["audio_ofs"], n_valid,
+                                       sample_len)
+        elif "audio" in x:
+            raw = x["audio"][:, 0, :].float()
+        else:
+            raw = None
+        if raw is not None:
+            x["audio_features"] = audio_frontend(
+                reflect_end_patch(raw, n_valid),
+                feature_len=1 + n_valid // HOP_LENGTH, left_aligned=True)
     clip = x.get("clip")
     if clip is not None and clip.dtype == torch.uint8:
         if train and device_augment and generator is not None \
@@ -174,15 +217,19 @@ def _forward(cfg: Config, model: torch.nn.Module, x: dict) -> torch.Tensor:
 
 def make_train_step(cfg: Config, model: torch.nn.Module,
                     suite: LossSuite) -> Callable:
-    """Returns ``step(state, batch, generator) -> metrics``: ``batch`` holds
-    tensors on the model's device, ``generator`` (on that device) draws the
-    augmentation, the flip and the dropout masks; ``metrics`` maps "loss"
-    (and for task ALL "ex", "au", "va") to 0-d tensors on the device."""
+    """Returns ``step(state, batch, generator, arena=None) -> metrics``:
+    ``batch`` holds tensors on the model's device, ``generator`` (on that
+    device) draws the augmentation, the flip and the dropout masks,
+    ``arena`` is the wav arena on that device when the batch carries
+    arena offsets; ``metrics`` maps "loss" (and for task ALL "ex", "au",
+    "va") to 0-d tensors on the device."""
     def step(state: TrainState, batch: Mapping[str, torch.Tensor],
-             generator: torch.Generator) -> dict:
+             generator: torch.Generator,
+             arena: torch.Tensor | None = None) -> dict:
         x = prep_batch(batch, train=True, generator=generator,
                        device_augment=cfg.device_augment,
-                       device_audio=cfg.device_audio)
+                       device_audio=cfg.device_audio, arena=arena,
+                       sample_len=cfg.sample_len_frames)
         labels = _labels_of(batch)
         model.train()
         set_dropout_generator(model, generator)
@@ -201,13 +248,16 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
 
 def make_eval_step(cfg: Config, model: torch.nn.Module,
                    suite: LossSuite) -> Callable:
-    """Returns ``step(batch) -> (out (B, 21) f32, loss)``: the model
-    in eval mode (running statistics, no dropout), no augmentation."""
-    def step(batch: Mapping[str, torch.Tensor]):
+    """Returns ``step(batch, arena=None) -> (out (B, 21) f32, loss)``: the
+    model in eval mode (running statistics, no dropout), no augmentation;
+    ``arena`` as the train step's."""
+    def step(batch: Mapping[str, torch.Tensor],
+             arena: torch.Tensor | None = None):
         model.eval()
         with torch.no_grad():
             x = prep_batch(batch, train=False,
-                           device_audio=cfg.device_audio)
+                           device_audio=cfg.device_audio, arena=arena,
+                           sample_len=cfg.sample_len_frames)
             out = _forward(cfg, model, x)
             loss, _ = task_loss(suite, cfg.task, out, _labels_of(batch))
         return out, loss

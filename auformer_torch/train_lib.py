@@ -10,14 +10,19 @@ reference layout. The threaded loader and its prefetcher feed the step on
 the card; the entry point raises without a GPU unless given
 ``device="cpu"``.
 
-Flags of the JAX package that the port does not run raise, naming their
-ROADMAP.md item: ``steps_per_dispatch > 1`` (A13), ``frame_dedup`` (A11),
-the wav arena (``device_audio`` with ``audio_arena_mb > 0``, A12),
-``profile_dir`` (A14), host augmentation (no ``device_augment``, A10).
-Every model of the zoo trains; only avformer freezes its streams.
+The JAX package's training feed runs as there: ``frame_dedup`` batches (a
+pool of unique frames and a window map, expanded inside the step), the
+wav arena under ``device_audio`` (each video's waveform on the card once
+per run, ``audio_arena_mb``), ``locality_run`` and a ``profile_dir`` trace
+of steps 10-15 of the first epoch. Flags of the JAX package that the port
+does not run raise, naming their ROADMAP.md item: ``steps_per_dispatch >
+1`` (A13) and host augmentation (no ``device_augment``, A10). Every model
+of the zoo trains; only avformer freezes its streams.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import logging
 import os
 import time
@@ -29,16 +34,21 @@ import torch
 from .core.checkpointing import (EarlyStopper, load_checkpoint,
                                  model_state_dict, save_checkpoint)
 from .core.config import Config
-from .core.observability import RecorderMeter, StepTimer
+from .core.observability import RecorderMeter, StepTimer, profile
 from .core.prng import key_seq, setup_seed
 from .core.weights import load_weights
 from .data import (Aff2CompDataset, BlockShuffleSampler, DataLoader,
                    Prefetcher, SubsetSequentialSampler)
+from .data.wav_arena import build_wav_arena
 from .infer import resolve_device
 from .metrics import AccF1Metric, CCCMetric, MultiLabelAccF1, composite_scores
 from .nn import build_model, loss_suite
 from .parallel import (TrainState, create_train_state, make_eval_step,
                        make_train_step)
+
+# the profile_dir window: steps [10, 15) of the first epoch, as in the JAX
+# package
+PROFILE_STEPS = (10, 15)
 
 
 class AverageMeter:
@@ -68,11 +78,6 @@ def check_supported(cfg: Config) -> None:
          "host (PIL) augmentation (queue A10); pass --device_augment"),
         (int(cfg.steps_per_dispatch or 1) > 1,
          "steps_per_dispatch > 1 (queue A13, CUDA graphs)"),
-        (bool(cfg.frame_dedup), "frame_dedup (queue A11)"),
-        (cfg.device_audio and cfg.audio_arena_mb > 0,
-         "the wav arena (queue A12); pass --audio_arena_mb 0 to ship raw "
-         "windows"),
-        (bool(cfg.profile_dir), "profile_dir (queue A14)"),
     ]
     for unsupported, what in unported:
         if unsupported:
@@ -80,17 +85,23 @@ def check_supported(cfg: Config) -> None:
                 f"{what} is not ported to auformer_torch yet (ROADMAP.md)")
 
 
-def device_batch_keys(model, cfg: Config) -> set:
+def device_batch_keys(model, cfg: Config, arena: bool = False,
+                      dedup: bool = False) -> set:
     """Keys worth uploading for a step: the model's inputs and the labels,
-    with the raw windows and their lengths instead of host features under
-    ``device_audio``. The loader's batch also carries entries the step
-    never reads, notably the raw right-aligned (B, 1, 441000) ``audio``
-    next to host features (113 MB per 64-batch)."""
+    under ``device_audio`` the raw windows and their lengths instead of
+    host features (with ``arena``: the int32 arena offsets instead of the
+    windows), and with ``dedup`` the pool of unique frames and the window
+    map instead of dense clips. The loader's batch also carries entries
+    the step never reads, notably the raw right-aligned (B, 1, 441000)
+    ``audio`` next to host features (113 MB per 64-batch)."""
     keys = set(getattr(model, "modes", ("clip", "audio_features")))
     keys |= {"AU", "EX", "VA"}
     if cfg.device_audio:
-        keys |= {"audio", "audio_len"}
+        keys |= {"audio_ofs" if arena else "audio", "audio_len"}
         keys.discard("audio_features")   # computed inside the step
+    if dedup:
+        keys |= {"frames", "clip_idx"}
+        keys.discard("clip")             # expanded inside the step
     return keys
 
 
@@ -104,6 +115,20 @@ def host_shard(ids, batch_size: int) -> tuple[list, int]:
     """(indices, local batch size): one process feeds the whole batch
     (multi-process input sharding comes with queue A7)."""
     return list(ids), batch_size
+
+
+def _toggle_trace(trace: contextlib.ExitStack, start: bool, trace_dir: str,
+                  device: torch.device) -> None:
+    """Open the profiler's window in ``trace`` (``start``) or close it
+    and write its trace. Profiling never stops training: a profiler that
+    fails is logged and training goes on, as in the JAX package."""
+    try:
+        if start:
+            trace.enter_context(profile(trace_dir, device))
+        else:
+            trace.close()
+    except (RuntimeError, OSError) as e:
+        logging.warning(f"profiler unavailable: {e}")
 
 
 def evaluate(eval_step, loader, device: torch.device,
@@ -180,10 +205,32 @@ def train(cfg: Config, dataset=None, max_steps_per_epoch: int | None = None,
     cfg.steps_per_epoch = int((dataset.train_ids * downsample).sum()
                               // max(cfg.batch_size, 1))
 
+    # the wav arena (device_audio): each video's waveform goes to the
+    # device once; batches then carry int32 window offsets instead of
+    # 1.76 MB raw windows. Over the cap build_wav_arena returns None and
+    # the batches keep shipping windows
+    arena = None
+    if (cfg.device_audio and "A" in cfg.modality.split(";")
+            and cfg.audio_arena_mb > 0
+            and "audio_features" in getattr(model, "modes", ())):
+        plan = build_wav_arena(dataset, cap_mb=cfg.audio_arena_mb,
+                               sample_len=cfg.sample_len_frames)
+        if plan is not None:
+            dataset.set_audio_arena(plan)
+            arena = torch.from_numpy(plan.arena).to(device)
+
     state = create_train_state(cfg, model)
     train_step = make_train_step(cfg, model, suite)
-    eval_step = make_eval_step(cfg, model, suite)
-    dev_keys = device_batch_keys(model, cfg)
+    eval_step = functools.partial(make_eval_step(cfg, model, suite),
+                                  arena=arena)
+    # frame-dedup batches: a pool of unique frames and a (B, T) window map,
+    # the clips gathered inside the step; host augmentation is per sample
+    use_dedup = (bool(cfg.frame_dedup) and cfg.device_augment
+                 and "clip" in getattr(model, "modes", ("clip",)))
+    if use_dedup:
+        dataset.set_frame_dedup(True)
+    dev_keys = device_batch_keys(model, cfg, arena=arena is not None,
+                                 dedup=use_dedup)
     stopper = EarlyStopper(cfg.early_stop_step, cfg.checkpoint_path)
 
     epochs = epochs if epochs is not None else cfg.epochs
@@ -209,13 +256,18 @@ def train(cfg: Config, dataset=None, max_steps_per_epoch: int | None = None,
         step_i = 0
         t_epoch = time.time()
         timer = StepTimer()
+        trace = contextlib.ExitStack()     # the profile_dir window
         try:
             while (batch := prefetch.next()) is not None:
                 if max_steps_per_epoch and step_i >= max_steps_per_epoch:
                     break
                 timer.mark_data()
+                if cfg.profile_dir and epoch == start_epoch \
+                        and step_i in PROFILE_STEPS:
+                    _toggle_trace(trace, step_i == PROFILE_STEPS[0],
+                                  cfg.profile_dir, device)
                 metrics = train_step(state, to_device(batch, dev_keys, device),
-                                     keys())
+                                     keys(), arena)
                 meters["loss"].update(float(metrics["loss"]))
                 timer.mark_step()
                 meters["data_ms"].update(timer.data_time * 1e3)
@@ -231,6 +283,7 @@ def train(cfg: Config, dataset=None, max_steps_per_epoch: int | None = None,
                         f"data {timer.data_time * 1e3:.1f}ms "
                         f"step {timer.step_time * 1e3:.1f}ms")
         finally:
+            _toggle_trace(trace, False, cfg.profile_dir, device)
             # a step-capped epoch leaves the producer mid-epoch: stop it so
             # its decode threads do not contend with the next loader
             prefetch.stop()

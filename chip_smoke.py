@@ -97,8 +97,22 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            30-step overfit of one batch, the checkpoint round trip, and
            the numbers: clips/s, StepTimer data and step ms, device ms,
            kernels and idle share per step, eval s, peak memory, loss per
-           epoch. Then the zoo: one fp32 train step of each of the twelve
-           other models (64x64, T=2 or 1, B=4, dropout 0) on the card
+           epoch. Between them, the ``feed`` sub-phase (its own line):
+           one epoch each of ``train.main --device_audio`` dense with raw
+           windows and ``--frame_dedup`` with the default wav arena (the
+           slice's main path), both ``--locality_run 64``, and the default
+           shuffled sampler dense with raw windows; per run clips/s,
+           StepTimer data and step ms, JPEG decodes and host-to-device
+           bytes per batch (counted by wrapping the reader's decode_batch
+           and train_lib.to_device here), arena MB, peak memory, attention
+           launches; on the card the first dedup batch expanded and its
+           arena windows gathered equal the dense batch's (torch.equal),
+           one fp32 step through each feed gives one loss (rel 1e-5), and
+           a --profile_dir run of 16 steps writes a trace of steps 10-15
+           that holds the attention kernel's events (wall, device busy,
+           kernels, copies and CUDA runtime calls per step). Then the
+           zoo: one fp32 train step of each of the twelve other models
+           (64x64, T=2 or 1, B=4, dropout 0) on the card
            against the CPU; the main path ``python -m auformer_torch.train
            --model_name vformer --device_augment`` (its ``main``) at B=64
            in bf16 for 1 epoch (4 attention launches and 4 backward calls
@@ -118,9 +132,10 @@ per step of the kernel and of the backward; ``vformer``: per call at its
 spatial and temporal sites in both dtypes, beside SDPA's forward +
 backward, and the trace's forward and backward device ms per step by
 site); ``launches`` counts the
-slice's, the sweep's, the dataset's, the packed, the zoo and the train
-phase's main path runs (``launches_by_path``; ``zoo`` sums the zoo
-phase's bf16 main path runs), and ``zoo_sites`` lists the zoo's attention
+slice's, the sweep's, the dataset's, the packed, the zoo, the train
+phase's and the feed's main path runs (``launches_by_path``; ``zoo`` sums
+the zoo phase's bf16 main path runs; ``feed`` is the --frame_dedup + wav
+arena epoch), and ``zoo_sites`` lists the zoo's attention
 sites in both dtypes. Then the nvidia-smi name/power line, and last
 ``{"ok": true, "device": {...}}``. Without a GPU, or outside a checkout
 of the repository, it exits non-zero and prints no result.
@@ -283,6 +298,12 @@ ZOO_STEP_MODELS = tuple(dict.fromkeys(
 ZOO_TRAIN_ATTN = {name: attn for _, name, _, _, _, attn, _ in ZOO_MODELS}
 VFORMER_ATTN_PER_STEP = (ZOO_TRAIN_ATTN["vformer"],) * 2
 ZOO_TRAIN_STEPS = 3      # bf16 steps per model at full width, B=64
+# the feed sub-phase: one epoch of train.main per feed; the dense and the
+# frame-dedup + wav-arena runs shuffle runs of FEED_RUN indices, so both see
+# the same batches
+FEED_RUN = 64
+FEED_LOSS_RTOL = 1e-5    # fp32 step: dense + raw windows vs dedup + arena
+TRACE_STEPS = 16         # the --profile_dir run: its window is steps 10-15
 
 
 def emit(phase: str, **fields) -> None:
@@ -400,11 +421,16 @@ def make_batch(rs, n: int) -> dict:
             "feature_len": (1 + n_valid // 441).astype(np.int32)}
 
 
-def phase_env(torch) -> str:
-    smi = subprocess.run(
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def phase_env(torch) -> str:
+    smi = nvidia_smi()
     emit("env", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          device_count=torch.cuda.device_count(), nvidia_smi=smi)
@@ -2359,6 +2385,239 @@ def overfit(torch, dev, sd, work: Path) -> list[float]:
             for _ in range(OVERFIT_STEPS)]
 
 
+class feed_probe:
+    """While active: the JPEG decodes (keys handed to the native reader's
+    ``decode_batch``), the host-to-device bytes (``train_lib.to_device``),
+    a copy of the first batch uploaded, the wav arena built, and the
+    decodes and bytes when ``evaluate`` starts (the train loop's share).
+    Instrumentation of this script; the port is untouched."""
+
+    def __init__(self):
+        from auformer_torch import train_lib
+        from auformer_torch.data.native import NativeFrameStore
+        self.lib, self.store = train_lib, NativeFrameStore
+
+    def __enter__(self):
+        self.decodes = self.h2d_bytes = 0
+        self.first = self.plan = self.before_eval = None
+        lib = self.lib
+        self.saved = (lib.to_device, lib.evaluate, lib.build_wav_arena,
+                      self.store.decode_batch)
+        to_device, evaluate, build, decode = self.saved
+
+        def decode_batch(reader, keys, *args, **kw):
+            self.decodes += sum(1 for k in keys if k)
+            return decode(reader, keys, *args, **kw)
+
+        def upload(batch, keys, device):
+            out = to_device(batch, keys, device)
+            self.h2d_bytes += sum(v.numel() * v.element_size()
+                                  for v in out.values())
+            if self.first is None:
+                self.first = {k: v.clone() for k, v in out.items()}
+            return out
+
+        def evaluate_(*args, **kw):
+            if self.before_eval is None:
+                self.before_eval = (self.decodes, self.h2d_bytes)
+            return evaluate(*args, **kw)
+
+        def build_wav_arena(*args, **kw):
+            self.plan = build(*args, **kw)
+            return self.plan
+        lib.to_device, lib.evaluate = upload, evaluate_
+        lib.build_wav_arena = build_wav_arena
+        self.store.decode_batch = decode_batch
+        return self
+
+    def __exit__(self, *exc):
+        (self.lib.to_device, self.lib.evaluate, self.lib.build_wav_arena,
+         self.store.decode_batch) = self.saved
+
+
+def feed_run(torch, work: Path, exp: str, *flags) -> tuple[dict, dict,
+                                                           object]:
+    """One epoch of ``train.main`` at B=64 in bf16 with --device_augment
+    and ``flags``, its counts set to 0 just before it: the attention
+    launches (checked), clips/s, StepTimer means, JPEG decodes and
+    host-to-device bytes per train batch, arena MB, peak memory; and the
+    first batch uploaded and the arena."""
+    from auformer_torch import train
+    from auformer_torch.ops.attention import fused_attention
+    from auformer_torch.ops.audio_kernel import mel_frontend
+    torch.cuda.reset_peak_memory_stats()
+    fused_attention.launches = fused_attention.backward_calls = 0
+    mel_frontend.launches = 0
+    with feed_probe() as probe:
+        t0 = time.perf_counter()
+        _, history = train.main(train_argv(work, exp, "--epochs", "1",
+                                           *flags))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = {"attention": fused_attention.launches,
+                "mel": mel_frontend.launches}
+    backward = fused_attention.backward_calls
+    h = history[0]
+    steps = h["steps"]
+    want = {"attention": ATTN_FWD_PER_STEP * (steps + len(history)),
+            "mel": 0}
+    if (launches != want or backward != ATTN_BWD_PER_STEP * steps
+            or not np.isfinite(h["loss"])):
+        fail(f"feed {flags}: {steps} steps, loss {h['loss']}, launches "
+             f"{launches} (expected {want}), backward calls {backward}")
+    decodes, h2d = probe.before_eval
+    return {"flags": list(flags), "seconds": seconds, "steps": steps,
+            "clips_per_s": steps * TRAIN_BATCH / h["seconds"],
+            "step_timer_ms": {"data": h["data_ms"], "step": h["step_ms"]},
+            "jpeg_decodes_per_batch": decodes / steps,
+            "h2d_bytes_per_batch": h2d / steps,
+            "arena_mb": (None if probe.plan is None
+                         else probe.plan.nbytes / 2 ** 20),
+            "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+            "epoch_s": h["seconds"], "eval_s": h["eval_seconds"],
+            "loss": h["loss"], "launches": launches,
+            "backward_calls": backward}, probe.first, probe.plan
+
+
+def trace_stats(trace: dict, steps: int) -> dict:
+    """Per step of a Chrome trace of ``steps`` train steps: the window's
+    wall ms, the card's busy ms (the union of its kernels, copies and
+    sets), its kernels, the host-to-device copies (ms, MB), the host's
+    CUDA runtime calls (ms, calls: the dispatch); and the attention
+    kernel's events in all."""
+    events = [e for e in trace["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    device = sorted((e for e in events if e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")), key=lambda e: e["ts"])
+    busy, end = 0.0, -np.inf
+    for e in device:
+        stop = e["ts"] + e["dur"]
+        busy += max(stop - max(e["ts"], end), 0.0)
+        end = max(end, stop)
+    wall = (max(e["ts"] + e["dur"] for e in events)
+            - min(e["ts"] for e in events))
+    kernels = [e for e in device if e["cat"] == "kernel"]
+    h2d = [e for e in device if e["cat"] == "gpu_memcpy"
+           and "HtoD" in e["name"]]
+    runtime = [e for e in events if e.get("cat") == "cuda_runtime"]
+    return {
+        "wall_ms_per_step": wall / 1e3 / steps,
+        "device_busy_ms_per_step": busy / 1e3 / steps,
+        "device_idle_share": 1.0 - busy / wall,
+        "kernels_per_step": len(kernels) / steps,
+        "h2d_ms_per_step": sum(e["dur"] for e in h2d) / 1e3 / steps,
+        "h2d_mb_per_step": sum(e.get("args", {}).get("bytes", 0)
+                               for e in h2d) / 2 ** 20 / steps,
+        "cuda_runtime_ms_per_step": sum(e["dur"] for e in runtime)
+        / 1e3 / steps,
+        "cuda_runtime_calls_per_step": len(runtime) / steps,
+        "attention_kernel_events": sum(
+            1 for e in kernels
+            if "attention_" in e["name"] and "_kernel" in e["name"])}
+
+
+def trace_run(torch, work: Path) -> dict:
+    """``--profile_dir`` on the dedup + arena feed for TRACE_STEPS steps:
+    train_lib must write one trace (steps 10-15) that holds the attention
+    kernel's events. A session whose device activity CUPTI lost is run
+    again, up to PROFILER_SESSIONS times; then the run fails."""
+    from auformer_torch import train_lib
+    from auformer_torch.core.config import parse_opt
+    first, last = train_lib.PROFILE_STEPS
+    for attempt in range(PROFILER_SESSIONS):
+        trace_dir = work / f"trace_{attempt}"
+        cfg = parse_opt(train_argv(
+            work, "exp_feed_trace", "--epochs", "1", "--frame_dedup",
+            "--device_audio", "--locality_run", str(FEED_RUN),
+            "--profile_dir", str(trace_dir)))
+        _, history = train_lib.train(cfg, max_steps_per_epoch=TRACE_STEPS)
+        files = sorted(trace_dir.glob("trace_*.json"))
+        if history[0]["steps"] != TRACE_STEPS or len(files) != 1:
+            fail(f"--profile_dir over {history[0]['steps']} steps wrote "
+                 f"{files}")
+        stats = trace_stats(json.loads(files[0].read_text()), last - first)
+        PROFILER_LOG["sessions"] += 1
+        if stats["attention_kernel_events"] > 0:
+            return {**stats, "sessions": attempt + 1,
+                    "trace_mb": files[0].stat().st_size / 2 ** 20}
+        PROFILER_LOG["sessions_without_device_time"] += 1
+    fail(f"{PROFILER_SESSIONS} --profile_dir traces held no attention "
+         "kernel event")
+
+
+def phase_feed(torch, dev, work: Path, sd: dict) -> dict:
+    """The training feed on the train split, one epoch each at B=64, bf16,
+    --device_augment: (a) dense with raw windows (--device_audio
+    --audio_arena_mb 0) and (b) --frame_dedup with the default wav arena,
+    both --locality_run FEED_RUN (the same batches), and (c) the default
+    shuffled sampler, dense, with raw windows. Checks on the card: (b)'s
+    first batch expanded and gathered equals (a)'s (clips and windows,
+    torch.equal), one fp32 step from one state through both feeds gives
+    one loss (FEED_LOSS_RTOL), the attention launches of every run, and a
+    --profile_dir trace with the attention kernel's events. Returns (b)'s
+    launches: the slice's main path."""
+    from auformer_torch.core.config import parse_opt
+    from auformer_torch.core.weights import load_weights
+    from auformer_torch.nn import build_model, loss_suite
+    from auformer_torch.parallel import step as tstep
+    t_phase = time.perf_counter()
+    locality = ("--locality_run", str(FEED_RUN))
+    dense, first_a, _ = feed_run(torch, work, "exp_feed_dense",
+                                 "--device_audio", "--audio_arena_mb", "0",
+                                 *locality)
+    fed, first_b, plan = feed_run(torch, work, "exp_feed_dedup",
+                                  "--frame_dedup", "--device_audio",
+                                  *locality)
+    shuffled, _, _ = feed_run(torch, work, "exp_feed_shuffled",
+                              "--device_audio", "--audio_arena_mb", "0")
+    if plan is None or "frames" not in first_b:
+        fail("the dedup + arena run built no arena or sent no frame pool")
+    arena = torch.from_numpy(plan.arena).to(dev)
+    same = {
+        "clips": torch.equal(tstep.expand_dedup_batch(first_b)["clip"],
+                             first_a["clip"]),
+        "windows": torch.equal(
+            tstep.gather_arena_windows(arena, first_b["audio_ofs"],
+                                       first_b["audio_len"],
+                                       plan.sample_len),
+            first_a["audio"][:, 0, :]),
+        "audio_len": torch.equal(first_b["audio_len"], first_a["audio_len"]),
+        "labels": all(torch.equal(first_b[k], first_a[k])
+                      for k in ("AU", "EX", "VA"))}
+    if not all(same.values()):
+        fail(f"the first dedup + arena batch differs from the dense one: "
+             f"{same}")
+
+    cfg32 = parse_opt(train_argv(work, "exp_feed_fp32", "--device_audio",
+                                 "--compute_dtype", "float32"))
+    losses = {}
+    for name, batch, arg in (("dense", first_a, None),
+                             ("dedup_arena", first_b, arena)):
+        model = build_model(cfg32, dtype=torch.float32)
+        load_weights(model, sd)
+        model.to(dev)
+        state = tstep.create_train_state(cfg32, model)
+        step = tstep.make_train_step(cfg32, model, loss_suite(model))
+        losses[name] = float(step(state, batch,
+                                  torch.Generator(dev).manual_seed(SEED),
+                                  arg)["loss"])
+        del model, state, step
+    rel = abs(losses["dedup_arena"] - losses["dense"]) / abs(losses["dense"])
+    if not rel <= FEED_LOSS_RTOL:
+        fail(f"fp32 step losses through the two feeds: {losses}")
+    del first_a, first_b, arena
+    torch.cuda.empty_cache()
+    trace = trace_run(torch, work)
+    emit("feed", nvidia_smi=nvidia_smi(), batch=TRAIN_BATCH,
+         locality_run=FEED_RUN,
+         runs={"dense_raw_windows": dense, "dedup_arena": fed,
+               "shuffled_raw_windows": shuffled},
+         first_batch_equal=same, fp32_step_loss=losses,
+         fp32_step_loss_rel=rel, profile_dir_trace=trace,
+         phase_s=time.perf_counter() - t_phase)
+    return fed["launches"]
+
+
 def phase_train(torch, dev) -> tuple[dict, list, dict]:
     from auformer_torch import train, train_lib
     from auformer_torch.core.config import Config, parse_opt
@@ -2454,6 +2713,7 @@ def phase_train(torch, dev) -> tuple[dict, list, dict]:
     if audio_state.step != 5 or not np.isfinite(audio_hist[0]["loss"]):
         fail(f"--device_audio ran {audio_state.step} steps")
     del audio_state
+    feed_launches = phase_feed(torch, dev, work, sd)
 
     prof = profile_steps(torch, dev, state.model, work,
                          train_argv(work, "exp_profile"),
@@ -2556,7 +2816,7 @@ def phase_train(torch, dev) -> tuple[dict, list, dict]:
          phase_s=time.perf_counter() - t_phase)
     shutil.rmtree(work, ignore_errors=True)   # the split and the .pth files
     launches = {key: launches[key] + vf_launches[key] for key in launches}
-    return launches, grad_cases, {
+    return {"train": launches, "feed": feed_launches}, grad_cases, {
         "avformer": prof["attention_in_step"],
         "vformer": vf_prof["attention_in_step"]}
 
@@ -2585,7 +2845,8 @@ def main() -> int:
     by_path["dataset"], by_path["packed"], split = phase_dataset(torch, dev)
     by_path["zoo"] = phase_zoo(torch, dev, split)
     shutil.rmtree(split["work"], ignore_errors=True)  # the split, the .pth
-    by_path["train"], grad_cases, attention_in_step = phase_train(torch, dev)
+    paths, grad_cases, attention_in_step = phase_train(torch, dev)
+    by_path.update(paths)
     emit("done", seconds=time.perf_counter() - T_START,
          profiler=PROFILER_LOG)
 

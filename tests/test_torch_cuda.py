@@ -800,3 +800,41 @@ def test_zoo_train_step_on_the_card_matches_the_cpu(cuda_device, case):
         if "running_" in key:
             torch.testing.assert_close(sd_card[key], want, rtol=1e-3,
                                        atol=1e-4)
+
+
+def test_arena_gather_on_the_card_matches_the_cpu(cuda_device):
+    """The wav arena's gather at the train step's shape (B=64 windows of
+    441000 samples, some cut short, one on the zero region) on the card
+    equals the CPU's, bitwise."""
+    from auformer_torch.parallel import step as tstep
+    rs = np.random.RandomState(12)
+    sample_len = 441000
+    arena = (rs.randn(3_000_000) * 0.1).astype(np.float32)
+    arena[-sample_len:] = 0.0
+    zero_ofs = arena.shape[0] - sample_len
+    ofs = rs.randint(0, zero_ofs + 1, 64).astype(np.int32)
+    ofs[-1] = zero_ofs
+    n_valid = np.where(rs.rand(64) < 0.5, sample_len,
+                       rs.randint(882, sample_len, 64)).astype(np.int32)
+    args = [torch.from_numpy(a) for a in (arena, ofs, n_valid)]
+    want = tstep.gather_arena_windows(*args, sample_len)
+    got = tstep.gather_arena_windows(*(a.to(cuda_device) for a in args),
+                                     sample_len)
+    assert got.device.type == "cuda" and got.shape == (64, sample_len)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_clip_expander_on_the_card_matches_the_cpu(cuda_device):
+    """frames[clip_idx] at the train step's shape (a 1,024-slot pool of
+    112x112 frames, B=64, T=16) on the card equals the CPU's, bitwise."""
+    from auformer_torch.parallel import step as tstep
+    rs = np.random.RandomState(13)
+    frames = torch.from_numpy(
+        rs.randint(0, 256, (1024, 112, 112, 3)).astype(np.uint8))
+    clip_idx = torch.from_numpy(rs.randint(0, 1024, (64, 16)).astype(np.int32))
+    want = tstep.expand_dedup_batch({"frames": frames, "clip_idx": clip_idx})
+    got = tstep.expand_dedup_batch({"frames": frames.to(cuda_device),
+                                    "clip_idx": clip_idx.to(cuda_device)})
+    assert got["clip"].device.type == "cuda"
+    assert got["clip"].shape == (64, 16, 112, 112, 3)
+    assert torch.equal(got["clip"].cpu(), want["clip"])
