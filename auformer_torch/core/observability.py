@@ -2,7 +2,7 @@
 auformer/core/observability.py; reference train.py:22-82).
 
   * ``StepTimer``: per-step host timing split into data wait and step
-    (the t1/t2 pattern of train.py:197-205);
+    (the t1/t2 pattern of train.py:197-205), per dispatch of K steps;
   * ``profile``: a ``torch.profiler`` scope that writes a Chrome trace
     into a directory (``--profile_dir``: steps 10-15 of training's first
     epoch, ``train_lib.train``);
@@ -22,20 +22,32 @@ import torch
 
 
 class StepTimer:
+    """Host time from one mark to the next: the wait for a batch ends at
+    ``mark_data``, the work on it at ``mark_step``. The marks of one
+    dispatch (K batches under ``--steps_per_dispatch K``) add up, and
+    ``end_dispatch(steps)`` sets ``data_time`` and ``step_time`` to the
+    sums over the dispatch's steps: its mean per step."""
+
     def __init__(self):
         self.data_time = 0.0
         self.step_time = 0.0
+        self._data = self._step = 0.0
         self._t = time.perf_counter()
 
     def mark_data(self):
         now = time.perf_counter()
-        self.data_time = now - self._t
+        self._data += now - self._t
         self._t = now
 
     def mark_step(self):
         now = time.perf_counter()
-        self.step_time = now - self._t
+        self._step += now - self._t
         self._t = now
+
+    def end_dispatch(self, steps: int = 1):
+        self.data_time = self._data / steps
+        self.step_time = self._step / steps
+        self._data = self._step = 0.0
 
 
 @contextlib.contextmanager

@@ -19,6 +19,7 @@ The reference's quirks are kept on purpose:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import numpy as np
@@ -36,12 +37,26 @@ EX_IGNORE = 7
 VA_IGNORE = -5.0
 
 
+@functools.lru_cache(maxsize=64)
+def _device_f32(data: bytes, shape: tuple, device: torch.device
+                ) -> torch.Tensor:
+    return torch.from_numpy(
+        np.frombuffer(data, np.float32).reshape(shape).copy()).to(device)
+
+
 def _const(value, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(value, dtype=torch.float32, device=like.device)
+    """``value`` as f32 on ``like``'s device, made once per (values,
+    device): a step makes no host-to-device copy, so it can be captured in
+    a CUDA graph. Read-only."""
+    v = np.asarray(value, np.float32)
+    return _device_f32(v.tobytes(), v.shape, like.device)
 
 
-def _safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
-    den = torch.as_tensor(den, dtype=torch.float32, device=num.device)
+def _safe_div(num: torch.Tensor, den) -> torch.Tensor:
+    """num / den where den > 0, else 0; ``den`` a tensor or a number."""
+    if not torch.is_tensor(den):
+        den = torch.full((), den, dtype=torch.float32, device=num.device)
+    den = den.float()
     return torch.where(den > 0, num / den.clamp(min=1e-12),
                        torch.zeros_like(num))
 

@@ -307,13 +307,45 @@ def max_pool_same(x: torch.Tensor, kernel: Sequence[int],
                   stride: Sequence[int]) -> torch.Tensor:
     """TF-SAME max pool over (T, H, W) of a (B, C, T, H, W) tensor
     (auformer/nn/i3d.py:46-58): padded with -inf, asymmetrically where the
-    stride asks for it ((0, 1) for the (1,3,3)/(1,2,2) pools at 56)."""
+    stride asks for it ((0, 1) for the (1,3,3)/(1,2,2) pools at 56).
+    Under deterministic algorithms on CUDA it trains through
+    ``max_pool3d_separable``."""
     pads = same_pads(x.shape[2:], kernel, stride)
     if all(a == b and 2 * a <= k for (a, b), k in zip(pads, kernel)):
-        return F.max_pool3d(x, tuple(kernel), tuple(stride),
-                            [a for a, _ in pads])
-    return F.max_pool3d(F.pad(x, _torch_pad(pads), value=float("-inf")),
-                        tuple(kernel), tuple(stride))
+        return _max_pool3d(x, tuple(kernel), tuple(stride),
+                           tuple(a for a, _ in pads))
+    return _max_pool3d(F.pad(x, _torch_pad(pads), value=float("-inf")),
+                       tuple(kernel), tuple(stride), (0, 0, 0))
+
+
+def _max_pool3d(x: torch.Tensor, kernel: tuple, stride: tuple,
+                padding: tuple) -> torch.Tensor:
+    """``F.max_pool3d``; on CUDA under ``torch.use_deterministic_algorithms``
+    with a gradient to take, ``max_pool3d_separable``: max_pool3d's CUDA
+    backward scatters with atomics and has no deterministic implementation
+    (PyTorch only warns), so two runs of i3d's train step would differ."""
+    if (x.is_cuda and x.requires_grad and torch.is_grad_enabled()
+            and torch.are_deterministic_algorithms_enabled()):
+        return max_pool3d_separable(x, kernel, stride, padding)
+    return F.max_pool3d(x, kernel, stride, padding)
+
+
+def max_pool3d_separable(x: torch.Tensor, kernel: Sequence[int],
+                         stride: Sequence[int],
+                         padding: Sequence[int]) -> torch.Tensor:
+    """``F.max_pool3d`` of a (B, C, T, H, W) tensor as two ``max_pool2d``:
+    over (H, W), then over T. The values are equal, and each window's
+    gradient goes to the same element (the first maximum in (T, H, W)
+    order on both routes); max_pool2d's backward gathers, so the sums of
+    a gradient's terms are deterministic, in another order than the
+    atomics'."""
+    b, c, t, h, w = x.shape
+    y = F.max_pool2d(x.reshape(b, c * t, h, w), tuple(kernel[1:]),
+                     tuple(stride[1:]), tuple(padding[1:]))
+    ho, wo = y.shape[2:]
+    z = F.max_pool2d(y.reshape(b, c, t, ho * wo), (kernel[0], 1),
+                     (stride[0], 1), (padding[0], 0))
+    return z.reshape(b, c, z.shape[2], ho, wo)
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

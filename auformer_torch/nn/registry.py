@@ -18,16 +18,19 @@ def compute_dtype(cfg: Config) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
-def compute_autocast(cfg: Config, device) -> torch.autocast:
+def compute_autocast(cfg: Config, device,
+                     cache_enabled: bool = True) -> torch.autocast:
     """The context every forward runs its modules in: bf16 ``torch.autocast``
     under ``compute_dtype=bfloat16`` (bf16 convolutions and matmuls on f32
     parameters, f32 norms with f32 statistics, the AU heads' token
     projection and logits f32 from bf16 operands), the counterpart of the
     JAX modules' ``dtype`` with f32 ``param_dtype``
     (auformer/nn/registry.py); a no-op in float32. Inference and training
-    share it."""
+    share it. ``cache_enabled=False`` for a region captured in a CUDA
+    graph, as PyTorch requires: each use casts anew, to the same values."""
     return torch.autocast(torch.device(device).type, dtype=torch.bfloat16,
-                          enabled=compute_dtype(cfg) == torch.bfloat16)
+                          enabled=compute_dtype(cfg) == torch.bfloat16,
+                          cache_enabled=cache_enabled)
 
 
 def prepare_inference(cfg: Config, model: torch.nn.Module,

@@ -100,6 +100,19 @@ def _dft_basis(n_fft: int, win_length: int) -> np.ndarray:
     return np.concatenate([cos, sin], axis=1).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _frontend_tables(device: torch.device) -> tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """(the windowed DFT basis trimmed to the window support (WIN_LENGTH,
+    2F), the mel filterbank (F, N_MELS)), f32 on ``device``, made once per
+    device: a step makes no host-to-device copy, so it can be captured in
+    a CUDA graph. Read-only."""
+    left = (N_FFT - WIN_LENGTH) // 2
+    basis = _dft_basis(N_FFT, WIN_LENGTH)[left:left + WIN_LENGTH]
+    return (torch.from_numpy(basis).to(device),
+            torch.from_numpy(mel_filterbank()).to(device))
+
+
 def power_spectrogram(audio: torch.Tensor,
                       conv_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(..., L) float32 -> (..., T, N_FFT//2+1) power spectrogram.
@@ -118,8 +131,7 @@ def power_spectrogram(audio: torch.Tensor,
     t = num_frames(n)
     left = (N_FFT - WIN_LENGTH) // 2
     frames = x[:, 0, left:].unfold(-1, WIN_LENGTH, HOP_LENGTH)[:, :t]
-    basis = torch.from_numpy(
-        _dft_basis(N_FFT, WIN_LENGTH)[left:left + WIN_LENGTH]).to(audio.device)
+    basis = _frontend_tables(audio.device)[0]
     if conv_dtype != torch.float32:
         frames = frames.to(conv_dtype).float()
         basis = basis.to(conv_dtype).float()
@@ -133,7 +145,7 @@ def mel_spectrogram(audio: torch.Tensor,
                     conv_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(..., L) -> (..., n_mels, T) mel power spectrogram (torchaudio layout)."""
     spec = power_spectrogram(audio, conv_dtype=conv_dtype)   # (..., T, F)
-    fb = torch.from_numpy(mel_filterbank()).to(spec.device)
+    fb = _frontend_tables(spec.device)[1]
     return torch.matmul(spec, fb).transpose(-1, -2)
 
 

@@ -173,7 +173,7 @@ def _smooth(f: torch.Tensor) -> torch.Tensor:
     pixels keep their values (PIL filters the interior only)."""
     n, h, w, c = f.shape
     per_c = f.permute(0, 3, 1, 2).reshape(n * c, 1, h, w)
-    k = torch.as_tensor(_SMOOTH_K, device=f.device).reshape(1, 1, 3, 3)
+    k = _device_tables(f.device)["smooth"]
     sm = F.pad(F.conv2d(per_c, k), (1, 1, 1, 1))
     interior = torch.zeros((h, w), dtype=torch.bool, device=f.device)
     interior[1:-1, 1:-1] = True
@@ -330,6 +330,20 @@ def _policy_tables():
     return op, prob, mag, signed
 
 
+@functools.lru_cache(maxsize=None)
+def _device_tables(device: torch.device) -> dict:
+    """The staged path's constant tables on ``device``, made once per
+    device: the SMOOTH kernel (1, 1, 3, 3), the enhance op ids and the
+    four policy tables. A step then makes no host-to-device copy, so it
+    can be captured in a CUDA graph. Read-only."""
+    device = torch.device(device)
+    return {"smooth": torch.as_tensor(_SMOOTH_K, device=device
+                                      ).reshape(1, 1, 3, 3),
+            "enhance": torch.tensor(_ENHANCE_IDS, device=device),
+            "policies": tuple(torch.tensor(np.array(a), device=device)
+                              for a in _policy_tables())}
+
+
 def _cubic_w(t: torch.Tensor, a_coef: float = -0.5) -> torch.Tensor:
     at = t.abs()
     at2 = at * at
@@ -479,8 +493,12 @@ def _lut_stage(x: torch.Tensor, op: torch.Tensor,
     base = (torch.arange(t, device=dev)[:, None] * ch
             + torch.arange(ch, device=dev)[None, :]) * 256        # (T, C)
     index = base[:, None, None, :] + x.long()                    # (T,H,W,C)
-    hist = torch.bincount(index.reshape(-1), minlength=t * ch * 256
-                          ).reshape(t, ch, 256)
+    # counts by index_add_: bincount syncs with the host on CUDA (it
+    # reads the input's max), which a CUDA graph cannot capture
+    flat = index.reshape(-1)
+    hist = torch.zeros(t * ch * 256, dtype=torch.int64, device=dev
+                       ).index_add_(0, flat, flat.new_ones(()).expand_as(flat)
+                                    ).reshape(t, ch, 256)
     last_idx = torch.where(hist > 0, iota.long(), -1).amax(dim=-1)
     last_count = torch.gather(hist, -1, last_idx[..., None])[..., 0]
     step = (hist.sum(-1) - last_count) // 255                      # (T, C)
@@ -513,7 +531,8 @@ def _slot_apply(x: torch.Tensor, op: torch.Tensor,
     """One policy slot (op (T,) int64, m (T,) f32 signed magnitude) on
     (T, H, W, 3) uint8 frames: four stages, at most one of which is not
     the identity for a frame. The enhance ops take the factor 1 + m (C1)."""
-    m = torch.where(torch.isin(op, op.new_tensor(_ENHANCE_IDS)), 1.0 + m, m)
+    m = torch.where(torch.isin(op, _device_tables(op.device)["enhance"]),
+                    1.0 + m, m)
     one = torch.ones_like(m)
     x = _geo_stage(x, op, m)
     x = _lut_stage(x, op, m)
@@ -526,8 +545,7 @@ def policy_draws(b: int, t: int, generator: torch.Generator,
     """(op1, m1, op2, m2), each (b, t): one ImageNet sub-policy per clip,
     then for each slot a per-frame probability draw (the op or 0 = none)
     and a per-frame sign for the signed ops, all from ``generator``."""
-    op_t, prob_t, mag_t, signed_t = (torch.tensor(np.array(a), device=device)
-                                     for a in _policy_tables())
+    op_t, prob_t, mag_t, signed_t = _device_tables(device)["policies"]
     idx = torch.randint(0, op_t.shape[0], (b,), generator=generator,
                         device=device)
     draws = torch.rand((2, b, t), generator=generator, device=device)

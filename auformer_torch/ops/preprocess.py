@@ -9,6 +9,8 @@ Constants are the Kinetics statistics used everywhere in the reference
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -16,16 +18,25 @@ CLIP_MEAN = np.array([0.43216, 0.394666, 0.37645, 0.5], np.float32)
 CLIP_STD = np.array([0.22803, 0.22145, 0.216989, 0.225], np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def clip_constants(c: int, device: torch.device, dtype: torch.dtype
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(mean, std, 1/255) of a C-channel clip on ``device`` in ``dtype``,
+    made once per (C, device, dtype): a step makes no host-to-device copy,
+    so it can be captured in a CUDA graph. Read-only: every caller shares
+    them."""
+    return (torch.as_tensor(CLIP_MEAN[:c], device=device).to(dtype),
+            torch.as_tensor(CLIP_STD[:c], device=device).to(dtype),
+            torch.tensor(1.0 / 255.0, dtype=dtype, device=device))
+
+
 def normalize_clip(clip_u8: torch.Tensor,
                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(..., H, W, C) uint8 -> normalized float. C in {1, 3, 4}; C <= 3
     takes the leading (RGB) constants, C == 4 appends the mask stats."""
-    c = clip_u8.shape[-1]
-    mean = torch.as_tensor(CLIP_MEAN[:c], device=clip_u8.device).to(dtype)
-    std = torch.as_tensor(CLIP_STD[:c], device=clip_u8.device).to(dtype)
-    x = clip_u8.to(dtype) * torch.tensor(1.0 / 255.0, dtype=dtype,
-                                         device=clip_u8.device)
-    return (x - mean) / std
+    mean, std, inv255 = clip_constants(clip_u8.shape[-1], clip_u8.device,
+                                       dtype)
+    return (clip_u8.to(dtype) * inv255 - mean) / std
 
 
 def denormalize_clip(clip: torch.Tensor) -> torch.Tensor:

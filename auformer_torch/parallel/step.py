@@ -18,23 +18,28 @@ reference's loop body, train.py:202-244), on one device.
     the fusion ``au_head`` trains, while every BatchNorm of the model, in
     train mode, still updates its running statistics as in JAX;
   * the step's randomness (augmentation, flip, dropout, in that order) is
-    drawn from one ``torch.Generator`` that the caller passes.
-
-Not ported: ``make_multi_train_step`` (``steps_per_dispatch > 1``);
-``train_lib`` raises for its flag, naming ROADMAP.md A13.
+    drawn from one ``torch.Generator`` that the caller passes;
+  * ``make_multi_train_step`` runs K steps per dispatch
+    (``--steps_per_dispatch K``): K eager steps on the CPU; on the card a
+    CUDA graph of one step, captured once and replayed K times per
+    dispatch, the counterpart of the JAX package's ``lax.scan``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Mapping
+import time
+from typing import Callable, Mapping, Sequence
 
+import numpy as np
 import torch
 
 from ..core.config import Config
 from ..losses import LossSuite
 from ..nn.blocks import set_dropout_generator
 from ..nn.registry import compute_autocast, output_table
+from ..ops.attention import fused_attention
 from ..ops.audio import HOP_LENGTH, audio_frontend, reflect_end_patch
+from ..ops.audio_kernel import mel_frontend
 from ..ops.augment_device import augment_clips_device
 from ..ops.preprocess import normalize_clip, random_flip_clips
 
@@ -65,23 +70,31 @@ def learning_rate(cfg: Config, step: int) -> float:
     return lr
 
 
-def make_optimizer(cfg: Config, model: torch.nn.Module
-                   ) -> torch.optim.Adam:
+def make_optimizer(cfg: Config, model: torch.nn.Module,
+                   capturable: bool = False) -> torch.optim.Adam:
     """Adam as in the reference (train.py:334: torch Adam, weight_decay as
     L2 into the gradient, eps 1e-8), the same as optax's
     ``add_decayed_weights`` + ``scale_by_adam``, over the trainable
     parameters only. The frozen prefixes of ``cfg.model_name`` get
     ``requires_grad=False``. The rate is set per step by ``TrainState``
-    (``learning_rate``); clipping is ``TrainState``'s too."""
+    (``learning_rate``); clipping is ``TrainState``'s too.
+
+    ``capturable``: the Adam of a CUDA graph (``make_multi_train_step`` on
+    the card): its step counts live on the parameters' device and its rate
+    is a 0-d f32 tensor there, filled per step, so that an update can be
+    captured and replayed. PyTorch refuses it for CPU parameters."""
     mask = trainable_mask(model, FROZEN_PREFIXES.get(cfg.model_name, ()))
     params = []
     for name, p in model.named_parameters():
         p.requires_grad_(mask[name])
         if mask[name]:
             params.append(p)
-    return torch.optim.Adam(params, lr=cfg.learning_rate,
-                            betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=cfg.weight_decay)
+    lr = cfg.learning_rate
+    if capturable:
+        lr = torch.tensor(lr, dtype=torch.float32, device=params[0].device)
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=cfg.weight_decay,
+                            capturable=capturable)
 
 
 @dataclasses.dataclass
@@ -97,21 +110,38 @@ class TrainState:
     def params(self) -> list[torch.nn.Parameter]:
         return [p for g in self.optimizer.param_groups for p in g["params"]]
 
-    def apply_gradients(self) -> None:
+    def set_rate(self) -> None:
+        """This step's rate (``learning_rate``) into every group: a float,
+        or the capturable optimizer's rate tensor filled in place."""
+        lr = learning_rate(self.cfg, self.step)
+        for group in self.optimizer.param_groups:
+            if torch.is_tensor(group["lr"]):
+                group["lr"].fill_(lr)
+            else:
+                group["lr"] = lr
+
+    def update(self) -> None:
         """Clip the trainable gradients to ``cfg.grad_clip`` (global norm,
-        when > 0), take one Adam step at this step's rate, clear the
-        gradients."""
+        when > 0), take one Adam step at the rate set, clear the gradients:
+        the part of a step that a CUDA graph captures."""
         if self.cfg.grad_clip and self.cfg.grad_clip > 0:
             torch.nn.utils.clip_grad_norm_(self.params, self.cfg.grad_clip)
-        for group in self.optimizer.param_groups:
-            group["lr"] = learning_rate(self.cfg, self.step)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
+
+    def apply_gradients(self) -> None:
+        """One update at this step's rate; counts the step."""
+        self.set_rate()
+        self.update()
         self.step += 1
 
 
-def create_train_state(cfg: Config, model: torch.nn.Module) -> TrainState:
-    return TrainState(cfg, model, make_optimizer(cfg, model))
+def create_train_state(cfg: Config, model: torch.nn.Module,
+                       capturable: bool = False) -> TrainState:
+    """``capturable``: the optimizer a CUDA graph of the step needs
+    (``make_optimizer``); ``make_multi_train_step`` takes it on the card,
+    its eager steps too."""
+    return TrainState(cfg, model, make_optimizer(cfg, model, capturable))
 
 
 def gather_arena_windows(arena: torch.Tensor, ofs: torch.Tensor,
@@ -205,14 +235,44 @@ def task_loss(suite: LossSuite, task: str, out, labels):
     return 3.0 * lex + lau + lva, {"ex": lex, "au": lau, "va": lva}
 
 
-def _forward(cfg: Config, model: torch.nn.Module, x: dict) -> torch.Tensor:
+def _forward(cfg: Config, model: torch.nn.Module, x: dict,
+             autocast_cache: bool = True) -> torch.Tensor:
     """The model's f32 output in the (B, 21) layout (``output_table``),
-    under bf16 autocast when ``cfg.compute_dtype`` asks for it."""
+    under bf16 autocast when ``cfg.compute_dtype`` asks for it (its cache
+    off for a region a CUDA graph captures)."""
     device = next(model.parameters()).device
     modes = set(getattr(model, "modes", x.keys()))
     x = {k: v for k, v in x.items() if k in modes}
-    with compute_autocast(cfg, device):
+    with compute_autocast(cfg, device, cache_enabled=autocast_cache):
         return output_table(model(x).float())
+
+
+def _step_body(cfg: Config, model: torch.nn.Module, suite: LossSuite,
+               state: TrainState, batch: Mapping[str, torch.Tensor],
+               generator: torch.Generator, arena: torch.Tensor | None,
+               graphed: bool) -> dict:
+    """One train step: prep, forward, loss, backward, update. ``graphed``:
+    the body a CUDA graph captures, where the caller sets the rate before
+    each replay and counts the step (no autocast cache, no host value)."""
+    x = prep_batch(batch, train=True, generator=generator,
+                   device_augment=cfg.device_augment,
+                   device_audio=cfg.device_audio, arena=arena,
+                   sample_len=cfg.sample_len_frames)
+    labels = _labels_of(batch)
+    model.train()
+    set_dropout_generator(model, generator)
+    try:
+        out = _forward(cfg, model, x, autocast_cache=not graphed)
+    finally:
+        set_dropout_generator(model, None)
+    loss, parts = task_loss(suite, cfg.task, out, labels)
+    loss.backward()
+    if graphed:
+        state.update()
+    else:
+        state.apply_gradients()
+    return {"loss": loss.detach(),
+            **{k: v.detach() for k, v in parts.items()}}
 
 
 def make_train_step(cfg: Config, model: torch.nn.Module,
@@ -226,24 +286,232 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
     def step(state: TrainState, batch: Mapping[str, torch.Tensor],
              generator: torch.Generator,
              arena: torch.Tensor | None = None) -> dict:
-        x = prep_batch(batch, train=True, generator=generator,
-                       device_augment=cfg.device_augment,
-                       device_audio=cfg.device_audio, arena=arena,
-                       sample_len=cfg.sample_len_frames)
-        labels = _labels_of(batch)
-        model.train()
-        set_dropout_generator(model, generator)
-        try:
-            out = _forward(cfg, model, x)
-        finally:
-            set_dropout_generator(model, None)
-        loss, parts = task_loss(suite, cfg.task, out, labels)
-        loss.backward()
-        state.apply_gradients()
-        return {"loss": loss.detach(),
-                **{k: v.detach() for k, v in parts.items()}}
+        return _step_body(cfg, model, suite, state, batch, generator, arena,
+                          graphed=False)
 
     return step
+
+
+def stack_batches(batches: Sequence[Mapping]) -> dict:
+    """Host collation for ``make_multi_train_step``: K loader batches ->
+    one dict of (K, B, ...) numpy arrays, numeric entries only (string
+    and object entries such as video ids do not go to the device), as the
+    JAX package's ``stack_batches``."""
+    keys = [k for k, v in batches[0].items()
+            if np.asarray(v).dtype.kind not in ("U", "S", "O")]
+    return {k: np.stack([np.asarray(b[k]) for b in batches]) for k in keys}
+
+
+def make_device_stacker() -> Callable:
+    """Returns ``stack(*batches) -> dict`` of (K, B, ...) tensors: the
+    device-side counterpart of ``stack_batches`` (the JAX package's
+    ``make_device_stacker``). Each of the K batches, already on the
+    device, is copied into its slot; a frame-dedup batch's pool is
+    expanded straight into its slot's ``clip`` by one ``index_select``
+    (``out=``), the gather ``expand_dedup_batch`` makes, so its U_pad,
+    which changes from batch to batch, never reaches the step."""
+    def slot(batch: Mapping[str, torch.Tensor]) -> dict:
+        """key -> (shape, dtype, device) of the batch's dense entries."""
+        out = {k: (v.shape, v.dtype, v.device) for k, v in batch.items()
+               if k not in ("frames", "clip_idx")}
+        if "frames" in batch and "clip_idx" in batch:
+            frames = batch["frames"]
+            out["clip"] = (batch["clip_idx"].shape + frames.shape[1:],
+                           frames.dtype, frames.device)
+        return out
+
+    def stack(*batches: Mapping[str, torch.Tensor]) -> dict:
+        layout = slot(batches[0])
+        out = {k: torch.empty((len(batches),) + shape, dtype=dtype,
+                              device=device)
+               for k, (shape, dtype, device) in layout.items()}
+        for i, batch in enumerate(batches):
+            if slot(batch) != layout:
+                raise ValueError(f"make_device_stacker: batch {i}'s entries "
+                                 f"{slot(batch)} differ from batch 0's "
+                                 f"{layout}")
+            for k, v in batch.items():
+                if k not in ("frames", "clip_idx"):
+                    out[k][i].copy_(v)
+            if "frames" in batch and "clip_idx" in batch:
+                frames = batch["frames"]
+                torch.index_select(
+                    frames, 0, batch["clip_idx"].reshape(-1).long(),
+                    out=out["clip"][i].view(-1, *frames.shape[1:]))
+        return out
+
+    return stack
+
+
+# the kernels' launch counters: a replay runs the kernels its capture
+# recorded without the Python that counts them, so a graph adds the counts
+# its capture made once per replay, and a count means kernels run
+KERNEL_COUNTERS = ((fused_attention, "launches"),
+                   (fused_attention, "backward_calls"),
+                   (mel_frontend, "launches"))
+
+
+class MultiTrainStep:
+    """K train steps per dispatch; see ``make_multi_train_step``. After a
+    capture: ``captures`` (1), ``capture_s`` (host seconds the capture
+    took), ``replays``, ``pool_mb`` (device memory the capture reserved:
+    the graph's private pool) and ``captured_counts`` (each of
+    ``KERNEL_COUNTERS``' counts in one step)."""
+
+    def __init__(self, cfg: Config, model: torch.nn.Module,
+                 suite: LossSuite, k: int):
+        if k < 1:
+            raise ValueError(f"make_multi_train_step: k={k}")
+        self.cfg, self.model, self.suite, self.k = cfg, model, suite, k
+        self.eager_step = make_train_step(cfg, model, suite)
+        self.dispatches = self.captures = self.replays = 0
+        self.pool_mb = self.capture_s = 0.0
+        self.captured_counts: tuple = ()
+        self.graph = None
+        # set at the capture: the graph's static inputs and outputs, and
+        # the arena it reads
+        self._static = self._out = self._arena = None
+        self._generator = None
+
+    def __call__(self, state: TrainState, batches: Mapping[str, torch.Tensor],
+                 seeds: Sequence[int],
+                 arena: torch.Tensor | None = None) -> dict:
+        if len(seeds) != self.k or any(v.shape[0] != self.k
+                                       for v in batches.values()):
+            raise ValueError(f"make_multi_train_step(k={self.k}): "
+                             f"{len(seeds)} seeds, batches of "
+                             f"{ {k: tuple(v.shape) for k, v in batches.items()} }")
+        device = next(self.model.parameters()).device
+        if self._generator is None:
+            self._generator = torch.Generator(device=device)
+        if device.type == "cuda" \
+                and not state.optimizer.defaults["capturable"]:
+            raise ValueError("make_multi_train_step on a CUDA device takes "
+                             "the state of create_train_state(..., "
+                             "capturable=True)")
+        if device.type != "cuda" or self.dispatches == 0:
+            # the CPU, and the card's first dispatch: the warm-up (the
+            # allocator, cuDNN's choices, the kernels' build and shared
+            # memory opt-in, Adam's state) before anything is captured
+            metrics = self._eager(state, batches, seeds, arena)
+        else:
+            if self.graph is None:
+                self._capture(state, batches, arena)
+            metrics = self._replay(state, batches, seeds, arena)
+        self.dispatches += 1
+        return metrics
+
+    def _eager(self, state, batches, seeds, arena) -> dict:
+        per_step = [self.eager_step(state, {k: v[i] for k, v in
+                                            batches.items()},
+                                    self._generator.manual_seed(seed), arena)
+                    for i, seed in enumerate(seeds)]
+        return {k: torch.stack([m[k] for m in per_step])
+                for k in per_step[0]}
+
+    def _capture(self, state, batches, arena) -> None:
+        """Capture one step on slot-sized static inputs. Capture runs no
+        kernel: the Python that counts launches does run, so the counts
+        are taken back and kept as the step's. A capture that fails raises
+        naming what broke it; nothing runs in its place."""
+        if any(p.grad is not None for p in state.params):
+            raise RuntimeError("make_multi_train_step: gradients left from "
+                               "an earlier step would be accumulated into "
+                               "by every replay")
+        device = next(self.model.parameters()).device
+        self._static = {k: torch.empty_like(v[0]) for k, v in
+                        batches.items()}
+        self._arena = arena
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self._generator)
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        counts = [getattr(obj, name) for obj, name in KERNEL_COUNTERS]
+        t0 = time.perf_counter()
+        try:
+            # thread_local: the loader's threads may use the card (nvJPEG)
+            # while the main thread captures
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                out = _step_body(self.cfg, self.model, self.suite, state,
+                                 self._static, self._generator, arena,
+                                 graphed=True)
+        except RuntimeError as e:
+            # ending a broken capture raises too: name the first error,
+            # the op the capture could not take
+            first = e
+            while isinstance(first.__context__, RuntimeError):
+                first = first.__context__
+            raise RuntimeError(
+                f"make_multi_train_step(k={self.k}): capturing the train "
+                f"step in a CUDA graph failed, and no eager step ran in its "
+                f"place: {str(first).splitlines()[0]}"
+                + ("" if first is e else
+                   f" (then: {str(e).splitlines()[0]})")) from first
+        finally:
+            captured = tuple(getattr(obj, name) - c for (obj, name), c in
+                             zip(KERNEL_COUNTERS, counts))
+            for (obj, name), c in zip(KERNEL_COUNTERS, counts):
+                setattr(obj, name, c)
+        self.captured_counts = captured
+        self.capture_s = time.perf_counter() - t0
+        self.pool_mb = (torch.cuda.memory_reserved(device) - reserved) / 2**20
+        self.graph, self._out = graph, out
+        self.captures += 1
+
+    def _replay(self, state, batches, seeds, arena) -> dict:
+        if arena is not self._arena or set(batches) != set(self._static):
+            raise ValueError("make_multi_train_step: a dispatch must pass "
+                             "the entries and the arena the graph was "
+                             "captured with")
+        for k, buf in self._static.items():
+            if batches[k].shape[1:] != buf.shape \
+                    or batches[k].dtype != buf.dtype:
+                raise ValueError(f"make_multi_train_step: {k} is "
+                                 f"{tuple(batches[k].shape[1:])} "
+                                 f"{batches[k].dtype}, the graph's "
+                                 f"{tuple(buf.shape)} {buf.dtype}")
+        metrics = {k: torch.empty((self.k,) + v.shape, dtype=v.dtype,
+                                  device=v.device)
+                   for k, v in self._out.items()}
+        for i, seed in enumerate(seeds):
+            for k, buf in self._static.items():
+                buf.copy_(batches[k][i])
+            state.set_rate()
+            self._generator.manual_seed(seed)
+            self.graph.replay()
+            for k, v in self._out.items():
+                metrics[k][i].copy_(v)
+            state.step += 1
+            for (obj, name), n in zip(KERNEL_COUNTERS, self.captured_counts):
+                setattr(obj, name, getattr(obj, name) + n)
+        self.replays += self.k
+        return metrics
+
+
+def make_multi_train_step(cfg: Config, model: torch.nn.Module,
+                          suite: LossSuite, k: int) -> MultiTrainStep:
+    """Returns ``step_k(state, batches, seeds, arena=None) -> metrics``: K
+    optimizer steps per dispatch (the JAX package's
+    ``make_multi_train_step``, a ``lax.scan`` in one device program).
+    ``batches`` maps each entry to a (K, B, ...) tensor on the model's
+    device (``make_device_stacker``), ``seeds`` gives each step its
+    generator's seed (``key_seq.next_seed``: step i draws what the i-th
+    single step would, so a run is the same for every K), ``metrics``
+    maps "loss" (and for task ALL "ex", "au", "va") to (K,) tensors.
+
+    On the CPU: K eager steps (``make_train_step``), one after another.
+    On a CUDA device (the state from ``create_train_state(...,
+    capturable=True)``): the first dispatch runs K eager steps, the
+    warm-up; the second captures one step in a CUDA graph on slot-sized
+    static inputs with one generator registered with the graph; from then
+    on each step copies its slot into the static inputs, fills the rate,
+    reseeds the generator and replays: one graph launch and a few copies
+    and fills in place of an eager step's thousands of launches (each
+    kernel launch a runtime call). There is no fallback:
+    a capture that fails raises. The graph lives as long as ``step_k``,
+    with the arena (if any) it was captured with."""
+    return MultiTrainStep(cfg, model, suite, k)
 
 
 def make_eval_step(cfg: Config, model: torch.nn.Module,

@@ -14,10 +14,13 @@ The JAX package's training feed runs as there: ``frame_dedup`` batches (a
 pool of unique frames and a window map, expanded inside the step), the
 wav arena under ``device_audio`` (each video's waveform on the card once
 per run, ``audio_arena_mb``), ``locality_run`` and a ``profile_dir`` trace
-of steps 10-15 of the first epoch. Flags of the JAX package that the port
-does not run raise, naming their ROADMAP.md item: ``steps_per_dispatch >
-1`` (A13) and host augmentation (no ``device_augment``, A10). Every model
-of the zoo trains; only avformer freezes its streams.
+of steps 10-15 of the first epoch. ``steps_per_dispatch K`` > 1 gathers K
+uploaded batches, stacks them on the device and runs them as one dispatch
+(``parallel.step.make_multi_train_step``: on the card, replays of a CUDA
+graph of the step; the sub-K epoch tail runs single steps); K = 1 is the
+eager step. Host augmentation (no ``device_augment``) raises, naming its
+ROADMAP.md item (A10). Every model of the zoo trains; only avformer
+freezes its streams.
 """
 from __future__ import annotations
 
@@ -43,12 +46,23 @@ from .data.wav_arena import build_wav_arena
 from .infer import resolve_device
 from .metrics import AccF1Metric, CCCMetric, MultiLabelAccF1, composite_scores
 from .nn import build_model, loss_suite
-from .parallel import (TrainState, create_train_state, make_eval_step,
-                       make_train_step)
+from .parallel import (TrainState, create_train_state, make_device_stacker,
+                       make_eval_step, make_multi_train_step, make_train_step)
 
 # the profile_dir window: steps [10, 15) of the first epoch, as in the JAX
-# package
+# package (under steps_per_dispatch, ``profile_window``)
 PROFILE_STEPS = (10, 15)
+
+
+def profile_window(k: int) -> tuple[int, int]:
+    """The steps [first, stop) of the first epoch that the ``profile_dir``
+    trace covers when each dispatch runs ``k`` steps: it opens at the
+    first dispatch that starts at or after step 10 and closes at the first
+    at or after step 15 (at least one dispatch later). The JAX package
+    tests ``step_i == 10`` and ``== 15``, which a step count that moves by
+    K > 1 may never meet (ROADMAP.md C7)."""
+    first = -(-PROFILE_STEPS[0] // k) * k
+    return first, max(-(-PROFILE_STEPS[1] // k) * k, first + k)
 
 
 class AverageMeter:
@@ -76,8 +90,6 @@ def check_supported(cfg: Config) -> None:
     unported = [
         (not cfg.device_augment,
          "host (PIL) augmentation (queue A10); pass --device_augment"),
-        (int(cfg.steps_per_dispatch or 1) > 1,
-         "steps_per_dispatch > 1 (queue A13, CUDA graphs)"),
     ]
     for unsupported, what in unported:
         if unsupported:
@@ -219,12 +231,22 @@ def train(cfg: Config, dataset=None, max_steps_per_epoch: int | None = None,
             dataset.set_audio_arena(plan)
             arena = torch.from_numpy(plan.arena).to(device)
 
-    state = create_train_state(cfg, model)
+    # steps_per_dispatch K > 1: K uploaded batches stacked on the device
+    # and run as one dispatch; on the card a CUDA graph of the step, whose
+    # Adam must be capturable (its eager steps take the same one)
+    spd = max(int(cfg.steps_per_dispatch or 1), 1)
+    state = create_train_state(cfg, model,
+                               capturable=spd > 1 and device.type == "cuda")
     train_step = make_train_step(cfg, model, suite)
+    multi_step = (make_multi_train_step(cfg, model, suite, spd)
+                  if spd > 1 else None)
+    stacker = make_device_stacker() if spd > 1 else None
+    window = profile_window(spd)
     eval_step = functools.partial(make_eval_step(cfg, model, suite),
                                   arena=arena)
     # frame-dedup batches: a pool of unique frames and a (B, T) window map,
-    # the clips gathered inside the step; host augmentation is per sample
+    # the clips gathered inside the step (or into the stack under K > 1);
+    # host augmentation is per sample
     use_dedup = (bool(cfg.frame_dedup) and cfg.device_augment
                  and "clip" in getattr(model, "modes", ("clip",)))
     if use_dedup:
@@ -232,6 +254,17 @@ def train(cfg: Config, dataset=None, max_steps_per_epoch: int | None = None,
     dev_keys = device_batch_keys(model, cfg, arena=arena is not None,
                                  dedup=use_dedup)
     stopper = EarlyStopper(cfg.early_stop_step, cfg.checkpoint_path)
+
+    def run(batches: list) -> dict:
+        """Train on the uploaded ``batches``: single steps, or one
+        dispatch of K (its values read with one sync); each metric's
+        per-step values."""
+        if multi_step is None or len(batches) < spd:
+            per_step = [train_step(state, b, keys(), arena) for b in batches]
+            return {k: [float(m[k]) for m in per_step] for k in per_step[0]}
+        metrics = multi_step(state, stacker(*batches),
+                             [keys.next_seed() for _ in batches], arena)
+        return {k: v.tolist() for k, v in metrics.items()}
 
     epochs = epochs if epochs is not None else cfg.epochs
     history = []
@@ -242,10 +275,10 @@ def train(cfg: Config, dataset=None, max_steps_per_epoch: int | None = None,
         train_ids, local_bs = host_shard(train_ids, cfg.batch_size)
         # locality_run > 0: shuffle contiguous runs instead of single
         # indices so overlapping dilated windows hit the decode LRU
-        run = int(cfg.locality_run or 0)
-        sampler = (BlockShuffleSampler(train_ids, run,
+        run_len = int(cfg.locality_run or 0)
+        sampler = (BlockShuffleSampler(train_ids, run_len,
                                        seed=cfg.seed * 100003 + epoch)
-                   if run > 0
+                   if run_len > 0
                    else SubsetSequentialSampler(train_ids, shuffle=True))
         loader = DataLoader(dataset, local_bs, sampler,
                             num_threads=cfg.host_threads, drop_last=True,
@@ -257,36 +290,52 @@ def train(cfg: Config, dataset=None, max_steps_per_epoch: int | None = None,
         t_epoch = time.time()
         timer = StepTimer()
         trace = contextlib.ExitStack()     # the profile_dir window
+        pend: list = []    # the uploaded batches of the dispatch in the making
+
+        def record(batches: list) -> None:
+            """Run ``batches`` and meter them: per-step losses, and the
+            StepTimer's means over them."""
+            nonlocal step_i
+            metrics = run(batches)
+            timer.mark_step()
+            timer.end_dispatch(len(batches))
+            for k, values in metrics.items():
+                for v in values:
+                    meters[k].update(v)
+            meters["data_ms"].update(timer.data_time * 1e3, len(batches))
+            meters["step_ms"].update(timer.step_time * 1e3, len(batches))
+            step_i += len(batches)
+            if step_i // cfg.log_every > (step_i - len(batches)) \
+                    // cfg.log_every:
+                logging.info(
+                    f"epoch {epoch} step {step_i} "
+                    f"loss {meters['loss'].avg:.4f} "
+                    f"data {timer.data_time * 1e3:.1f}ms "
+                    f"step {timer.step_time * 1e3:.1f}ms")
+
         try:
             while (batch := prefetch.next()) is not None:
-                if max_steps_per_epoch and step_i >= max_steps_per_epoch:
+                if max_steps_per_epoch \
+                        and step_i + len(pend) >= max_steps_per_epoch:
                     break
                 timer.mark_data()
-                if cfg.profile_dir and epoch == start_epoch \
-                        and step_i in PROFILE_STEPS:
-                    _toggle_trace(trace, step_i == PROFILE_STEPS[0],
+                if cfg.profile_dir and epoch == start_epoch and not pend \
+                        and step_i in window:
+                    _toggle_trace(trace, step_i == window[0],
                                   cfg.profile_dir, device)
-                metrics = train_step(state, to_device(batch, dev_keys, device),
-                                     keys(), arena)
-                meters["loss"].update(float(metrics["loss"]))
-                timer.mark_step()
-                meters["data_ms"].update(timer.data_time * 1e3)
-                meters["step_ms"].update(timer.step_time * 1e3)
-                for k in ("ex", "au", "va"):
-                    if k in metrics:
-                        meters[k].update(float(metrics[k]))
-                step_i += 1
-                if step_i % cfg.log_every == 0:
-                    logging.info(
-                        f"epoch {epoch} step {step_i} "
-                        f"loss {meters['loss'].avg:.4f} "
-                        f"data {timer.data_time * 1e3:.1f}ms "
-                        f"step {timer.step_time * 1e3:.1f}ms")
+                pend.append(to_device(batch, dev_keys, device))
+                if len(pend) == spd:
+                    batches, pend = pend, []
+                    record(batches)
+                else:
+                    timer.mark_step()
         finally:
             _toggle_trace(trace, False, cfg.profile_dir, device)
             # a step-capped epoch leaves the producer mid-epoch: stop it so
             # its decode threads do not contend with the next loader
             prefetch.stop()
+        if pend:          # the epoch's tail, fewer than K: single steps
+            record(pend)
         dt = time.time() - t_epoch
         logging.info(
             f"Total Loss,{meters['loss'].avg}, Ex:{meters['ex'].avg}, "

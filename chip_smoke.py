@@ -120,7 +120,23 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            attention forward and backward device ms per step at each site
            (spatial and temporal); and 3 bf16 steps of every other zoo
            model at full width (emonet 256x256) on ready device batches:
-           attention per step, device ms, kernels and peak memory
+           attention per step, device ms, kernels and peak memory. The
+           ``graph`` sub-phase (its own line, ``--steps_per_dispatch K``:
+           a CUDA graph of the step): avformer and vformer in fp32 at
+           full width, B=64, augmentation and dropout on, 4 steps as 2
+           dispatches of K = 2 (the warm-up, then a capture and its
+           replays) against 4 eager steps from the same weights and seeds
+           with the same capturable Adam (losses, parameters, BatchNorm
+           statistics, Adam's moments: equal wherever two eager runs are,
+           else within twice their spread, all under deterministic
+           algorithms); two epochs of the fed loop (``feed`` (b)'s flags)
+           at K = 4 beside (b)'s K = 1 numbers, its
+           attention launches counted per replay; its --profile_dir trace
+           (steps 12-15), which must hold the attention kernel's events
+           from replays; every other zoo model's bf16 steps graphed at
+           K = 2 with the same check on its loss, wall and device ms and
+           the idle share per step beside the eager ones; and a host sync
+           put into the step, whose capture must raise
 
 Then one JSON line of per-kernel results: for attention, sums over one
 sweep bucket's calls in bf16 (the main path's dtype), with the per-bucket
@@ -133,9 +149,11 @@ spatial and temporal sites in both dtypes, beside SDPA's forward +
 backward, and the trace's forward and backward device ms per step by
 site); ``launches`` counts the
 slice's, the sweep's, the dataset's, the packed, the zoo, the train
-phase's and the feed's main path runs (``launches_by_path``; ``zoo`` sums
-the zoo phase's bf16 main path runs; ``feed`` is the --frame_dedup + wav
-arena epoch), and ``zoo_sites`` lists the zoo's attention
+phase's, the feed's and the graph's main path runs (``launches_by_path``;
+``zoo`` sums the zoo phase's bf16 main path runs; ``feed`` is the
+--frame_dedup + wav arena epoch, ``graph`` the same at
+--steps_per_dispatch 4, its replays counted), and ``zoo_sites`` lists the
+zoo's attention
 sites in both dtypes. Then the nvidia-smi name/power line, and last
 ``{"ok": true, "device": {...}}``. Without a GPU, or outside a checkout
 of the repository, it exits non-zero and prints no result.
@@ -304,6 +322,13 @@ ZOO_TRAIN_STEPS = 3      # bf16 steps per model at full width, B=64
 FEED_RUN = 64
 FEED_LOSS_RTOL = 1e-5    # fp32 step: dense + raw windows vs dedup + arena
 TRACE_STEPS = 16         # the --profile_dir run: its window is steps 10-15
+# the graph sub-phase (--steps_per_dispatch K: a CUDA graph of the step):
+# fp32 checks of GRAPH_STEPS steps as dispatches of GRAPH_K (the warm-up,
+# then a capture and its replays) against eager steps, and the fed loop at
+# FEED_GRAPH_K
+GRAPH_K = 2
+GRAPH_STEPS = 4
+FEED_GRAPH_K = 4
 
 
 def emit(phase: str, **fields) -> None:
@@ -2291,7 +2316,8 @@ def zoo_train_steps(torch, dev) -> dict:
     zoo model but avformer and vformer at full width (112x112, or emonet's
     256x256; T=16, or 1) on ready device batches, after one warm-up step:
     attention launches and backward calls per step (ZOO_TRAIN_ATTN),
-    device ms and kernels per step, wall ms per step, peak memory."""
+    device ms and kernels per step, wall ms per step, peak memory; then
+    the same steps graphed (``zoo_graph_check``), under "graph"."""
     from auformer_torch.core.config import Config
     from auformer_torch.core.weights import load_weights
     from auformer_torch.nn import build_model, loss_suite
@@ -2349,9 +2375,73 @@ def zoo_train_steps(torch, dev) -> dict:
             "device_idle_share": (None if prof is None
                                   else 1.0 - prof["device_ms"] / wall_ms),
             "peak_memory_mb": peak_mb}
-        del model, state, step, batch
+        del state, step
+        results[name]["graph"] = zoo_graph_check(torch, cfg, model, batch,
+                                                 (want, want))
+        del model, batch
         torch.cuda.empty_cache()
     return results
+
+
+def zoo_graph_check(torch, cfg, model, batch: dict, per_step: tuple) -> dict:
+    """From the weights after the eager bf16 steps, all with the
+    capturable Adam: GRAPH_STEPS steps on ``batch`` as dispatches of
+    GRAPH_K through the graph (the warm-up, then a capture and its
+    replays) against the same steps eager, twice for their spread (under
+    ``deterministic``): the losses as ``graph_against_eager`` holds them.
+    Then, with the default algorithms, a graph of the same steps: one
+    dispatch of replays timed (wall ms per step) and one profiled (device
+    ms, kernels, idle share), the attention launches and backward calls
+    per replayed step (``per_step``), peak memory with the graph."""
+    from auformer_torch.ops.attention import fused_attention
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    batches = [batch] * GRAPH_STEPS
+    seeds = [SEED + 200 + i for i in range(GRAPH_STEPS)]
+    with deterministic(torch):
+        eager = [k_step_run(torch, cfg, model, start, batches, seeds)[0]
+                 for _ in range(2)]
+        losses = k_step_run(torch, cfg, model, start, batches, seeds,
+                            k=GRAPH_K)[0]
+    checked = graph_against_eager(torch, f"zoo graph {cfg.model_name}",
+                                  {"loss": losses}, {"loss": eager[0]},
+                                  {"loss": eager[1]})
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, _, step_k, state = k_step_run(torch, cfg, model, start,
+                                     batches[:2 * GRAPH_K],
+                                     seeds[:2 * GRAPH_K], k=GRAPH_K)
+    stacked = {key: torch.stack([batch[key]] * GRAPH_K) for key in batch}
+
+    def dispatch():
+        step_k(state, stacked, seeds[:GRAPH_K])
+    torch.cuda.synchronize()
+    fused_attention.launches = fused_attention.backward_calls = 0
+    t0 = time.perf_counter()
+    dispatch()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / GRAPH_K
+    counted = (fused_attention.launches / GRAPH_K,
+               fused_attention.backward_calls / GRAPH_K)
+    if counted != per_step:
+        fail(f"zoo graph {cfg.model_name}: attention {counted} per replayed "
+             f"step, expected {per_step}")
+    prof = profile_calls(torch, dispatch, GRAPH_K)
+    result = {"losses_graph": losses.tolist(),
+              "losses_eager": [v.tolist() for v in eager],
+              **checked, "captures": step_k.captures,
+              "capture_s": step_k.capture_s, "replays": step_k.replays,
+              "pool_mb": step_k.pool_mb,
+              "wall_ms_per_step": wall_ms,
+              "device_ms_per_step": None if prof is None
+              else prof["device_ms"],
+              "device_kernels_per_step": None if prof is None
+              else prof["kernels"],
+              "device_idle_share": None if prof is None
+              else 1.0 - prof["device_ms"] / wall_ms,
+              "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
+    del step_k, state, stacked, start
+    torch.cuda.empty_cache()
+    return result
 
 
 def overfit(torch, dev, sd, work: Path) -> list[float]:
@@ -2388,9 +2478,10 @@ def overfit(torch, dev, sd, work: Path) -> list[float]:
 class feed_probe:
     """While active: the JPEG decodes (keys handed to the native reader's
     ``decode_batch``), the host-to-device bytes (``train_lib.to_device``),
-    a copy of the first batch uploaded, the wav arena built, and the
-    decodes and bytes when ``evaluate`` starts (the train loop's share).
-    Instrumentation of this script; the port is untouched."""
+    a copy of the first batch uploaded, the wav arena built, the decodes
+    and bytes when ``evaluate`` starts (the train loop's share), and the
+    K-step dispatch ``make_multi_train_step`` made (``--steps_per_dispatch
+    K``). Instrumentation of this script; the port is untouched."""
 
     def __init__(self):
         from auformer_torch import train_lib
@@ -2399,11 +2490,11 @@ class feed_probe:
 
     def __enter__(self):
         self.decodes = self.h2d_bytes = 0
-        self.first = self.plan = self.before_eval = None
+        self.first = self.plan = self.before_eval = self.multi = None
         lib = self.lib
         self.saved = (lib.to_device, lib.evaluate, lib.build_wav_arena,
-                      self.store.decode_batch)
-        to_device, evaluate, build, decode = self.saved
+                      lib.make_multi_train_step, self.store.decode_batch)
+        to_device, evaluate, build, make_multi, decode = self.saved
 
         def decode_batch(reader, keys, *args, **kw):
             self.decodes += sum(1 for k in keys if k)
@@ -2425,22 +2516,29 @@ class feed_probe:
         def build_wav_arena(*args, **kw):
             self.plan = build(*args, **kw)
             return self.plan
+
+        def make_multi_train_step(*args, **kw):
+            self.multi = make_multi(*args, **kw)
+            return self.multi
         lib.to_device, lib.evaluate = upload, evaluate_
         lib.build_wav_arena = build_wav_arena
+        lib.make_multi_train_step = make_multi_train_step
         self.store.decode_batch = decode_batch
         return self
 
     def __exit__(self, *exc):
         (self.lib.to_device, self.lib.evaluate, self.lib.build_wav_arena,
-         self.store.decode_batch) = self.saved
+         self.lib.make_multi_train_step, self.store.decode_batch) = self.saved
 
 
 def feed_run(torch, work: Path, exp: str, *flags) -> tuple[dict, dict,
                                                            object]:
-    """One epoch of ``train.main`` at B=64 in bf16 with --device_augment
-    and ``flags``, its counts set to 0 just before it: the attention
-    launches (checked), clips/s, StepTimer means, JPEG decodes and
-    host-to-device bytes per train batch, arena MB, peak memory; and the
+    """One epoch (or as many as ``flags`` say) of ``train.main`` at B=64 in
+    bf16 with --device_augment and ``flags``, its counts set to 0 just
+    before it: the attention launches (checked), the first epoch's
+    clips/s, StepTimer means (and each epoch's), JPEG decodes and
+    host-to-device bytes per train batch, arena MB, peak memory, under
+    --steps_per_dispatch the graph's captures, replays and pool; and the
     first batch uploaded and the arena."""
     from auformer_torch import train
     from auformer_torch.ops.attention import fused_attention
@@ -2458,14 +2556,23 @@ def feed_run(torch, work: Path, exp: str, *flags) -> tuple[dict, dict,
                 "mel": mel_frontend.launches}
     backward = fused_attention.backward_calls
     h = history[0]
-    steps = h["steps"]
+    steps = sum(e["steps"] for e in history)
     want = {"attention": ATTN_FWD_PER_STEP * (steps + len(history)),
             "mel": 0}
     if (launches != want or backward != ATTN_BWD_PER_STEP * steps
-            or not np.isfinite(h["loss"])):
-        fail(f"feed {flags}: {steps} steps, loss {h['loss']}, launches "
-             f"{launches} (expected {want}), backward calls {backward}")
+            or not all(np.isfinite(e["loss"]) for e in history)):
+        fail(f"feed {flags}: {steps} steps, losses "
+             f"{[e['loss'] for e in history]}, launches {launches} "
+             f"(expected {want}), backward calls {backward}")
+    steps = h["steps"]
     decodes, h2d = probe.before_eval
+    multi = probe.multi
+    graph = None if multi is None else {
+        "captures": multi.captures, "capture_s": multi.capture_s,
+        "replays": multi.replays, "pool_mb": multi.pool_mb,
+        "launches_per_graphed_step": dict(zip(
+            ("attention", "attention_backward", "mel"),
+            multi.captured_counts))}
     return {"flags": list(flags), "seconds": seconds, "steps": steps,
             "clips_per_s": steps * TRAIN_BATCH / h["seconds"],
             "step_timer_ms": {"data": h["data_ms"], "step": h["step_ms"]},
@@ -2476,15 +2583,22 @@ def feed_run(torch, work: Path, exp: str, *flags) -> tuple[dict, dict,
             "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
             "epoch_s": h["seconds"], "eval_s": h["eval_seconds"],
             "loss": h["loss"], "launches": launches,
-            "backward_calls": backward}, probe.first, probe.plan
+            "backward_calls": backward, "graph": graph,
+            "epochs": [{"clips_per_s": e["steps"] * TRAIN_BATCH
+                        / e["seconds"], "steps": e["steps"],
+                        "step_timer_ms": {"data": e["data_ms"],
+                                          "step": e["step_ms"]},
+                        "loss": e["loss"]} for e in history]}, \
+        probe.first, probe.plan
 
 
 def trace_stats(trace: dict, steps: int) -> dict:
     """Per step of a Chrome trace of ``steps`` train steps: the window's
     wall ms, the card's busy ms (the union of its kernels, copies and
     sets), its kernels, the host-to-device copies (ms, MB), the host's
-    CUDA runtime calls (ms, calls: the dispatch); and the attention
-    kernel's events in all."""
+    CUDA runtime calls (ms, calls: the dispatch, and the same by call
+    name: a synchronize's ms is the host waiting for the card); and the
+    attention kernel's events in all."""
     events = [e for e in trace["traceEvents"]
               if e.get("ph") == "X" and "dur" in e]
     device = sorted((e for e in events if e.get("cat") in (
@@ -2500,6 +2614,11 @@ def trace_stats(trace: dict, steps: int) -> dict:
     h2d = [e for e in device if e["cat"] == "gpu_memcpy"
            and "HtoD" in e["name"]]
     runtime = [e for e in events if e.get("cat") == "cuda_runtime"]
+    by_name: dict = {}
+    for e in runtime:
+        ms, calls = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (ms + e["dur"] / 1e3, calls + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     return {
         "wall_ms_per_step": wall / 1e3 / steps,
         "device_busy_ms_per_step": busy / 1e3 / steps,
@@ -2511,25 +2630,30 @@ def trace_stats(trace: dict, steps: int) -> dict:
         "cuda_runtime_ms_per_step": sum(e["dur"] for e in runtime)
         / 1e3 / steps,
         "cuda_runtime_calls_per_step": len(runtime) / steps,
+        "cuda_runtime_by_name_per_step": {
+            name: {"ms": ms / steps, "calls": calls / steps}
+            for name, (ms, calls) in top},
         "attention_kernel_events": sum(
             1 for e in kernels
             if "attention_" in e["name"] and "_kernel" in e["name"])}
 
 
-def trace_run(torch, work: Path) -> dict:
-    """``--profile_dir`` on the dedup + arena feed for TRACE_STEPS steps:
-    train_lib must write one trace (steps 10-15) that holds the attention
-    kernel's events. A session whose device activity CUPTI lost is run
-    again, up to PROFILER_SESSIONS times; then the run fails."""
+def trace_run(torch, work: Path, k: int = 1) -> dict:
+    """``--profile_dir`` on the dedup + arena feed for TRACE_STEPS steps at
+    ``--steps_per_dispatch k``: train_lib must write one trace (steps 10-15
+    at k = 1, ``train_lib.profile_window(k)``) that holds the attention
+    kernel's events (at k > 1 from the graph's replays). A session whose
+    device activity CUPTI lost is run again, up to PROFILER_SESSIONS
+    times; then the run fails."""
     from auformer_torch import train_lib
     from auformer_torch.core.config import parse_opt
-    first, last = train_lib.PROFILE_STEPS
+    first, last = train_lib.profile_window(k)
     for attempt in range(PROFILER_SESSIONS):
-        trace_dir = work / f"trace_{attempt}"
+        trace_dir = work / f"trace_k{k}_{attempt}"
         cfg = parse_opt(train_argv(
-            work, "exp_feed_trace", "--epochs", "1", "--frame_dedup",
+            work, f"exp_feed_trace_k{k}", "--epochs", "1", "--frame_dedup",
             "--device_audio", "--locality_run", str(FEED_RUN),
-            "--profile_dir", str(trace_dir)))
+            "--steps_per_dispatch", str(k), "--profile_dir", str(trace_dir)))
         _, history = train_lib.train(cfg, max_steps_per_epoch=TRACE_STEPS)
         files = sorted(trace_dir.glob("trace_*.json"))
         if history[0]["steps"] != TRACE_STEPS or len(files) != 1:
@@ -2538,7 +2662,8 @@ def trace_run(torch, work: Path) -> dict:
         stats = trace_stats(json.loads(files[0].read_text()), last - first)
         PROFILER_LOG["sessions"] += 1
         if stats["attention_kernel_events"] > 0:
-            return {**stats, "sessions": attempt + 1,
+            return {**stats, "steps_per_dispatch": k,
+                    "window": [first, last], "sessions": attempt + 1,
                     "trace_mb": files[0].stat().st_size / 2 ** 20}
         PROFILER_LOG["sessions_without_device_time"] += 1
     fail(f"{PROFILER_SESSIONS} --profile_dir traces held no attention "
@@ -2554,8 +2679,8 @@ def phase_feed(torch, dev, work: Path, sd: dict) -> dict:
     first batch expanded and gathered equals (a)'s (clips and windows,
     torch.equal), one fp32 step from one state through both feeds gives
     one loss (FEED_LOSS_RTOL), the attention launches of every run, and a
-    --profile_dir trace with the attention kernel's events. Returns (b)'s
-    launches: the slice's main path."""
+    --profile_dir trace with the attention kernel's events. Returns (b):
+    its launches are the slice's main path's."""
     from auformer_torch.core.config import parse_opt
     from auformer_torch.core.weights import load_weights
     from auformer_torch.nn import build_model, loss_suite
@@ -2615,7 +2740,224 @@ def phase_feed(torch, dev, work: Path, sd: dict) -> dict:
          first_batch_equal=same, fp32_step_loss=losses,
          fp32_step_loss_rel=rel, profile_dir_trace=trace,
          phase_s=time.perf_counter() - t_phase)
-    return fed["launches"]
+    return fed
+
+
+def train_tensors(state) -> dict:
+    """Every parameter and BatchNorm statistic of the state's model, and
+    Adam's moments and step counts."""
+    out = {f"model.{k}": v.detach().clone()
+           for k, v in state.model.state_dict().items()}
+    for i, s in state.optimizer.state_dict()["state"].items():
+        for name in ("exp_avg", "exp_avg_sq", "step"):
+            out[f"adam.{i}.{name}"] = s[name].detach().clone()
+    return out
+
+
+def k_step_run(torch, cfg, model, start: dict, batches: list, seeds: list,
+               k: int | None = None) -> tuple:
+    """From the weights ``start``, loaded into ``model``, with a fresh
+    capturable Adam: the steps of ``batches`` (device batches) with
+    ``seeds``, as dispatches of ``make_multi_train_step(k)`` or (k None)
+    eager single steps. -> (losses, train_tensors, step_k, state)."""
+    from auformer_torch.nn import loss_suite
+    from auformer_torch.parallel import step as tstep
+    model.load_state_dict(start)
+    state = tstep.create_train_state(cfg, model, capturable=True)
+    if k is None:
+        step = tstep.make_train_step(cfg, model, loss_suite(model))
+        gen = torch.Generator(next(model.parameters()).device)
+        losses = torch.stack([step(state, b, gen.manual_seed(s))["loss"]
+                              for b, s in zip(batches, seeds)])
+        return losses, train_tensors(state), None, state
+    step_k = tstep.make_multi_train_step(cfg, model, loss_suite(model), k)
+    losses = []
+    for d in range(0, len(batches), k):
+        stacked = {key: torch.stack([b[key] for b in batches[d:d + k]])
+                   for key in batches[0]}
+        losses.append(step_k(state, stacked, seeds[d:d + k])["loss"])
+    return torch.cat(losses), train_tensors(state), step_k, state
+
+
+class deterministic:
+    """While active: cuDNN's deterministic algorithms and PyTorch's
+    deterministic implementations (a warning, not an error, for an op
+    without one), so that two eager runs of the same steps agree bit for
+    bit where they can. Without them a model that trains its convolutions
+    differs run to run (cuDNN's weight-gradient atomics), and 4 steps of
+    Adam amplify that past any fixed bound (vformer at 32x32 on an H100:
+    1.4e-2 in the loss, graph against eager, beside 3.8e-3 between two
+    eager runs)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        torch = self.torch
+        self.saved = (torch.backends.cudnn.deterministic,
+                      torch.backends.cudnn.benchmark,
+                      torch.are_deterministic_algorithms_enabled(),
+                      torch.is_deterministic_algorithms_warn_only_enabled())
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        return self
+
+    def __exit__(self, *exc):
+        torch = self.torch
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         on, warn_only) = self.saved
+        torch.use_deterministic_algorithms(on, warn_only=warn_only)
+
+
+def graph_against_eager(torch, what: str, got: dict, want: dict,
+                        other: dict) -> dict:
+    """The graph's tensors ``got`` against an eager run's ``want``: equal
+    bit for bit wherever two eager runs (``want``, ``other``) are, else
+    within twice their spread; fails otherwise."""
+    counts = {"tensors": len(want), "bitwise_in_eager": 0,
+              "max_eager_spread": 0.0, "max_abs_diff": 0.0}
+    for key, value in want.items():
+        spread = (value.double() - other[key].double()).abs().max().item()
+        diff = (got[key].double() - value.double()).abs().max().item()
+        counts["max_eager_spread"] = max(counts["max_eager_spread"], spread)
+        counts["max_abs_diff"] = max(counts["max_abs_diff"], diff)
+        if spread == 0:
+            counts["bitwise_in_eager"] += 1
+            if not torch.equal(got[key], value):
+                fail(f"{what}: the graph's {key} differs by {diff} where two "
+                     f"eager runs agree bit for bit")
+        elif diff > 2 * spread:
+            fail(f"{what}: the graph's {key} differs by {diff}, twice the "
+                 f"eager runs' spread is {2 * spread}")
+    return counts
+
+
+def graph_check(torch, dev, name: str, weights: dict) -> dict:
+    """fp32, full width, B=64, --device_augment, dropout on: GRAPH_STEPS
+    steps as dispatches of GRAPH_K through ``make_multi_train_step`` (the
+    warm-up, then a capture and its replays) against the same steps eager
+    from the same weights and seeds (twice, for their spread), all with
+    the capturable Adam: losses, every parameter and BatchNorm statistic,
+    Adam's moments."""
+    from auformer_torch.core.config import Config
+    from auformer_torch.core.weights import load_weights
+    from auformer_torch.nn import build_model
+    modality = {"avformer": "A;V", "vformer": "V"}[name]
+    cfg = Config(model_name=name, modality=modality, task="AU",
+                 compute_dtype="float32", image_size=IMAGE, n_frames=FRAMES,
+                 batch_size=TRAIN_BATCH, device_augment=True)
+    model = build_model(cfg, dtype=torch.float32)
+    load_weights(model, weights)
+    model.to(dev)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    rs = np.random.RandomState(SEED + 11)
+    batches = [on(torch, train_batch(rs, TRAIN_BATCH), dev)
+               for _ in range(GRAPH_STEPS)]
+    seeds = [SEED + 100 + i for i in range(GRAPH_STEPS)]
+    with deterministic(torch):
+        eager = [k_step_run(torch, cfg, model, start, batches, seeds)
+                 for _ in range(2)]
+        losses, got, step_k, _ = k_step_run(torch, cfg, model, start,
+                                            batches, seeds, k=GRAPH_K)
+    (want_loss, want, _, _), (other_loss, other, _, _) = eager
+    checked = graph_against_eager(
+        torch, f"{name} fp32", {"loss": losses, **got},
+        {"loss": want_loss, **want}, {"loss": other_loss, **other})
+    result = {"losses_graph": losses.tolist(),
+              "losses_eager": [want_loss.tolist(), other_loss.tolist()],
+              "captures": step_k.captures, "capture_s": step_k.capture_s,
+              "replays": step_k.replays, "pool_mb": step_k.pool_mb,
+              "launches_per_graphed_step": dict(zip(
+                  ("attention", "attention_backward", "mel"),
+                  step_k.captured_counts)), **checked}
+    del model, step_k, batches, eager, got, start
+    torch.cuda.empty_cache()
+    return result
+
+
+def capture_failure_check(torch, dev) -> dict:
+    """A host sync (``float(loss)``) put into the step after the warm-up
+    dispatch (vformer, 32x32, B=4): the next dispatch must raise from the
+    capture, and no step may run in its place (the step count and the
+    weights stay)."""
+    from auformer_torch.core.config import Config
+    from auformer_torch.nn import build_model
+    from auformer_torch.parallel import step as tstep
+    cfg = Config(model_name="vformer", modality="V", task="AU",
+                 compute_dtype="float32", image_size=32, n_frames=4,
+                 batch_size=4, device_augment=True)
+    model = build_model(cfg).to(dev)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    rs = np.random.RandomState(SEED + 12)
+    batches = [on(torch, zoo_step_batch(rs, "vformer", "V", 4, 32, 4), dev)
+               for _ in range(2 * GRAPH_K)]
+    seeds = list(range(2 * GRAPH_K))
+    _, _, step_k, state = k_step_run(torch, cfg, model, start,
+                                     batches[:GRAPH_K], seeds[:GRAPH_K],
+                                     k=GRAPH_K)
+    task_loss = tstep.task_loss
+
+    def syncing(*args, **kw):
+        loss, parts = task_loss(*args, **kw)
+        float(loss)
+        return loss, parts
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    stacked = {key: torch.stack([b[key] for b in batches[GRAPH_K:]])
+               for key in batches[0]}
+    tstep.task_loss = syncing
+    try:
+        step_k(state, stacked, seeds[GRAPH_K:])
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    finally:
+        tstep.task_loss = task_loss
+    torch.cuda.synchronize()
+    moved = [k for k, v in model.state_dict().items()
+             if not torch.equal(v, before[k])]
+    if (raised is None or "capturing the train step" not in raised
+            or step_k.graph is not None or state.step != GRAPH_K or moved):
+        fail(f"a host sync in the step: raised {raised!r}, graph "
+             f"{step_k.graph}, {state.step} steps, moved {moved[:3]}")
+    return {"raised": raised[:300], "steps_after": state.step}
+
+
+def phase_graph(torch, dev, work: Path, sd: dict, fed: dict) -> dict:
+    """The graph sub-phase (``--steps_per_dispatch K``, a CUDA graph of the
+    step): the fp32 checks of avformer and vformer, two epochs of the fed
+    loop (``feed`` (b)'s flags) at K = FEED_GRAPH_K beside (b)'s K = 1
+    numbers, its --profile_dir trace, and a capture that must fail. The
+    zoo's graphed dispatches run in ``zoo_train_steps``."""
+    from auformer_torch.core.config import Config
+    from auformer_torch.nn import build_model
+    t_phase = time.perf_counter()
+    checks = {"avformer": graph_check(torch, dev, "avformer", sd)}
+    vf_sd = random_reference_state_dict(build_model(Config(
+        model_name="vformer", modality="V", compute_dtype="float32")),
+        SEED + 3)
+    checks["vformer"] = graph_check(torch, dev, "vformer", vf_sd)
+    # two epochs: the first holds the warm-up and the capture, the
+    # second only replays and the sub-K tail
+    graphed, _, _ = feed_run(torch, work, "exp_feed_graph", "--frame_dedup",
+                             "--device_audio", "--locality_run",
+                             str(FEED_RUN), "--steps_per_dispatch",
+                             str(FEED_GRAPH_K), "--epochs", "2")
+    if graphed["graph"] is None or graphed["graph"]["captures"] != 1:
+        fail(f"--steps_per_dispatch {FEED_GRAPH_K}: {graphed['graph']}")
+    torch.cuda.empty_cache()
+    trace = trace_run(torch, work, FEED_GRAPH_K)
+    failure = capture_failure_check(torch, dev)
+    keys = ("clips_per_s", "step_timer_ms", "peak_memory_mb", "loss",
+            "launches", "backward_calls", "steps", "epoch_s", "graph",
+            "epochs")
+    return {"fp32_graph_vs_eager": checks,
+            "fed_loop": {"k1": {key: fed.get(key) for key in keys},
+                         f"k{FEED_GRAPH_K}": {key: graphed[key]
+                                              for key in keys}},
+            "profile_dir_trace": trace, "capture_failure": failure,
+            "launches": graphed["launches"],
+            "phase_s": time.perf_counter() - t_phase}
 
 
 def phase_train(torch, dev) -> tuple[dict, list, dict]:
@@ -2713,7 +3055,8 @@ def phase_train(torch, dev) -> tuple[dict, list, dict]:
     if audio_state.step != 5 or not np.isfinite(audio_hist[0]["loss"]):
         fail(f"--device_audio ran {audio_state.step} steps")
     del audio_state
-    feed_launches = phase_feed(torch, dev, work, sd)
+    fed = phase_feed(torch, dev, work, sd)
+    graph = phase_graph(torch, dev, work, sd, fed)
 
     prof = profile_steps(torch, dev, state.model, work,
                          train_argv(work, "exp_profile"),
@@ -2781,6 +3124,10 @@ def phase_train(torch, dev) -> tuple[dict, list, dict]:
     del vf_state
     torch.cuda.empty_cache()
     zoo_train = zoo_train_steps(torch, dev)
+    graph["zoo"] = {name: r.pop("graph") for name, r in zoo_train.items()}
+    emit("graph", nvidia_smi=nvidia_smi(), batch=TRAIN_BATCH,
+         steps_per_dispatch={"checks": GRAPH_K, "fed_loop": FEED_GRAPH_K},
+         **graph)
 
     warm = history[1]
     emit("train", videos=list(TRAIN_FRAMES), image=IMAGE, t=FRAMES,
@@ -2816,9 +3163,12 @@ def phase_train(torch, dev) -> tuple[dict, list, dict]:
          phase_s=time.perf_counter() - t_phase)
     shutil.rmtree(work, ignore_errors=True)   # the split and the .pth files
     launches = {key: launches[key] + vf_launches[key] for key in launches}
-    return {"train": launches, "feed": feed_launches}, grad_cases, {
+    return {"train": launches, "feed": fed["launches"],
+            "graph": graph["launches"]}, grad_cases, {
         "avformer": prof["attention_in_step"],
-        "vformer": vf_prof["attention_in_step"]}
+        "vformer": vf_prof["attention_in_step"],
+        "graphed_step": graph["fed_loop"][f"k{FEED_GRAPH_K}"]["graph"][
+            "launches_per_graphed_step"]}
 
 
 def main() -> int:
@@ -2885,6 +3235,9 @@ def main() -> int:
                               "forward_fusion_head": ATTN_HEAD_FWD_PER_STEP,
                               "backward": ATTN_BWD_PER_STEP},
         "traced_bf16": attention_in_step["avformer"],
+        # --steps_per_dispatch: a CUDA graph's replay runs the launches its
+        # capture recorded (counted per replay)
+        "launches_per_graphed_step": attention_in_step["graphed_step"],
         # vformer trains every attention layer: per call at its spatial
         # and temporal sites, and the trace's device ms per step by site
         "vformer": {

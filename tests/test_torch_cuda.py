@@ -12,6 +12,7 @@ import functools
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from auformer_torch.core.config import Config
 from auformer_torch.infer import make_infer_fn
@@ -838,3 +839,186 @@ def test_clip_expander_on_the_card_matches_the_cpu(cuda_device):
     assert got["clip"].device.type == "cuda"
     assert got["clip"].shape == (64, 16, 112, 112, 3)
     assert torch.equal(got["clip"].cpu(), want["clip"])
+
+
+# -- K steps per dispatch: a CUDA graph of the train step ------------------------
+
+def _train_tensors(state) -> dict:
+    """Every parameter and BatchNorm statistic, and Adam's moments and step
+    counts."""
+    out = {f"model.{k}": v.detach().clone()
+           for k, v in state.model.state_dict().items()}
+    for i, s in state.optimizer.state_dict()["state"].items():
+        for name in ("exp_avg", "exp_avg_sq", "step"):
+            out[f"adam.{i}.{name}"] = s[name].detach().clone()
+    return out
+
+
+def _k_step_run(cfg, weights, batches, seeds, dev, k=None):
+    """The steps of ``batches`` with ``seeds`` from ``weights``, with the
+    capturable optimizer: dispatches of ``make_multi_train_step(k)``, or
+    (k None) eager single steps. -> (losses, _train_tensors, step_k,
+    state)."""
+    from auformer_torch.nn import loss_suite
+    from auformer_torch.parallel import step as tstep
+    model = build_model(cfg)
+    model.load_state_dict(weights)
+    model.to(dev)
+    state = tstep.create_train_state(cfg, model, capturable=True)
+    if k is None:
+        step = tstep.make_train_step(cfg, model, loss_suite(model))
+        gen = torch.Generator(dev)
+        losses = torch.stack([step(state, b, gen.manual_seed(s))["loss"]
+                              for b, s in zip(batches, seeds)])
+        return losses, _train_tensors(state), None, state
+    step_k = tstep.make_multi_train_step(cfg, model, loss_suite(model), k)
+    losses = []
+    for d in range(0, len(batches), k):
+        stacked = {key: torch.stack([b[key] for b in batches[d:d + k]])
+                   for key in batches[0]}
+        losses.append(step_k(state, stacked, seeds[d:d + k])["loss"])
+    return torch.cat(losses), _train_tensors(state), step_k, state
+
+
+def _graph_case(name, dev, seed=20):
+    """A 32x32 fp32 config of ``name`` with augmentation and dropout on, its
+    seeded weights and 4 batches of B=4 on ``dev``."""
+    modality, t = {"avformer": ("A;V", 16), "vformer": ("V", 4)}[name]
+    cfg = Config(model_name=name, modality=modality, task="AU", n_frames=t,
+                 image_size=32, compute_dtype="float32", batch_size=4,
+                 learning_rate=1e-3, device_augment=True)
+    torch.manual_seed(seed)
+    weights = build_model(cfg).state_dict()
+    batches = []
+    for i in range(4):
+        b = _symmetric_batch(seed + i)
+        b["clip"] = np.ascontiguousarray(b["clip"][:, :t])
+        batches.append({k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+    return cfg, weights, batches, [1000 + i for i in range(4)]
+
+
+@pytest.fixture
+def deterministic():
+    """cuDNN's deterministic algorithms and PyTorch's deterministic
+    implementations (a warning for an op without one): without them a
+    model that trains its convolutions differs run to run, and a few Adam
+    steps amplify that past any fixed bound."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    yield
+    torch.backends.cudnn.deterministic = saved[0]
+    torch.use_deterministic_algorithms(saved[1], warn_only=saved[2])
+
+
+def test_max_pool_same_trains_deterministically(cuda_device, deterministic):
+    """Under deterministic algorithms ``max_pool_same`` trains through the
+    separable route (max_pool3d's CUDA backward scatters with atomics):
+    two backward passes of i3d's overlapping pools in bf16 agree bit for
+    bit, and on a tie-rich integer input with an integer upstream
+    gradient both the values and the input gradient equal
+    ``F.max_pool3d``'s."""
+    from auformer_torch.nn import blocks
+    rs = np.random.RandomState(70)
+    for kernel, stride in (((1, 3, 3), (1, 2, 2)), ((3, 3, 3), (1, 1, 1))):
+        x = torch.from_numpy(rs.randn(8, 64, 8, 28, 28).astype(
+            np.float32)).to(cuda_device, torch.bfloat16)
+        grads, g = [], None
+        for _ in range(2):
+            xt = x.clone().requires_grad_()
+            y = blocks.max_pool_same(xt, kernel, stride)
+            if g is None:
+                g = torch.from_numpy(rs.randn(*y.shape).astype(
+                    np.float32)).to(cuda_device, torch.bfloat16)
+            y.backward(g)
+            grads.append(xt.grad)
+        assert torch.equal(grads[0], grads[1])
+        x = torch.from_numpy(rs.randint(-3, 3, (2, 8, 6, 15, 15)).astype(
+            np.float32)).to(cuda_device)
+        g = None
+        outs = []
+        for route in ("separable", "max_pool3d"):
+            xt = x.clone().requires_grad_()
+            if route == "separable":
+                y = blocks.max_pool_same(xt, kernel, stride)
+            else:
+                pads = blocks.same_pads(x.shape[2:], kernel, stride)
+                xp = F.pad(xt, blocks._torch_pad(pads), value=float("-inf"))
+                y = F.max_pool3d(xp, kernel, stride)
+            if g is None:
+                g = torch.from_numpy(rs.randint(-4, 5, y.shape).astype(
+                    np.float32)).to(cuda_device)
+            y.backward(g)
+            outs.append((y.detach(), xt.grad))
+        assert torch.equal(outs[0][0], outs[1][0])
+        assert torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.parametrize("name", ["avformer", "vformer"])
+def test_multi_step_graph_matches_eager_steps(cuda_device, deterministic,
+                                              name):
+    """2 dispatches of K = 2 (the warm-up, then a capture and its replays)
+    against 4 eager steps from the same weights and seeds, with the same
+    capturable Adam: losses, parameters, BatchNorm statistics, Adam's
+    moments equal wherever two eager runs are equal, else within twice
+    their spread. The replays draw the augmentation and dropout masks the
+    eager steps draw."""
+    cfg, weights, batches, seeds = _graph_case(name, cuda_device)
+    eager = [_k_step_run(cfg, weights, batches, seeds, cuda_device)
+             for _ in range(2)]
+    losses, tensors, step_k, _ = _k_step_run(cfg, weights, batches, seeds,
+                                             cuda_device, k=2)
+    assert (step_k.captures, step_k.replays) == (1, 2)
+    (want_loss, want, _, _), (other_loss, other, _, _) = eager
+    pairs = [("loss", losses, want_loss, other_loss)] + [
+        (key, tensors[key], value, other[key]) for key, value in want.items()]
+    for key, got, value, alt in pairs:
+        spread = (value.double() - alt.double()).abs().max()
+        if spread == 0:
+            assert torch.equal(got, value), key
+        else:
+            assert (got.double() - value.double()).abs().max() \
+                <= 2 * spread, key
+
+
+def test_multi_step_counts_launches_per_replay(cuda_device):
+    """The attention kernel's launches and backward calls count the
+    kernels run: the warm-up's eagerly, then the capture's per replay
+    (avformer: 11 and 3 per step)."""
+    cfg, weights, batches, seeds = _graph_case("avformer", cuda_device)
+    before = (tatt.fused_attention.launches,
+              tatt.fused_attention.backward_calls)
+    _, _, step_k, _ = _k_step_run(cfg, weights, batches, seeds, cuda_device,
+                                  k=2)
+    torch.cuda.synchronize()
+    assert step_k.captured_counts == (11, 3, 0)
+    assert (tatt.fused_attention.launches - before[0],
+            tatt.fused_attention.backward_calls - before[1]) == (44, 12)
+
+
+def test_multi_step_capture_that_fails_raises(cuda_device, monkeypatch):
+    """A host sync inside the step breaks the capture: the dispatch raises
+    naming it, and no step runs in its place."""
+    from auformer_torch.parallel import step as tstep
+    cfg, weights, batches, seeds = _graph_case("vformer", cuda_device)
+    _, _, step_k, state = _k_step_run(cfg, weights, batches[:2], seeds[:2],
+                                      cuda_device, k=2)
+    task_loss = tstep.task_loss
+
+    def syncing(*args, **kw):
+        loss, parts = task_loss(*args, **kw)
+        float(loss)
+        return loss, parts
+    monkeypatch.setattr(tstep, "task_loss", syncing)
+    before = {k: v.clone() for k, v in step_k.model.state_dict().items()}
+    stacked = {key: torch.stack([b[key] for b in batches[2:]])
+               for key in batches[0]}
+    with pytest.raises(RuntimeError, match="capturing the train step"):
+        step_k(state, stacked, seeds[2:])
+    torch.cuda.synchronize()
+    assert step_k.graph is None and step_k.captures == 0
+    assert state.step == 2
+    for key, value in step_k.model.state_dict().items():
+        assert torch.equal(value, before[key]), key

@@ -18,8 +18,8 @@
   * ``train_lib.train`` on the port's fixtures with ``device="cpu"``:
     checkpoints, curves, scores, resume, determinism; the checkpoint loads
     into the JAX package and into the port's ``test_aff2``;
-  * the entry point refuses the CPU unless asked, and every flag the port
-    does not run raises naming its ROADMAP item.
+  * the entry point refuses the CPU unless asked, host augmentation raises
+    naming its ROADMAP item, and ``--steps_per_dispatch 2`` runs.
 
 One synthetic reference-layout state dict
 (``tests/test_torch_import.py::synthetic_avformer_sd``) loads into both
@@ -822,14 +822,18 @@ def test_entry_point_refuses_the_cpu_unasked(fixture_dirs):
         train_entry.main(_argv(base, root, labels, "exp_cpu"))
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--steps_per_dispatch", "2"], "A13"),
-])
-def test_unported_flags_raise(fixture_dirs, flags, item):
+def test_steps_per_dispatch_runs(fixture_dirs):
+    """--steps_per_dispatch 2 (ROADMAP.md A13), refused until the K-step
+    dispatch was ported: 3 steps are a dispatch of 2 and a 1-step tail
+    (tests/test_torch_multistep.py holds them against K = 1)."""
     base, root, labels = fixture_dirs
-    with pytest.raises(NotImplementedError, match=item):
-        train_entry.main(_argv(base, root, labels, "exp_flags", *flags),
-                         device="cpu")
+    cfg = train_entry.parse_opt(_argv(base, root, labels, "exp_spd",
+                                      "--steps_per_dispatch", "2",
+                                      "--epochs", "1", "--n_frames", "4"))
+    state, history = train_lib.train(cfg, max_steps_per_epoch=3,
+                                     device="cpu")
+    assert state.step == history[0]["steps"] == 3
+    assert np.isfinite(history[0]["loss"])
 
 
 def test_host_augmentation_raises(fixture_dirs):

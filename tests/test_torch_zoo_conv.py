@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from flax import linen as fnn
 
 from auformer import infer as jax_infer
@@ -206,6 +207,37 @@ def test_same_conv_and_pool_match_flax(size, op):
     np.testing.assert_array_equal(
         blocks.max_pool_same(xt, kernel, stride).numpy(),
         want.transpose(0, 4, 1, 2, 3))
+
+
+@pytest.mark.parametrize("size", SAME_SIZES)
+@pytest.mark.parametrize("op", range(len(SAME_OPS)))
+def test_separable_max_pool_matches_max_pool3d(size, op):
+    """``max_pool3d_separable`` (the deterministic route of
+    ``max_pool_same`` on CUDA) against ``F.max_pool3d``, on the input
+    padded with -inf to SAME and on the pool's own padding, on a tie-rich
+    integer input: equal values, and with an integer upstream gradient
+    (exact sums) equal input gradients, so each window's gradient goes to
+    the same element."""
+    kernel, stride = SAME_OPS[op]
+    rs = np.random.RandomState(60 + op)
+    x = rs.randint(-3, 3, (2, 3, *size)).astype(np.float32)
+    same = blocks._torch_pad(blocks.same_pads(size, kernel, stride))
+    g = None
+    for pad, padding in ((same, (0, 0, 0)),
+                         ([0] * 6, tuple(k // 2 for k in kernel))):
+        outs = []
+        for pool in (F.max_pool3d, blocks.max_pool3d_separable):
+            xt = torch.from_numpy(x).requires_grad_()
+            y = pool(F.pad(xt, pad, value=float("-inf")), kernel, stride,
+                     padding)
+            if g is None or g.shape != y.shape:
+                g = torch.from_numpy(
+                    rs.randint(-4, 5, y.shape).astype(np.float32))
+            y.backward(g)
+            outs.append((y.detach(), xt.grad))
+        (want_y, want_g), (got_y, got_g) = outs
+        assert torch.equal(got_y, want_y)
+        assert torch.equal(got_g, want_g)
 
 
 # -- bf16: the new module kinds against flax with dtype=bfloat16 ---------------
