@@ -67,7 +67,7 @@ class Config:
     log_every: int = 50
     strict_parity: bool = False           # f32 everywhere for bit-faithful checks
     profile_dir: str = ""                 # profiler trace dir ("" = off)
-    device_augment: bool = False          # AutoAugment on device (XLA) instead of host PIL
+    device_augment: bool = False          # AutoAugment in the step instead of on the host
     device_audio: bool = False            # mel frontend on device inside the train/eval
                                           # step (host ships raw windows; kills the
                                           # ~6 ms/clip host STFT the reference pays in
@@ -89,7 +89,7 @@ class Config:
                                           # make_clip_expander): overlapping dilated
                                           # windows then cost ~1 decode + ~1 H2D
                                           # frame each instead of clip_len of both.
-                                          # Requires device_augment (host PIL aug
+                                          # Requires device_augment (host aug
                                           # is per-sample and would fork shared
                                           # frames before dedup could see them).
     locality_run: int = 0                 # train sampler: shuffle contiguous runs

@@ -1,7 +1,6 @@
 """The data layer (counterpart of auformer/data): FrameStores and their
-native reader, the split builder, the datasets, samplers and loader, and
-the wav arena (wav_arena.py). The JAX package's host augmentation
-(ROADMAP.md queue A10) is not ported."""
+native reader, the split builder, the datasets, samplers and loader, the
+wav arena (wav_arena.py) and the host AutoAugment (transforms.py)."""
 from .framestore import FrameStore, FrameStoreWriter, open_store
 from .samplers import (DataLoader, Prefetcher, SubsetRandomSampler,
                        SubsetSequentialSampler, BlockShuffleSampler,

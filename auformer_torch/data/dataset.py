@@ -21,17 +21,20 @@ raw left-aligned window (``cfg.device_audio``).
   * the wav arena (``set_audio_arena``, data/wav_arena.py): device-audio
     samples carry int32 arena offsets instead of raw windows.
 
-Training reads the train and val ids; the dataset never augments (the
-train step does, ``--device_augment``), so ``set_aug(False)`` is a no-op.
-Host AutoAugment, ``set_aug(True)``, is not ported and raises
-``NotImplementedError`` naming ROADMAP.md A10: it is PIL's, which the
-card's machine lacks, and a PIL-free version must be bit-exact with it;
-train with ``--device_augment`` (ops/augment_device.py) instead.
+Training reads the train and val ids. Under ``set_aug(True)`` (training
+without ``--device_augment``) each dense clip goes through the host
+AutoAugment (data/transforms.py: PIL's ops without PIL) with its own
+``random.Random((aug_seed << 32) ^ index)``, as in the JAX package, so
+an augmented clip depends on the epoch's seed and the index only, not on
+the loader thread or the worker process that makes it. With a
+``transforms.AugmentPool`` (training) the loader augments each batch in
+the pool's processes instead (``augment_batch``).
 """
 from __future__ import annotations
 
 import os
 import pickle
+import random
 import threading
 from collections import OrderedDict
 
@@ -42,14 +45,13 @@ from ..ops import audio_host
 from .framestore import open_store
 from .native import NativeFrameStore
 from .split import create_dataset_split
+from .transforms import train_augment
 
 STORE_IMAGES = "croped_jpeg"
 STORE_MASKS = "croped_mask"
 STORE_AU = "label_au"
 STORE_EX = "label_expr"
 STORE_VA = "label_va"
-
-_NOT_PORTED = "{} is not ported to auformer_torch yet (ROADMAP.md {})"
 
 
 class Aff2CompDataset:
@@ -103,6 +105,11 @@ class Aff2CompDataset:
         # set_frame_dedup: samples carry clip_keys, and DataLoader calls
         # assemble_batch once per batch
         self.frame_dedup = False
+        # host AutoAugment (set_aug) and its per-epoch seed: each sample's
+        # generator is Random((aug_seed << 32) ^ index)
+        self.aug = False
+        self.aug_seed = 0
+        self.aug_pool = None
 
         # decoded-frame LRU: overlapping dilated windows re-read each frame
         # up to clip_len times during sequential sweeps; caching decoded
@@ -146,13 +153,24 @@ class Aff2CompDataset:
     def set_modes(self, modes):
         self.modes = list(modes)
 
-    def set_aug(self, aug: bool):
-        """Host AutoAugment: the dataset never augments, so ``False`` is
-        the only setting and changes nothing."""
-        if aug:
-            raise NotImplementedError(
-                _NOT_PORTED.format("host (PIL) augmentation", "queue A10")
-                + "; train with --device_augment")
+    def set_aug(self, aug: bool, pool=None):
+        """Host AutoAugment (``transforms.train_augment``) of every dense
+        clip, seeded per sample from ``aug_seed`` and the index: in
+        ``__getitem__``, or with ``pool`` (a ``transforms.AugmentPool``)
+        per batch in its worker processes, which the ``DataLoader`` asks
+        for (``augment_batch``). A frame-dedup sample is never augmented
+        here."""
+        self.aug = bool(aug)
+        self.aug_pool = pool if aug else None
+
+    def augment_batch(self, batch: dict) -> dict:
+        """The collated ``batch`` with its clips augmented in the pool's
+        workers (clip b seeded from ``aug_seed`` and ``Index[b]``); the
+        batch as it is without a pool."""
+        if self.aug_pool is not None and "clip" in batch:
+            seeds = [(self.aug_seed << 32) ^ int(i) for i in batch["Index"]]
+            batch["clip"] = self.aug_pool.augment_batch(batch["clip"], seeds)
+        return batch
 
     def set_frame_dedup(self, on: bool):
         """Unique-frame batches: samples carry ``clip_keys`` and the
@@ -267,6 +285,12 @@ class Aff2CompDataset:
                 if mask is not None:
                     out[i, :, :, 3] = mask[:, :, 0]
 
+    @property
+    def clip_bytes(self) -> int:
+        """The bytes of one uint8 clip (``get_clip``)."""
+        h, w = self.input_size
+        return self.clip_len * h * w * (4 if self.use_mask else 3)
+
     def get_clip(self, index: int) -> np.ndarray:
         h, w = self.input_size
         clip = np.zeros((self.clip_len, h, w, 4 if self.use_mask else 3),
@@ -357,7 +381,13 @@ class Aff2CompDataset:
         if self.frame_dedup:
             data["clip_keys"] = self._clip_keys(index)
         else:
-            data["clip"] = self.get_clip(index)  # uint8 (T,H,W,C)
+            clip = self.get_clip(index)  # uint8 (T,H,W,C)
+            if self.aug and self.aug_pool is None:
+                # the policy's ops act on channels 0:3 (a mask passes
+                # through) and the flip moves every channel
+                clip = train_augment(
+                    clip, random.Random((self.aug_seed << 32) ^ index))
+            data["clip"] = clip
         data["AU"] = self.get_label(current, "au")
         data["EX"] = self.get_label(current, "ex")
         data["VA"] = self.get_label(current, "va")

@@ -145,6 +145,9 @@ class DataLoader:
         # batched decoder; otherwise per-sample tasks and collate
         assemble = (self.dataset.assemble_batch
                     if getattr(self.dataset, "frame_dedup", False) else None)
+        # a dataset may finish a collated batch as a unit (the host
+        # AutoAugment's worker pool, dataset.augment_batch)
+        finish = getattr(self.dataset, "augment_batch", lambda b: b)
         with ThreadPoolExecutor(self.num_threads) as pool:
             pending: queue.Queue = queue.Queue()
             batch_iter = self._batches()
@@ -170,7 +173,8 @@ class DataLoader:
             while not pending.empty():
                 done = [f.result() for f in pending.get()]
                 submit_next()
-                yield done[0] if assemble is not None else collate(done)
+                yield (done[0] if assemble is not None
+                       else finish(collate(done)))
 
 
 class Prefetcher:

@@ -23,6 +23,13 @@ Deliberate differences from the JAX package:
     to brightness, contrast, color and sharpness (augment_device.py:276-277
     and ``_slot_apply``); here the factor is 1 + magnitude * sign, as the
     host path (data/transforms.py:74-80) and the upstream reference use.
+  * Shear and autocontrast (ROADMAP C9): the JAX code resamples shear with
+    the a = -0.5 cubic rounded half to even (augment_device.py:347,
+    :442-444) and builds the autocontrast table in f32; here both follow
+    PIL, as the host path (data/transforms.py) does: the a = -1 cubic in
+    Horner form in f64 on clamped taps, truncated, at the table's f64
+    magnitude, and ``int(ix * scale + offset)`` in f64. Both equal the
+    host op bit for bit.
   * The rotation's cos/sin are computed in f64 and rounded to f32 (the same
     bits on the CPU and the card); XLA's f32 cos/sin differ from them by an
     ulp at some angles, which moves a nearest sample at a pixel edge.
@@ -128,16 +135,27 @@ def equalize(img: torch.Tensor) -> torch.Tensor:
     return _per_channel(img, eq_channel)
 
 
+def _autocontrast_lut(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """PIL ImageOps.autocontrast(cutoff=0)'s table for channels of range
+    [lo, hi] (f64, any shape S): ``int(ix * scale + offset)`` with
+    ``scale = 255 / (hi - lo)`` and ``offset = -lo * scale`` in f64,
+    clipped to [0, 255]; the identity where hi <= lo. (S..., 256) int32."""
+    ix = torch.arange(256, dtype=torch.float64, device=lo.device)
+    # a tensor over a tensor: ``255.0 / t`` would multiply by t's
+    # reciprocal, which is not the correctly rounded quotient
+    span = torch.clamp(hi - lo, min=1.0)[..., None]
+    scale = torch.full_like(span, 255.0) / span
+    offset = -lo[..., None] * scale
+    lut = torch.clamp(torch.trunc(ix * scale + offset), 0, 255).int()
+    return torch.where((hi > lo)[..., None], lut, ix.int())
+
+
 def autocontrast(img: torch.Tensor) -> torch.Tensor:
     """PIL ImageOps.autocontrast(cutoff=0): per-channel remap of [lo, hi]
-    to [0, 255] with int truncation."""
+    to [0, 255] (``_autocontrast_lut``)."""
     def ac_channel(ch):
-        lo, hi = ch.min().float(), ch.max().float()
-        if not hi > lo:
-            return ch
-        ix = torch.arange(256, dtype=torch.float32, device=ch.device)
-        lut = torch.clamp((ix - lo) * (255.0 / (hi - lo)), 0, 255)
-        return torch.floor(lut + 1e-5).to(torch.uint8)[ch.long()]
+        lut = _autocontrast_lut(ch.min().double(), ch.max().double())
+        return lut.to(torch.uint8)[ch.long()]
     return _per_channel(img, ac_channel)
 
 
@@ -193,10 +211,9 @@ def _rotation(degrees: torch.Tensor):
     return torch.cos(ang).float(), torch.sin(ang).float()
 
 
-def _affine_sample(img: torch.Tensor, coeffs, resample: str) -> torch.Tensor:
-    """PIL Image.transform(AFFINE, coeffs): out(x, y) = in(a x + b y + c,
-    d x + e y + f) at pixel centres, sampled nearest or bicubic
-    (a = -0.5), gray fill."""
+def _affine_sample(img: torch.Tensor, coeffs) -> torch.Tensor:
+    """PIL Image.transform(AFFINE, coeffs), nearest: out(x, y) =
+    in(a x + b y + c, d x + e y + f) at pixel centres, gray fill."""
     a, b, c, d, e, f = coeffs
     h, w = img.shape[-3], img.shape[-2]
     ys, xs = torch.meshgrid(
@@ -205,55 +222,49 @@ def _affine_sample(img: torch.Tensor, coeffs, resample: str) -> torch.Tensor:
         indexing="ij")
     sx = a * (xs + 0.5) + b * (ys + 0.5) + c
     sy = d * (xs + 0.5) + e * (ys + 0.5) + f
-    fimg = img.float()
+    ix = torch.floor(sx).long()
+    iy = torch.floor(sy).long()
+    inside = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+    out = img[..., iy.clamp(0, h - 1), ix.clamp(0, w - 1), :]
+    return torch.where(inside[..., None], out,
+                       torch.full_like(out, int(FILL)))
 
-    if resample == "nearest":
-        ix = torch.floor(sx).long()
-        iy = torch.floor(sy).long()
-        inside = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
-        out = fimg[..., iy.clamp(0, h - 1), ix.clamp(0, w - 1), :]
-        return torch.where(inside[..., None], out,
-                           torch.full_like(out, FILL)).to(torch.uint8)
 
-    sx, sy = sx - 0.5, sy - 0.5
-    x0, y0 = torch.floor(sx), torch.floor(sy)
-    tx, ty = sx - x0, sy - y0
-    acc = 0.0
-    wacc = 0.0
-    for j in range(-1, 3):
-        for i in range(-1, 3):
-            px = x0.long() + i
-            py = y0.long() + j
-            wgt = _cubic_w(tx - i) * _cubic_w(ty - j)
-            pin = (px >= 0) & (px < w) & (py >= 0) & (py < h)
-            val = fimg[..., py.clamp(0, h - 1), px.clamp(0, w - 1), :]
-            val = torch.where(pin[..., None], val, torch.full_like(val, FILL))
-            acc = acc + wgt[..., None] * val
-            wacc = wacc + wgt
-    out = acc / wacc[..., None]
-    center_in = (sx >= -1) & (sx <= w) & (sy >= -1) & (sy <= h)
-    out = torch.where(center_in[..., None], out, torch.full_like(out, FILL))
-    return torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
+def _shear(img: torch.Tensor, magnitude, dim: int) -> torch.Tensor:
+    """PIL's affine BICUBIC shear along ``dim`` (2: x, 1: y) by the f64
+    ``magnitude`` (``_axis_resample``)."""
+    h, w, c = img.shape[-3:]
+    flat = img.reshape(-1, h, w, c)
+    ys, xs = torch.meshgrid(
+        torch.arange(h, dtype=torch.float64, device=img.device),
+        torch.arange(w, dtype=torch.float64, device=img.device),
+        indexing="ij")
+    m = float(magnitude)
+    src = ((xs + 0.5) + m * (ys + 0.5) if dim == 2
+           else m * (xs + 0.5) + (ys + 0.5))
+    t = flat.shape[0]
+    out = _axis_resample(flat, src.expand(t, h, w),
+                         torch.ones(t, dtype=torch.bool, device=img.device),
+                         dim)
+    return torch.clamp(out, 0, 255).to(torch.uint8).reshape(img.shape)
 
 
 def shear_x(img, magnitude):
-    return _affine_sample(img, (1.0, magnitude, 0.0, 0.0, 1.0, 0.0),
-                          "bicubic")
+    return _shear(img, magnitude, 2)
 
 
 def shear_y(img, magnitude):
-    return _affine_sample(img, (1.0, 0.0, 0.0, magnitude, 1.0, 0.0),
-                          "bicubic")
+    return _shear(img, magnitude, 1)
 
 
 def translate_x(img, frac):
     return _affine_sample(img, (1.0, 0.0, frac * img.shape[-2], 0.0, 1.0,
-                                0.0), "nearest")
+                                0.0))
 
 
 def translate_y(img, frac):
     return _affine_sample(img, (1.0, 0.0, 0.0, 0.0, 1.0,
-                                frac * img.shape[-3]), "nearest")
+                                frac * img.shape[-3]))
 
 
 def rotate(img, degrees):
@@ -266,7 +277,7 @@ def rotate(img, degrees):
               sin, cos, cy - sin * cx - cos * cy)
     return _affine_sample(img, [torch.as_tensor(v, dtype=torch.float32,
                                                 device=img.device)
-                                for v in coeffs], "nearest")
+                                for v in coeffs])
 
 
 OP_FNS = {
@@ -333,68 +344,67 @@ def _policy_tables():
 @functools.lru_cache(maxsize=None)
 def _device_tables(device: torch.device) -> dict:
     """The staged path's constant tables on ``device``, made once per
-    device: the SMOOTH kernel (1, 1, 3, 3), the enhance op ids and the
-    four policy tables. A step then makes no host-to-device copy, so it
-    can be captured in a CUDA graph. Read-only."""
+    device: the SMOOTH kernel (1, 1, 3, 3), the enhance op ids, the
+    table's shear magnitudes in f64 and the four policy tables. A step
+    then makes no host-to-device copy, so it can be captured in a CUDA
+    graph. Read-only."""
     device = torch.device(device)
     return {"smooth": torch.as_tensor(_SMOOTH_K, device=device
                                       ).reshape(1, 1, 3, 3),
             "enhance": torch.tensor(_ENHANCE_IDS, device=device),
+            "shear": torch.tensor(_RANGES["shearX"], dtype=torch.float64,
+                                  device=device),
             "policies": tuple(torch.tensor(np.array(a), device=device)
                               for a in _policy_tables())}
 
 
-def _cubic_w(t: torch.Tensor, a_coef: float = -0.5) -> torch.Tensor:
-    at = t.abs()
-    at2 = at * at
-    at3 = at2 * at
-    w1 = (a_coef + 2) * at3 - (a_coef + 3) * at2 + 1
-    w2 = a_coef * at3 - 5 * a_coef * at2 + 8 * a_coef * at - 4 * a_coef
-    return torch.where(at <= 1, w1, torch.where(at < 2, w2,
-                                                torch.zeros_like(at)))
+def _table_f64(m: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """(T,) f32 magnitudes -> f64: a value equal in f32 to +-an entry of
+    ``table`` (f64) takes that entry's f64 value, as the host path's table
+    gives it; any other value its own."""
+    hit = m.abs()[:, None] == table.float()[None, :]
+    entry = (hit.double() * table[None, :]).sum(-1) * torch.sign(m.double())
+    return torch.where(hit.any(-1), entry, m.double())
 
 
-def _axis_resample(img_f: torch.Tensor, shift: torch.Tensor,
+def _axis_resample(img: torch.Tensor, shift: torch.Tensor,
                    bicubic: torch.Tensor, dim: int) -> torch.Tensor:
-    """Resample (T, H, W, C) f32 along ``dim`` (1: H, 2: W): output pixel
-    (t, y, x) samples the source coordinate ``shift[t, y, x]`` on that
-    axis, bicubic where ``bicubic[t]`` (shear) else nearest (translate);
-    taps outside the image blend toward FILL as ``_affine_sample`` does
-    (the 2D bicubic kernel collapses to 1D: the other coordinate is an
-    exact pixel centre)."""
-    size = img_f.shape[dim]
+    """Resample (T, H, W, C) uint8 along ``dim`` (1: H, 2: W) as PIL's
+    affine transform does where the other coordinate is an exact pixel
+    centre: output pixel (t, y, x) samples the source coordinate
+    ``shift[t, y, x]`` (f64, pixel edges at integers). Where
+    ``bicubic[t]`` (shear), PIL's BICUBIC: the four taps around
+    shift - 0.5, clamped to the image, and the a = -1 cubic in Horner form,
+    ``v2 + d (p2 + d (p3 + d p4))`` with p2 = v3 - v1,
+    p3 = 2 (v1 - v2) + v3 - v4 and p4 = -v1 + v2 - v3 + v4, in f64 (the
+    2-D cubic's other axis, at fraction 0, returns its middle tap). Else
+    nearest (translate): the same form at fraction 0, the tap
+    floor(shift). FILL where ``shift`` lies outside [0, size). f64 values,
+    to be clamped and truncated."""
+    size = img.shape[dim]
     bc = bicubic[:, None, None]
-    ixn = torch.floor(shift)
-    inside = ((ixn >= 0) & (ixn <= size - 1)).float()
-    s = shift - 0.5
-    x0 = torch.floor(s)
-    tx = s - x0
-    out = None
-    wsum_all = torch.zeros_like(shift)
-    wsum_in = torch.zeros_like(shift)
-    zero = torch.zeros_like(shift)
-    for i in range(-1, 3):
-        cub_tap = x0 + i
-        cub_w = _cubic_w(tx - i)
-        cub_in = ((cub_tap >= 0) & (cub_tap <= size - 1)).float()
-        wsum_all = wsum_all + cub_w
-        wsum_in = wsum_in + cub_w * cub_in
-        tap = torch.where(bc, cub_tap, ixn).clamp(0, size - 1).long()
-        wgt = torch.where(bc, cub_w * cub_in, inside if i == -1 else zero)
-        val = torch.gather(img_f, dim, tap[..., None].expand(img_f.shape))
-        term = wgt[..., None] * val
-        out = term if out is None else out + term
-    fill_w = torch.where(bc, wsum_all - wsum_in, 1.0 - inside)
-    wall = torch.where(bc, wsum_all, torch.ones_like(wsum_all))
-    center_in = torch.where(bc, (s >= -1) & (s <= size), inside > 0)
-    out = (out + fill_w[..., None] * FILL) / wall[..., None]
-    return torch.where(center_in[..., None], out, torch.full_like(out, FILL))
+    s = torch.where(bc, shift - 0.5, shift)
+    base = torch.floor(s)
+    d = torch.where(bc, s - base, torch.zeros_like(s))[..., None]
+    taps = []
+    for k in range(-1, 3):
+        tap = (base + k).clamp(0, size - 1).long()
+        taps.append(torch.gather(img, dim, tap[..., None].expand(img.shape)
+                                 ).int())
+    v1, v2, v3, v4 = taps
+    p2 = (v3 - v1).double()
+    p3 = (2 * (v1 - v2) + v3 - v4).double()
+    p4 = (v2 - v1 - v3 + v4).double()
+    out = v2.double() + d * (p2 + d * (p3 + d * p4))
+    inside = ((shift >= 0) & (shift < size))[..., None]
+    return torch.where(inside, out, torch.full_like(out, FILL))
 
 
 def _geo_stage(x: torch.Tensor, op: torch.Tensor,
                m: torch.Tensor) -> torch.Tensor:
     """Stage 1: the affine ops. shearX/translateX resample each row,
-    shearY/translateY each column, rotate gathers nearest in 2D; frames
+    shearY/translateY each column (``_axis_resample``: PIL's bicubic for
+    shear, nearest for translate), rotate gathers nearest in 2D; frames
     whose op is not affine pass through."""
     t, h, w, c = x.shape
     xf = x.float()
@@ -407,19 +417,24 @@ def _geo_stage(x: torch.Tensor, op: torch.Tensor,
     bicubic_h = op == 1
     bicubic_v = op == 2
 
-    # horizontal: sx = x + b (y + 0.5) + c (b: shear, c: translate)
-    b_h = torch.where(op == 1, m, zero)
+    # translate (f32, as the JAX package) and shear (f64 from the table's
+    # f64 magnitude, in the order of PIL's affine map), each axis's
+    # source coordinate: horizontal sx = (x + 0.5) + b (y + 0.5) + c,
+    # vertical sy = d (x + 0.5) + (y + 0.5) + f
+    shear = _table_f64(m, _device_tables(x.device)["shear"])
+    xs64, ys64 = xs.double()[None, None, :], ys.double()[None, :, None]
     c_h = torch.where(op == 3, m * w, zero)
-    sx = (xs[None, None, :] + 0.5) + b_h[:, None, None] \
-        * (ys[None, :, None] + 0.5) + c_h[:, None, None]
-    out_h = _axis_resample(xf, sx, bicubic_h, 2)
-
-    # vertical: sy = d (x + 0.5) + y + f (d: shear, f: translate)
-    d_v = torch.where(op == 2, m, zero)
+    sx = torch.where(bicubic_h[:, None, None],
+                     (xs64 + 0.5) + shear[:, None, None] * (ys64 + 0.5),
+                     ((xs[None, None, :] + 0.5) + c_h[:, None, None])
+                     .double())
+    out_h = _axis_resample(x, sx, bicubic_h, 2)
     f_v = torch.where(op == 4, m * h, zero)
-    sy = d_v[:, None, None] * (xs[None, None, :] + 0.5) \
-        + (ys[None, :, None] + 0.5) + f_v[:, None, None]
-    out_v = _axis_resample(xf, sy, bicubic_v, 1)
+    sy = torch.where(bicubic_v[:, None, None],
+                     shear[:, None, None] * (xs64 + 0.5) + (ys64 + 0.5),
+                     ((ys[None, :, None] + 0.5) + f_v[:, None, None])
+                     .double())
+    out_v = _axis_resample(x, sy, bicubic_v, 1)
 
     # rotate: nearest 2D gather through flat (y * w + x) indices
     cos, sin = _rotation(m)
@@ -439,9 +454,7 @@ def _geo_stage(x: torch.Tensor, op: torch.Tensor,
 
     sel = lambda mask: mask[:, None, None, None]  # noqa: E731
     out = torch.where(sel(is_rot), rot, torch.where(sel(is_v), out_v, out_h))
-    # nearest paths are exact integers; bicubic rounds half to even, as
-    # the plain version (and jnp.round) does
-    out = torch.where(sel(bicubic_h | bicubic_v), torch.round(out), out)
+    # nearest paths are exact integers; bicubic truncates, as PIL does
     out_u8 = torch.clamp(out, 0, 255).to(torch.uint8)
     return torch.where(sel(is_h | is_v | is_rot), out_u8, x)
 
@@ -478,14 +491,9 @@ def _lut_stage(x: torch.Tensor, op: torch.Tensor,
     lut = torch.where(sel(10), con, lut)
     lut3 = lut[:, None, :].expand(t, ch, 256)
 
-    # autocontrast: per-channel [lo, hi] -> [0, 255] (identity at hi == lo)
-    lo = x.amin(dim=(1, 2)).float()                              # (T, C)
-    hi = x.amax(dim=(1, 2)).float()
-    scale = 255.0 / torch.clamp(hi - lo, min=1e-20)
-    ac = torch.floor(torch.clamp(
-        (iota_f[None, None] - lo[..., None]) * scale[..., None], 0, 255)
-        + 1e-5).int()
-    ac = torch.where((hi > lo)[..., None], ac, iota[None, None])
+    # autocontrast: per-channel [lo, hi] -> [0, 255], PIL's f64 rule
+    ac = _autocontrast_lut(x.amin(dim=(1, 2)).double(),
+                           x.amax(dim=(1, 2)).double())         # (T, C, 256)
     lut3 = torch.where((op == 11)[:, None, None], ac, lut3)
 
     # equalize: per-channel histogram LUT (identity where step == 0); the

@@ -1,8 +1,11 @@
 """Training entry point (counterpart of the root train.py; reference
 train.py:339-343), on the GPU:
 
-    python -m auformer_torch.train -t AU -mn avformer --device_augment \\
-        [flags as opts.py]
+    python -m auformer_torch.train -t AU -mn avformer [flags as opts.py]
+
+Without ``--device_augment`` the loader augments each clip on the host
+(data/transforms.py), as the reference does; ``--device_augment`` moves
+the AutoAugment into the train step.
 
 ``-mn`` takes every model of the zoo (avformer, vformer, sformer,
 tformer, dsformer, vggformer, audio, van, emonet, i3d, mc3d, tsav,

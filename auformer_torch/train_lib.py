@@ -18,8 +18,12 @@ of steps 10-15 of the first epoch. ``steps_per_dispatch K`` > 1 gathers K
 uploaded batches, stacks them on the device and runs them as one dispatch
 (``parallel.step.make_multi_train_step``: on the card, replays of a CUDA
 graph of the step; the sub-K epoch tail runs single steps); K = 1 is the
-eager step. Host augmentation (no ``device_augment``) raises, naming its
-ROADMAP.md item (A10). Every model of the zoo trains; only avformer
+eager step. Without ``device_augment`` the loader augments each dense
+clip on the host (data/transforms.py, the JAX package's default), seeded
+per epoch and sample, a batch at a time in ``host_threads`` worker
+processes (the eager step needs the GIL that loader threads augmenting
+in-process would hold); frame dedup then stays
+off, as in the JAX package. Every model of the zoo trains; only avformer
 freezes its streams.
 """
 from __future__ import annotations
@@ -42,6 +46,7 @@ from .core.prng import key_seq, setup_seed
 from .core.weights import load_weights
 from .data import (Aff2CompDataset, BlockShuffleSampler, DataLoader,
                    Prefetcher, SubsetSequentialSampler)
+from .data.transforms import AugmentPool
 from .data.wav_arena import build_wav_arena
 from .infer import resolve_device
 from .metrics import AccF1Metric, CCCMetric, MultiLabelAccF1, composite_scores
@@ -82,19 +87,6 @@ class AverageMeter:
         self.sum += val * n
         self.count += n
         self.avg = self.sum / max(self.count, 1)
-
-
-def check_supported(cfg: Config) -> None:
-    """Raise for the JAX package's training options the port does not run,
-    each naming its ROADMAP.md item."""
-    unported = [
-        (not cfg.device_augment,
-         "host (PIL) augmentation (queue A10); pass --device_augment"),
-    ]
-    for unsupported, what in unported:
-        if unsupported:
-            raise NotImplementedError(
-                f"{what} is not ported to auformer_torch yet (ROADMAP.md)")
 
 
 def device_batch_keys(model, cfg: Config, arena: bool = False,
@@ -181,7 +173,6 @@ def train(cfg: Config, dataset=None, max_steps_per_epoch: int | None = None,
     """Full training entry (reference train.py:172-336); returns the final
     state and one history entry per epoch. ``device``: ``cuda`` unless
     given (the tests pass ``"cpu"``)."""
-    check_supported(cfg)
     device = resolve_device(device)
     root = setup_seed(cfg.seed, device)
     keys = key_seq(root)
@@ -269,8 +260,16 @@ def train(cfg: Config, dataset=None, max_steps_per_epoch: int | None = None,
     epochs = epochs if epochs is not None else cfg.epochs
     history = []
     recorder = RecorderMeter(max(epochs, 1))
+    # host AutoAugment unless the step augments on the device, in worker
+    # processes; each sample's generator is seeded from the epoch's seed
+    # and its index
+    aug_pool = (None if cfg.device_augment or start_epoch >= epochs
+                else AugmentPool(cfg.host_threads, cfg.batch_size,
+                                 dataset.clip_bytes))
     for epoch in range(start_epoch, epochs):
         np.random.shuffle(downsample)
+        dataset.set_aug(not cfg.device_augment, aug_pool)
+        dataset.aug_seed = cfg.seed * 100003 + epoch
         train_ids = np.nonzero(dataset.train_ids * downsample)[0]
         train_ids, local_bs = host_shard(train_ids, cfg.batch_size)
         # locality_run > 0: shuffle contiguous runs instead of single
@@ -345,6 +344,7 @@ def train(cfg: Config, dataset=None, max_steps_per_epoch: int | None = None,
         weights = model_state_dict(model)
         save_checkpoint(cfg.checkpoint_path, weights, name="latest")
 
+        dataset.set_aug(False)
         val_ids = np.nonzero(dataset.val_ids * downsample)[0]
         val_bs = cfg.batch_size * cfg.eval_batch_mult
         val_ids, local_val_bs = host_shard(val_ids, val_bs)
@@ -378,5 +378,7 @@ def train(cfg: Config, dataset=None, max_steps_per_epoch: int | None = None,
         if not stopper.is_continuable(weights, total_score):
             logging.info(f"validation: best score: {stopper.best_accuracy}")
             break
+    if aug_pool is not None:
+        aug_pool.close()
     recorder.save_json(os.path.join(cfg.exp_dir, "curves.json"))
     return state, history

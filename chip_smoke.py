@@ -110,7 +110,20 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            one fp32 step through each feed gives one loss (rel 1e-5), and
            a --profile_dir run of 16 steps writes a trace of steps 10-15
            that holds the attention kernel's events (wall, device busy,
-           kernels, copies and CUDA runtime calls per step). Then the
+           kernels, copies and CUDA runtime calls per step). The
+           ``host_aug`` sub-phase (its own line): one epoch each of
+           ``train.main --device_audio --locality_run 64`` (dense clips,
+           the default wav arena) with the loader's host AutoAugment in
+           worker processes (h, no --device_augment: the slice's main
+           path) and with --device_augment (d); per run clips/s,
+           StepTimer data and step ms, attention launches and backward
+           calls (checked), peak memory; (h)'s first batch equal at 1 and
+           4 loader threads; 8 steps of (h) augmenting in the loader's
+           threads instead; on this machine's CPU the digest of the
+           port's train_augment against PIL's (a constant: no PIL here),
+           its ms per (64, 16) batch in one thread and a loader batch at
+           4 threads plain, augmenting in its threads and through the
+           worker pool. Then the
            zoo: one fp32 train step of each of the twelve other models
            (64x64, T=2 or 1, B=4, dropout 0) on the card
            against the CPU; the main path ``python -m auformer_torch.train
@@ -149,9 +162,10 @@ spatial and temporal sites in both dtypes, beside SDPA's forward +
 backward, and the trace's forward and backward device ms per step by
 site); ``launches`` counts the
 slice's, the sweep's, the dataset's, the packed, the zoo, the train
-phase's, the feed's and the graph's main path runs (``launches_by_path``;
-``zoo`` sums the zoo phase's bf16 main path runs; ``feed`` is the
---frame_dedup + wav arena epoch, ``graph`` the same at
+phase's, the feed's, the host_aug's and the graph's main path runs
+(``launches_by_path``; ``zoo`` sums the zoo phase's bf16 main path runs;
+``feed`` is the --frame_dedup + wav arena epoch, ``host_aug`` the (h)
+epoch, ``graph`` the --frame_dedup + wav arena epoch at
 --steps_per_dispatch 4, its replays counted), and ``zoo_sites`` lists the
 zoo's attention
 sites in both dtypes. Then the nvidia-smi name/power line, and last
@@ -170,6 +184,7 @@ import copy
 import json
 import os
 import pickle
+import random
 import shutil
 import subprocess
 import sys
@@ -329,6 +344,15 @@ TRACE_STEPS = 16         # the --profile_dir run: its window is steps 10-15
 GRAPH_K = 2
 GRAPH_STEPS = 4
 FEED_GRAPH_K = 4
+# the host_aug sub-phase: the loader's threads of the first-batch check, the
+# loader batches timed on the CPU, and the SHA-256 of the port's
+# train_augment over transforms.digest_seeds()'s clips that PIL gives
+# (tests/test_torch_host_augment.py computes it from PIL; this machine has
+# no PIL)
+HOST_AUG_THREADS = (1, 4)
+HOST_AUG_BATCHES = 4
+HOST_AUG_IN_THREAD_STEPS = 8
+PIL_DIGEST = "ab03ee6ec397065e602c19f69374b3fa813e9743dc9fbcaedd7e47bdac851dd9"
 
 
 def emit(phase: str, **fields) -> None:
@@ -2053,12 +2077,16 @@ def augment_check(torch, dev) -> dict:
             "augment_b64_event_ms": ev}
 
 
-def train_argv(work: Path, exp: str, *extra) -> list[str]:
+def train_argv(work: Path, exp: str, *extra,
+               device_augment: bool = True) -> list[str]:
+    """train.main's flags on the train split: B=64, full width, 2 epochs,
+    the AutoAugment in the step (``device_augment``) or on the host."""
     return ["--root", str(work / "root"), "--lmdb_label_dir",
             str(work / "labels"), "--cache_dir", str(work / "cache"),
             "--exp_dir", str(work / exp), "--image_size", str(IMAGE),
             "--n_frames", str(FRAMES), "--batch_size", str(TRAIN_BATCH),
-            "--downsample_rate", "2", "--epochs", "2", "--device_augment",
+            "--downsample_rate", "2", "--epochs", "2",
+            *(("--device_augment",) if device_augment else ()),
             "--seed", str(SEED), *extra]
 
 
@@ -2531,10 +2559,11 @@ class feed_probe:
          self.lib.make_multi_train_step, self.store.decode_batch) = self.saved
 
 
-def feed_run(torch, work: Path, exp: str, *flags) -> tuple[dict, dict,
-                                                           object]:
+def feed_run(torch, work: Path, exp: str, *flags,
+             device_augment: bool = True) -> tuple[dict, dict, object]:
     """One epoch (or as many as ``flags`` say) of ``train.main`` at B=64 in
-    bf16 with --device_augment and ``flags``, its counts set to 0 just
+    bf16 with ``flags``, --device_augment unless ``device_augment`` is
+    False (then the loader augments on the host), its counts set to 0 just
     before it: the attention launches (checked), the first epoch's
     clips/s, StepTimer means (and each epoch's), JPEG decodes and
     host-to-device bytes per train batch, arena MB, peak memory, under
@@ -2549,7 +2578,8 @@ def feed_run(torch, work: Path, exp: str, *flags) -> tuple[dict, dict,
     with feed_probe() as probe:
         t0 = time.perf_counter()
         _, history = train.main(train_argv(work, exp, "--epochs", "1",
-                                           *flags))
+                                           *flags,
+                                           device_augment=device_augment))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     launches = {"attention": fused_attention.launches,
@@ -2573,7 +2603,8 @@ def feed_run(torch, work: Path, exp: str, *flags) -> tuple[dict, dict,
         "launches_per_graphed_step": dict(zip(
             ("attention", "attention_backward", "mel"),
             multi.captured_counts))}
-    return {"flags": list(flags), "seconds": seconds, "steps": steps,
+    return {"flags": list(flags), "device_augment": device_augment,
+            "seconds": seconds, "steps": steps,
             "clips_per_s": steps * TRAIN_BATCH / h["seconds"],
             "step_timer_ms": {"data": h["data_ms"], "step": h["step_ms"]},
             "jpeg_decodes_per_batch": decodes / steps,
@@ -2741,6 +2772,149 @@ def phase_feed(torch, dev, work: Path, sd: dict) -> dict:
          fp32_step_loss_rel=rel, profile_dir_trace=trace,
          phase_s=time.perf_counter() - t_phase)
     return fed
+
+
+def host_augment_cpu(work: Path) -> dict:
+    """The port's host AutoAugment on this machine's CPU: its digest
+    against PIL's (PIL_DIGEST); ``train_augment``'s ms per (64, 16) batch
+    of the train split's 112x112 clips in one thread; and the loader's ms
+    per batch of 64 clips (no audio) at HOST_AUG_THREADS[-1] threads,
+    plain, augmenting in its threads, and through an AugmentPool of as
+    many processes (each from a fresh dataset, so none finds another's
+    frames in the decode cache; HOST_AUG_BATCHES batches timed after one
+    that starts the reader)."""
+    from auformer_torch.core.config import parse_opt
+    from auformer_torch.data import (Aff2CompDataset, DataLoader,
+                                     SubsetSequentialSampler)
+    from auformer_torch.data import transforms
+    t0 = time.perf_counter()
+    digest = transforms.augment_digest()
+    digest_s = time.perf_counter() - t0
+    if digest != PIL_DIGEST:
+        fail(f"train_augment's digest {digest} is not PIL's {PIL_DIGEST}")
+    cfg = parse_opt(train_argv(work, "exp_host_cpu", device_augment=False))
+    ds = Aff2CompDataset(cfg)
+    ids = np.nonzero(ds.train_ids)[0]
+    clips = [ds.get_clip(int(i)) for i in ids[:TRAIN_BATCH]]
+    one_thread = []
+    for rep in range(3):
+        work_clips = [c.copy() for c in clips]
+        t0 = time.perf_counter()
+        for j, clip in enumerate(work_clips):
+            transforms.train_augment(clip, random.Random((rep << 32) ^ j))
+        one_thread.append((time.perf_counter() - t0) * 1e3)
+    threads = HOST_AUG_THREADS[-1]
+    pool = transforms.AugmentPool(threads, TRAIN_BATCH, ds.clip_bytes)
+    loader_ms = {}
+    try:
+        for name, aug, augment_pool in (("plain", False, None),
+                                        ("augment_in_threads", True, None),
+                                        ("augment_in_pool", True, pool)):
+            ds = Aff2CompDataset(cfg)
+            ds.set_modes(["clip"])
+            ds.set_aug(aug, augment_pool)
+            ds.aug_seed = SEED
+            batches = iter(DataLoader(ds, TRAIN_BATCH, SubsetSequentialSampler(
+                ids[:TRAIN_BATCH * (HOST_AUG_BATCHES + 1)]),
+                num_threads=threads, drop_last=True))
+            next(batches)
+            t0 = time.perf_counter()
+            n = sum(1 for _ in batches)
+            loader_ms[name] = (time.perf_counter() - t0) * 1e3 / n
+    finally:
+        pool.close()
+    return {"digest": digest, "digest_equals_pil": True,
+            "digest_s": digest_s, "cpu_count": os.cpu_count(),
+            "train_augment_ms_per_batch_one_thread": one_thread,
+            f"loader_ms_per_batch_threads{threads}": loader_ms}
+
+
+class in_thread_augment:
+    """While active, train_lib makes no AugmentPool: the dataset augments
+    each clip in the loader thread that loads it, as the loop would run
+    without the pool. Instrumentation of this script; the port is
+    untouched."""
+
+    def __init__(self):
+        from auformer_torch import train_lib
+        self.lib = train_lib
+
+    def __enter__(self):
+        self.saved = self.lib.AugmentPool
+        self.lib.AugmentPool = lambda *args: None
+        return self
+
+    def __exit__(self, *exc):
+        self.lib.AugmentPool = self.saved
+
+
+def in_thread_run(torch, work: Path, flags: tuple) -> dict:
+    """HOST_AUG_IN_THREAD_STEPS steps of (h) with the augmentation in the
+    loader's threads (``in_thread_augment``): StepTimer data and step ms,
+    clips/s of the capped epoch."""
+    from auformer_torch import train_lib
+    from auformer_torch.core.config import parse_opt
+    cfg = parse_opt(train_argv(work, "exp_host_in_thread", "--epochs", "1",
+                               *flags, device_augment=False))
+    with in_thread_augment():
+        _, history = train_lib.train(
+            cfg, max_steps_per_epoch=HOST_AUG_IN_THREAD_STEPS)
+    h = history[0]
+    return {"steps": h["steps"],
+            "clips_per_s": h["steps"] * TRAIN_BATCH / h["seconds"],
+            "step_timer_ms": {"data": h["data_ms"], "step": h["step_ms"]},
+            "loss": h["loss"]}
+
+
+def first_batch_threads(torch, work: Path, flags: tuple, first: dict
+                        ) -> dict:
+    """One step of train_lib.train with host augmentation at
+    --host_threads HOST_AUG_THREADS[0]: its first uploaded batch must
+    equal ``first``, the (h) run's at HOST_AUG_THREADS[-1] threads
+    (``flags``; torch.equal, every entry)."""
+    from auformer_torch import train_lib
+    from auformer_torch.core.config import parse_opt
+    cfg = parse_opt(train_argv(
+        work, "exp_host_threads", "--epochs", "1", *flags, "--host_threads",
+        str(HOST_AUG_THREADS[0]), device_augment=False))
+    with feed_probe() as probe:
+        train_lib.train(cfg, max_steps_per_epoch=1)
+    same = {k: (k in probe.first and torch.equal(probe.first[k], v))
+            for k, v in first.items()}
+    if set(probe.first) != set(first) or not all(same.values()):
+        fail(f"the first host-augmented batch at {HOST_AUG_THREADS} loader "
+             f"threads differs: {same}")
+    return {"threads": list(HOST_AUG_THREADS), "equal": same}
+
+
+def phase_host_aug(torch, dev, work: Path) -> dict:
+    """avformer's train.main at B=64, bf16, full width, one epoch of the
+    train split with --device_audio --locality_run FEED_RUN (dense clips,
+    the default wav arena, K = 1), twice: (h) the loader augments each
+    clip on the host, in an AugmentPool's processes (no --device_augment:
+    the slice's main path, its counts set to 0 just before it) and (d)
+    --device_augment. Per run clips/s, StepTimer data and step ms,
+    attention launches (checked: 11 per step and per eval step) and
+    backward calls (3 per step), peak memory. Then (h)'s first batch at 1
+    and 4 loader threads, HOST_AUG_IN_THREAD_STEPS steps of (h) with the
+    augmentation in the loader's threads instead, and the CPU's numbers
+    (``host_augment_cpu``). Returns (h)."""
+    t_phase = time.perf_counter()
+    flags = ("--device_audio", "--locality_run", str(FEED_RUN),
+             "--host_threads", str(HOST_AUG_THREADS[-1]))
+    host, first, _ = feed_run(torch, work, "exp_host_aug", *flags,
+                              device_augment=False)
+    device, _, _ = feed_run(torch, work, "exp_device_aug", *flags)
+    threads = first_batch_threads(torch, work, flags, first)
+    del first
+    in_thread = in_thread_run(torch, work, flags)
+    torch.cuda.empty_cache()
+    emit("host_aug", nvidia_smi=nvidia_smi(), batch=TRAIN_BATCH,
+         locality_run=FEED_RUN, runs={"host": host, "device": device,
+                                      "host_in_loader_threads": in_thread},
+         first_batch_threads=threads, cpu=host_augment_cpu(work),
+         phase_s=time.perf_counter() - t_phase)
+    return host
 
 
 def train_tensors(state) -> dict:
@@ -3056,6 +3230,7 @@ def phase_train(torch, dev) -> tuple[dict, list, dict]:
         fail(f"--device_audio ran {audio_state.step} steps")
     del audio_state
     fed = phase_feed(torch, dev, work, sd)
+    host_aug = phase_host_aug(torch, dev, work)
     graph = phase_graph(torch, dev, work, sd, fed)
 
     prof = profile_steps(torch, dev, state.model, work,
@@ -3164,6 +3339,7 @@ def phase_train(torch, dev) -> tuple[dict, list, dict]:
     shutil.rmtree(work, ignore_errors=True)   # the split and the .pth files
     launches = {key: launches[key] + vf_launches[key] for key in launches}
     return {"train": launches, "feed": fed["launches"],
+            "host_aug": host_aug["launches"],
             "graph": graph["launches"]}, grad_cases, {
         "avformer": prof["attention_in_step"],
         "vformer": vf_prof["attention_in_step"],

@@ -232,15 +232,26 @@ def test_port_fixture_opens_in_the_jax_testset(tmp_path):
     assert ok.all() and err.mean() < 6 and err.max() <= 48
 
 
-def test_training_only_parts_raise(dirs):
-    """Training reads the dataset with set_aug(False); the part of the
-    JAX dataset the port leaves out, host augmentation, raises naming its
-    ROADMAP item."""
-    _, cfg = _cfgs(dirs, modality="A;V")
-    ds = Aff2CompDataset(cfg)
-    ds.set_aug(False)
-    with pytest.raises(NotImplementedError, match="A10"):
+@pytest.mark.parametrize("modality", ["A;V", "V;M"])
+def test_host_augmented_items_match_jax(dirs, modality):
+    """Training's host AutoAugment (set_aug(True), a given aug_seed): every
+    item equals the JAX dataset's (PIL), the mask channel under 'M' passed
+    through the policy and flipped with the clip; set_aug(False) gives the
+    plain clips back."""
+    from auformer.data.dataset import Aff2CompDataset as JaxDataset
+    jcfg, cfg = _cfgs(dirs, modality=modality)
+    want_ds, got_ds = JaxDataset(jcfg), Aff2CompDataset(cfg)
+    for ds in (want_ds, got_ds):
         ds.set_aug(True)
+        ds.aug_seed = 7 * 100003 + 1
+    changed = 0
+    for i in range(len(got_ds)):
+        got = got_ds[i]
+        _assert_same(got, want_ds[i])
+        got_ds.set_aug(False)
+        changed += not np.array_equal(got_ds[i]["clip"], got["clip"])
+        got_ds.set_aug(True)
+    assert changed > len(got_ds) // 2
 
 
 def test_missing_image_store_raises(dirs, tmp_path):

@@ -197,7 +197,7 @@ def test_port_imports_no_jax_and_no_auformer():
         "auformer_torch.sweep, auformer_torch.ops.phase_mel, "
         "auformer_torch.ops.audio_host, auformer_torch.data, "
         "auformer_torch.data.native, auformer_torch.data.fixtures, "
-        "auformer_torch.data.wav_arena, "
+        "auformer_torch.data.wav_arena, auformer_torch.data.transforms, "
         "auformer_torch.serve, auformer_torch.test_aff2, "
         "auformer_torch.losses, auformer_torch.metrics, "
         "auformer_torch.parallel.step, auformer_torch.ops.augment_device, "

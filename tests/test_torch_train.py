@@ -836,20 +836,26 @@ def test_steps_per_dispatch_runs(fixture_dirs):
     assert np.isfinite(history[0]["loss"])
 
 
-def test_host_augmentation_raises(fixture_dirs):
-    """Without --device_augment the train loop would need the host PIL
-    augmentation; so does the dataset's set_aug(True): both raise naming
-    A10."""
+def test_host_augmentation_trains(fixture_dirs):
+    """Without --device_augment (the JAX package's default) the loader
+    augments each clip on the host: 2 steps; the epoch's aug_seed is
+    seed * 100003 + epoch and the evaluation reads plain clips; and
+    --frame_dedup stays off, since host augmentation is per sample
+    (tests/test_torch_host_augment.py holds the ops against PIL)."""
     from auformer_torch.data import Aff2CompDataset
     base, root, labels = fixture_dirs
-    argv = [a for a in _argv(base, root, labels, "exp_host")
+    argv = [a for a in _argv(base, root, labels, "exp_host",
+                             "--epochs", "1", "--n_frames", "4",
+                             "--frame_dedup")
             if a != "--device_augment"]
-    with pytest.raises(NotImplementedError, match="A10"):
-        train_entry.main(argv, device="cpu")
-    ds = Aff2CompDataset(train_entry.parse_opt(argv))
-    ds.set_aug(False)
-    with pytest.raises(NotImplementedError, match="A10"):
-        ds.set_aug(True)
+    cfg = train_entry.parse_opt(argv)
+    dataset = Aff2CompDataset(cfg)
+    state, history = train_lib.train(cfg, dataset=dataset,
+                                     max_steps_per_epoch=2, device="cpu")
+    assert state.step == history[0]["steps"] == 2
+    assert np.isfinite(history[0]["loss"])
+    assert not dataset.aug and dataset.aug_seed == 7 * 100003
+    assert not dataset.frame_dedup
 
 
 def test_device_audio_trains_without_the_arena(fixture_dirs):
