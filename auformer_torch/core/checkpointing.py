@@ -62,12 +62,16 @@ class EarlyStopper:
         self.checkpoint_dir = checkpoint_dir
         os.makedirs(checkpoint_dir, exist_ok=True)
 
-    def is_continuable(self, state_dict: Mapping[str, torch.Tensor],
+    def is_continuable(self, state_dict: Mapping[str, torch.Tensor] | None,
                        accuracy: float) -> bool:
+        """Track ``accuracy``; a new best writes ``state_dict`` to
+        ``best.pth`` (None writes nothing: a data-parallel rank other than
+        0, which takes the same decisions from the same scores)."""
         if accuracy > self.best_accuracy:
             self.best_accuracy = accuracy
             self.trial_counter = 0
-            save_checkpoint(self.checkpoint_dir, state_dict, name="best")
+            if state_dict is not None:
+                save_checkpoint(self.checkpoint_dir, state_dict, name="best")
             return True
         if self.trial_counter + 1 < self.num_trials:
             self.trial_counter += 1

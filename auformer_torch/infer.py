@@ -10,6 +10,14 @@ the reference's output files. The entry points run on the card: with no
 ``device`` they take ``cuda`` and raise when there is none; the CPU runs
 the plain versions of the kernels only when asked for with
 ``device="cpu"``.
+
+Under a mesh (core/mesh.py, e.g. ``torchrun ... -m
+auformer_torch.test_aff2``) both shard the test split by video: rank r
+takes videos r, r + N, ... (``shard_indices``), every rank starts from
+rank 0's weights, the rows are gathered, and rank 0 alone writes the
+files; the prediction matrix, on every rank, equals one process's row for
+row. The sweep keeps one device per process: a video's buckets are not
+split over ranks, which would make each rank decode every frame.
 """
 from __future__ import annotations
 
@@ -21,7 +29,8 @@ import numpy as np
 import torch
 
 from .core.config import Config
-from .data import DataLoader, SubsetSequentialSampler
+from .core.mesh import Mesh, check_mesh
+from .data import DataLoader, SubsetSequentialSampler, shard_indices
 from .data.testset import Aff2TestDataset
 from .nn.registry import (compute_autocast, compute_dtype, output_table,
                           prepare_inference)
@@ -116,9 +125,13 @@ class TaskWriters:
 
 
 def resolve_device(device) -> torch.device:
-    """``cuda`` unless the caller names another device; raises when the
-    device is CUDA and no GPU is present."""
-    device = torch.device("cuda" if device is None else device)
+    """``cuda`` unless the caller names another device (``cuda:{LOCAL_RANK}``
+    in a process that ``torchrun`` started); raises when the device is
+    CUDA and no GPU is present."""
+    if device is None:
+        local = os.environ.get("LOCAL_RANK")
+        device = "cuda" if local is None else f"cuda:{int(local)}"
+    device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: auformer_torch runs on the GPU; "
                            "pass device='cpu' to run the plain paths on the "
@@ -186,19 +199,54 @@ def make_infer_fn(cfg: Config, model: torch.nn.Module, device=None):
 
 
 def _write_pickle(result_path: str, rows: dict,
-                  n_rows: int | None = None) -> np.ndarray:
+                  n_rows: int | None = None, write: bool = True
+                  ) -> np.ndarray:
     """The (n_rows, 21) prediction matrix of ``rows`` (dataset row ->
     logits; n_rows defaults to max row + 1), written to ``inference.pkl``
-    as the reference does."""
+    as the reference does (unless ``write`` is False)."""
     if n_rows is None:
         n_rows = max(rows, default=-1) + 1
     output = np.zeros((n_rows, 21), np.float32)
     for idx, row in rows.items():
         output[idx, :len(row)] = row
+    if not write:
+        return output
     os.makedirs(result_path, exist_ok=True)
     with open(os.path.join(result_path, "inference.pkl"), "wb") as f:
         pickle.dump({"predictions": output}, f)
     return output
+
+
+def _gather_rows(mesh: Mesh, local: list, result_path: str, task: str,
+                 width: int, n_rows: int | None) -> np.ndarray:
+    """Every rank's ``local`` blocks (per-row video ids, dataset rows,
+    (n, width) logits), gathered into the prediction matrix on every rank;
+    rank 0 writes the submission txts, the rows in dataset order (each
+    video's rows together, as one process writes them), and
+    ``inference.pkl``, and the others wait for it."""
+    blocks = [b for part in mesh.gather_objects(local) for b in part]
+    rows: dict[int, np.ndarray] = {}
+    order = vids = logits = None
+    if blocks:
+        vids = np.concatenate([np.asarray(b[0], dtype=object)
+                               for b in blocks])
+        index = np.concatenate([np.asarray(b[1]).reshape(-1)
+                                for b in blocks])
+        logits = np.concatenate([b[2] for b in blocks])
+        order = np.argsort(index, kind="stable")
+        for idx, row in zip(index[order], logits[order]):
+            rows[int(idx)] = row
+    if mesh.rank == 0:
+        writers = TaskWriters(result_path, task, width=width)
+        try:
+            if blocks:
+                writers.write_rows([str(v) for v in vids[order]],
+                                   logits[order])
+        finally:
+            writers.close()
+    out = _write_pickle(result_path, rows, n_rows, write=mesh.rank == 0)
+    mesh.barrier()
+    return out
 
 
 def _testset(cfg: Config, dataset):
@@ -223,12 +271,17 @@ def model_inputs(batch: Mapping) -> dict:
 
 
 def testset_loader(cfg: Config, model: torch.nn.Module,
-                   dataset) -> DataLoader:
+                   dataset, mesh: Mesh | None = None) -> DataLoader:
     """The test split of ``dataset`` in order, in batches of
     ``cfg.batch_size`` from the threaded loader, with the model's inputs
-    switched on."""
+    switched on; under a ``mesh`` the rows of this rank's videos
+    (``shard_indices`` of the split's videos)."""
     dataset.set_modes(list(model.modes))
     ids = np.nonzero(dataset.test_ids)[0]
+    if mesh is not None:
+        videos = shard_indices(np.unique(dataset.video_db_nr[ids]),
+                               mesh.rank, mesh.world)
+        ids = ids[np.isin(dataset.video_db_nr[ids], videos)]
     return DataLoader(dataset, max(cfg.batch_size, 1),
                       SubsetSequentialSampler(ids),
                       num_threads=cfg.host_threads, drop_last=False,
@@ -238,7 +291,8 @@ def testset_loader(cfg: Config, model: torch.nn.Module,
 def run_inference(cfg: Config, model: torch.nn.Module,
                   batches: Iterable[Mapping] | None = None,
                   result_path: str = "results", device=None,
-                  dataset: Aff2TestDataset | None = None) -> np.ndarray:
+                  dataset: Aff2TestDataset | None = None,
+                  mesh: Mesh | None = None) -> np.ndarray:
     """Run every batch dict (model inputs as in ``make_infer_fn`` plus
     ``Index`` (B,) dataset rows and ``video_id`` (B,) strings), write
     per-video AU txts + ``inference.pkl``, and return the prediction
@@ -247,16 +301,28 @@ def run_inference(cfg: Config, model: torch.nn.Module,
     ``dataset`` (or of the ``Aff2TestDataset`` of ``cfg``) through the
     threaded ``DataLoader``. A batch shorter than the batch size
     (``cfg.batch_size``) is padded with copies of its last row, as the JAX
-    package pads to its static shape."""
+    package pads to its static shape.
+
+    Under a ``mesh`` each rank runs the batches of its videos (of the test
+    split) or every N-th of ``batches`` (the module docstring)."""
+    device = resolve_device(device)
+    check_mesh(mesh, device)
     infer = make_infer_fn(cfg, model, device)
+    if mesh is not None:
+        mesh.broadcast_module(model)
     batch_size = max(cfg.batch_size, 1)
     n_rows = None
     if batches is None:
         dataset = _testset(cfg, dataset)
         n_rows = len(dataset)
-        batches = testset_loader(cfg, model, dataset)
-    writers = TaskWriters(result_path, cfg.task, width=21)
+        batches = testset_loader(cfg, model, dataset, mesh)
+    elif mesh is not None:
+        batches = (b for i, b in enumerate(batches)
+                   if i % mesh.world == mesh.rank)
+    writers = TaskWriters(result_path, cfg.task, width=21) \
+        if mesh is None else None
     rows: dict[int, np.ndarray] = {}
+    local: list = []
     try:
         for batch in batches:
             x = model_inputs(batch)
@@ -266,13 +332,19 @@ def run_inference(cfg: Config, model: torch.nn.Module,
                 x = {k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
                      for k, v in x.items()}
             result = infer(x)[:n].cpu().numpy()
+            if mesh is not None:
+                local.append(([str(v) for v in batch["video_id"]],
+                              np.asarray(batch["Index"]), result))
+                continue
             for i, idx in enumerate(np.asarray(batch["Index"])):
                 rows[int(idx)] = result[i]
             writers.write_rows([str(v) for v in batch["video_id"]], result)
     finally:
-        writers.close()
-
-    return _write_pickle(result_path, rows, n_rows)
+        if writers is not None:
+            writers.close()
+    if mesh is None:
+        return _write_pickle(result_path, rows, n_rows)
+    return _gather_rows(mesh, local, result_path, cfg.task, 21, n_rows)
 
 
 #: clips per grouped fetch of ``run_inference_sweep``'s default branch
@@ -301,8 +373,8 @@ def run_inference_sweep(cfg: Config, model: torch.nn.Module,
                         result_path: str = "results",
                         bucket: int | None = None,
                         device=None,
-                        dataset: Aff2TestDataset | None = None
-                        ) -> np.ndarray:
+                        dataset: Aff2TestDataset | None = None,
+                        mesh: Mesh | None = None) -> np.ndarray:
     """Dense-sweep inference over whole videos (sweep.py): the trunk once
     per frame and every label frame's window scored through the temporal,
     audio and fusion heads, with the same logits as ``run_inference``.
@@ -329,11 +401,17 @@ def run_inference_sweep(cfg: Config, model: torch.nn.Module,
     the prediction matrix, the sweep's ``out_dim`` columns filled:
     (max Index + 1, 21) for ``videos``, (len(dataset), 21) for a
     dataset.
+
+    Under a ``mesh`` each rank sweeps every N-th video (``shard_indices``;
+    the module docstring).
     """
     from .sweep import default_sweep_bucket, make_sweep
 
     device = resolve_device(device)
+    check_mesh(mesh, device)
     sweep = make_sweep(cfg, model, device=device)
+    if mesh is not None:
+        mesh.broadcast_module(model)
     bucket = bucket or default_sweep_bucket(device)
     strict = cfg.strict_parity and sweep.needs_audio
     n_rows = None
@@ -346,11 +424,20 @@ def run_inference_sweep(cfg: Config, model: torch.nn.Module,
         else:
             from .serve import sweep_stream
             stream = sweep_stream(cfg, model, dataset=dataset, bucket=bucket,
-                                  sweep=sweep)
-    writers = TaskWriters(result_path, cfg.task, width=sweep.out_dim)
+                                  sweep=sweep, mesh=mesh)
+    if videos is not None and mesh is not None:
+        videos = (v for i, v in enumerate(videos)
+                  if i % mesh.world == mesh.rank)
+    writers = TaskWriters(result_path, cfg.task, width=sweep.out_dim) \
+        if mesh is None else None
     rows: dict[int, np.ndarray] = {}
+    local: list = []
 
     def emit(video_id: str, index, logits: np.ndarray) -> None:
+        if mesh is not None:
+            local.append(([str(video_id)] * len(logits), np.asarray(index),
+                          logits))
+            return
         for idx, row in zip(np.asarray(index), logits):
             rows[int(idx)] = row
         writers.write_rows(str(video_id), logits)
@@ -384,5 +471,9 @@ def run_inference_sweep(cfg: Config, model: torch.nn.Module,
     finally:
         if stream is not None:
             stream.close()      # ends the fetch thread and the worker
-        writers.close()
-    return _write_pickle(result_path, rows, n_rows)
+        if writers is not None:
+            writers.close()
+    if mesh is None:
+        return _write_pickle(result_path, rows, n_rows)
+    return _gather_rows(mesh, local, result_path, cfg.task, sweep.out_dim,
+                        n_rows)

@@ -19,10 +19,15 @@ Numeric choices that follow the JAX package, not the upstream torch code:
   * ``BatchNorm3d`` is the same BatchNorm over (B, C, T, H, W); its eps
     and momentum are set per module (i3d's ``Unit3D``: eps 1e-3, torch
     momentum 0.01 = flax 0.99)
+  * in a data-parallel step (``set_step_mesh``) train-mode BatchNorm
+    takes the statistics of the global batch of every rank
+    (``_CrossReplicaNorm``), as the JAX package's GSPMD step does;
+    ``instance_norm`` is per sample and stays local
   * Dropout (and ``DropPath``, stochastic depth) draws its mask from an
     explicit ``torch.Generator`` that the train step hands every
     ``Dropout`` (``set_dropout_generator``), never from the global RNG; in
-    train mode with p > 0 and no generator it raises
+    train mode with p > 0 and no generator it raises; in a data-parallel
+    step it keeps this rank's rows of the global batch's mask
 
 The convolution families' helpers: ``ConvSame`` and ``max_pool_same``
 pad as flax's ``padding="SAME"`` and the JAX package's TF-SAME pool do,
@@ -37,9 +42,66 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.mesh import draw_rows
 from ..ops.attention import fused_attention
 
 LAYER_NORM_EPS = 1e-6
+
+
+class _CrossReplicaNorm(torch.autograd.Function):
+    """Train-mode batch normalisation over the global batch of a mesh's
+    ranks: the forward all-reduces the per-channel sums and the row count
+    (the global mean), then the centred sums of squares (the two-pass
+    biased variance); the backward all-reduces sum(dy) and sum(dy * x_hat),
+    the global sums the input gradient needs. The weight and bias
+    gradients are this rank's sums: the step's gradient all-reduce adds
+    the ranks'. Statistics and arithmetic in f32; the output in the
+    input's dtype, as the local path's under autocast."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mesh, eps):
+        c = x.shape[1]
+        dims = [0, *range(2, x.ndim)]
+        shape = (1, c) + (1,) * (x.ndim - 2)
+        xf = x.float()
+        sums = torch.cat([xf.sum(dims), xf.new_full((1,), x.numel() // c)])
+        mesh.all_reduce(sums, "batch_norm")
+        n = sums[c]
+        mean = sums[:c] / n
+        d = xf - mean.view(shape)
+        sq = (d * d).sum(dims)
+        mesh.all_reduce(sq, "batch_norm")
+        var = sq / n
+        invstd = torch.rsqrt(var + eps)
+        x_hat = d * invstd.view(shape)
+        y = x_hat if weight is None else \
+            x_hat * weight.view(shape) + bias.view(shape)
+        ctx.save_for_backward(x_hat, invstd, weight)
+        ctx.mesh, ctx.n, ctx.dims, ctx.shape = mesh, n, dims, shape
+        ctx.x_dtype = x.dtype
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x_hat, invstd, weight = ctx.saved_tensors
+        dims, shape = ctx.dims, ctx.shape
+        dyf = dy.float()
+        sum_dy = dyf.sum(dims)
+        sum_dy_xhat = (dyf * x_hat).sum(dims)
+        dweight = sum_dy_xhat.clone() if ctx.needs_input_grad[1] else None
+        dbias = sum_dy.clone() if ctx.needs_input_grad[2] else None
+        dx = None
+        if ctx.needs_input_grad[0]:
+            c = sum_dy.shape[0]
+            sums = ctx.mesh.all_reduce(torch.cat([sum_dy, sum_dy_xhat]),
+                                       "batch_norm")
+            scale = invstd if weight is None else invstd * weight
+            dx = (dyf - (sums[:c] / ctx.n).view(shape)
+                  - x_hat * (sums[c:] / ctx.n).view(shape)) \
+                * scale.view(shape)
+            dx = dx.to(ctx.x_dtype)
+        return dx, dweight, dbias, None, None
 
 
 class _FlaxRunningVar:
@@ -49,10 +111,19 @@ class _FlaxRunningVar:
     (n - 1) / n turns it into ``(1 - m) rv + m * var``, flax's update,
     without a second pass over the input. The update runs on a copy, as
     autograd keeps the tensor the op was given. Parameter and buffer names
-    stay torch's."""
+    stay torch's.
+
+    Under a mesh (``mesh``, set by ``set_step_mesh`` for a step), train
+    mode normalises with the statistics of the global batch
+    (``_CrossReplicaNorm``) and updates the running ones with them,
+    flax's biased rule."""
+
+    mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = x.numel() // x.shape[1]
+        if self.training and self.mesh is not None:
+            return self._cross_replica(x, n * self.mesh.world)
         if not (self.training and self.track_running_stats) or n < 2:
             return super().forward(x)
         self._check_input_dim(x)
@@ -62,6 +133,21 @@ class _FlaxRunningVar:
                            self.bias, True, self.momentum, self.eps)
         with torch.no_grad():
             self.running_var.copy_(running_var * ((n - 1) / n))
+        return out
+
+    def _cross_replica(self, x: torch.Tensor, n: int) -> torch.Tensor:
+        self._check_input_dim(x)
+        if n < 2:
+            raise ValueError(f"BatchNorm in train mode over {n} value per "
+                             "channel of the global batch")
+        out, mean, var = _CrossReplicaNorm.apply(x, self.weight, self.bias,
+                                                 self.mesh, self.eps)
+        if self.track_running_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1 - m).add_(var, alpha=m)
+                self.num_batches_tracked.add_(1)
         return out
 
 
@@ -85,6 +171,7 @@ class Dropout(nn.Module):
         super().__init__()
         self.p = p
         self.generator: torch.Generator | None = None
+        self.mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
@@ -92,9 +179,16 @@ class Dropout(nn.Module):
         if self.generator is None:
             raise RuntimeError("Dropout in train mode draws from an explicit "
                                "generator: call set_dropout_generator first")
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) >= self.p
+        keep = self._draw(x.shape, x.device) >= self.p
         return x * keep.to(x.dtype) / (1.0 - self.p)
+
+    def _draw(self, shape, device) -> torch.Tensor:
+        """Uniform draws of ``shape`` from the generator; under a mesh this
+        rank's rows of the global batch's draw (the leading axis is
+        batch-major at every dropout site)."""
+        return draw_rows(lambda s: torch.rand(s, generator=self.generator,
+                                              device=device),
+                         shape, self.mesh)
 
     def extra_repr(self) -> str:
         return f"p={self.p}"
@@ -111,8 +205,8 @@ class DropPath(Dropout):
             raise RuntimeError("DropPath in train mode draws from an "
                                "explicit generator: call "
                                "set_dropout_generator first")
-        keep = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1),
-                          generator=self.generator, device=x.device) >= self.p
+        keep = self._draw((x.shape[0],) + (1,) * (x.ndim - 1),
+                          x.device) >= self.p
         return x * keep.to(x.dtype) / (1.0 - self.p)
 
 
@@ -123,6 +217,16 @@ def set_dropout_generator(model: nn.Module,
     for m in model.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+
+
+def set_step_mesh(model: nn.Module, mesh) -> None:
+    """Hand every train-mode BatchNorm and ``Dropout`` of ``model`` the
+    mesh of a data-parallel step (core/mesh.py; None detaches it): the
+    BatchNorms then reduce their statistics over the global batch and the
+    dropout masks are this rank's rows of the global batch's."""
+    for m in model.modules():
+        if isinstance(m, (_FlaxRunningVar, Dropout)):
+            m.mesh = mesh
 
 
 class FeedForward(nn.Module):

@@ -43,6 +43,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.mesh import draw_rows
+
 FILL = 128.0
 
 # AutoAugment magnitude tables (reference autoaugment.py:63-78; the JAX
@@ -549,16 +551,23 @@ def _slot_apply(x: torch.Tensor, op: torch.Tensor,
 
 
 def policy_draws(b: int, t: int, generator: torch.Generator,
-                 device) -> tuple[torch.Tensor, ...]:
+                 device, mesh=None) -> tuple[torch.Tensor, ...]:
     """(op1, m1, op2, m2), each (b, t): one ImageNet sub-policy per clip,
     then for each slot a per-frame probability draw (the op or 0 = none)
-    and a per-frame sign for the signed ops, all from ``generator``."""
+    and a per-frame sign for the signed ops, all from ``generator``; under
+    a ``mesh`` (core/mesh.py), this rank's rows of the global batch's
+    draws (``draw_rows``)."""
     op_t, prob_t, mag_t, signed_t = _device_tables(device)["policies"]
-    idx = torch.randint(0, op_t.shape[0], (b,), generator=generator,
-                        device=device)
-    draws = torch.rand((2, b, t), generator=generator, device=device)
-    signs = torch.where(torch.rand((2, b, t), generator=generator,
-                                   device=device) < 0.5, 1.0, -1.0)
+
+    def rand(shape):
+        return torch.rand(shape, generator=generator, device=device)
+
+    idx = draw_rows(lambda s: torch.randint(0, op_t.shape[0], s,
+                                            generator=generator,
+                                            device=device), (b,), mesh)
+    draws = draw_rows(rand, (2, b, t), mesh, dim=1)
+    signs = torch.where(draw_rows(rand, (2, b, t), mesh, dim=1) < 0.5,
+                        1.0, -1.0)
     out = []
     for s in range(2):
         active = draws[s] < prob_t[idx, s][:, None]
@@ -569,13 +578,14 @@ def policy_draws(b: int, t: int, generator: torch.Generator,
     return tuple(out)
 
 
-def augment_clips_device(clips: torch.Tensor,
-                         generator: torch.Generator) -> torch.Tensor:
+def augment_clips_device(clips: torch.Tensor, generator: torch.Generator,
+                         mesh=None) -> torch.Tensor:
     """(B, T, H, W, 3) uint8 -> augmented (the train-time path under
-    ``cfg.device_augment``): the draws of ``policy_draws``, then both slots
-    over the flat (B*T) frame axis."""
+    ``cfg.device_augment``): the draws of ``policy_draws`` (of the global
+    batch under a ``mesh``), then both slots over the flat (B*T) frame
+    axis."""
     b, t = clips.shape[:2]
-    op1, m1, op2, m2 = policy_draws(b, t, generator, clips.device)
+    op1, m1, op2, m2 = policy_draws(b, t, generator, clips.device, mesh)
     x = clips.reshape((b * t,) + clips.shape[2:])
     x = _slot_apply(x, op1.reshape(-1), m1.reshape(-1))
     x = _slot_apply(x, op2.reshape(-1), m2.reshape(-1))

@@ -14,6 +14,8 @@ import functools
 import numpy as np
 import torch
 
+from ..core.mesh import draw_rows
+
 CLIP_MEAN = np.array([0.43216, 0.394666, 0.37645, 0.5], np.float32)
 CLIP_STD = np.array([0.22803, 0.22145, 0.216989, 0.225], np.float32)
 
@@ -49,13 +51,16 @@ def denormalize_clip(clip: torch.Tensor) -> torch.Tensor:
 
 
 def random_flip_clips(clip: torch.Tensor, generator: torch.Generator,
-                      p: float = 0.5) -> torch.Tensor:
+                      p: float = 0.5, mesh=None) -> torch.Tensor:
     """Per-sample whole-clip horizontal flip (clip_transforms.py:111-128).
     clip: (B, T, H, W, C). One Bernoulli draw per clip, same for all
-    frames, drawn from ``generator`` (which must live on clip's device)."""
+    frames, drawn from ``generator`` (which must live on clip's device);
+    under a ``mesh`` (core/mesh.py), this rank's rows of the global
+    batch's draw."""
     b = clip.shape[0]
-    flip = torch.rand((b,), generator=generator,
-                      device=clip.device) < p
+    flip = draw_rows(lambda s: torch.rand(s, generator=generator,
+                                          device=clip.device),
+                     (b,), mesh) < p
     flipped = torch.flip(clip, dims=(3,))
     return torch.where(flip[:, None, None, None, None], flipped, clip)
 

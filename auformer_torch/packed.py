@@ -521,7 +521,9 @@ def packed_sweep_stream(cfg, model: torch.nn.Module, dataset=None,
     as they fill, so the copies and the card's work overlap the decode of
     later slices. Results are fetched in groups of ``FETCH_GROUP_CLIPS``
     clips, as ``sweep_stream`` fetches them. ``max_clips`` keeps the
-    leading videos until they hold that many clips.
+    leading videos until they hold that many clips. Under a ``mesh``
+    (core/mesh.py) the rank packs and streams its share of those videos
+    (``shard_indices``: video i to rank i mod N).
 
     ``stats`` (optional dict) accumulates ``decode_seconds`` /
     ``wait_seconds`` (blocked on the next decoded slice) /
@@ -532,16 +534,14 @@ def packed_sweep_stream(cfg, model: torch.nn.Module, dataset=None,
     bytes, registered), ``releases`` (made, blocked), the ``sweep`` and
     the ``decode_worker``.
     """
+    from .core.mesh import check_mesh
     from .data.testset import Aff2TestDataset
     from .infer import FETCH_GROUP_CLIPS
     from .serve import (WORKER_MIN_CLIPS, DecodeWorker, _test_videos,
                         decode_video_frames, read_video_wav)
     from .sweep import default_sweep_bucket, make_sweep
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "the data-parallel sweep is not ported to auformer_torch; "
-            "ROADMAP.md queue A7 (multi-process) lists it")
+    check_mesh(mesh)
     dataset = Aff2TestDataset(cfg) if dataset is None else dataset
     sweep = sweep or make_sweep(cfg, model, device=device)
     if not hasattr(sweep, "fused_sweep_packed"):
@@ -551,13 +551,7 @@ def packed_sweep_stream(cfg, model: torch.nn.Module, dataset=None,
             f"for {type(sweep).__name__}")
     bucket = bucket or default_sweep_bucket(sweep.device)
     size = cfg.image_size
-    test_idx, videos, counts = _test_videos(dataset)
-    if max_clips is not None:
-        k, acc = 0, 0
-        while k < len(videos) and acc < max_clips:
-            acc += counts[k]
-            k += 1
-        videos, counts = videos[:k], counts[:k]
+    test_idx, videos, counts = _test_videos(dataset, mesh, max_clips)
     vid_rows = {v: test_idx[dataset.video_db_nr[test_idx] == v]
                 for v in videos}
     ts_all = np.asarray(dataset.time_stamps)

@@ -1,5 +1,6 @@
 """Train and eval steps (counterpart of auformer/parallel/step.py; the
-reference's loop body, train.py:202-244), on one device.
+reference's loop body, train.py:202-244), on one device or, under a mesh,
+data parallel over a process group.
 
   * uint8 clips are augmented (``--device_augment``), normalized and
     flipped on the device inside the step; a frame-dedup batch's clips are
@@ -22,7 +23,16 @@ reference's loop body, train.py:202-244), on one device.
   * ``make_multi_train_step`` runs K steps per dispatch
     (``--steps_per_dispatch K``): K eager steps on the CPU; on the card a
     CUDA graph of one step, captured once and replayed K times per
-    dispatch, the counterpart of the JAX package's ``lax.scan``.
+    dispatch, the counterpart of the JAX package's ``lax.scan``;
+  * under a ``mesh`` (core/mesh.py) each rank holds its rows of the
+    global batch and the step is the world-1 step on that batch, as the
+    JAX package's GSPMD step is: the random draws are the global batch's
+    (``draw_rows``), train-mode BatchNorm reduces its statistics over the
+    ranks (nn/blocks.py), the (B, 21) outputs and the labels are gathered
+    so that every rank computes the global loss, with only its own rows
+    carrying their autograd history (``global_rows``: the remote rows are
+    detached, so no rank's backward adds another's), and the trainable
+    gradients are SUM-all-reduced before the optimizer.
 """
 from __future__ import annotations
 
@@ -34,8 +44,9 @@ import numpy as np
 import torch
 
 from ..core.config import Config
+from ..core.mesh import Mesh
 from ..losses import LossSuite
-from ..nn.blocks import set_dropout_generator
+from ..nn.blocks import set_dropout_generator, set_step_mesh
 from ..nn.registry import compute_autocast, output_table
 from ..ops.attention import fused_attention
 from ..ops.audio import HOP_LENGTH, audio_frontend, reflect_end_patch
@@ -182,14 +193,15 @@ def prep_batch(batch: Mapping[str, torch.Tensor], train: bool,
                device_augment: bool = False,
                device_audio: bool = False,
                arena: torch.Tensor | None = None,
-               sample_len: int = 441000) -> dict:
+               sample_len: int = 441000, mesh: Mesh | None = None) -> dict:
     """Device-side preprocessing: the clips of a frame-dedup batch
     (``expand_dedup_batch``); under ``device_audio`` the log-mel of the
     left-aligned raw windows, shipped by the loader or, with ``arena``,
     gathered from it by the batch's ``audio_ofs`` (``reflect_end_patch``
     + the left-aligned frontend); then, for a uint8 clip, the AutoAugment
     (train, ``device_augment``, RGB clips), /255 + normalize, and the
-    train-time whole-clip flip. Eval never augments."""
+    train-time whole-clip flip, their draws those of the global batch
+    under a ``mesh``. Eval never augments."""
     x = expand_dedup_batch(batch)
     if device_audio and "audio_features" not in x and "audio_len" in x:
         n_valid = x["audio_len"].reshape(-1).long()
@@ -208,10 +220,10 @@ def prep_batch(batch: Mapping[str, torch.Tensor], train: bool,
     if clip is not None and clip.dtype == torch.uint8:
         if train and device_augment and generator is not None \
                 and clip.shape[-1] == 3:
-            clip = augment_clips_device(clip, generator)
+            clip = augment_clips_device(clip, generator, mesh)
         clip = normalize_clip(clip)
         if train and generator is not None:
-            clip = random_flip_clips(clip, generator)
+            clip = random_flip_clips(clip, generator, mesh=mesh)
         x["clip"] = clip
     return x
 
@@ -220,6 +232,30 @@ def _labels_of(batch: Mapping[str, torch.Tensor]) -> dict:
     ex = batch["EX"].reshape(-1).long()
     ex = torch.where(ex == -1, 7, ex)  # train.py:126,208 remap
     return {"AU": batch["AU"].float(), "EX": ex, "VA": batch["VA"].float()}
+
+
+def global_rows(mesh: Mesh, out: torch.Tensor, labels: dict
+                ) -> tuple[torch.Tensor, dict]:
+    """The (B_global, 21) outputs and the labels of the global batch from
+    every rank's (B, 21) ``out`` and ``labels`` (one all-gather of both):
+    this rank's rows of the outputs are ``out`` itself, with its autograd
+    history, and the other ranks' are detached. The global loss is the
+    same number on every rank, and each rank's backward carries its
+    gradient through its own rows only, so the SUM of the ranks'
+    gradients is the world-1 gradient (a gather with autograd would add
+    every rank's identical loss gradient: N times too much)."""
+    b = out.shape[0]
+    packed = torch.cat([out.detach().float(), labels["AU"].float(),
+                        labels["EX"].float()[:, None],
+                        labels["VA"].float()], 1)
+    full = mesh.all_gather_rows(packed)
+    rows, width = mesh.rows(b), out.shape[1]
+    out = torch.cat([full[:rows.start, :width], out,
+                     full[rows.stop:, :width]])
+    au = labels["AU"].shape[1]
+    return out, {"AU": full[:, width:width + au],
+                 "EX": full[:, width + au].long(),
+                 "VA": full[:, width + au + 1:]}
 
 
 def task_loss(suite: LossSuite, task: str, out, labels):
@@ -250,23 +286,30 @@ def _forward(cfg: Config, model: torch.nn.Module, x: dict,
 def _step_body(cfg: Config, model: torch.nn.Module, suite: LossSuite,
                state: TrainState, batch: Mapping[str, torch.Tensor],
                generator: torch.Generator, arena: torch.Tensor | None,
-               graphed: bool) -> dict:
+               graphed: bool, mesh: Mesh | None = None) -> dict:
     """One train step: prep, forward, loss, backward, update. ``graphed``:
     the body a CUDA graph captures, where the caller sets the rate before
-    each replay and counts the step (no autocast cache, no host value)."""
+    each replay and counts the step (no autocast cache, no host value).
+    ``mesh``: the data-parallel step (the module docstring)."""
     x = prep_batch(batch, train=True, generator=generator,
                    device_augment=cfg.device_augment,
                    device_audio=cfg.device_audio, arena=arena,
-                   sample_len=cfg.sample_len_frames)
+                   sample_len=cfg.sample_len_frames, mesh=mesh)
     labels = _labels_of(batch)
     model.train()
     set_dropout_generator(model, generator)
+    set_step_mesh(model, mesh)
     try:
         out = _forward(cfg, model, x, autocast_cache=not graphed)
     finally:
         set_dropout_generator(model, None)
+        set_step_mesh(model, None)
+    if mesh is not None:
+        out, labels = global_rows(mesh, out, labels)
     loss, parts = task_loss(suite, cfg.task, out, labels)
     loss.backward()
+    if mesh is not None:
+        mesh.all_reduce_grads(state.params)
     if graphed:
         state.update()
     else:
@@ -276,18 +319,20 @@ def _step_body(cfg: Config, model: torch.nn.Module, suite: LossSuite,
 
 
 def make_train_step(cfg: Config, model: torch.nn.Module,
-                    suite: LossSuite) -> Callable:
+                    suite: LossSuite, mesh: Mesh | None = None) -> Callable:
     """Returns ``step(state, batch, generator, arena=None) -> metrics``:
     ``batch`` holds tensors on the model's device, ``generator`` (on that
     device) draws the augmentation, the flip and the dropout masks,
     ``arena`` is the wav arena on that device when the batch carries
     arena offsets; ``metrics`` maps "loss" (and for task ALL "ex", "au",
-    "va") to 0-d tensors on the device."""
+    "va") to 0-d tensors on the device. Under a ``mesh`` the batch is this
+    rank's rows of the global batch, every rank's generator is seeded
+    alike, and the metrics are the global batch's."""
     def step(state: TrainState, batch: Mapping[str, torch.Tensor],
              generator: torch.Generator,
              arena: torch.Tensor | None = None) -> dict:
         return _step_body(cfg, model, suite, state, batch, generator, arena,
-                          graphed=False)
+                          graphed=False, mesh=mesh)
 
     return step
 
@@ -359,11 +404,19 @@ class MultiTrainStep:
     ``KERNEL_COUNTERS``' counts in one step)."""
 
     def __init__(self, cfg: Config, model: torch.nn.Module,
-                 suite: LossSuite, k: int):
+                 suite: LossSuite, k: int, mesh: Mesh | None = None):
         if k < 1:
             raise ValueError(f"make_multi_train_step: k={k}")
+        if mesh is not None and k > 1 and mesh.backend != "nccl":
+            raise ValueError(
+                f"make_multi_train_step(k={k}) under a {mesh.backend} process "
+                "group: K > 1 replays a CUDA graph of the step, which must "
+                "capture the step's collectives, and only NCCL's can be "
+                f"captured ({mesh.backend}'s run through the host); use "
+                "NCCL or --steps_per_dispatch 1")
         self.cfg, self.model, self.suite, self.k = cfg, model, suite, k
-        self.eager_step = make_train_step(cfg, model, suite)
+        self.mesh = mesh
+        self.eager_step = make_train_step(cfg, model, suite, mesh)
         self.dispatches = self.captures = self.replays = 0
         self.pool_mb = self.capture_s = 0.0
         self.captured_counts: tuple = ()
@@ -435,7 +488,7 @@ class MultiTrainStep:
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 out = _step_body(self.cfg, self.model, self.suite, state,
                                  self._static, self._generator, arena,
-                                 graphed=True)
+                                 graphed=True, mesh=self.mesh)
         except RuntimeError as e:
             # ending a broken capture raises too: name the first error,
             # the op the capture could not take
@@ -490,7 +543,8 @@ class MultiTrainStep:
 
 
 def make_multi_train_step(cfg: Config, model: torch.nn.Module,
-                          suite: LossSuite, k: int) -> MultiTrainStep:
+                          suite: LossSuite, k: int,
+                          mesh: Mesh | None = None) -> MultiTrainStep:
     """Returns ``step_k(state, batches, seeds, arena=None) -> metrics``: K
     optimizer steps per dispatch (the JAX package's
     ``make_multi_train_step``, a ``lax.scan`` in one device program).
@@ -510,15 +564,22 @@ def make_multi_train_step(cfg: Config, model: torch.nn.Module,
     and fills in place of an eager step's thousands of launches (each
     kernel launch a runtime call). There is no fallback:
     a capture that fails raises. The graph lives as long as ``step_k``,
-    with the arena (if any) it was captured with."""
-    return MultiTrainStep(cfg, model, suite, k)
+    with the arena (if any) it was captured with.
+
+    Under a ``mesh`` the steps are ``make_train_step``'s data-parallel
+    ones, and the graph captures their collectives: NCCL only; K > 1
+    under another backend raises (gloo's collectives run through the
+    host and cannot be captured), and none is ever skipped."""
+    return MultiTrainStep(cfg, model, suite, k, mesh)
 
 
 def make_eval_step(cfg: Config, model: torch.nn.Module,
-                   suite: LossSuite) -> Callable:
+                   suite: LossSuite, mesh: Mesh | None = None) -> Callable:
     """Returns ``step(batch, arena=None) -> (out (B, 21) f32, loss)``: the
     model in eval mode (running statistics, no dropout), no augmentation;
-    ``arena`` as the train step's."""
+    ``arena`` as the train step's. Under a ``mesh`` ``out`` holds the rows
+    of the global batch, gathered from every rank in rank order, and
+    ``loss`` is the global batch's."""
     def step(batch: Mapping[str, torch.Tensor],
              arena: torch.Tensor | None = None):
         model.eval()
@@ -527,7 +588,10 @@ def make_eval_step(cfg: Config, model: torch.nn.Module,
                            device_audio=cfg.device_audio, arena=arena,
                            sample_len=cfg.sample_len_frames)
             out = _forward(cfg, model, x)
-            loss, _ = task_loss(suite, cfg.task, out, _labels_of(batch))
+            labels = _labels_of(batch)
+            if mesh is not None:
+                out, labels = global_rows(mesh, out, labels)
+            loss, _ = task_loss(suite, cfg.task, out, labels)
         return out, loss
 
     return step

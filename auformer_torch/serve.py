@@ -16,7 +16,9 @@ device forward; predictions demux to per-video rows on the host.
     worker decoding slices straight into a shared frame ring
     (``DecodeWorker.attach_arena`` / ``request_slice`` / ``slice_result``).
 
-Not ported here: the data-parallel mesh (ROADMAP.md queue A7).
+Under a mesh (core/mesh.py) ``sweep_stream`` streams this rank's
+videos of the test split (``shard_indices``: video i to rank i mod N);
+``infer.run_inference_sweep`` gathers the rows.
 """
 from __future__ import annotations
 
@@ -33,6 +35,8 @@ import numpy as np
 import torch
 
 from .core.config import Config
+from .core.mesh import check_mesh
+from .data.samplers import shard_indices
 from .data.testset import Aff2TestDataset, strip_position
 from .infer import (FETCH_GROUP_CLIPS, make_infer_fn, model_inputs,
                     testset_loader)
@@ -261,12 +265,25 @@ class DecodeWorker:
         self._conn.close()
 
 
-def _test_videos(dataset) -> tuple[np.ndarray, list, list[int]]:
-    """(test rows, video db-nrs in order, test clips per video)."""
+def _test_videos(dataset, mesh=None, max_clips: int | None = None
+                 ) -> tuple[np.ndarray, list, list[int]]:
+    """(test rows, video db-nrs in order, test clips per video): with
+    ``max_clips`` the leading videos until they hold that many clips;
+    under a ``mesh`` this rank's share of them (``shard_indices``)."""
     test_idx = np.nonzero(dataset.test_ids)[0]
     nrs = dataset.video_db_nr[test_idx]
     videos = list(np.unique(nrs))
-    return test_idx, videos, [int(np.sum(nrs == v)) for v in videos]
+    counts = [int(np.sum(nrs == v)) for v in videos]
+    if max_clips is not None:
+        k, acc = 0, 0
+        while k < len(videos) and acc < max_clips:
+            acc += counts[k]
+            k += 1
+        videos, counts = videos[:k], counts[:k]
+    if mesh is not None:
+        videos = shard_indices(videos, mesh.rank, mesh.world)
+        counts = shard_indices(counts, mesh.rank, mesh.world)
+    return test_idx, videos, counts
 
 
 def sweep_stream(cfg: Config, model: torch.nn.Module, dataset=None,
@@ -274,7 +291,9 @@ def sweep_stream(cfg: Config, model: torch.nn.Module, dataset=None,
                  mesh=None, stats: dict | None = None, device=None
                  ) -> Iterator[tuple[np.ndarray, str, np.ndarray]]:
     """Dense-sweep serving pipeline over the test split: yields
-    ``(vid_idx, video_id, (N, out_dim) logits)`` per video, in video order.
+    ``(vid_idx, video_id, (N, out_dim) logits)`` per video, in video order;
+    under a ``mesh`` (core/mesh.py) this rank's videos only
+    (``shard_indices``: video i to rank i mod N).
 
     Per video, every test frame is decoded once, the trunk runs once per
     frame, and windows are feature gathers on the device (sweep.py); the
@@ -300,15 +319,12 @@ def sweep_stream(cfg: Config, model: torch.nn.Module, dataset=None,
     place and holds the ``sweep`` and ``decode_worker`` in use."""
     from .sweep import default_sweep_bucket, make_sweep
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "the data-parallel sweep is not ported to auformer_torch; "
-            "ROADMAP.md queue A7 (multi-process) lists it")
+    check_mesh(mesh)
     dataset = Aff2TestDataset(cfg) if dataset is None else dataset
     sweep = sweep or make_sweep(cfg, model, device=device)
     bucket = bucket or default_sweep_bucket(sweep.device)
     size = cfg.image_size
-    test_idx, videos, counts = _test_videos(dataset)
+    test_idx, videos, counts = _test_videos(dataset, mesh)
 
     st = stats if stats is not None else {}
     st.setdefault("decode_seconds", 0.0)

@@ -37,7 +37,8 @@ buckets padded to multiples of 256 frames.
 
 Every compute method runs eagerly under ``torch.inference_mode()``; the
 JAX package's jit and weight-pytree plumbing has no counterpart here. The
-data-parallel mesh is not ported (ROADMAP.md, queue A7).
+data-parallel route shards by video, not by bucket
+(``infer.run_inference_sweep(..., mesh=)``): a sweep keeps one device.
 """
 from __future__ import annotations
 
@@ -202,8 +203,11 @@ class SweepBase:
 def _refuse_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "the data-parallel sweep is not ported to auformer_torch; "
-            "ROADMAP.md queue A7 (multi-process) lists it")
+            "a sweep runs on one device: the data-parallel route (A7) shards "
+            "the test split by video, run_inference_sweep(..., mesh=) or "
+            "sweep_stream(..., mesh=); splitting one video's buckets over "
+            "the ranks would make every rank decode all of its frames, and "
+            "serving is decode-bound")
 
 
 class AvformerSweep(SweepBase):

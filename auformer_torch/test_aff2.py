@@ -15,6 +15,12 @@ warning. The JAX package's orbax checkpoints are not read.
 ``AUFORMER_SWEEP=0`` selects the
 clip path (``run_inference``) instead of the dense sweep
 (``run_inference_sweep``, the default).
+
+Over N GPUs, the test split's videos spread over the ranks, rank 0
+writing the files:
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m auformer_torch.test_aff2 [flags]
 """
 from __future__ import annotations
 
@@ -24,8 +30,9 @@ import os
 import torch
 
 from .core.config import parse_opt
+from .core.mesh import make_mesh, maybe_init_distributed, process_group_scope
 from .core.weights import load_reference_state_dict, load_weights
-from .infer import run_inference, run_inference_sweep
+from .infer import resolve_device, run_inference, run_inference_sweep
 from .nn import build_model
 
 MODEL_PATH = os.path.join("experiments", "avformer", "pretrain")
@@ -35,7 +42,9 @@ RESULT_PATH = "results"
 def main(argv: list[str] | None = None, device=None):
     """Parse ``argv`` (default: the command line), run, and return the
     (len(dataset), 21) prediction matrix. ``device``: ``cuda`` unless
-    given (the tests pass ``"cpu"``)."""
+    given (the tests pass ``"cpu"``). Under ``torchrun`` the process joins
+    the group its environment describes and serves its share of the
+    videos (``make_mesh``); the group is destroyed on the way out."""
     cfg = parse_opt(argv)
     cfg.model_name = "avformer"
     cfg.modality = "A;V"
@@ -48,10 +57,15 @@ def main(argv: list[str] | None = None, device=None):
         print(f"Loading weight from: {pths[0]}")
     else:
         print("WARNING: no checkpoint found, using random init")
-    if os.environ.get("AUFORMER_SWEEP", "1") != "0":
-        return run_inference_sweep(cfg, model, result_path=RESULT_PATH,
-                                   device=device)
-    return run_inference(cfg, model, result_path=RESULT_PATH, device=device)
+    with process_group_scope():
+        device = resolve_device(device)
+        maybe_init_distributed(device)
+        mesh = make_mesh(cfg.mesh_shape, device)
+        run = (run_inference_sweep
+               if os.environ.get("AUFORMER_SWEEP", "1") != "0"
+               else run_inference)
+        return run(cfg, model, result_path=RESULT_PATH, device=device,
+                   mesh=mesh)
 
 
 if __name__ == "__main__":

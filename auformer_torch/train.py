@@ -15,23 +15,33 @@ train with ``--n_frames 1``, emonet at a multiple of 64 (``--image_size
 
 Checkpoints go to ``{exp_dir}/pretrain/{latest,best}.pth`` in the reference
 layout; ``--resume`` reads ``latest.pth``.
+
+Data parallel over N GPUs, one process each (train_lib's docstring):
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m auformer_torch.train [flags]
+
+``--batch_size`` is the global batch, which N must divide.
 """
 from __future__ import annotations
 
 from . import train_lib
 from .core.config import parse_opt
+from .core.mesh import process_group_scope
 
 
 def main(argv: list[str] | None = None, device=None):
     """Parse ``argv`` (default: the command line), train, and return
     ``(state, history)``. ``device``: ``cuda`` unless given (the tests pass
-    ``"cpu"``)."""
+    ``"cpu"``). A process group that training joins from ``torchrun``'s
+    environment is destroyed on the way out."""
     cfg = parse_opt(argv)
     print(f"Task: {cfg.task}")
     print("Model:", cfg.model_name)
     print("Modality:", cfg.modality)
     print("clip size", cfg.n_frames, cfg.image_size)
-    return train_lib.train(cfg, device=device)
+    with process_group_scope():
+        return train_lib.train(cfg, device=device)
 
 
 if __name__ == "__main__":

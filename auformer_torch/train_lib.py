@@ -1,5 +1,6 @@
 """Training driver (counterpart of auformer/train_lib.py; reference
-train.py:106-336), on one device.
+train.py:106-336), on one device or data parallel over the processes of
+``torchrun``.
 
 The reference's protocol: per-epoch 1/downsample_rate subsampling of the
 labelled frames with a reshuffled mask (train.py:174-189), a one-shot
@@ -25,6 +26,17 @@ processes (the eager step needs the GIL that loader threads augmenting
 in-process would hold); frame dedup then stays
 off, as in the JAX package. Every model of the zoo trains; only avformer
 freezes its streams.
+
+Under ``python -m torch.distributed.run --nproc_per_node N -m
+auformer_torch.train`` each process joins the group its environment
+describes (``core/mesh.py::maybe_init_distributed``: NCCL on the GPUs),
+takes ``cuda:{LOCAL_RANK}``, starts from rank 0's weights and trains one
+global-batch program (``parallel/step.py`` under a mesh): each rank loads
+an equal, disjoint shard of the ids at batch_size / N (``host_shard``),
+the validation rows are gathered so that every rank scores the same set
+and the early stopper cannot diverge, frame dedup stays off at N > 1 (as
+in the JAX package), and rank 0 alone writes the log file, the
+checkpoints and the curves, the others waiting at a barrier.
 """
 from __future__ import annotations
 
@@ -37,15 +49,17 @@ from collections import defaultdict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .core.checkpointing import (EarlyStopper, load_checkpoint,
                                  model_state_dict, save_checkpoint)
 from .core.config import Config
+from .core.mesh import Mesh, make_mesh, maybe_init_distributed
 from .core.observability import RecorderMeter, StepTimer, profile
 from .core.prng import key_seq, setup_seed
 from .core.weights import load_weights
 from .data import (Aff2CompDataset, BlockShuffleSampler, DataLoader,
-                   Prefetcher, SubsetSequentialSampler)
+                   Prefetcher, SubsetSequentialSampler, shard_indices)
 from .data.transforms import AugmentPool
 from .data.wav_arena import build_wav_arena
 from .infer import resolve_device
@@ -115,10 +129,50 @@ def to_device(batch: dict, keys: set, device: torch.device) -> dict:
             for k, v in batch.items() if k in keys}
 
 
-def host_shard(ids, batch_size: int) -> tuple[list, int]:
-    """(indices, local batch size): one process feeds the whole batch
-    (multi-process input sharding comes with queue A7)."""
-    return list(ids), batch_size
+def host_shard(ids, batch_size: int, host_id: int | None = None,
+               num_hosts: int | None = None) -> tuple[list, int]:
+    """This process's (indices, local batch size) of a data-parallel
+    world (the JAX package's ``host_shard``): the global batch stays
+    ``batch_size``, and each of the ``num_hosts`` processes (default: the
+    process group's world, 1 without one) loads a disjoint
+    batch_size / num_hosts slice of it. The shards are cut to one length,
+    so that every rank runs the same number of steps (a rank with one step
+    more would wait forever in its first collective); the samples dropped
+    for that are logged. A batch that does not divide raises. One process
+    takes every id."""
+    grouped = dist.is_available() and dist.is_initialized()
+    if num_hosts is None:
+        num_hosts = dist.get_world_size() if grouped else 1
+    if host_id is None:
+        host_id = dist.get_rank() if grouped else 0
+    if num_hosts == 1:
+        return list(ids), batch_size
+    if batch_size % num_hosts:
+        raise ValueError(f"global batch {batch_size} not divisible by "
+                         f"{num_hosts} processes")
+    local = shard_indices(ids, host_id, num_hosts)
+    dropped = len(ids) - num_hosts * (len(ids) // num_hosts)
+    if dropped:
+        logging.info(f"host_shard: {dropped}/{len(ids)} samples dropped "
+                     f"for equal {num_hosts}-process shard lengths")
+    return local[:len(ids) // num_hosts], batch_size // num_hosts
+
+
+def _gather_eval_rows(batch: dict, mesh: Mesh | None) -> dict:
+    """The EX, VA and AU labels of the global validation batch (every
+    rank's rows in rank order, as the eval step gathers the outputs), so
+    that every rank scores the same rows; one process's batch as it is."""
+    if mesh is None:
+        return batch
+    keys = ("EX", "VA", "AU")
+    local = [np.asarray(batch[k], np.float32).reshape(len(batch[k]), -1)
+             for k in keys]
+    widths = [a.shape[1] for a in local]
+    full = mesh.all_gather_rows(torch.from_numpy(
+        np.concatenate(local, 1)).to(mesh.device)).cpu().numpy()
+    edges = np.cumsum([0] + widths)
+    return {k: full[:, a:b].astype(np.asarray(batch[k]).dtype)
+            for k, a, b in zip(keys, edges[:-1], edges[1:])}
 
 
 def _toggle_trace(trace: contextlib.ExitStack, start: bool, trace_dir: str,
@@ -136,8 +190,11 @@ def _toggle_trace(trace: contextlib.ExitStack, start: bool, trace_dir: str,
 
 
 def evaluate(eval_step, loader, device: torch.device,
-             num_step: int | None = None, keep: set | None = None) -> dict:
-    """Validation sweep -> composite scores (reference train.py:106-169)."""
+             num_step: int | None = None, keep: set | None = None,
+             mesh: Mesh | None = None) -> dict:
+    """Validation sweep -> composite scores (reference train.py:106-169).
+    Under a ``mesh`` the eval step returns the global batch's rows and
+    the labels are gathered to match (``_gather_eval_rows``)."""
     metric_ex = AccF1Metric(ignore_index=7)
     metric_va = CCCMetric(ignore_index=-5.0)
     metric_au = MultiLabelAccF1(ignore_index=-1)
@@ -147,6 +204,7 @@ def evaluate(eval_step, loader, device: torch.device,
             break
         out, loss = eval_step(to_device(batch, keep or set(batch), device))
         out = out.cpu().numpy()
+        batch = _gather_eval_rows(batch, mesh)
         total_loss += float(loss)
         steps += 1
 
@@ -174,15 +232,22 @@ def train(cfg: Config, dataset=None, max_steps_per_epoch: int | None = None,
     state and one history entry per epoch. ``device``: ``cuda`` unless
     given (the tests pass ``"cpu"``)."""
     device = resolve_device(device)
+    # under torchrun: join the process group before the model is placed
+    maybe_init_distributed(device)
+    mesh = make_mesh(cfg.mesh_shape, device)
+    lead = mesh is None or mesh.rank == 0     # writes the files
     root = setup_seed(cfg.seed, device)
     keys = key_seq(root)
 
     os.makedirs(cfg.exp_dir, exist_ok=True)
     log_file = os.path.join(
         cfg.exp_dir, f"{cfg.model_name}_{cfg.modality}_log.txt")
-    logging.basicConfig(filename=log_file, level=logging.INFO,
-                        format="[%(asctime)s.%(msecs)03d] %(message)s",
-                        datefmt="%H:%M:%S", force=True)
+    if lead:
+        logging.basicConfig(filename=log_file, level=logging.INFO,
+                            format="[%(asctime)s.%(msecs)03d] %(message)s",
+                            datefmt="%H:%M:%S", force=True)
+    else:
+        logging.basicConfig(level=logging.WARNING, force=True)
 
     model = build_model(cfg, dtype=torch.float32)
     suite = loss_suite(model)
@@ -202,6 +267,8 @@ def train(cfg: Config, dataset=None, max_steps_per_epoch: int | None = None,
             start_epoch = cfg.start_epoch
             logging.info("resumed from latest checkpoint")
     model.to(device)
+    if mesh is not None:
+        mesh.broadcast_module(model)      # every rank starts from rank 0's
 
     downsample = np.zeros(len(dataset), dtype=int)
     downsample[np.arange(0, len(dataset) - 1, cfg.downsample_rate)] = 1
@@ -228,17 +295,19 @@ def train(cfg: Config, dataset=None, max_steps_per_epoch: int | None = None,
     spd = max(int(cfg.steps_per_dispatch or 1), 1)
     state = create_train_state(cfg, model,
                                capturable=spd > 1 and device.type == "cuda")
-    train_step = make_train_step(cfg, model, suite)
-    multi_step = (make_multi_train_step(cfg, model, suite, spd)
+    train_step = make_train_step(cfg, model, suite, mesh)
+    multi_step = (make_multi_train_step(cfg, model, suite, spd, mesh)
                   if spd > 1 else None)
     stacker = make_device_stacker() if spd > 1 else None
     window = profile_window(spd)
-    eval_step = functools.partial(make_eval_step(cfg, model, suite),
+    eval_step = functools.partial(make_eval_step(cfg, model, suite, mesh),
                                   arena=arena)
     # frame-dedup batches: a pool of unique frames and a (B, T) window map,
     # the clips gathered inside the step (or into the stack under K > 1);
-    # host augmentation is per sample
+    # host augmentation is per sample; one process only, as in the JAX
+    # package (each rank's pool would index its own rows)
     use_dedup = (bool(cfg.frame_dedup) and cfg.device_augment
+                 and (mesh is None or mesh.world == 1)
                  and "clip" in getattr(model, "modes", ("clip",)))
     if use_dedup:
         dataset.set_frame_dedup(True)
@@ -318,8 +387,8 @@ def train(cfg: Config, dataset=None, max_steps_per_epoch: int | None = None,
                         and step_i + len(pend) >= max_steps_per_epoch:
                     break
                 timer.mark_data()
-                if cfg.profile_dir and epoch == start_epoch and not pend \
-                        and step_i in window:
+                if cfg.profile_dir and lead and epoch == start_epoch \
+                        and not pend and step_i in window:
                     _toggle_trace(trace, step_i == window[0],
                                   cfg.profile_dir, device)
                 pend.append(to_device(batch, dev_keys, device))
@@ -341,11 +410,13 @@ def train(cfg: Config, dataset=None, max_steps_per_epoch: int | None = None,
             f"AU:{meters['au'].avg}, VA:{meters['va'].avg} "
             f"({step_i} steps, {dt:.1f}s)")
 
-        weights = model_state_dict(model)
-        save_checkpoint(cfg.checkpoint_path, weights, name="latest")
+        weights = model_state_dict(model) if lead else None
+        if lead:
+            save_checkpoint(cfg.checkpoint_path, weights, name="latest")
 
         dataset.set_aug(False)
         val_ids = np.nonzero(dataset.val_ids * downsample)[0]
+        n_val_global = len(val_ids)
         val_bs = cfg.batch_size * cfg.eval_batch_mult
         val_ids, local_val_bs = host_shard(val_ids, val_bs)
         val_loader = DataLoader(dataset, local_val_bs,
@@ -354,9 +425,16 @@ def train(cfg: Config, dataset=None, max_steps_per_epoch: int | None = None,
                                 prefetch_batches=cfg.prefetch_depth)
         num_eval = (max(int(len(val_ids) / local_val_bs), 1)
                     if len(val_ids) else 0)
+        # equal shards and drop_last may leave up to world * local batch - 1
+        # validation samples unscored: say so
+        n_scored = min(num_eval * local_val_bs, len(val_ids)) \
+            * (1 if mesh is None else mesh.world)
+        if n_scored < n_val_global:
+            logging.info(f"val: scoring {n_scored}/{n_val_global} samples "
+                         "(equal shards + drop_last truncation)")
         t_eval = time.time()
         scores = evaluate(eval_step, val_loader, device, num_step=num_eval,
-                          keep=dev_keys)
+                          keep=dev_keys, mesh=mesh)
         eval_s = time.time() - t_eval
 
         if cfg.task == "ALL":
@@ -375,10 +453,14 @@ def train(cfg: Config, dataset=None, max_steps_per_epoch: int | None = None,
 
         recorder.update(epoch, meters["loss"].avg, 0.0,
                         scores.get("loss", 0.0), total_score * 100)
-        if not stopper.is_continuable(weights, total_score):
+        go_on = stopper.is_continuable(weights, total_score)
+        if mesh is not None:
+            mesh.barrier()        # rank 0's checkpoints are on disk
+        if not go_on:
             logging.info(f"validation: best score: {stopper.best_accuracy}")
             break
     if aug_pool is not None:
         aug_pool.close()
-    recorder.save_json(os.path.join(cfg.exp_dir, "curves.json"))
+    if lead:
+        recorder.save_json(os.path.join(cfg.exp_dir, "curves.json"))
     return state, history

@@ -149,7 +149,29 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            from replays; every other zoo model's bf16 steps graphed at
            K = 2 with the same check on its loss, wall and device ms and
            the idle share per step beside the eager ones; and a host sync
-           put into the step, whose capture must raise
+           put into the step, whose capture must raise. The ``dp``
+           sub-phase (its own line, data parallelism on the one card):
+           (a) an NCCL world of one in a process of ``torch.distributed.
+           run`` (this file's ``dp_worker``): avformer's fp32 step (B=16,
+           augmentation and dropout on) under the mesh against the step
+           without a process group (loss, gradients, BatchNorm
+           statistics, tests/test_parallel.py's tolerances), the
+           collectives and bytes per step, 8 steps as 2 dispatches of
+           K = 4 with the collectives captured against eager, the cost
+           of the global batch's random draws at 8 ranks of 8 rows, then
+           ``train.main`` at B=64 in bf16 with --device_augment for an
+           epoch (the data-parallel main path: attention 11 per step and
+           per eval step, 3 backward calls per step; clips/s beside the
+           train phase's epochs without a process group), and the train
+           phase's step on ready batches (bf16, B=64) with and without
+           the process group in turns; (b) a gloo world
+           of two processes sharing the card (``parallel/multiproc.py``),
+           avformer and vformer in fp32 at a global B=16: each rank's
+           step and gathered eval rows against the world-1 step here, and
+           the step ms of this test rig; (c) in that world,
+           run_inference_sweep over two synthetic videos of 300 and 307
+           frames, one per rank, against world 1 here (rank 0 alone
+           writes the files)
 
 Then one JSON line of per-kernel results: for attention, sums over one
 sweep bucket's calls in bf16 (the main path's dtype), with the per-bucket
@@ -166,7 +188,8 @@ phase's, the feed's, the host_aug's and the graph's main path runs
 (``launches_by_path``; ``zoo`` sums the zoo phase's bf16 main path runs;
 ``feed`` is the --frame_dedup + wav arena epoch, ``host_aug`` the (h)
 epoch, ``graph`` the --frame_dedup + wav arena epoch at
---steps_per_dispatch 4, its replays counted), and ``zoo_sites`` lists the
+--steps_per_dispatch 4, its replays counted, ``dp`` the NCCL world of
+one's epoch, counted in its process), and ``zoo_sites`` lists the
 zoo's attention
 sites in both dtypes. Then the nvidia-smi name/power line, and last
 ``{"ok": true, "device": {...}}``. Without a GPU, or outside a checkout
@@ -352,6 +375,16 @@ FEED_GRAPH_K = 4
 HOST_AUG_THREADS = (1, 4)
 HOST_AUG_BATCHES = 4
 HOST_AUG_IN_THREAD_STEPS = 8
+# the dp sub-phase: the NCCL world of one's fp32 step and graph checks
+# (B=16), K, steps; the gloo world of two's global batch and timed steps;
+# the two swept videos' frames; the draws' cost at 8 ranks of 8 rows
+DP_STEP_BATCH, DP_GRAPH_K, DP_GRAPH_STEPS = 16, 4, 8
+DP_GLOO_BATCH, DP_TIMED_STEPS, DP_SERVE_FRAMES = 16, 3, 300
+DP_DRAW_WORLD = DP_DRAW_LOCAL = 8
+DP_OVERHEAD_ROUNDS, DP_OVERHEAD_STEPS = 8, 4
+# tests/test_parallel.py's tolerances: loss, gradients (rtol, atol), stats
+DP_LOSS_REL, DP_GRAD_TOL, DP_STATS_ATOL = 1e-5, (5e-3, 5e-5), 1e-4
+DP_TIMEOUT_S = 600
 PIL_DIGEST = "ab03ee6ec397065e602c19f69374b3fa813e9743dc9fbcaedd7e47bdac851dd9"
 
 
@@ -2929,22 +2962,24 @@ def train_tensors(state) -> dict:
 
 
 def k_step_run(torch, cfg, model, start: dict, batches: list, seeds: list,
-               k: int | None = None) -> tuple:
+               k: int | None = None, mesh=None) -> tuple:
     """From the weights ``start``, loaded into ``model``, with a fresh
     capturable Adam: the steps of ``batches`` (device batches) with
     ``seeds``, as dispatches of ``make_multi_train_step(k)`` or (k None)
-    eager single steps. -> (losses, train_tensors, step_k, state)."""
+    eager single steps, data parallel under ``mesh``. -> (losses,
+    train_tensors, step_k, state)."""
     from auformer_torch.nn import loss_suite
     from auformer_torch.parallel import step as tstep
     model.load_state_dict(start)
     state = tstep.create_train_state(cfg, model, capturable=True)
     if k is None:
-        step = tstep.make_train_step(cfg, model, loss_suite(model))
+        step = tstep.make_train_step(cfg, model, loss_suite(model), mesh)
         gen = torch.Generator(next(model.parameters()).device)
         losses = torch.stack([step(state, b, gen.manual_seed(s))["loss"]
                               for b, s in zip(batches, seeds)])
         return losses, train_tensors(state), None, state
-    step_k = tstep.make_multi_train_step(cfg, model, loss_suite(model), k)
+    step_k = tstep.make_multi_train_step(cfg, model, loss_suite(model), k,
+                                         mesh)
     losses = []
     for d in range(0, len(batches), k):
         stacked = {key: torch.stack([b[key] for b in batches[d:d + k]])
@@ -3134,6 +3169,360 @@ def phase_graph(torch, dev, work: Path, sd: dict, fed: dict) -> dict:
             "phase_s": time.perf_counter() - t_phase}
 
 
+def dp_records(torch, state) -> dict:
+    """name -> the first Adam moment of each trainable parameter and every
+    floating buffer (BatchNorm statistics), on the host."""
+    from auformer_torch.parallel.multiproc import step_record
+    return step_record(state, state.model)
+
+
+def rows_over_tol(got: np.ndarray, want: np.ndarray) -> float:
+    """The worst (|got - want| - rtol |want|) / atol of two fp32 row
+    blocks from the same forward at other batch splits, at the full
+    forward's SLICE_TOL: <= 1 holds."""
+    rtol, atol = SLICE_TOL
+    return float(((np.abs(got - want) - rtol * np.abs(want)) / atol).max())
+
+
+def dp_compare(got: dict, want: dict) -> dict:
+    """A data-parallel step's record against the world-1 step's: the loss
+    (relative), the first Adam moments (the worst (|diff| - rtol |want|)
+    / atol, <= 1 within DP_GRAD_TOL) and the BatchNorm statistics (abs),
+    at tests/test_parallel.py's tolerances; fails past them."""
+    rtol, atol = DP_GRAD_TOL
+    loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    grad = max(float((np.abs(got[k] - v) - rtol * np.abs(v)).max()) / atol
+               for k, v in want.items() if k.startswith("g/"))
+    stats = max(float(np.abs(got[k] - v).max())
+                for k, v in want.items() if k.startswith("s/"))
+    out = {"loss": got["loss"], "loss_want": want["loss"],
+           "loss_rel_err": loss_rel, "loss_rel_tol": DP_LOSS_REL,
+           "grad_err_over_tol": grad, "grad_tol": list(DP_GRAD_TOL),
+           "stats_max_abs_err": stats, "stats_tol": DP_STATS_ATOL,
+           "tensors": sum(k[:2] in ("g/", "s/") for k in want)}
+    if not (loss_rel <= DP_LOSS_REL and grad <= 1.0
+            and stats < DP_STATS_ATOL):
+        fail(f"data-parallel step against world 1: {out}")
+    return out
+
+
+class draw_world:
+    """Stands for rank 0 of a world of ``world`` where only the random
+    draws look at the mesh (``core.mesh.draw_rows``)."""
+
+    def __init__(self, world: int):
+        self.rank, self.world = 0, world
+
+
+def draw_cost(torch, dev, model, cfg, batch: dict) -> dict:
+    """The step's random draws at a local batch of DP_DRAW_LOCAL rows: the
+    AutoAugment's and the flip's draws and one mask at each dropout site
+    (its shapes from one train-mode forward), drawn for the local rows
+    (world 1) and for a global batch of DP_DRAW_WORLD x as many (rank 0
+    of a world of DP_DRAW_WORLD keeps its rows); CUDA-event ms per step."""
+    from auformer_torch.core.mesh import draw_rows
+    from auformer_torch.nn.blocks import Dropout, set_dropout_generator
+    from auformer_torch.ops.augment_device import policy_draws
+    from auformer_torch.parallel import step as tstep
+    shapes = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: shapes.append(tuple(args[0].shape)))
+        for m in model.modules() if isinstance(m, Dropout) and m.p > 0]
+    gen = torch.Generator(dev).manual_seed(SEED)
+    model.train()
+    set_dropout_generator(model, gen)
+    with torch.no_grad():
+        tstep._forward(cfg, model, tstep.prep_batch(batch, train=False))
+    set_dropout_generator(model, None)
+    for h in hooks:
+        h.remove()
+    b, t = batch["clip"].shape[:2]
+
+    def draws(mesh):
+        def rand(s):
+            return torch.rand(s, generator=gen, device=dev)
+        policy_draws(b, t, gen, dev, mesh)
+        draw_rows(rand, (b,), mesh)
+        for s in shapes:
+            draw_rows(rand, s, mesh)
+
+    out = {"sites": len(shapes), "local_batch": b, "world": DP_DRAW_WORLD}
+    for name, mesh in (("world1_ms", None),
+                       (f"world{DP_DRAW_WORLD}_ms", draw_world(
+                           DP_DRAW_WORLD))):
+        for _ in range(3):
+            draws(mesh)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            draws(mesh)
+        end.record()
+        end.synchronize()
+        out[name] = start.elapsed_time(end) / 20
+    out["extra_ms_per_step"] = out[f"world{DP_DRAW_WORLD}_ms"] \
+        - out["world1_ms"]
+    return out
+
+
+def step_overhead(torch, dev, mesh, weights: dict) -> dict:
+    """The train phase's step on ready batches (avformer, bf16, B=64,
+    --device_augment) without a process group and under the NCCL world of
+    one, in turns (plain, mesh, mesh, plain, ...; DP_OVERHEAD_ROUNDS of
+    DP_OVERHEAD_STEPS steps each after a warm-up): wall ms per step after
+    a device sync."""
+    from auformer_torch.core.config import Config
+    from auformer_torch.nn import build_model, loss_suite
+    from auformer_torch.parallel import step as tstep
+    cfg = Config(model_name="avformer", modality="A;V", task="AU",
+                 image_size=IMAGE, n_frames=FRAMES, batch_size=TRAIN_BATCH,
+                 device_augment=True)
+    model = build_model(cfg, dtype=torch.float32)
+    model.load_state_dict(weights)
+    model.to(dev)
+    state = tstep.create_train_state(cfg, model)
+    rs = np.random.RandomState(SEED + 13)
+    batch = on(torch, train_batch(rs, TRAIN_BATCH), dev)
+    steps = {"plain": tstep.make_train_step(cfg, model, loss_suite(model)),
+             "mesh": tstep.make_train_step(cfg, model, loss_suite(model),
+                                           mesh)}
+    gen = torch.Generator(dev)
+    times = {"plain": [], "mesh": []}
+    for name in ("plain", "mesh"):
+        for i in range(2):
+            steps[name](state, batch, gen.manual_seed(i))
+    order = ["plain", "mesh", "mesh", "plain"] * (DP_OVERHEAD_ROUNDS // 4)
+    for r, name in enumerate(order):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(DP_OVERHEAD_STEPS):
+            steps[name](state, batch, gen.manual_seed(r * 100 + i))
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3
+                           / DP_OVERHEAD_STEPS)
+    del model, state, batch
+    torch.cuda.empty_cache()
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    return {"batch": TRAIN_BATCH, "dtype": "bfloat16", "ms_per_step": times,
+            "median_ms": med, "overhead_ms": med["mesh"] - med["plain"]}
+
+
+def dp_worker(out_path: str, work: str) -> int:
+    """The ``dp`` sub-phase's NCCL world of one (started by
+    ``torch.distributed.run --nproc_per_node 1``): the fp32 step under the
+    mesh against the step without one, K = DP_GRAPH_K with the collectives
+    captured against eager, the collectives per step, the draws' cost, then
+    ``train.main`` at B=64 in bf16 with --device_augment for an epoch of
+    the train split (the data-parallel main path, its counts set to 0 just
+    before it). Writes its numbers to ``out_path``; any failed check exits
+    non-zero."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from auformer_torch import train
+    from auformer_torch.core.config import Config
+    from auformer_torch.core.mesh import make_mesh, maybe_init_distributed
+    from auformer_torch.core.weights import load_weights
+    from auformer_torch.infer import resolve_device
+    from auformer_torch.nn import build_model, loss_suite
+    from auformer_torch.ops.attention import fused_attention
+    from auformer_torch.ops.audio_kernel import mel_frontend
+    from auformer_torch.parallel import step as tstep
+
+    dev = resolve_device(None)
+    t0 = time.perf_counter()
+    if not maybe_init_distributed(dev):
+        fail("dp worker: no torchrun environment")
+    mesh = make_mesh("data:-1", dev)
+    init_s = time.perf_counter() - t0
+    if mesh.backend != "nccl" or mesh.world != 1:
+        fail(f"dp worker: {mesh.backend} world {mesh.world}, not NCCL 1")
+    work = Path(work)
+    res = {"device": str(dev), "backend": mesh.backend, "world": mesh.world,
+           "init_s": init_s}
+
+    cfg = Config(model_name="avformer", modality="A;V", task="AU",
+                 compute_dtype="float32", image_size=IMAGE, n_frames=FRAMES,
+                 batch_size=DP_STEP_BATCH, device_augment=True)
+    model = build_model(cfg, dtype=torch.float32)
+    load_weights(model, random_reference_state_dict(
+        build_model(Config(compute_dtype="float32")), SEED))
+    model.to(dev)
+    suite = loss_suite(model)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    rs = np.random.RandomState(SEED + 12)
+    batch = on(torch, train_batch(rs, DP_STEP_BATCH), dev)
+    recs = {}
+    with deterministic(torch):
+        for label, m in (("plain", None), ("mesh", mesh)):
+            model.load_state_dict(start)
+            state = tstep.create_train_state(cfg, model)
+            before = dict(mesh.counts)
+            metrics = tstep.make_train_step(cfg, model, suite, m)(
+                state, batch, torch.Generator(dev).manual_seed(SEED + 5))
+            recs[label] = {"loss": metrics["loss"].item(),
+                           **dp_records(torch, state)}
+            per_step = {k: v - before.get(k, 0)
+                        for k, v in mesh.counts.items()
+                        if v != before.get(k, 0)}
+    res["fp32_step_vs_plain"] = dp_compare(recs["mesh"], recs["plain"])
+    res["collectives_per_step"] = per_step
+    res["draw_cost"] = draw_cost(torch, dev, model, cfg,
+                                 on(torch, train_batch(rs, DP_DRAW_LOCAL),
+                                    dev))
+    res["step_overhead"] = step_overhead(torch, dev, mesh, start)
+
+    batches = [on(torch, train_batch(rs, DP_STEP_BATCH), dev)
+               for _ in range(DP_GRAPH_STEPS)]
+    seeds = [SEED + 200 + i for i in range(DP_GRAPH_STEPS)]
+    with deterministic(torch):
+        eager = [k_step_run(torch, cfg, model, start, batches, seeds,
+                            mesh=mesh) for _ in range(2)]
+        losses, got, step_k, _ = k_step_run(torch, cfg, model, start,
+                                            batches, seeds, k=DP_GRAPH_K,
+                                            mesh=mesh)
+    (want_loss, want, _, _), (other_loss, other, _, _) = eager
+    checked = graph_against_eager(
+        torch, "dp graph fp32", {"loss": losses, **got},
+        {"loss": want_loss, **want}, {"loss": other_loss, **other})
+    if step_k.captures != 1 or step_k.replays != DP_GRAPH_STEPS - DP_GRAPH_K:
+        fail(f"dp graph: {step_k.captures} captures, {step_k.replays} "
+             "replays")
+    res["graph"] = {"k": DP_GRAPH_K, "steps": DP_GRAPH_STEPS,
+                    "losses_graph": losses.tolist(),
+                    "losses_eager": want_loss.tolist(),
+                    "captures": step_k.captures, "replays": step_k.replays,
+                    "capture_s": step_k.capture_s,
+                    "launches_per_graphed_step": dict(zip(
+                        ("attention", "attention_backward", "mel"),
+                        step_k.captured_counts)), **checked}
+    del model, step_k, batches, eager, got, start, state
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    fused_attention.launches = fused_attention.backward_calls = 0
+    mel_frontend.launches = 0
+    t0 = time.perf_counter()
+    _, history = train.main(train_argv(work, "exp_dp", "--epochs", "1"))
+    torch.cuda.synchronize()
+    launches = {"attention": fused_attention.launches,
+                "mel": mel_frontend.launches}
+    backward_calls = fused_attention.backward_calls
+    steps = sum(h["steps"] for h in history)
+    want = {"attention": ATTN_FWD_PER_STEP * (steps + len(history)),
+            "mel": 0}
+    if (len(history) != 1 or launches != want
+            or backward_calls != ATTN_BWD_PER_STEP * steps
+            or not all(np.isfinite(h["loss"]) for h in history)):
+        fail(f"dp train.main: {len(history)} epochs, {steps} steps, "
+             f"launches {launches} (expected {want}), backward calls "
+             f"{backward_calls}, losses {[h['loss'] for h in history]}")
+    h = history[0]
+    res["main"] = {"seconds": time.perf_counter() - t0, "steps": steps,
+                   "launches": launches, "backward_calls": backward_calls,
+                   "loss": h["loss"], "score": h["score"],
+                   "clips_per_s": h["steps"] * TRAIN_BATCH / h["seconds"],
+                   "step_timer_ms": {"data": h["data_ms"],
+                                     "step": h["step_ms"]},
+                   "peak_memory_mb": torch.cuda.max_memory_allocated()
+                   / 2 ** 20}
+    Path(out_path).write_text(json.dumps(res))
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_dp(torch, dev, work: Path, train_clips_per_s: list) -> dict:
+    """The data-parallel sub-phase (its own line) on the one card: (a) an
+    NCCL world of one in a process of ``torch.distributed.run``
+    (``dp_worker``); (b) a gloo world of two processes sharing the card
+    (``parallel/multiproc.py``, fp32, global B=DP_GLOO_BATCH), avformer and
+    vformer, each rank's step and gathered eval rows against the world-1
+    step on the global batch here, and the step ms (a test rig: gloo goes
+    through the host and the two processes share one card); (c) in the
+    same world, run_inference_sweep over two synthetic videos, one per
+    rank, against world 1 here (rank 0 alone writes the files)."""
+    from auformer_torch.infer import run_inference_sweep
+    from auformer_torch.nn import build_model
+    from auformer_torch.parallel import multiproc as mp
+    t_phase = time.perf_counter()
+    out = work / "dp"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+         "1", "--master_addr", "127.0.0.1", "--master_port",
+         str(mp.free_port()), str(ROOT / "chip_smoke.py"), "dp_worker",
+         str(out / "nccl.json"), str(work)],
+        cwd=ROOT, capture_output=True, text=True, timeout=DP_TIMEOUT_S)
+    if proc.returncode != 0:
+        fail(f"dp: the NCCL world of one exited with {proc.returncode}:\n"
+             + (proc.stdout + proc.stderr)[-4000:])
+    nccl = json.loads((out / "nccl.json").read_text())
+    nccl["process_s"] = time.perf_counter() - t0
+    nccl["main"]["clips_per_s_beside"] = {
+        "train_phase_epochs_no_process_group": train_clips_per_s}
+
+    t0 = time.perf_counter()
+    mp.spawn_workers(str(out / "gloo"), 2, [
+        "--backend", "gloo", "--device", str(dev), "--models",
+        "avformer,vformer", "--image_size", str(IMAGE), "--n_frames",
+        str(FRAMES), "--batch", str(DP_GLOO_BATCH), "--timed_steps",
+        str(DP_TIMED_STEPS), "--serve", str(DP_SERVE_FRAMES)],
+        timeout=DP_TIMEOUT_S)
+    gloo = {"processes_s": time.perf_counter() - t0, "world": 2,
+            "device": f"{dev} (both ranks)", "batch": DP_GLOO_BATCH}
+    table = mp.make_global_table(DP_GLOO_BATCH, FRAMES, IMAGE, 0)
+    for name in ("avformer", "vformer"):
+        cfg = mp.model_config(name, image_size=IMAGE, n_frames=FRAMES,
+                              batch_size=DP_GLOO_BATCH, dropout_rate=0.2,
+                              device_augment=True)
+        want = mp.world_one_step(cfg, table, dev)
+        ranks = [dict(np.load(out / "gloo" / f"{name}_r{r}.npz"))
+                 for r in range(2)]
+        for r in ranks:
+            r["loss"] = float(r["loss"])
+        if not np.array_equal(ranks[0]["eval_rows"], ranks[1]["eval_rows"]):
+            fail(f"dp gloo {name}: the ranks' gathered eval rows differ")
+        rows_err = rows_over_tol(ranks[0]["eval_rows"], want["eval_rows"])
+        if rows_err > 1.0 or ranks[0]["eval_rows"].shape != (
+                DP_GLOO_BATCH, 21):
+            fail(f"dp gloo {name}: eval rows {ranks[0]['eval_rows'].shape} "
+                 f"{rows_err} from world 1")
+        gloo[name] = {
+            "ranks": [dp_compare(r, want) for r in ranks],
+            "eval_rows": list(ranks[0]["eval_rows"].shape),
+            "eval_rows_err_over_tol": rows_err, "rows_tol": list(SLICE_TOL),
+            "step_ms_test_rig": [float(r["step_ms"]) for r in ranks],
+            "collectives_per_step": str(ranks[0]["collectives"])}
+        del want
+        torch.cuda.empty_cache()
+
+    cfg = mp.model_config("avformer", image_size=IMAGE, n_frames=FRAMES)
+    torch.manual_seed(0)
+    want = run_inference_sweep(cfg, build_model(cfg), mp.synthetic_videos(
+        2, DP_SERVE_FRAMES, IMAGE, 0), str(out / "serve_world1"), device=dev)
+    errs = [rows_over_tol(np.load(out / "gloo" / f"sweep_r{r}.npy"), want)
+            for r in range(2)]
+    files = sorted((out / "serve_world1" / "au").iterdir())
+    same = [(out / "gloo" / "results_r0" / "au" / f.name).read_text()
+            == f.read_text() for f in files]
+    if max(errs) > 1.0 or not all(same) or len(same) != 2 \
+            or (out / "gloo" / "results_r1").exists():
+        fail(f"dp video-sharded sweep: {errs} from world 1, files equal "
+             f"{same}, rank 1 wrote {(out / 'gloo' / 'results_r1').exists()}")
+    serve = {"videos": [DP_SERVE_FRAMES, DP_SERVE_FRAMES + 7],
+             "rows": int(want.shape[0]), "err_over_tol_vs_world1": errs,
+             "tol": list(SLICE_TOL), "files_equal": len(same)}
+    shutil.rmtree(out, ignore_errors=True)
+    return {"nccl_world1": nccl, "gloo_world2": gloo,
+            "video_sharded_sweep": serve,
+            "launches": nccl["main"]["launches"],
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def phase_train(torch, dev) -> tuple[dict, list, dict]:
     from auformer_torch import train, train_lib
     from auformer_torch.core.config import Config, parse_opt
@@ -3232,6 +3621,9 @@ def phase_train(torch, dev) -> tuple[dict, list, dict]:
     fed = phase_feed(torch, dev, work, sd)
     host_aug = phase_host_aug(torch, dev, work)
     graph = phase_graph(torch, dev, work, sd, fed)
+    dp = phase_dp(torch, dev, work, [h["steps"] * TRAIN_BATCH / h["seconds"]
+                                     for h in history])
+    emit("dp", nvidia_smi=nvidia_smi(), **dp)
 
     prof = profile_steps(torch, dev, state.model, work,
                          train_argv(work, "exp_profile"),
@@ -3340,7 +3732,7 @@ def phase_train(torch, dev) -> tuple[dict, list, dict]:
     launches = {key: launches[key] + vf_launches[key] for key in launches}
     return {"train": launches, "feed": fed["launches"],
             "host_aug": host_aug["launches"],
-            "graph": graph["launches"]}, grad_cases, {
+            "graph": graph["launches"], "dp": dp["launches"]}, grad_cases, {
         "avformer": prof["attention_in_step"],
         "vformer": vf_prof["attention_in_step"],
         "graphed_step": graph["fed_loop"][f"k{FEED_GRAPH_K}"]["graph"][
@@ -3349,6 +3741,8 @@ def phase_train(torch, dev) -> tuple[dict, list, dict]:
 
 def main() -> int:
     import torch
+    if len(sys.argv) == 4 and sys.argv[1] == "dp_worker":
+        return dp_worker(sys.argv[2], sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1

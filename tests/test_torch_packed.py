@@ -288,7 +288,7 @@ def test_arena_releases_poll_in_order():
 
 
 def test_packed_refusals(setup):
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(TypeError, match="Mesh"):
         next(packed_sweep_stream(setup["cfg"], setup["model"],
                                  mesh=object(), device="cpu"))
     with pytest.raises(ValueError, match="use serve.sweep_stream"):

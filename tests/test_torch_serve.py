@@ -184,13 +184,14 @@ def test_sweep_stream_matches_jax(dirs, port_model, jax_stream,
 
 
 def test_unported_serving_paths_raise(dirs, port_model):
-    """The data-parallel mesh raises naming ROADMAP A7 on both routes."""
+    """Both routes shard by video under a core.mesh.Mesh (A7,
+    tests/test_torch_multiproc.py); anything else as ``mesh`` raises."""
     from auformer_torch.packed import packed_sweep_stream
     _, cfg = _cfgs(dirs)
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(TypeError, match="Mesh"):
         next(serve.sweep_stream(cfg, port_model, mesh=object(),
                                 device="cpu"))
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(TypeError, match="Mesh"):
         next(packed_sweep_stream(cfg, port_model, mesh=object(),
                                  device="cpu"))
 

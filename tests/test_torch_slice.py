@@ -210,7 +210,8 @@ def test_port_imports_no_jax_and_no_auformer():
         "auformer_torch.nn.vggformer, auformer_torch.nn.resnet_image, "
         "auformer_torch.nn.van, auformer_torch.nn.emonet, "
         "auformer_torch.nn.i3d, auformer_torch.nn.mc3d, "
-        "auformer_torch.nn.tsav\n"
+        "auformer_torch.nn.tsav, auformer_torch.core.mesh, "
+        "auformer_torch.parallel.multiproc, auformer_torch.dryrun\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'auformer', 'cv2', 'PIL', 'sklearn', "
         "'optax', 'orbax', 'matplotlib'))\n"
