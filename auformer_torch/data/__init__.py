@@ -1,6 +1,8 @@
 """The data layer (counterpart of auformer/data): FrameStores and their
 native reader, the split builder, the datasets, samplers and loader, the
-wav arena (wav_arena.py) and the host AutoAugment (transforms.py)."""
+wav arena (wav_arena.py), the host transforms (transforms.py) and the
+offline ingest without cv2 (ingest.py over png.py, container.py and
+video.py)."""
 from .framestore import FrameStore, FrameStoreWriter, open_store
 from .samplers import (DataLoader, Prefetcher, SubsetRandomSampler,
                        SubsetSequentialSampler, BlockShuffleSampler,

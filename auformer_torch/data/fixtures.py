@@ -14,7 +14,8 @@ AU/EX/VA labels keyed "video/frame.jpg" (create_lmdb.py:20-24 key schema).
 
 Each frame's source image is ``fixture_frame(seed, video, t, size)``, from
 a generator of its own, so a check can rebuild it and measure the JPEG
-error of a decoded frame.
+error of a decoded frame. ``write_png`` writes a PNG on the standard
+library's ``zlib``, for PNG-aligned frame trees on hosts without cv2.
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ import json
 import os
 import pickle
 import shutil
+import struct
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 from typing import Sequence
 
@@ -56,6 +59,71 @@ def fixture_frame(seed: int, video: int, t: int, size: int) -> np.ndarray:
     img = base + 0.3 * blob[..., None]
     img += rs.standard_normal((size, size, 3)).astype(np.float32) * 0.02
     return np.clip(img * 255, 0, 255).astype(np.uint8)
+
+
+def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """PNG's Paeth predictor of int arrays (left, above, upper left)."""
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _filtered_rows(pix: np.ndarray, filters: Sequence[int]) -> bytes:
+    """(H, W, C) uint8 or uint16 samples -> PNG's filtered scanlines, row y
+    with filter type ``filters[y % len(filters)]`` (0 None, 1 Sub, 2 Up,
+    3 Average, 4 Paeth)."""
+    h, w, c = pix.shape
+    raw = (pix.astype(">u2") if pix.dtype == np.uint16 else pix
+           ).reshape(h, -1).view(np.uint8).astype(np.int32)
+    bpp = c * pix.itemsize
+    out = bytearray()
+    prior = np.zeros(raw.shape[1], np.int32)
+    for y in range(h):
+        x = raw[y]
+        left = np.concatenate([np.zeros(bpp, np.int32), x[:-bpp]])
+        upleft = np.concatenate([np.zeros(bpp, np.int32), prior[:-bpp]])
+        kind = filters[y % len(filters)]
+        pred = (0, left, prior, (left + prior) >> 1,
+                _paeth(left, prior, upleft))[kind]
+        out.append(kind)
+        out += ((x - pred) & 0xFF).astype(np.uint8).tobytes()
+        prior = x
+    return bytes(out)
+
+
+def write_png(path: str, img: np.ndarray, interlace: bool = False,
+              filters: Sequence[int] = (0, 1, 2, 3, 4)) -> None:
+    """Write a uint8 or uint16 (H, W) grey, (H, W, 2) grey+alpha, (H, W, 3)
+    RGB or (H, W, 4) RGBA image as a PNG, its rows through ``filters`` in
+    turn (by default all five filter types; PIL's writer picks Paeth for
+    most rows of a smooth image, cv2's Sub for every row),
+    Adam7-interlaced when ``interlace``."""
+    img = np.asarray(img)
+    if img.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"a PNG holds uint8 or uint16, not {img.dtype}")
+    pix = img[..., None] if img.ndim == 2 else img
+    h, w, c = pix.shape
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[c]
+    if interlace:
+        data = b"".join(
+            _filtered_rows(pix[y0::dy, x0::dx], filters)
+            for x0, y0, dx, dy in ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8),
+                                   (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+                                   (0, 1, 1, 2))
+            if w > x0 and h > y0)
+    else:
+        data = _filtered_rows(pix, filters)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h,
+                                              8 * pix.itemsize, ctype, 0, 0,
+                                              int(interlace)))
+                + chunk(b"IDAT", zlib.compress(data, 6))
+                + chunk(b"IEND", b""))
 
 
 def generate_synthetic_dataset(root: str, label_dir: str,

@@ -130,6 +130,16 @@ class FrameStore:
             f.close()
 
 
+def first_key(path: str) -> str:
+    """The first key in the index of the store at ``path``; "" when the
+    store is empty."""
+    with open(os.path.join(path, "index.bin"), "rb") as f:
+        head = f.read(2)
+        if len(head) < 2:
+            return ""
+        return f.read(struct.unpack("<H", head)[0]).decode("utf-8")
+
+
 def open_store(path: str) -> Optional[FrameStore]:
     """Optional-open like the reference's try/except lmdb.open
     (aff2compdataset.py:25-36)."""

@@ -3,7 +3,8 @@
 
 Two sources share one C interface (``fs_open``, ``fs_close``,
 ``fs_num_entries``, ``fs_get_raw``, ``fs_decode_batch``,
-``fs_encode_jpeg``; ``framestore.h`` holds the store format both mmap):
+``fs_encode_jpeg``, ``fs_decode_jpeg``; ``framestore.h`` holds the store
+format both mmap):
 
   ``framestore_reader.cpp``  libjpeg, decode on a host thread pool
   ``framestore_nvjpeg.cpp``  nvJPEG from the CUDA toolkit, decode and
@@ -30,6 +31,8 @@ import threading
 from pathlib import Path
 
 import numpy as np
+
+from ..framestore import first_key
 
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = Path(__file__).resolve().parents[3] / ".cache" / "native"
@@ -158,6 +161,10 @@ def library(name: str | None = None) -> ctypes.CDLL:
         lib.fs_encode_jpeg.argtypes = [u8p, ctypes.c_int, ctypes.c_int,
                                        ctypes.c_int, ctypes.c_int, u8p,
                                        ctypes.c_long]
+        lib.fs_decode_jpeg.restype = ctypes.c_int
+        lib.fs_decode_jpeg.argtypes = [ctypes.c_char_p, ctypes.c_long, u8p,
+                                       ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_int]
         _LIBS[target] = lib
         return lib
 
@@ -183,9 +190,27 @@ def encode_jpeg(img: np.ndarray, quality: int = 90) -> bytes:
     return out[:n].tobytes()
 
 
+def decode_jpeg(data: bytes, height: int, width: int,
+                channels: int = 3) -> np.ndarray:
+    """JPEG bytes -> (H, W, 3) RGB or (H, W) grayscale uint8 (channels 1).
+    Raises ValueError when the bytes do not decode to that size."""
+    out = np.empty((height, width, channels), np.uint8)
+    if not library().fs_decode_jpeg(data, len(data), _u8(out), height, width,
+                                    channels):
+        raise ValueError(f"{len(data)} bytes do not decode as a {height}x"
+                         f"{width}x{channels} JPEG")
+    return out[..., 0] if channels == 1 else out
+
+
 class NativeFrameStore:
     """Native mmap'd reader with batched JPEG decode off the GIL, by the
-    library :func:`decoder` found (``self.decoder``)."""
+    library :func:`decoder` found (``self.decoder``).
+
+    A store that ``ingest.create_image_store`` packed from a PNG-aligned
+    tree keeps each frame's ``.png`` name in its key, as the JAX package's
+    does, while the split names every frame ``<frame>.jpg`` (ROADMAP.md
+    C11). Where the store's first key ends in ``.png``, ``decode_batch``
+    reads each ``.jpg`` key under its ``.png`` name."""
 
     def __init__(self, path: str, n_threads: int = 4):
         self.decoder = decoder()
@@ -194,6 +219,7 @@ class NativeFrameStore:
         if not self._h:
             raise OSError(f"fs_open failed for {path}")
         self.n_threads = n_threads
+        self._png_keys = first_key(path).endswith(".png")
 
     def __len__(self) -> int:
         return self._lib.fs_num_entries(self._h)
@@ -224,6 +250,9 @@ class NativeFrameStore:
         ok = np.zeros(n, np.uint8)
         if n == 0:
             return out, ok.astype(bool)
+        if self._png_keys:
+            keys = [k[:-4] + ".png" if k and k.endswith(".jpg") else k
+                    for k in keys]
         arr = (ctypes.c_char_p * n)(
             *[(k.encode() if k else b"") for k in keys])
         if not self._lib.fs_decode_batch(self._h, arr, n, _u8(out), height,

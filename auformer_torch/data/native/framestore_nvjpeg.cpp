@@ -14,7 +14,8 @@
 //
 // Encode: baseline JPEG at the given quality, 4:2:0 for colour (as
 // cv2.imencode's default) and luminance only for one channel, with one
-// nvJPEG encoder per calling thread.
+// nvJPEG encoder per calling thread. fs_decode_jpeg decodes one JPEG held
+// in memory with nvjpegDecode, one decoder per calling thread.
 //
 // The library uses the CUDA runtime directly (the current device of the
 // calling thread, device 0 unless set); it does not go through torch.
@@ -83,6 +84,24 @@ struct Encoder {
 };
 
 thread_local Encoder encoder;
+
+// each thread's single-image decoder, as the encoder above
+struct Decoder {
+  nvjpegHandle_t handle = nullptr;
+  nvjpegJpegState_t state = nullptr;
+  cudaStream_t stream = nullptr;
+  uint8_t* dev = nullptr;
+  size_t dev_bytes = 0;
+  bool ok = false;
+  ~Decoder() {
+    if (dev) cudaFree(dev);
+    if (state) nvjpegJpegStateDestroy(state);
+    if (handle) nvjpegDestroy(handle);
+    if (stream) cudaStreamDestroy(stream);
+  }
+};
+
+thread_local Decoder single_decoder;
 
 }  // namespace
 
@@ -250,6 +269,42 @@ long fs_encode_jpeg(const uint8_t* pixels, int height, int width,
       cudaStreamSynchronize(e.stream) != cudaSuccess)
     return -1;
   return static_cast<long>(length);
+}
+
+// Returns 1, or 0 on a decode failure, a size mismatch or a CUDA error.
+int fs_decode_jpeg(const uint8_t* data, long size, uint8_t* out, int height,
+                   int width, int channels) {
+  Decoder& d = single_decoder;
+  if (!d.ok) {
+    if (cudaStreamCreateWithFlags(&d.stream, cudaStreamNonBlocking) !=
+            cudaSuccess ||
+        nvjpegCreateSimple(&d.handle) != NVJPEG_STATUS_SUCCESS ||
+        nvjpegJpegStateCreate(d.handle, &d.state) != NVJPEG_STATUS_SUCCESS)
+      return 0;
+    d.ok = true;
+  }
+  if (!fits(d.handle, data, static_cast<size_t>(size), height, width))
+    return 0;
+  const size_t bytes = static_cast<size_t>(height) * width * channels;
+  if (d.dev_bytes < bytes) {
+    if (d.dev) cudaFree(d.dev);
+    d.dev = nullptr;
+    d.dev_bytes = 0;
+    if (cudaMalloc(&d.dev, bytes) != cudaSuccess) return 0;
+    d.dev_bytes = bytes;
+  }
+  nvjpegImage_t dst;
+  memset(&dst, 0, sizeof(dst));
+  dst.channel[0] = d.dev;
+  dst.pitch[0] = static_cast<size_t>(width) * channels;
+  if (nvjpegDecode(d.handle, d.state, data, static_cast<size_t>(size),
+                   channels == 1 ? NVJPEG_OUTPUT_Y : NVJPEG_OUTPUT_RGBI, &dst,
+                   d.stream) != NVJPEG_STATUS_SUCCESS ||
+      cudaMemcpyAsync(out, d.dev, bytes, cudaMemcpyDeviceToHost, d.stream) !=
+          cudaSuccess ||
+      cudaStreamSynchronize(d.stream) != cudaSuccess)
+    return 0;
+  return 1;
 }
 
 }  // extern "C"

@@ -21,12 +21,16 @@
 //   long  fs_encode_jpeg(const uint8_t* pixels, int height, int width,
 //                        int channels, int quality, uint8_t* out,
 //                        long capacity);
+//   int   fs_decode_jpeg(const uint8_t* data, long size, uint8_t* out,
+//                        int height, int width, int channels);
 //
 // fs_decode_batch decodes keys[i] into out[i*H*W*C]; ok[i]=1 on success, 0
 // on an empty or missing key, a decode failure or a size mismatch (the
 // caller leaves that frame black: the reference's fallback for a missing
 // frame). fs_encode_jpeg writes a baseline JPEG (4:2:0 for colour, as
-// cv2.imencode's default) and returns its size, or -1.
+// cv2.imencode's default) and returns its size, or -1. fs_decode_jpeg
+// decodes one JPEG held in memory into out (H*W*C) and returns 1, or 0 on
+// a decode failure or a size mismatch.
 
 #include <atomic>
 #include <csetjmp>
@@ -188,6 +192,14 @@ long fs_encode_jpeg(const uint8_t* pixels, int height, int width,
   if (static_cast<long>(dest.size) > capacity) return -1;
   memcpy(out, dest.buf, dest.size);
   return static_cast<long>(dest.size);
+}
+
+int fs_decode_jpeg(const uint8_t* data, long size, uint8_t* out, int height,
+                   int width, int channels) {
+  return decode_jpeg(data, static_cast<size_t>(size), out, height, width,
+                     channels)
+             ? 1
+             : 0;
 }
 
 }  // extern "C"

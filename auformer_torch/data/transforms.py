@@ -1,7 +1,7 @@
-"""Host AutoAugment (counterpart of the training half of
-auformer/data/transforms.py): the reference's per-frame ImageNet policy
-and whole-clip flip (autoaugment.py:5-112, ops.py:5-95,
-aff2compdataset.py:72-74), without PIL.
+"""Host transforms without PIL (counterpart of
+auformer/data/transforms.py): the reference's AutoAugment, its per-frame
+ImageNet policy and whole-clip flip (autoaugment.py:5-112, ops.py:5-95,
+aff2compdataset.py:72-74), then the rest of the JAX module below.
 
 Every op equals the JAX package's PIL op (``_apply_op``) bit for bit, on
 uint8 (N, H, W, 3) frames that share the op and its signed magnitude:
@@ -38,6 +38,20 @@ its loops, and the eager train step takes and releases the GIL at each of
 its ~2,300 launches per step, so loader threads that augment in-process
 (or ship every clip through a pipe) stretch the step several-fold
 (chip_smoke's ``host_aug`` line times the loop both ways).
+
+The rest of the module, each piece equal to the JAX package's uint8 for
+uint8 under the same seeds:
+
+  * PIL's HSV conversions (``_rgb_to_hsv``, ``_hsv_to_rgb``), Pillow's C
+    code step by step, equal to PIL on all 2^24 inputs both ways;
+  * the colour surface of the reference's intensity.py: ``adjust_*``,
+    ``Rescale``, ``Brightness`` ... ``RandomColorAugment`` and
+    ``random_color_augment``, on the blends above and the HSV pair. One
+    deliberate difference: ndarrays in and out only, where the JAX
+    package also takes PIL images (the card's machine has no PIL);
+  * ``jpeg_compression`` through the native JPEG codec (``data/native``);
+  * the invertible compose of clip_transforms.py (``ComposeWithInvert``,
+    ``NumpyToTensor``, ``Normalize``, ``AmpToDB``, ``RandomClipFlip``).
 """
 from __future__ import annotations
 
@@ -52,8 +66,11 @@ from concurrent.futures import ProcessPoolExecutor
 from multiprocessing import shared_memory
 
 import numpy as np
+import torch
 
+from ..ops.audio_host import amplitude_to_db_host
 from ..ops.augment_device import IMAGENET_POLICIES, SIGNED_OPS, _RANGES
+from .native import decode_jpeg, encode_jpeg
 
 FILL = 128
 # PIL's SMOOTH kernel, each weight divided by 13 in f32 (ImageFilter.SMOOTH)
@@ -552,3 +569,373 @@ def augment_digest(augment=train_augment) -> str:
         h.update(np.ascontiguousarray(
             augment(digest_clip(seed), random.Random(seed))).tobytes())
     return h.hexdigest()
+
+
+# -- PIL's HSV conversions ----------------------------------------------------
+
+_F32 = np.float32
+
+
+def _round_half_away(x: np.ndarray) -> np.ndarray:
+    """C's ``round`` of non-negative f64 values: halves away from zero."""
+    lo = np.floor(x)
+    return np.where(x - lo >= 0.5, lo + 1, lo)
+
+
+def _rgb_to_hsv(rgb: np.ndarray) -> np.ndarray:
+    """``Image.convert("HSV")`` of uint8 (..., 3) RGB, bit for bit: Pillow's
+    ``rgb2hsv_row`` (Convert.c), its ``float`` steps in f32 and its
+    ``double`` steps in f64, hue and saturation truncated by ``(int)``."""
+    x = rgb.astype(np.int32)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    maxc = np.maximum(r, np.maximum(g, b))
+    minc = np.minimum(r, np.minimum(g, b))
+    grey = maxc == minc
+    with np.errstate(divide="ignore", invalid="ignore"):
+        cr = (maxc - minc).astype(_F32)
+        s = cr / maxc.astype(_F32)
+        rc = (maxc - r).astype(_F32) / cr
+        gc = (maxc - g).astype(_F32) / cr
+        bc = (maxc - b).astype(_F32) / cr
+    h = np.where(r == maxc, bc - gc,
+                 np.where(g == maxc,
+                          (2.0 + rc.astype(np.float64)
+                           - bc.astype(np.float64)).astype(_F32),
+                          (4.0 + gc.astype(np.float64)
+                           - rc.astype(np.float64)).astype(_F32)))
+    h = np.fmod(h.astype(np.float64) / 6.0 + 1.0, 1.0).astype(_F32)
+    out = np.empty(x.shape, np.uint8)
+    with np.errstate(invalid="ignore"):
+        out[..., 0] = np.where(grey, 0, np.clip(
+            np.trunc(h.astype(np.float64) * 255.0), 0, 255))
+        out[..., 1] = np.where(grey, 0, np.clip(
+            np.trunc(s.astype(np.float64) * 255.0), 0, 255))
+    out[..., 2] = maxc
+    return out
+
+
+def _hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
+    """``Image.convert("RGB")`` of uint8 (..., 3) HSV, bit for bit: Pillow's
+    ``hsv2rgb`` (Convert.c), the sector ``floor(h * 6.0 / 255.0)`` in f64,
+    ``f`` and ``fs`` stored as f32, ``fs * f`` an f32 product, each of p, q
+    and t C's ``round`` of an f64 product, clipped."""
+    x = hsv.astype(np.int32)
+    h, s, v = x[..., 0], x[..., 1], x[..., 2]
+    sector = h.astype(np.float64) * 6.0 / 255.0
+    i = np.floor(sector)
+    f = (sector - i).astype(_F32)
+    fs = (s.astype(np.float64) / 255.0).astype(_F32)
+    vd = v.astype(np.float64)
+    fs64, f64 = fs.astype(np.float64), f.astype(np.float64)
+    p = np.clip(_round_half_away(vd * (1.0 - fs64)), 0, 255)
+    q = np.clip(_round_half_away(
+        vd * (1.0 - (fs * f).astype(np.float64))), 0, 255)
+    t = np.clip(_round_half_away(vd * (1.0 - fs64 * (1.0 - f64))), 0, 255)
+    p, q, t = (a.astype(np.uint8) for a in (p, q, t))
+    v8 = v.astype(np.uint8)
+    sector6 = i.astype(np.int64) % 6
+    rgb = np.empty(x.shape, np.uint8)
+    for c, choices in enumerate(((v8, q, p, p, t, v8),
+                                 (t, v8, v8, q, p, p),
+                                 (p, p, t, v8, v8, q))):
+        rgb[..., c] = np.choose(sector6, choices)
+    grey = s == 0
+    rgb[grey] = v8[grey][:, None]
+    return rgb
+
+
+# -- the colour surface (reference dataloader/intensity.py) -------------------
+#
+# ndarrays in and out, uint8 (H, W, 3) frames; the JAX package also takes
+# PIL images, which the port has none of. Each op equals the JAX package's
+# PIL op uint8 for uint8.
+
+def _frame_op(op, frame: np.ndarray, factor) -> np.ndarray:
+    """One of the (N, H, W, 3) blends on a single (H, W, 3) frame."""
+    return op(np.asarray(frame, np.uint8)[None], factor)[0]
+
+
+def adjust_brightness(img: np.ndarray, factor) -> np.ndarray:
+    return _frame_op(brightness, img, factor)
+
+
+def adjust_contrast(img: np.ndarray, factor) -> np.ndarray:
+    return _frame_op(contrast, img, factor)
+
+
+def adjust_saturation(img: np.ndarray, factor) -> np.ndarray:
+    return _frame_op(color, img, factor)
+
+
+def adjust_hue(img: np.ndarray, shift: float) -> np.ndarray:
+    """The HSV hue byte moved by ``int(shift * 255)`` mod 256 (``shift``
+    in [-0.5, 0.5] of the hue circle), through PIL's HSV conversions."""
+    hsv = _rgb_to_hsv(np.asarray(img, np.uint8))
+    hsv[..., 0] = (hsv[..., 0].astype(np.int16) + int(shift * 255)) % 256
+    return _hsv_to_rgb(hsv)
+
+
+class Rescale:
+    """Multiply pixel values by ``scale`` (intensity.py:11-35)."""
+
+    def __init__(self, scale: float = 1 / 255.0):
+        self.scale = scale
+
+    def __call__(self, frame):
+        return np.asarray(frame) * self.scale
+
+
+class _IntensityOp:
+    """A colour op on one (H, W, 3) uint8 frame."""
+
+    def _apply(self, frame: np.ndarray) -> np.ndarray:
+        raise NotImplementedError
+
+    def __call__(self, frame):
+        return self._apply(np.asarray(frame, np.uint8))
+
+
+class Brightness(_IntensityOp):
+    """Fixed-factor brightness (intensity.py:38-61)."""
+
+    def __init__(self, brightness: float):
+        self.brightness = brightness
+
+    def _apply(self, frame):
+        return adjust_brightness(frame, self.brightness)
+
+
+class RandomBrightness(Brightness):
+    """Factor 1 + U(-abs, +abs), drawn at construction (intensity.py:64-87)
+    from ``rng``, or from the ``random`` module when it is None."""
+
+    def __init__(self, abs_brightness: float = 0.01,
+                 rng: random.Random | None = None):
+        r = rng or random
+        super().__init__(
+            1 + r.uniform(-abs(abs_brightness), abs(abs_brightness)))
+
+
+class Contrast(_IntensityOp):
+    """Fixed-factor contrast (intensity.py:157-204)."""
+
+    def __init__(self, contrast: float):
+        self.contrast = contrast
+
+    def _apply(self, frame):
+        return adjust_contrast(frame, self.contrast)
+
+
+class RandomContrast(Contrast):
+    def __init__(self, abs_contrast: float = 0.01,
+                 rng: random.Random | None = None):
+        r = rng or random
+        super().__init__(1 + r.uniform(-abs(abs_contrast), abs(abs_contrast)))
+
+
+class Saturation(_IntensityOp):
+    """Fixed-factor saturation (intensity.py:224-271)."""
+
+    def __init__(self, saturation: float):
+        self.saturation = saturation
+
+    def _apply(self, frame):
+        return adjust_saturation(frame, self.saturation)
+
+
+class RandomSaturation(Saturation):
+    def __init__(self, abs_saturation: float = 0.01,
+                 rng: random.Random | None = None):
+        r = rng or random
+        super().__init__(
+            1 + r.uniform(-abs(abs_saturation), abs(abs_saturation)))
+
+
+class Hue(_IntensityOp):
+    """Cyclic hue shift by ``hue`` in [-0.5, 0.5] (intensity.py:90-120): the
+    HSV hue byte moved by ``int(hue * 255)``."""
+
+    def __init__(self, hue: float):
+        if not -0.5 <= hue <= 0.5:
+            raise ValueError(f"hue factor {hue} not in [-0.5, 0.5]")
+        self.hue = hue
+
+    def _apply(self, frame):
+        return adjust_hue(frame, self.hue)
+
+
+class RandomHue(Hue):
+    def __init__(self, hue: float = 0.01, rng: random.Random | None = None):
+        r = rng or random
+        super().__init__(r.uniform(-hue, hue))
+
+
+class RandomColorAugment:
+    """Factors drawn once at construction (intensity.py:296-343), applied
+    in the reference's order Saturation -> Hue -> Brightness -> Contrast
+    (intensity.py:344-347)."""
+
+    def __init__(self, brightness: float = 0.2, contrast: float = 0.2,
+                 hue: float = 0, saturation: float = 0,
+                 rng: random.Random | None = None):
+        r = rng or random
+        self.brightness = (r.uniform(max(0, 1 - brightness), 1 + brightness)
+                           if brightness > 0 else 1)
+        self.contrast = (r.uniform(max(0, 1 - contrast), 1 + contrast)
+                         if contrast > 0 else 1)
+        self.saturation = (r.uniform(max(0, 1 - saturation), 1 + saturation)
+                           if saturation > 0 else 1)
+        self.hue = r.uniform(-hue, hue) if 0 <= hue <= 0.5 else 0
+
+    def __call__(self, frame):
+        for op in (Saturation(self.saturation), Hue(self.hue),
+                   Brightness(self.brightness), Contrast(self.contrast)):
+            frame = op(frame)
+        return frame
+
+
+def random_color_augment(clip: np.ndarray, brightness: float = 0.25,
+                         contrast: float = 0.3, saturation: float = 0.3,
+                         hue: float = 0.02,
+                         rng: random.Random | None = None) -> np.ndarray:
+    """Per-frame colour jitter of channels 0:3 of a uint8 (T, H, W, C) clip
+    in place (intensity.py:296-359): brightness, contrast, saturation, then
+    hue, each factor drawn per frame in that order from ``rng`` (the
+    ``random`` module when None), a zero amplitude skipping its op and its
+    draw."""
+    r = rng or random
+    for t in range(clip.shape[0]):
+        frame = clip[t, :, :, 0:3]
+        if brightness:
+            frame = adjust_brightness(
+                frame, 1 + r.uniform(-brightness, brightness))
+        if contrast:
+            frame = adjust_contrast(frame, 1 + r.uniform(-contrast, contrast))
+        if saturation:
+            frame = adjust_saturation(
+                frame, 1 + r.uniform(-saturation, saturation))
+        if hue:
+            frame = adjust_hue(frame, r.uniform(-hue, hue))
+        clip[t, :, :, 0:3] = frame
+    return clip
+
+
+# -- JPEG recompression -------------------------------------------------------
+
+def jpeg_compression(clip: np.ndarray, probability: float = 0.2,
+                     rng: np.random.RandomState | None = None
+                     ) -> np.ndarray:
+    """Random JPEG recompression of channels 0:3 of a uint8 (T, H, W, C)
+    clip in place (clip_transforms.py:152-172); a mask channel passes
+    through. The draws are the JAX package's, from ``rng`` (numpy's global
+    stream when None): ``random()`` against ``probability``, then
+    ``randint(80, 99)`` per frame for its quality. The native encoder and
+    decoder of ``data/native`` do the work: through libjpeg the clip
+    equals the JAX package's (PIL's) bit for bit; through nvJPEG, where the
+    host has no libjpeg, the encoder is another one and the result differs
+    from PIL's by its own rounding. With neither library this raises."""
+    r = np.random if rng is None else rng
+    if r.random() > probability:
+        return clip
+    h, w = clip.shape[1:3]
+    for t in range(clip.shape[0]):
+        data = encode_jpeg(clip[t, :, :, 0:3], int(r.randint(80, 99)))
+        clip[t, :, :, 0:3] = decode_jpeg(data, h, w, 3)
+    return clip
+
+
+# -- the invertible compose (reference clip_transforms.py:16-128) -------------
+
+class ComposeWithInvert:
+    """Apply transforms forward, or reversed with invert=True
+    (clip_transforms.py:16-28)."""
+
+    def __init__(self, transforms):
+        self.transforms = transforms
+
+    def __call__(self, x, invert: bool = False):
+        for t in (reversed(self.transforms) if invert else self.transforms):
+            x = t(x, invert)
+        return x
+
+
+class NumpyToTensor:
+    """uint8 (T, H, W, C) ndarray -> float32 (C, T, H, W) tensor / 255
+    (clip_transforms.py:31-45); the invert takes such a tensor back to the
+    uint8 ndarray, rounded and clipped."""
+
+    def __call__(self, clip, invert: bool = False):
+        if invert:
+            x = np.transpose(np.asarray(clip.detach().cpu()),
+                             (1, 2, 3, 0)) * 255.0
+            return np.clip(np.round(x), 0, 255).astype(np.uint8)
+        x = np.asarray(clip).astype(np.float32) / 255.0
+        return torch.from_numpy(np.ascontiguousarray(
+            np.transpose(x, (3, 0, 1, 2))))
+
+
+class Normalize:
+    """Per-channel (x - mean) / std over the leading channel dimension of
+    a tensor or an ndarray (clip_transforms.py:59-93)."""
+
+    def __init__(self, mean, std):
+        self.mean = np.asarray(mean, np.float32)
+        self.std = np.asarray(std, np.float32)
+
+    def __call__(self, x, invert: bool = False):
+        shape = (-1,) + (1,) * (x.ndim - 1)
+        m, s = self.mean.reshape(shape), self.std.reshape(shape)
+        if not isinstance(x, np.ndarray):
+            m = torch.from_numpy(m).to(x.device)
+            s = torch.from_numpy(s).to(x.device)
+        return x * s + m if invert else (x - m) / s
+
+
+class AmpToDB:
+    """torchaudio AmplitudeToDB('power', 80) on the host
+    (clip_transforms.py:96-108); the invert passes features through."""
+
+    def __call__(self, feats, invert: bool = False):
+        if invert:
+            return feats
+        return amplitude_to_db_host(np.asarray(feats, np.float32))
+
+
+class RandomClipFlip:
+    """Class form of ``random_clip_flip`` for compose pipelines
+    (clip_transforms.py:111-128), drawing from ``rng`` (the ``random``
+    module when None); the invert passes the clip through."""
+
+    def __init__(self, p: float = 0.5, rng: random.Random | None = None):
+        self.p = p
+        self.rng = rng
+
+    def __call__(self, clip, invert: bool = False):
+        return clip if invert else random_clip_flip(clip, self.p,
+                                                    self.rng or random)
+
+
+def all_colours(start: int, stop: int) -> np.ndarray:
+    """The 24-bit inputs ``start``..``stop - 1`` as (n, 3) uint8, code
+    ``(c0 << 16) | (c1 << 8) | c2``."""
+    v = np.arange(start, stop, dtype=np.uint32)
+    return np.stack([v >> 16, (v >> 8) & 0xFF, v & 0xFF], -1).astype(np.uint8)
+
+
+# SHA-256 of PIL's convert("HSV") and convert("RGB") (from HSV) over all
+# 2^24 inputs, ``hsv_digests`` of PIL's conversions (the CPU tests compute
+# them from PIL): ties the port's HSV pair to PIL's where PIL is absent
+PIL_HSV_DIGESTS = (
+    "21b59822901a4f6c8c1eb99c91c22061542a3832d3e257dff997caab79bc666e",
+    "1d9c2d26d34e85a68dec9d8d87ce0fdcce636d7b8eaec88f7baad6b85cdf4b3b")
+
+
+def hsv_digests(to_hsv=_rgb_to_hsv, to_rgb=_hsv_to_rgb) -> tuple[str, str]:
+    """SHA-256 of ``to_hsv`` and of ``to_rgb`` over all 2^24 inputs in code
+    order (``all_colours``), 2^20 at a time."""
+    digests = (hashlib.sha256(), hashlib.sha256())
+    for start in range(0, 1 << 24, 1 << 20):
+        colours = all_colours(start, start + (1 << 20))
+        for h, convert in zip(digests, (to_hsv, to_rgb)):
+            h.update(np.ascontiguousarray(convert(colours)).tobytes())
+    return digests[0].hexdigest(), digests[1].hexdigest()

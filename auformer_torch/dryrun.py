@@ -24,7 +24,7 @@ BATCH = 8
 
 def dryrun(n: int) -> None:
     with tempfile.TemporaryDirectory() as out:
-        spawn_workers(out, n, ["--batch", str(BATCH)])
+        spawn_workers(out, n, ["--batch", str(BATCH), "--device", "cpu"])
         recs = [np.load(f"{out}/avformer_r{r}.npz") for r in range(n)]
         losses = {float(r["loss"]) for r in recs}
         rows = recs[0]["eval_rows"]

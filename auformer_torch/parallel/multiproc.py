@@ -173,7 +173,7 @@ def world_one_step(cfg, table: dict, device, seed: int = 0,
 
 
 def worker_main(port: int, rank: int, world: int, out_dir: str,
-                backend: str = "gloo", device: str = "cpu",
+                backend: str = "gloo", device: str = "cuda",
                 models: tuple[str, ...] = ("avformer",), image_size: int = 32,
                 n_frames: int = 2, batch: int = 8, dropout: float = 0.2,
                 device_augment: bool = True, timed_steps: int = 0,
@@ -313,7 +313,8 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("world", type=int)
     p.add_argument("out_dir")
     p.add_argument("--backend", default="gloo", choices=["gloo", "nccl"])
-    p.add_argument("--device", default="cpu")
+    p.add_argument("--device", default="cuda",
+                   help="the worker's device (a CPU world passes cpu)")
     p.add_argument("--models", default="avformer")
     p.add_argument("--image_size", type=int, default=32)
     p.add_argument("--n_frames", type=int, default=2)

@@ -8,10 +8,9 @@ nearest previous detected frame (postprocess.py:29-48), and
 ``expand_predictions`` rewrites the per-task txts (postprocess.py:51-89),
 with explicit paths in place of the reference's hardcoded drives.
 
-Frame counts come from the ``<video>meta.json`` side files the ingest
-writes (``video_frame_counts``). Probing a video itself needs a video
-decoder, which the port does not have (ROADMAP.md queue A9): a video
-without a side file raises.
+Frame counts come from each video's meta.json side file, or from its
+container's index where it has none (``data/video.py``), which then writes
+the side file, as the JAX package's ``Video(path, write=True)`` does.
 
     python -m auformer_torch.postprocess --predictions results \
         --frames_root <cropped_aligned> --video_dir <videos> --tasks au
@@ -19,12 +18,12 @@ without a side file raises.
 from __future__ import annotations
 
 import glob
-import json
 import os
 
 from .data.split import natsort_key
 from .data.testset import strip_position
 from .data.utils import find_all_video_files
+from .data.video import Video
 
 
 def nearest_interp(source_list: list[int], target_len: int) -> list[int]:
@@ -46,23 +45,12 @@ def nearest_interp(source_list: list[int], target_len: int) -> list[int]:
 
 def video_frame_counts(video_dir: str) -> dict[str, int]:
     """Video name -> frame count of every video under ``video_dir``, from
-    its ``<video.ext>meta.json`` side file or the ``<video>meta.json`` form
-    (auformer/data/video.py:25-35). The reference pickles the same table
-    from the videos (postprocess.py:17-28)."""
+    its meta.json side file or its container (auformer/postprocess.py:
+    38-47). The reference pickles the same table (postprocess.py:17-28)."""
     counts: dict[str, int] = {}
     for path in find_all_video_files(video_dir):
-        for meta in (path + "meta.json",
-                     os.path.splitext(path)[0] + "meta.json"):
-            if os.path.isfile(meta):
-                with open(meta) as f:
-                    counts[os.path.splitext(os.path.basename(path))[0]] = \
-                        int(json.load(f)["num_frames"])
-                break
-        else:
-            raise FileNotFoundError(
-                f"{path} has no meta.json side file, and auformer_torch has "
-                "no video decoder to count its frames: ROADMAP.md queue A9 "
-                "(offline ingest from videos) lists it")
+        counts[os.path.splitext(os.path.basename(path))[0]] = \
+            Video(path, write=True).num_frames
     return counts
 
 
@@ -107,7 +95,8 @@ def main(argv=None) -> None:
     p.add_argument("--frames_root", required=True,
                    help="cropped-aligned frame dirs (detected frame ids)")
     p.add_argument("--video_dir", required=True,
-                   help="original videos with their meta.json side files")
+                   help="original videos (meta.json side files are read, "
+                   "or written from the container)")
     p.add_argument("--out_dir", default="prediction_new")
     p.add_argument("--tasks", nargs="+", default=["AU", "EXPR", "VA"])
     args = p.parse_args(argv)

@@ -78,6 +78,28 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            model's clip forward on 64 frames, launches per bucket, label
            frames/s, device ms per bucket, peak memory), and
            run_inference_sweep of vformer over the dataset phase's split
+  ingest   the port's host modules without cv2, PIL or a video decoder:
+           (a) a PNG-aligned test split (one 300-frame video of 112x112
+           fixture frames written by fixtures.write_png, and its wav)
+           packed by create_image_store(reencode_png=True), PNGs read by
+           data/png.py and re-encoded at q95 by nvJPEG, into the split's
+           image store under their .png keys (the native reader takes
+           the split's .jpg names to them, ROADMAP C11): decoded frames
+           against their PNG sources, PNG decode and JPEG encode
+           frames/s, both again on 100 frames whose rows are all Paeth
+           (read_png's slowest filter), then ``python -m
+           auformer_torch.test_aff2`` (its ``main``) over the store in
+           bf16, attention launches counted;
+           (b) jpeg_compression at probability 1.1 on a (16, 112, 112, 4)
+           clip through nvJPEG: the mask channel unchanged, the error
+           against the source, ms per clip; (c) on the CPU,
+           random_color_augment and RandomColorAugment ms per
+           (16, 112, 112, 3) clip and the SHA-256 of the HSV pair over
+           all 2^24 inputs against PIL's (PIL_HSV_DIGESTS); (d) Video,
+           probe_video_meta, extract_timestamps and
+           postprocess.video_frame_counts over tests/data/videos/
+           against expected.json, then postprocess.main over a video
+           directory without meta.json files
            through the decode worker (the submission files); the split is
            removed after it
   train    a synthetic train/val split written by the port's fixtures
@@ -182,15 +204,15 @@ fusion head's site beside its launches per step, and the traced device ms
 per step of the kernel and of the backward; ``vformer``: per call at its
 spatial and temporal sites in both dtypes, beside SDPA's forward +
 backward, and the trace's forward and backward device ms per step by
-site); ``launches`` counts the
-slice's, the sweep's, the dataset's, the packed, the zoo, the train
-phase's, the feed's, the host_aug's and the graph's main path runs
+site); ``launches`` counts the slice's, the sweep's, the dataset's, the
+packed, the zoo, the ingest phase's test_aff2 run, the train phase's,
+the feed's, the host_aug's and the graph's main path runs
 (``launches_by_path``; ``zoo`` sums the zoo phase's bf16 main path runs;
 ``feed`` is the --frame_dedup + wav arena epoch, ``host_aug`` the (h)
 epoch, ``graph`` the --frame_dedup + wav arena epoch at
 --steps_per_dispatch 4, its replays counted, ``dp`` the NCCL world of
-one's epoch, counted in its process), and ``zoo_sites`` lists the
-zoo's attention
+one's epoch, counted in its process), and ``zoo_sites`` lists the zoo's
+attention
 sites in both dtypes. Then the nvidia-smi name/power line, and last
 ``{"ok": true, "device": {...}}``. Without a GPU, or outside a checkout
 of the repository, it exits non-zero and prints no result.
@@ -386,6 +408,15 @@ DP_OVERHEAD_ROUNDS, DP_OVERHEAD_STEPS = 8, 4
 DP_LOSS_REL, DP_GRAD_TOL, DP_STATS_ATOL = 1e-5, (5e-3, 5e-5), 1e-4
 DP_TIMEOUT_S = 600
 PIL_DIGEST = "ab03ee6ec397065e602c19f69374b3fa813e9743dc9fbcaedd7e47bdac851dd9"
+# the ingest phase: the PNG-aligned split's frames; a decoded frame of the
+# store against its PNG source (JPEG q95, 4:2:0 chroma of the noisy
+# fixture frames: libjpeg gives a mean of 3.73 and a max of 26 levels), and
+# jpeg_compression's clip (quality 80-98) against its source within the
+# dataset phase's q90 bounds; the clips timed on the CPU
+INGEST_FRAMES, INGEST_PAETH_FRAMES = 300, 100
+INGEST_MEAN_TOL, INGEST_MAX_TOL = 5.0, 40
+INGEST_CLIP_FRAMES = 16
+INGEST_REPS = 5
 
 
 def emit(phase: str, **fields) -> None:
@@ -1524,6 +1555,272 @@ def profile_calls(torch, run, calls: int) -> dict | None:
     return {"device_ms": sum(e.device_time_total for e in events)
             / 1e3 / calls,
             "kernels": sum(e.count for e in events) / calls}
+
+
+def ingest_store(work: Path, root: str, labels: str, seed: int) -> dict:
+    """(a) before the main path: the PNG-aligned frames of the split's one
+    video, packed by create_image_store(reencode_png=True) (the native
+    encoder: nvJPEG on this machine) into the split's image store under
+    their ``.png`` keys, which the native reader takes the split's
+    ``.jpg`` names to; decoded frames against their sources; PNG decode
+    and JPEG encode frames/s on their own; PNG decode and
+    create_image_store frames/s again on frames whose rows are all Paeth,
+    read_png's slowest filter."""
+    from auformer_torch.data import FrameStore, ingest, native
+    from auformer_torch.data.dataset import STORE_IMAGES
+    from auformer_torch.data.fixtures import fixture_frame, write_png
+    from auformer_torch.data.png import read_png
+    tree = work / "aligned_png"
+    (tree / "vid000").mkdir(parents=True)
+    sources = [fixture_frame(seed, 0, t, IMAGE) for t in range(INGEST_FRAMES)]
+    paths = [str(tree / "vid000" / f"{t + 1:05d}.png")
+             for t in range(INGEST_FRAMES)]
+    t0 = time.perf_counter()
+    for path, img in zip(paths, sources):
+        write_png(path, img)
+    write_s = time.perf_counter() - t0
+    store = os.path.join(labels, STORE_IMAGES)
+    shutil.rmtree(store)
+    t0 = time.perf_counter()
+    keys = ingest.create_image_store(str(tree), store)
+    store_s = time.perf_counter() - t0
+    want = [f"vid000/{t + 1:05d}.png" for t in range(INGEST_FRAMES)]
+    if keys != want:
+        fail(f"create_image_store gave keys {keys[:3]}..., expected "
+             f"{want[:3]}...")
+    packed = FrameStore(store)
+    decoded, ok = native.NativeFrameStore(store).decode_batch(
+        [key[:-4] + ".jpg" for key in keys], IMAGE, IMAGE)
+    err = np.abs(decoded.astype(np.int16) - np.stack(sources))
+    err_mean, err_max = float(err.mean()), int(err.max())
+    if not (ok.all() and err_mean <= INGEST_MEAN_TOL
+            and err_max <= INGEST_MAX_TOL):
+        fail(f"the re-encoded store decodes {int(ok.sum())} of {len(ok)} "
+             f"frames, {err_mean} (mean) / {err_max} (max) levels from "
+             "their PNG sources")
+    t0 = time.perf_counter()
+    frames = [read_png(path) for path in paths]
+    png_s = time.perf_counter() - t0
+    if not all(np.array_equal(f, src) for f, src in zip(frames, sources)):
+        fail("read_png does not give back the frames write_png wrote")
+    t0 = time.perf_counter()
+    for f in frames:
+        native.encode_jpeg(f, 95)
+    encode_s = time.perf_counter() - t0
+    paeth = work / "aligned_paeth"
+    (paeth / "vid000").mkdir(parents=True)
+    paeth_paths = [str(paeth / "vid000" / f"{t + 1:05d}.png")
+                   for t in range(INGEST_PAETH_FRAMES)]
+    for path, img in zip(paeth_paths, sources):
+        write_png(path, img, filters=(4,))
+    t0 = time.perf_counter()
+    frames = [read_png(path) for path in paeth_paths]
+    paeth_png_s = time.perf_counter() - t0
+    if not all(np.array_equal(f, src) for f, src in zip(frames, sources)):
+        fail("read_png does not give back the all-Paeth frames")
+    t0 = time.perf_counter()
+    ingest.create_image_store(str(paeth), str(work / "paeth_store"))
+    paeth_store_s = time.perf_counter() - t0
+    return {"frames": INGEST_FRAMES, "encoder": native.decoder(),
+            "png_write_frames_per_s": INGEST_FRAMES / write_s,
+            "create_image_store_frames_per_s": INGEST_FRAMES / store_s,
+            "png_decode_frames_per_s": INGEST_FRAMES / png_s,
+            "jpeg_encode_frames_per_s": INGEST_FRAMES / encode_s,
+            "all_paeth": {
+                "frames": INGEST_PAETH_FRAMES,
+                "png_decode_frames_per_s": INGEST_PAETH_FRAMES / paeth_png_s,
+                "create_image_store_frames_per_s":
+                    INGEST_PAETH_FRAMES / paeth_store_s},
+            "store_bytes": sum(len(packed.get(k)) for k in keys),
+            "png_bytes": sum(os.path.getsize(p) for p in paths),
+            "decoded_vs_png": {"mean": err_mean, "max": err_max,
+                               "mean_tol": INGEST_MEAN_TOL,
+                               "max_tol": INGEST_MAX_TOL}}
+
+
+def ingest_transforms(seed: int) -> dict:
+    """(b) jpeg_compression through the native codec (nvJPEG here) and (c)
+    the colour surface and the HSV tables, on this machine's CPU."""
+    from auformer_torch.data import transforms
+    from auformer_torch.data.fixtures import fixture_frame
+    clip = np.stack([fixture_frame(seed, 1, t, IMAGE)
+                     for t in range(INGEST_CLIP_FRAMES)])
+    mask = ((clip[..., :1] > 100) * 255).astype(np.uint8)
+    clip4 = np.concatenate([clip, mask], -1)
+    out = transforms.jpeg_compression(clip4.copy(), 1.1,
+                                      np.random.RandomState(seed))
+    err = np.abs(out[..., :3].astype(np.int16) - clip)
+    jc_mean, jc_max = float(err.mean()), int(err.max())
+    if not (np.array_equal(out[..., 3], clip4[..., 3])
+            and 0 < jc_mean <= JPEG_MEAN_TOL and jc_max <= JPEG_MAX_TOL):
+        fail(f"jpeg_compression: mask unchanged "
+             f"{np.array_equal(out[..., 3], clip4[..., 3])}, {jc_mean} "
+             f"(mean) / {jc_max} (max) levels from the source")
+
+    def ms_per_clip(fn) -> list:
+        times = []
+        for rep in range(INGEST_REPS):
+            work = clip4.copy()
+            t0 = time.perf_counter()
+            fn(work, rep)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times
+
+    jc_ms = ms_per_clip(lambda c, r: transforms.jpeg_compression(
+        c, 1.1, np.random.RandomState(r)))
+    rca_ms = ms_per_clip(lambda c, r: transforms.random_color_augment(
+        c[..., :3], rng=random.Random(r)))
+
+    def colour_class(c, r):
+        op = transforms.RandomColorAugment(0.3, 0.3, 0.1, 0.3,
+                                           rng=random.Random(r))
+        for t in range(len(c)):
+            c[t, ..., :3] = op(c[t, ..., :3])
+    rca_class_ms = ms_per_clip(colour_class)
+    t0 = time.perf_counter()
+    digests = transforms.hsv_digests()
+    hsv_s = time.perf_counter() - t0
+    if digests != transforms.PIL_HSV_DIGESTS:
+        fail(f"the HSV tables hash to {digests}, PIL's to "
+             f"{transforms.PIL_HSV_DIGESTS}")
+    return {"jpeg_compression": {
+                "clip": list(clip4.shape), "mask_unchanged": True,
+                "vs_source": {"mean": jc_mean, "max": jc_max,
+                              "mean_tol": JPEG_MEAN_TOL,
+                              "max_tol": JPEG_MAX_TOL},
+                "ms_per_clip": jc_ms},
+            "random_color_augment_ms_per_clip": rca_ms,
+            "RandomColorAugment_ms_per_clip": rca_class_ms,
+            "hsv_tables": {"digests_equal_pil": True, "seconds": hsv_s}}
+
+
+def ingest_videos(work: Path) -> dict:
+    """(d) the decoder-free video index over tests/data/videos/ against
+    what the JAX package read there (expected.json), then postprocess.main
+    over copies of three of them without meta.json files."""
+    from auformer_torch import postprocess
+    from auformer_torch.data import ingest
+    from auformer_torch.data.video import Video
+    videos = ROOT / "tests" / "data" / "videos"
+    expected = json.loads((videos / "expected.json").read_text())
+    vdir = work / "videos"
+    vdir.mkdir()
+    t0 = time.perf_counter()
+    for name, want in expected.items():
+        path = str(vdir / name)
+        shutil.copy(videos / name, path)
+        v = Video(path, write=False)
+        if name.startswith("ctts"):
+            # composition offsets: cv2's timestamps follow the order its
+            # decoder returns the frames in, which the port refuses (A9)
+            try:
+                ingest.extract_timestamps(path, str(work / "ts.txt"))
+                text = "read"
+            except NotImplementedError as e:
+                text = want["timestamps"] if "A9" in str(e) else str(e)
+        else:
+            text = Path(ingest.extract_timestamps(
+                path, str(work / "ts.txt"))).read_text()
+        got = (v.meta, v.count_frames(), text, ingest.probe_video_meta(path))
+        if got != (want["meta"], want["count_frames"], want["timestamps"],
+                   want["meta"]):
+            fail(f"{name}: the port reads {got[:3]}, the JAX package "
+                 f"{want['meta']}, {want['count_frames']}")
+    counts = postprocess.video_frame_counts(str(vdir))
+    want_counts = {os.path.splitext(n)[0]: e["meta"]["num_frames"]
+                   for n, e in expected.items()}
+    if counts != want_counts:
+        fail(f"video_frame_counts {counts}, expected {want_counts}")
+    index_s = time.perf_counter() - t0
+    bare = work / "bare_videos"
+    bare.mkdir()
+    detected = {"mp4v_30": (1, 2, 5), "xvid_25": (3, 4, 9)}
+    for name in detected:
+        ext = "mp4" if name.startswith("mp4") else "avi"
+        shutil.copy(videos / f"{name}.{ext}", bare / f"{name}.{ext}")
+        (work / "pred" / "AU").mkdir(parents=True, exist_ok=True)
+        (work / "pred" / "AU" / f"{name}.txt").write_text("\n".join(
+            ["h"] + [f"row{i}" for i in detected[name]]) + "\n")
+        (work / "aligned" / name).mkdir(parents=True)
+        for i in detected[name]:
+            (work / "aligned" / name / f"{i:05d}.jpg").touch()
+    postprocess.main(["--predictions", str(work / "pred"), "--frames_root",
+                      str(work / "aligned"), "--video_dir", str(bare),
+                      "--out_dir", str(work / "dense"), "--tasks", "AU"])
+    dense = {name: Path(work / "dense" / "AU" / f"{name}.txt").read_text()
+             .splitlines() for name in detected}
+    metas = sorted(p.name for p in bare.glob("*meta.json"))
+    if ([len(rows) for rows in dense.values()] != [13, 13]
+            or metas != ["mp4v_30meta.json", "xvid_25meta.json"]):
+        fail(f"postprocess.main without meta.json: rows "
+             f"{[len(r) for r in dense.values()]}, side files {metas}")
+    return {"videos": len(expected), "equal_expected": True,
+            "index_s": index_s, "postprocess_rows": {
+                name: len(rows) - 1 for name, rows in dense.items()},
+            "side_files_written": metas}
+
+
+def phase_ingest(torch, dev, pth: Path) -> dict:
+    """The ingest phase (module docstring): (a) the PNG-aligned split's
+    store, then the main path test_aff2.main over it in bf16 with the
+    counts set to 0 just before it, (b) and (c) the host transforms, (d)
+    the video index. ``pth``: the dataset phase's seeded weights."""
+    from auformer_torch import test_aff2
+    from auformer_torch.core.config import Config
+    from auformer_torch.data.fixtures import generate_synthetic_dataset
+    from auformer_torch.nn import build_model
+    from auformer_torch.ops.attention import fused_attention
+    from auformer_torch.ops.audio_kernel import mel_frontend
+    from auformer_torch.sweep import default_sweep_bucket, make_sweep
+
+    t_phase = time.perf_counter()
+    work = ROOT / ".cache" / "chip_smoke_ingest"
+    shutil.rmtree(work, ignore_errors=True)
+    root, labels, cache = (str(work / d) for d in ("root", "labels", "cache"))
+    seed = SEED + 13
+    generate_synthetic_dataset(root, labels, n_videos=1,
+                               frames_per_video=INGEST_FRAMES,
+                               image_size=IMAGE, seed=seed, with_masks=False,
+                               splits=["test"])
+    store = ingest_store(work, root, labels, seed)
+
+    pretrain = work / "experiments" / "avformer" / "pretrain"
+    pretrain.mkdir(parents=True)
+    os.symlink(pth, pretrain / pth.name)
+    cfg = Config(root=root, lmdb_label_dir=labels, cache_dir=cache,
+                 image_size=IMAGE, n_frames=FRAMES, batch_size=BATCH)
+    sizer = make_sweep(cfg, build_model(cfg))
+    buckets = -(-INGEST_FRAMES // sizer._bucket_size(
+        INGEST_FRAMES, default_sweep_bucket(dev)))
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        fused_attention.launches = 0
+        mel_frontend.launches = 0
+        t0 = time.perf_counter()
+        out = test_aff2.main(["--root", root, "--lmdb_label_dir", labels,
+                              "--cache_dir", cache, "--image_size",
+                              str(IMAGE), "--n_frames", str(FRAMES)])
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        launches = {"attention": fused_attention.launches,
+                    "mel": mel_frontend.launches}
+    finally:
+        os.chdir(cwd)
+    want = {"attention": ATTN_PER_CALL * buckets, "mel": 0}
+    if launches != want:
+        fail(f"test_aff2.main over the re-encoded store launched "
+             f"{launches}, expected {want}")
+    check_submission(str(work / "results"), {"vid000": INGEST_FRAMES}, out)
+    if out.shape != (INGEST_FRAMES, 21) or not np.isfinite(out).all():
+        fail(f"test_aff2.main over the re-encoded store: {out.shape}")
+    store["test_aff2"] = {"seconds": main_s, "buckets": buckets,
+                          "launches": launches}
+    emit("ingest", nvidia_smi=nvidia_smi(), png_store=store,
+         **ingest_transforms(seed), video_index=ingest_videos(work),
+         phase_s=time.perf_counter() - t_phase)
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
 
 
 def phase_zoo(torch, dev, split: dict) -> dict:
@@ -3764,6 +4061,9 @@ def main() -> int:
                "sweep": phase_sweep(torch, dev)}
     by_path["dataset"], by_path["packed"], split = phase_dataset(torch, dev)
     by_path["zoo"] = phase_zoo(torch, dev, split)
+    by_path["ingest"] = phase_ingest(
+        torch, dev, Path(split["work"]) / "experiments" / "avformer"
+        / "pretrain" / f"random_seed{SEED}.pth")
     shutil.rmtree(split["work"], ignore_errors=True)  # the split, the .pth
     paths, grad_cases, attention_in_step = phase_train(torch, dev)
     by_path.update(paths)

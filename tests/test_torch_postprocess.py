@@ -4,6 +4,7 @@ on the cases of tests/test_inference.py and tests/test_ingest.py."""
 import json
 import os
 import pickle
+import shutil
 
 import cv2
 import numpy as np
@@ -15,6 +16,10 @@ from auformer.data import utils as jax_utils
 from auformer_torch import postprocess
 from auformer_torch.data import FrameStore, utils
 from auformer_torch.data import ingest
+from auformer_torch.data.video import Video
+
+VIDEOS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                      "videos")
 
 
 @pytest.mark.parametrize("source,target", [
@@ -164,15 +169,20 @@ def _png_tree(tmp_path):
 
 
 @pytest.mark.parametrize("call", [
-    lambda t: ingest.create_image_store(_png_tree(t), str(t / "store")),
-    lambda t: ingest.extract_timestamps(str(t / "clip.avi")),
-    lambda t: ingest.probe_video_meta(str(t / "clip.avi")),
-    lambda t: (t / "clip.avi").touch() or postprocess.video_frame_counts(
-        str(t)),
-], ids=["png_reencode", "extract_timestamps", "probe_video_meta",
-        "frame_count_without_side_file"])
+    lambda t: Video(os.path.join(VIDEOS, "mp4v_30.mp4"),
+                    write=False).read_RGB(0),
+    lambda t: ingest.extract_timestamps(os.path.join(VIDEOS, "ctts.mp4"),
+                                        str(t / "ts.txt")),
+    lambda t: ingest.probe_video_meta(shutil.copy(
+        os.path.join(VIDEOS, "fragmented.mp4"), t)),
+    lambda t: Video(os.path.join(VIDEOS, "mp4v_30.mp4"),
+                    write=False).frames(),
+], ids=["read_RGB", "extract_timestamps", "probe_video_meta", "frames"])
 def test_decoder_paths_raise_naming_a9(tmp_path, call):
-    with pytest.raises((NotImplementedError, FileNotFoundError), match="A9"):
+    """What still needs a video decoder (pixels) or a container the port
+    does not read (B-frame presentation order, fragmented MP4) raises
+    naming A9."""
+    with pytest.raises(NotImplementedError, match="A9"):
         call(tmp_path)
 
 

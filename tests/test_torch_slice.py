@@ -205,6 +205,8 @@ def test_port_imports_no_jax_and_no_auformer():
         "auformer_torch.core.observability, auformer_torch.train_lib, "
         "auformer_torch.train, auformer_torch.packed, "
         "auformer_torch.postprocess, auformer_torch.data.ingest, "
+        "auformer_torch.data.png, auformer_torch.data.container, "
+        "auformer_torch.data.video, "
         "auformer_torch.data.utils, auformer_torch.nn.sformer, "
         "auformer_torch.nn.dual_sformer, auformer_torch.nn.tformer, "
         "auformer_torch.nn.vggformer, auformer_torch.nn.resnet_image, "
