@@ -32,36 +32,71 @@ def _join(prefix: str, name: str, sep: str) -> str:
 class Exporter:
     """Accumulates a reference-layout state dict from a JAX variables tree.
     Each mapper takes the torch key prefix and the JAX path ('/'-joined);
-    an empty prefix addresses the root, for single-module trees."""
+    an empty prefix addresses the root, for single-module trees.
 
-    def __init__(self, variables: Mapping[str, Any]):
-        self.params = variables["params"]
+    ``lenient``: an array or subtree that the tree lacks exports nothing,
+    and a split array that does not divide into its pieces neither (a
+    restored checkpoint, merged into a model's own values by
+    ``core/checkpointing.py``). ``groups`` lists the torch keys of each JAX
+    array exported, so that a merge takes or leaves an array whole."""
+
+    def __init__(self, variables: Mapping[str, Any], lenient: bool = False):
+        self.lenient = lenient
+        self.params = (variables.get("params", {}) if lenient
+                       else variables["params"])
         self.stats = variables.get("batch_stats", {})
         self.sd: dict[str, torch.Tensor] = {}
+        self.groups: list[list[str]] = []
 
-    @staticmethod
-    def _node(tree, path: str):
+    def _node(self, tree, path: str):
         for key in filter(None, path.split("/")):
+            if self.lenient and (not isinstance(tree, Mapping)
+                                 or key not in tree):
+                return {}
             tree = tree[key]
         return tree
 
-    def _put(self, tkey: str, value) -> None:
-        self.sd[tkey] = torch.from_numpy(
-            np.array(value, dtype=np.float32, copy=True))
+    def _leaf(self, node, key: str):
+        """``node[key]`` as an array; None where a lenient export finds
+        none."""
+        if self.lenient and (not isinstance(node, Mapping)
+                             or key not in node):
+            return None
+        return np.asarray(node[key])
+
+    def _store(self, tkeys: list[str], values) -> None:
+        """The pieces of one JAX array under ``tkeys``."""
+        for tkey, value in zip(tkeys, values):
+            self.sd[tkey] = torch.from_numpy(
+                np.array(value, dtype=np.float32, copy=True))
+        self.groups.append(list(tkeys))
+
+    def _put(self, tkey: str, value, fn=None) -> None:
+        """``fn(value)`` under ``tkey``; nothing where ``value`` is None."""
+        if value is not None:
+            self._store([tkey], [value if fn is None else fn(value)])
+
+    def _splits(self, value, n: int, axis: int) -> bool:
+        """Whether to split ``value`` into ``n`` along ``axis``: always in a
+        strict export (np.split raises on a bad width), where it is there
+        and divides in a lenient one."""
+        return not self.lenient or (value is not None and value.ndim > axis
+                                    and value.shape[axis] % n == 0)
 
     # -- leaf mappers ---------------------------------------------------------
     def linear(self, tkey: str, jpath: str, bias: bool = True) -> None:
         p = self._node(self.params, jpath)
-        self._put(_join(tkey, "weight", "."), np.asarray(p["kernel"]).T)
+        self._put(_join(tkey, "weight", "."), self._leaf(p, "kernel"),
+                  np.transpose)
         if bias:
-            self._put(_join(tkey, "bias", "."), p["bias"])
+            self._put(_join(tkey, "bias", "."), self._leaf(p, "bias"))
 
     def _conv(self, tkey: str, jpath: str, axes: tuple) -> None:
         p = self._node(self.params, jpath)
-        self._put(_join(tkey, "weight", "."),
-                  np.asarray(p["kernel"]).transpose(axes))
+        self._put(_join(tkey, "weight", "."), self._leaf(p, "kernel"),
+                  lambda k: k.transpose(axes))
         if "bias" in p:
-            self._put(_join(tkey, "bias", "."), p["bias"])
+            self._put(_join(tkey, "bias", "."), self._leaf(p, "bias"))
 
     def conv2d(self, tkey: str, jpath: str) -> None:
         """(kH, kW, in, out) -> (out, in, kH, kW)."""
@@ -74,18 +109,19 @@ class Exporter:
     def batchnorm(self, tkey: str, jpath: str) -> None:
         p = self._node(self.params, jpath)
         s = self._node(self.stats, jpath)
-        for tsuf, value in (("weight", p["scale"]), ("bias", p["bias"]),
-                            ("running_mean", s["mean"]),
-                            ("running_var", s["var"])):
-            self._put(_join(tkey, tsuf, "."), value)
+        for tsuf, node, key in (("weight", p, "scale"), ("bias", p, "bias"),
+                                ("running_mean", s, "mean"),
+                                ("running_var", s, "var")):
+            self._put(_join(tkey, tsuf, "."), self._leaf(node, key))
 
     def layernorm(self, tkey: str, jpath: str) -> None:
         p = self._node(self.params, jpath)
-        self._put(_join(tkey, "weight", "."), p["scale"])
-        self._put(_join(tkey, "bias", "."), p["bias"])
+        self._put(_join(tkey, "weight", "."), self._leaf(p, "scale"))
+        self._put(_join(tkey, "bias", "."), self._leaf(p, "bias"))
 
     def raw(self, tkey: str, jpath: str) -> None:
-        self._put(tkey, self._node(self.params, jpath))
+        parent, _, name = jpath.rpartition("/")
+        self._put(tkey, self._leaf(self._node(self.params, parent), name))
 
     # -- composite mappers ----------------------------------------------------
     def transformer(self, tpre: str, jpre: str) -> None:
@@ -109,20 +145,25 @@ class Exporter:
                    stem: str = "AU") -> None:
         """(D, n*E) TokenProjection -> {stem}_linear_p1..p{n} (E, D)."""
         p = self._node(self.params, jpath)
-        kernels = np.split(np.asarray(p["kernel"]), n, axis=1)
-        biases = np.split(np.asarray(p["bias"]), n)
-        for i in range(n):
-            self._put(_join(tpre, f"{stem}_linear_p{i + 1}.weight", "."),
-                      kernels[i].T)
-            self._put(_join(tpre, f"{stem}_linear_p{i + 1}.bias", "."),
-                      biases[i])
+        kernel, bias = self._leaf(p, "kernel"), self._leaf(p, "bias")
+        names = [_join(tpre, f"{stem}_linear_p{i + 1}", ".")
+                 for i in range(n)]
+        if self._splits(kernel, n, 1):
+            self._store([f"{k}.weight" for k in names],
+                        [w.T for w in np.split(kernel, n, axis=1)])
+        if self._splits(bias, n, 0):
+            self._store([f"{k}.bias" for k in names], np.split(bias, n))
 
-    def token_logits(self, tpre: str, jpath: str, stem: str = "AU") -> None:
-        """(n, E) TokenLogits -> {stem}_linear_last1..last{n} (1, E)."""
-        kernel = np.asarray(self._node(self.params, jpath)["kernel"])
-        for i, row in enumerate(kernel):
-            self._put(_join(tpre, f"{stem}_linear_last{i + 1}.weight", "."),
-                      row[None, :])
+    def token_logits(self, tpre: str, jpath: str, stem: str = "AU",
+                     n: int = NUM_AU) -> None:
+        """(n, E) TokenLogits -> {stem}_linear_last1..last{n} (1, E) (a
+        lenient export takes a kernel of n rows only)."""
+        kernel = self._leaf(self._node(self.params, jpath), "kernel")
+        if kernel is None or (self.lenient and len(kernel) != n):
+            return
+        self._store([_join(tpre, f"{stem}_linear_last{i + 1}.weight", ".")
+                     for i in range(len(kernel))],
+                    [row[None, :] for row in kernel])
 
     def au_former(self, tpre: str, jpre: str, n: int = NUM_AU,
                   stem: str = "AU") -> None:
@@ -135,7 +176,7 @@ class Exporter:
                  _join(jpre, "pos_embedding", "/"))
         self.transformer(_join(tpre, "corr_transformer", "."),
                          _join(jpre, "corr_transformer", "/"))
-        self.token_logits(tpre, _join(jpre, "token_logits", "/"), stem)
+        self.token_logits(tpre, _join(jpre, "token_logits", "/"), stem, n)
 
     def va_former(self, tpre: str, jpre: str) -> None:
         self.au_former(tpre, jpre, n=2, stem="VA")
@@ -351,7 +392,7 @@ def _export_vggformer(e: Exporter) -> None:
 
 
 def _export_van(e: Exporter) -> None:
-    node = e.params["base_model"]
+    node = e._node(e.params, "base_model")
     for i in range(1, 5):
         pe, pj = f"base_model.patch_embed{i}", f"base_model/patch_embed{i}"
         e.conv2d(f"{pe}.proj", f"{pj}/proj")
@@ -365,13 +406,13 @@ def _export_van(e: Exporter) -> None:
 
 
 def _export_emonet(e: Exporter) -> None:
-    node = e.params["base_model"]
+    node = e._node(e.params, "base_model")
     e.conv2d("base_model.conv1", "base_model/conv1")
     for name in ("conv2", "conv3", "conv4"):
         e.emonet_convblock(f"base_model.{name}", f"base_model/{name}")
     modules = sum(1 for k in node if k.startswith("top_m_"))
     for i in range(modules):
-        for block in node[f"m{i}"]:          # b1_4 ... b3_1, b2_plus_1
+        for block in e._node(node, f"m{i}"):   # b1_4 ... b3_1, b2_plus_1
             e.emonet_convblock(f"base_model.m{i}.{block}",
                                f"base_model/m{i}/{block}")
         e.emonet_convblock(f"base_model.top_m_{i}", f"base_model/top_m_{i}")
@@ -399,7 +440,7 @@ def _export_fc_bn_fc(e: Exporter) -> None:
 
 
 def _export_i3d(e: Exporter) -> None:
-    for unit, node in e.params["video_model"].items():
+    for unit, node in e._node(e.params, "video_model").items():
         if unit.startswith("Mixed_"):
             for branch in node:
                 e.unit3d(f"video_model.{unit}.{branch}",
@@ -443,19 +484,25 @@ EXPORTERS = {"avformer": _export_avformer, "vformer": _export_vformer,
              "mc3d": _export_mc3d, "tsav": _export_tsav}
 
 
+def export_jax(variables: Mapping[str, Any], model_name: str = "avformer",
+               lenient: bool = False) -> Exporter:
+    """The :class:`Exporter` of ``model_name`` run over ``variables``."""
+    if model_name not in EXPORTERS:
+        raise NotImplementedError(
+            f"no state dict export for {model_name!r}; available: "
+            f"{sorted(EXPORTERS)}")
+    e = Exporter(variables, lenient=lenient)
+    EXPORTERS[model_name](e)
+    return e
+
+
 def state_dict_from_jax(variables: Mapping[str, Any],
                         model_name: str = "avformer"
                         ) -> dict[str, torch.Tensor]:
     """JAX variables of ``model_name`` -> the port's (reference layout)
     state dict; the inverse of that model's converter in
     ``core/torch_import.py``."""
-    if model_name not in EXPORTERS:
-        raise NotImplementedError(
-            f"no state dict export for {model_name!r}; available: "
-            f"{sorted(EXPORTERS)}")
-    e = Exporter(variables)
-    EXPORTERS[model_name](e)
-    return e.sd
+    return export_jax(variables, model_name).sd
 
 
 def load_weights(model: torch.nn.Module,

@@ -16,6 +16,8 @@ Each frame's source image is ``fixture_frame(seed, video, t, size)``, from
 a generator of its own, so a check can rebuild it and measure the JPEG
 error of a decoded frame. ``write_png`` writes a PNG on the standard
 library's ``zlib``, for PNG-aligned frame trees on hosts without cv2.
+``write_orbax_checkpoint`` writes a checkpoint as the JAX package's orbax
+save does, for hosts without orbax or the JAX package.
 """
 from __future__ import annotations
 
@@ -25,16 +27,18 @@ import os
 import pickle
 import shutil
 import struct
+import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
-from typing import Sequence
+from typing import Any, Mapping, Sequence
 
 import numpy as np
+import torch
 
 from ..ops.audio_host import write_wav
 from .dataset import STORE_AU, STORE_EX, STORE_IMAGES, STORE_MASKS, STORE_VA
 from .framestore import FrameStoreWriter
-from .native import encode_jpeg
+from .native import crc32c, encode_jpeg
 
 
 @functools.lru_cache(maxsize=4)
@@ -124,6 +128,157 @@ def write_png(path: str, img: np.ndarray, interlace: bool = False,
                                               int(interlace)))
                 + chunk(b"IDAT", zlib.compress(data, 6))
                 + chunk(b"IEND", b""))
+
+
+def _varint(v: int) -> bytes:
+    out = bytearray()
+    while v >= 0x80:
+        out.append(v & 0x7F | 0x80)
+        v >>= 7
+    out.append(v)
+    return bytes(out)
+
+
+def _varints(values) -> bytes:
+    return b"".join(_varint(v) for v in values)
+
+
+def _zstd_raw(data: bytes) -> bytes:
+    """``data`` as one zstd frame of raw blocks (single segment, its
+    content size in 8 bytes, no checksum)."""
+    out = [struct.pack("<IBQ", 0xFD2FB528, 0xE0, len(data))]
+    step = 128 * 1024
+    for i in range(0, max(len(data), 1), step):
+        block = data[i:i + step]
+        last = i + step >= len(data)
+        out += [(len(block) << 3 | int(last)).to_bytes(3, "little"), block]
+    return b"".join(out)
+
+
+def _ocdbt_encode(magic: int, body: bytes) -> bytes:
+    """An OCDBT manifest or node: header, zstd body, CRC-32C."""
+    payload = _varints((0, 1)) + _zstd_raw(body)
+    head = struct.pack(">I", magic) + struct.pack("<Q",
+                                                  4 + 8 + len(payload) + 4)
+    data = head + payload
+    return data + struct.pack("<I", crc32c(data))
+
+
+_ZARR_DTYPES = {np.dtype(np.float32): "<f4", np.dtype(np.float64): "<f8",
+                np.dtype(np.float16): "<f2", np.dtype(np.int32): "<i4",
+                np.dtype(np.int64): "<i8", np.dtype(np.uint8): "|u1",
+                np.dtype(np.bool_): "|b1"}
+
+
+def _zarr_leaf(value) -> tuple[str, tuple, bytes]:
+    """(zarr dtype, shape, C-order bytes) of a numpy array, a number or a
+    torch tensor (bfloat16 kept as its bits)."""
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu().contiguous()
+        if value.dtype == torch.bfloat16:
+            return ("bfloat16", tuple(value.shape),
+                    value.view(torch.int16).numpy().tobytes())
+        value = value.numpy()
+    arr = np.asarray(value)               # tobytes() is C order
+    if arr.dtype not in _ZARR_DTYPES:
+        raise ValueError(f"no zarr dtype for {arr.dtype}")
+    return _ZARR_DTYPES[arr.dtype], arr.shape, arr.tobytes()
+
+
+def _leaves(tree: Mapping[str, Any], path: tuple = ()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, path + (str(k),))
+        else:
+            yield path + (str(k),), v
+
+
+def write_orbax_checkpoint(path: str, tree: Mapping[str, Any]) -> int:
+    """Write the nested dict ``tree`` at the directory ``path`` as the JAX
+    package's ``save_checkpoint`` does through orbax: ``_METADATA``,
+    ``_CHECKPOINT_METADATA``, and each leaf as a zarr v2 array of one chunk
+    (zstd frames of raw blocks) in an OCDBT database of one version, one
+    b+tree leaf and one data file (values over 1024 bytes in it, the leaf
+    after them). Returns the bytes written."""
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(os.path.join(path, "d"))
+    values: dict[bytes, bytes] = {}
+    tree_meta = {}
+    for keys, leaf in _leaves(tree):
+        dtype, shape, data = _zarr_leaf(leaf)
+        name = ".".join(keys)
+        zarray = {"chunks": [max(d, 1) for d in shape],
+                  "compressor": {"id": "zstd", "level": 1},
+                  "dimension_separator": ".", "dtype": dtype,
+                  "fill_value": None, "filters": None, "order": "C",
+                  "shape": list(shape), "zarr_format": 2}
+        values[f"{name}/.zarray".encode()] = json.dumps(
+            zarray, sort_keys=True, separators=(",", ":")).encode()
+        if all(shape):                  # an empty array stores no chunk
+            chunk = ".".join("0" for _ in shape) or "0"
+            values[f"{name}/{chunk}".encode()] = _zstd_raw(data)
+        tree_meta[str(keys)] = {
+            "key_metadata": [{"key": k, "key_type": 2} for k in keys],
+            "value_metadata": {"value_type": "np.ndarray",
+                               "skip_deserialize": False}}
+    data_file = f"d/{os.urandom(16).hex()}"
+    keys = sorted(values)
+    indirect_bytes = 0
+    lengths, kinds, offsets, inline = [], [], [], []
+    with open(os.path.join(path, data_file), "wb") as f:
+        for k in keys:
+            v = values[k]
+            lengths.append(len(v))
+            if len(v) > 1024:
+                kinds.append(1)
+                offsets.append(indirect_bytes)
+                f.write(v)
+                indirect_bytes += len(v)
+            else:
+                kinds.append(0)
+                inline.append(v)
+        prefix, prev = [], b""
+        for k in keys:
+            n = 0
+            while n < min(len(k), len(prev)) and k[n] == prev[n]:
+                n += 1
+            prefix.append(n)
+            prev = k
+        files = _varints((1, len(data_file), 0)) + data_file.encode()
+        leaf = (bytes([0]) + files + _varint(len(keys))
+                + _varints(prefix[1:])
+                + _varints(len(k) - p for k, p in zip(keys, prefix))
+                + b"".join(k[p:] for k, p in zip(keys, prefix))
+                + _varints(lengths) + bytes(kinds)
+                + _varints([0] * len(offsets)) + _varints(offsets)
+                + b"".join(inline))
+        node = _ocdbt_encode(0x0CDB20DE, leaf)
+        f.write(node)
+    config = (os.urandom(16) + _varints((0, 1024, 100_000_000)) + bytes([4])
+              + _varint(1) + struct.pack("<i", 0))
+    version = (_varints((1, 1)) + bytes([0]) + _varints((0,))
+               + _varints((indirect_bytes, len(node), len(keys), len(node),
+                           indirect_bytes))
+               + struct.pack("<Q", time.time_ns()) + _varint(0))
+    manifest = _ocdbt_encode(0x0CDB3A2A, config + files + version)
+    with open(os.path.join(path, "manifest.ocdbt"), "wb") as f:
+        f.write(manifest)
+    meta = {"tree_metadata": tree_meta, "use_ocdbt": True,
+            "use_zarr3": False, "store_array_data_equal_to_fill_value": True,
+            "custom_metadata": None}
+    now = time.time_ns()
+    ckpt_meta = {"item_handlers": "orbax.checkpoint._src.handlers."
+                 "standard_checkpoint_handler.StandardCheckpointHandler",
+                 "metrics": {}, "performance_metrics": {},
+                 "init_timestamp_nsecs": now, "commit_timestamp_nsecs": now,
+                 "custom_metadata": {}}
+    for name, obj in (("_METADATA", meta),
+                      ("_CHECKPOINT_METADATA", ckpt_meta)):
+        with open(os.path.join(path, name), "w") as f:
+            json.dump(obj, f)
+    return (indirect_bytes + len(node) + len(manifest)
+            + sum(os.path.getsize(os.path.join(path, n))
+                  for n in ("_METADATA", "_CHECKPOINT_METADATA")))
 
 
 def generate_synthetic_dataset(root: str, label_dir: str,

@@ -1,5 +1,5 @@
 """ctypes binding + on-demand build of the native FrameStore reader
-(counterpart of auformer/data/native).
+(counterpart of auformer/data/native) and of the port's zstd decoder.
 
 Two sources share one C interface (``fs_open``, ``fs_close``,
 ``fs_num_entries``, ``fs_get_raw``, ``fs_decode_batch``,
@@ -18,6 +18,12 @@ root of the checkout, the library named by a hash of the sources and the
 command. A failed build raises with the compiler's output: nothing falls
 back to another decoder or to black frames. Nothing here runs at import
 time.
+
+``zstd_decode.cpp`` is a second library, built the same way: the port's own
+RFC 8878 decoder, with the CRC-32C that OCDBT files carry, for the JAX
+package's orbax checkpoints (``core/ocdbt.py``, ``core/orbax_reader.py``).
+It needs only the C++ compiler; there is no fallback to a Python package or
+to a system libzstd.
 """
 from __future__ import annotations
 
@@ -37,7 +43,8 @@ from ..framestore import first_key
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = Path(__file__).resolve().parents[3] / ".cache" / "native"
 SOURCES = {"libjpeg": "framestore_reader.cpp",
-           "nvjpeg": "framestore_nvjpeg.cpp"}
+           "nvjpeg": "framestore_nvjpeg.cpp",
+           "zstd": "zstd_decode.cpp"}
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-pthread")
 
 _lock = threading.Lock()
@@ -88,6 +95,8 @@ def decoder() -> str:
 def _command(name: str, target: Path) -> list[str]:
     cmd = [_cxx(), *CXX_FLAGS, str(SRC_DIR / SOURCES[name]), "-o",
            str(target)]
+    if name == "zstd":
+        return cmd
     if name == "libjpeg":
         return cmd + ["-ljpeg"]
     cuda = cuda_home()
@@ -97,18 +106,25 @@ def _command(name: str, target: Path) -> list[str]:
 
 
 def _target(name: str) -> Path:
-    """The library's path, named by a hash of its source, framestore.h and
-    the compiler command."""
+    """The library's path, named by a hash of its source, framestore.h (for
+    a reader) and the compiler command."""
     h = hashlib.sha256((SRC_DIR / SOURCES[name]).read_bytes())
-    h.update((SRC_DIR / "framestore.h").read_bytes())
+    if name != "zstd":
+        h.update((SRC_DIR / "framestore.h").read_bytes())
     h.update(" ".join(_command(name, Path("lib.so"))).encode())
-    return BUILD_DIR / f"libframestore_{name}-{h.hexdigest()[:16]}.so"
+    stem = "libzstd_decode" if name == "zstd" else f"libframestore_{name}"
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
+
+
+def _what(name: str) -> str:
+    return ("the zstd decoder" if name == "zstd"
+            else f"the {name} FrameStore reader")
 
 
 def build(name: str | None = None) -> Path:
-    """Compile the reader for ``name`` (default: :func:`decoder`) unless it
-    is built; returns the library's path. Raises RuntimeError with the
-    compiler's output when the build fails."""
+    """Compile the reader for ``name`` (default: :func:`decoder`; ``"zstd"``
+    the zstd decoder) unless it is built; returns the library's path.
+    Raises RuntimeError with the compiler's output when the build fails."""
     name = name or decoder()
     target = _target(name)
     if target.exists():
@@ -121,11 +137,10 @@ def build(name: str | None = None) -> Path:
         r = subprocess.run(_command(name, tmp), capture_output=True,
                            text=True, timeout=300)
     except (OSError, subprocess.TimeoutExpired) as e:
-        raise RuntimeError(f"the {name} FrameStore reader did not build: "
-                           f"{e}") from e
+        raise RuntimeError(f"{_what(name)} did not build: {e}") from e
     if r.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"the {name} FrameStore reader did not build "
+        raise RuntimeError(f"{_what(name)} did not build "
                            f"({' '.join(_command(name, tmp))}):\n"
                            f"{r.stderr[-4000:]}")
     os.replace(tmp, target)
@@ -167,6 +182,69 @@ def library(name: str | None = None) -> ctypes.CDLL:
                                        ctypes.c_int]
         _LIBS[target] = lib
         return lib
+
+
+def zstd_library() -> ctypes.CDLL:
+    """The loaded zstd decoder (``zstd_decode.cpp``), built on first use."""
+    target = _target("zstd")
+    with _lock:
+        lib = _LIBS.get(target)
+        if lib is not None:
+            return lib
+        lib = ctypes.CDLL(str(build("zstd")))
+        size_p = ctypes.POINTER(ctypes.c_size_t)
+        lib.zstd_decompress.restype = ctypes.c_int
+        lib.zstd_decompress.argtypes = [
+            ctypes.c_char_p, ctypes.c_size_t,
+            ctypes.POINTER(ctypes.c_void_p), size_p, ctypes.c_char_p,
+            ctypes.c_size_t]
+        lib.zstd_decompress_into.restype = ctypes.c_int
+        lib.zstd_decompress_into.argtypes = [
+            ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+            ctypes.c_size_t, size_p, ctypes.c_char_p, ctypes.c_size_t]
+        lib.zstd_free.restype = None
+        lib.zstd_free.argtypes = [ctypes.c_void_p]
+        lib.crc32c.restype = ctypes.c_uint32
+        lib.crc32c.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                               ctypes.c_uint32]
+        _LIBS[target] = lib
+        return lib
+
+
+def zstd_decompress(data: bytes) -> bytes:
+    """The content of the zstd frames in ``data`` (one or more, skippable
+    ones skipped, each frame's checksum verified where it carries one).
+    Raises ValueError on a malformed or truncated input."""
+    lib = zstd_library()
+    out, n = ctypes.c_void_p(), ctypes.c_size_t()
+    err = ctypes.create_string_buffer(256)
+    if lib.zstd_decompress(bytes(data), len(data), ctypes.byref(out),
+                           ctypes.byref(n), err, len(err)) != 0:
+        raise ValueError(f"zstd: {err.value.decode()}")
+    try:
+        return ctypes.string_at(out, n.value)
+    finally:
+        lib.zstd_free(out)
+
+
+def zstd_decompress_into(data: bytes, out: np.ndarray) -> int:
+    """Decompress ``data`` into the C-contiguous array ``out`` (its bytes);
+    returns the bytes written. Raises ValueError on a malformed input or
+    one that does not fit."""
+    if not out.flags.c_contiguous:
+        raise ValueError("zstd_decompress_into needs a C-contiguous output")
+    n = ctypes.c_size_t()
+    err = ctypes.create_string_buffer(256)
+    if zstd_library().zstd_decompress_into(
+            bytes(data), len(data), out.ctypes.data, out.nbytes,
+            ctypes.byref(n), err, len(err)) != 0:
+        raise ValueError(f"zstd: {err.value.decode()}")
+    return n.value
+
+
+def crc32c(data: bytes, crc: int = 0) -> int:
+    """CRC-32C (Castagnoli) of ``data``, continuing from ``crc``."""
+    return zstd_library().crc32c(bytes(data), len(data), crc)
 
 
 def _u8(arr: np.ndarray):

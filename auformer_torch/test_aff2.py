@@ -7,14 +7,17 @@ directory, on the GPU.
     python -m auformer_torch.test_aff2 [flags as opts.py, e.g.
         --data_backend synthetic]
 
-Weights: the first ``experiments/avformer/pretrain/*.pth`` (a reference
-checkpoint, e.g. the shipped best523.pth, test_aff2.py:18,62, or the
-``best.pth`` / ``latest.pth`` that ``python -m auformer_torch.train`` writes
-there) through ``load_reference_state_dict``, else random weights with a
-warning. The JAX package's orbax checkpoints are not read.
-``AUFORMER_SWEEP=0`` selects the
-clip path (``run_inference``) instead of the dense sweep
-(``run_inference_sweep``, the default).
+Weights, in the root test_aff2.py's order (:26-45), under
+``experiments/avformer/pretrain/``: the orbax checkpoint ``best/`` that the
+JAX package's training writes, else its ``latest/`` (read without orbax,
+core/orbax_reader.py), else the first ``*.pth`` (a reference checkpoint,
+e.g. the shipped best523.pth, test_aff2.py:18,62, or the ``best.pth`` /
+``latest.pth`` that ``python -m auformer_torch.train`` writes there), else
+random weights with a warning. A checkpoint merges into the model's own
+values as the JAX package's ``load_checkpoint(target=)`` does
+(core/checkpointing.py). ``AUFORMER_SWEEP=0`` selects the clip path
+(``run_inference``) instead of the dense sweep (``run_inference_sweep``,
+the default).
 
 Over N GPUs, the test split's videos spread over the ranks, rank 0
 writing the files:
@@ -29,14 +32,26 @@ import os
 
 import torch
 
+from .core.checkpointing import model_state_dict, read_checkpoint
 from .core.config import parse_opt
 from .core.mesh import make_mesh, maybe_init_distributed, process_group_scope
-from .core.weights import load_reference_state_dict, load_weights
+from .core.weights import load_weights
 from .infer import resolve_device, run_inference, run_inference_sweep
 from .nn import build_model
 
 MODEL_PATH = os.path.join("experiments", "avformer", "pretrain")
 RESULT_PATH = "results"
+
+
+def checkpoint_path(model_path: str = MODEL_PATH) -> str | None:
+    """The checkpoint that the root test_aff2.py loads from
+    ``model_path``: orbax ``best/``, orbax ``latest/``, the first
+    ``*.pth``; None without one."""
+    for name in ("best", "latest"):
+        if os.path.isdir(os.path.join(model_path, name)):
+            return os.path.join(model_path, name)
+    pths = sorted(glob.glob(os.path.join(model_path, "*.pth")))
+    return pths[0] if pths else None
 
 
 def main(argv: list[str] | None = None, device=None):
@@ -51,10 +66,13 @@ def main(argv: list[str] | None = None, device=None):
     cfg.task = "AU"
     torch.manual_seed(cfg.seed)
     model = build_model(cfg)
-    pths = sorted(glob.glob(os.path.join(MODEL_PATH, "*.pth")))
-    if pths:
-        load_weights(model, load_reference_state_dict(pths[0]))
-        print(f"Loading weight from: {pths[0]}")
+    path = checkpoint_path()
+    if path is not None:
+        load_weights(model, read_checkpoint(path, "avformer",
+                                            target=model_state_dict(model)))
+        kind = "orbax" if os.path.isdir(path) else "torch"
+        print(f"restored {kind} checkpoint: {path}")
+        print(f"Loading weight from: {MODEL_PATH}")
     else:
         print("WARNING: no checkpoint found, using random init")
     with process_group_scope():

@@ -14,7 +14,8 @@ train with ``--n_frames 1``, emonet at a multiple of 64 (``--image_size
 256``, its full width).
 
 Checkpoints go to ``{exp_dir}/pretrain/{latest,best}.pth`` in the reference
-layout; ``--resume`` reads ``latest.pth``.
+layout; ``--resume`` reads the JAX package's orbax ``latest/`` there first
+(a run begun on the TPU), ``latest.pth`` second.
 
 Data parallel over N GPUs, one process each (train_lib's docstring):
 

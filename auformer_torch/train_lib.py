@@ -261,7 +261,10 @@ def train(cfg: Config, dataset=None, max_steps_per_epoch: int | None = None,
     cfg.checkpoint_path = os.path.join(cfg.exp_dir, "pretrain")
     start_epoch = 0
     if cfg.resume:
-        restored = load_checkpoint(cfg.checkpoint_path, "latest")
+        # the JAX package's orbax latest/ first, latest.pth second
+        restored = load_checkpoint(cfg.checkpoint_path, "latest",
+                                   cfg.model_name,
+                                   target=model_state_dict(model))
         if restored is not None:
             load_weights(model, restored)
             start_epoch = cfg.start_epoch

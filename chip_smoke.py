@@ -102,6 +102,24 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            directory without meta.json files
            through the decode worker (the submission files); the split is
            removed after it
+  orbax    the JAX package's checkpoints, read without orbax: (a) the zstd
+           decoder built from data/native/zstd_decode.cpp, every committed
+           checkpoint of tests/data/orbax/ (OCDBT and zarr directories)
+           read by core/orbax_reader.py, each leaf's SHA-256 against
+           expected.json, and where this machine has a libzstd.so.1 its
+           decode of the fixtures' zstd frames against the port's (a
+           cross-check only); (b) the JAX avformer's full-width tree
+           (avformer_tree.json) filled from the seed, written as the JAX
+           package's save_checkpoint writes it (fixtures.
+           write_orbax_checkpoint) into experiments/avformer/pretrain/
+           best/ of one work directory and as the .pth of
+           state_dict_from_jax of it into another; the checkpoint's bytes,
+           read s and MB/s, the state dict equal to state_dict_from_jax;
+           ``python -m auformer_torch.test_aff2`` (its ``main``) over the
+           dataset phase's split in bf16 in both: the orbax run reports
+           best/ and launches 11 attention kernels per bucket, and its
+           predictions and submission files equal the .pth run's bit for
+           bit; the split is removed after it
   train    a synthetic train/val split written by the port's fixtures
            (videos of 1,500, 1,500, 600 and 100 frames: train, train,
            val, test; 112x112 JPEG q90). Before any training: the
@@ -205,7 +223,8 @@ per step of the kernel and of the backward; ``vformer``: per call at its
 spatial and temporal sites in both dtypes, beside SDPA's forward +
 backward, and the trace's forward and backward device ms per step by
 site); ``launches`` counts the slice's, the sweep's, the dataset's, the
-packed, the zoo, the ingest phase's test_aff2 run, the train phase's,
+packed, the zoo, the ingest and orbax phases' test_aff2 runs (orbax:
+the run from best/), the train phase's,
 the feed's, the host_aug's and the graph's main path runs
 (``launches_by_path``; ``zoo`` sums the zoo phase's bf16 main path runs;
 ``feed`` is the --frame_dedup + wav arena epoch, ``host_aug`` the (h)
@@ -225,7 +244,9 @@ time, and the cases timed by events.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import os
 import pickle
@@ -417,6 +438,8 @@ INGEST_FRAMES, INGEST_PAETH_FRAMES = 300, 100
 INGEST_MEAN_TOL, INGEST_MAX_TOL = 5.0, 40
 INGEST_CLIP_FRAMES = 16
 INGEST_REPS = 5
+# the orbax phase: the committed checkpoints and the JAX avformer's leaves
+ORBAX_FIXTURES = ROOT / "tests" / "data" / "orbax"
 
 
 def emit(phase: str, **fields) -> None:
@@ -1821,6 +1844,215 @@ def phase_ingest(torch, dev, pth: Path) -> dict:
          phase_s=time.perf_counter() - t_phase)
     shutil.rmtree(work, ignore_errors=True)
     return launches
+
+
+def _leaf_sha256(value, dtype: str) -> str:
+    """SHA-256 of a restored leaf's C-order bytes (bfloat16 as its bits,
+    a Python number as the zarr dtype)."""
+    import hashlib
+
+    import torch
+    if isinstance(value, torch.Tensor):
+        value = value.view(torch.int16).numpy()
+    else:
+        value = np.asarray(value, dtype=np.dtype(dtype))
+    return hashlib.sha256(value.tobytes()).hexdigest()
+
+
+def _flat(tree, path=()) -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, path + (str(k),)))
+        return out
+    return {"/".join(path): tree}
+
+
+def libzstd_check(frames: list) -> dict | None:
+    """The fixtures' zstd frames through this machine's libzstd.so.1
+    against the port's decoder (a cross-check, never the decoder); None
+    where there is no libzstd."""
+    import ctypes
+    import ctypes.util
+
+    from auformer_torch.data import native
+    name = ctypes.util.find_library("zstd") or "libzstd.so.1"
+    try:
+        lib = ctypes.CDLL(name)
+    except OSError:
+        return None
+    lib.ZSTD_decompress.restype = ctypes.c_size_t
+    lib.ZSTD_decompress.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                                    ctypes.c_char_p, ctypes.c_size_t]
+    lib.ZSTD_isError.restype = ctypes.c_uint
+    lib.ZSTD_isError.argtypes = [ctypes.c_size_t]
+    lib.ZSTD_versionNumber.restype = ctypes.c_uint
+    for frame in frames:
+        want = native.zstd_decompress(frame)
+        buf = ctypes.create_string_buffer(len(want) + 1)
+        n = lib.ZSTD_decompress(buf, len(buf), frame, len(frame))
+        if lib.ZSTD_isError(n) or buf.raw[:n] != want:
+            fail(f"libzstd ({name}) and the port's decoder disagree on a "
+                 f"{len(frame)}-byte frame of the fixtures")
+    return {"library": name, "version": lib.ZSTD_versionNumber(),
+            "frames": len(frames), "equal": True}
+
+
+def orbax_fixtures() -> dict:
+    """(a): the decoder built here, the committed checkpoints read and
+    held to expected.json."""
+    from auformer_torch.core.orbax_reader import read_orbax_checkpoint
+    from auformer_torch.data import native
+
+    t0 = time.perf_counter()
+    native.build("zstd")
+    build_s = time.perf_counter() - t0
+    with open(ORBAX_FIXTURES / "expected.json") as f:
+        expected = json.load(f)
+    leaves = {}
+    for name, want in expected.items():
+        got = _flat(read_orbax_checkpoint(str(ORBAX_FIXTURES / name)))
+        if set(got) != set(want):
+            fail(f"orbax fixture {name}: leaves {sorted(got)} against "
+                 f"{sorted(want)}")
+        for key, spec in want.items():
+            if (list(np.shape(got[key])) != spec["shape"] or _leaf_sha256(
+                    got[key], spec["dtype"]) != spec["sha256"]):
+                fail(f"orbax fixture {name}: {key} differs from "
+                     "expected.json")
+        leaves[name] = len(want)
+    frames = [p.read_bytes() for p in sorted((ORBAX_FIXTURES / "zarr").rglob(
+        "*")) if p.is_file() and p.read_bytes()[:4] == b"\x28\xb5\x2f\xfd"]
+    return {"build_s": build_s, "leaves_sha256_equal": leaves,
+            "libzstd": libzstd_check(frames)}
+
+
+def seeded_jax_tree(seed: int) -> dict:
+    """The JAX avformer's {"params", "batch_stats"} at full width
+    (avformer_tree.json) filled from ``seed``: kernels ~ N(0, 1/fan_in),
+    norm scales ~ 1 + noise, variances in [1, 1.3), embeddings ~ N(0, 1),
+    the rest ~ N(0, 0.01)."""
+    with open(ORBAX_FIXTURES / "avformer_tree.json") as f:
+        spec = json.load(f)
+    rs = np.random.RandomState(seed)
+    tree: dict = {}
+    for leaf in spec:
+        *parents, name = leaf["path"]
+        shape = tuple(leaf["shape"])
+        if name == "var":
+            v = 1.0 + 0.3 * rs.rand(*shape)
+        elif name == "scale":
+            v = 1.0 + 0.1 * rs.randn(*shape)
+        elif name == "kernel":
+            v = rs.randn(*shape) / np.sqrt(np.prod(shape[:-1]))
+        elif name in ("pos_embedding", "cls_token"):
+            v = rs.randn(*shape)
+        else:
+            v = 0.1 * rs.randn(*shape)
+        node = tree
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[name] = v.astype(np.float32)
+    return tree
+
+
+def phase_orbax(torch, dev, split: dict) -> dict:
+    """The orbax phase (module docstring): (a) the fixtures, (b) a
+    full-width JAX-format checkpoint served by test_aff2.main from best/
+    (the main path, the counts set to 0 just before it) against the same
+    weights as a .pth."""
+    from auformer_torch import test_aff2
+    from auformer_torch.core.checkpointing import read_checkpoint
+    from auformer_torch.core.config import Config
+    from auformer_torch.core.orbax_reader import read_orbax_checkpoint
+    from auformer_torch.core.weights import state_dict_from_jax
+    from auformer_torch.data.fixtures import write_orbax_checkpoint
+    from auformer_torch.nn import build_model
+    from auformer_torch.ops.attention import fused_attention
+    from auformer_torch.ops.audio_kernel import mel_frontend
+    from auformer_torch.sweep import default_sweep_bucket, make_sweep
+
+    t_phase = time.perf_counter()
+    fixtures = orbax_fixtures()
+    work = Path(split["work"]) / "orbax"
+    shutil.rmtree(work, ignore_errors=True)
+    tree = seeded_jax_tree(SEED + 14)
+    runs = {}
+    for kind in ("orbax", "pth"):
+        pretrain = work / kind / "experiments" / "avformer" / "pretrain"
+        pretrain.mkdir(parents=True)
+        runs[kind] = pretrain
+    t0 = time.perf_counter()
+    nbytes = write_orbax_checkpoint(str(runs["orbax"] / "best"), tree)
+    write_s = time.perf_counter() - t0
+    want_sd = state_dict_from_jax(tree)
+    torch.save(want_sd, runs["pth"] / f"seed{SEED + 14}.pth")
+    t0 = time.perf_counter()
+    read_orbax_checkpoint(str(runs["orbax"] / "best"))
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sd = read_checkpoint(str(runs["orbax"] / "best"), "avformer")
+    state_dict_s = time.perf_counter() - t0
+    if set(sd) != set(want_sd) or not all(torch.equal(sd[k], want_sd[k])
+                                          for k in want_sd):
+        fail("the orbax checkpoint's state dict differs from "
+             "state_dict_from_jax of the tree")
+
+    argv = ["--root", split["root"], "--lmdb_label_dir",
+            split["lmdb_label_dir"], "--cache_dir", split["cache_dir"],
+            "--image_size", str(IMAGE), "--n_frames", str(FRAMES)]
+    cfg = Config(image_size=IMAGE, n_frames=FRAMES, batch_size=BATCH)
+    sizer = make_sweep(cfg, build_model(cfg))
+    buckets = sum(-(-k // sizer._bucket_size(k, default_sweep_bucket(dev)))
+                  for k in split["videos"].values())
+    outs, seconds, launches, said = {}, {}, {}, {}
+    cwd = os.getcwd()
+    for kind in ("orbax", "pth"):
+        os.chdir(runs[kind].parents[2])
+        try:
+            fused_attention.launches = 0
+            mel_frontend.launches = 0
+            t0 = time.perf_counter()
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                outs[kind] = test_aff2.main(argv)
+            torch.cuda.synchronize()
+            seconds[kind] = time.perf_counter() - t0
+            launches[kind] = {"attention": fused_attention.launches,
+                              "mel": mel_frontend.launches}
+            said[kind] = [line for line in text.getvalue().splitlines()
+                          if "checkpoint" in line or "weight" in line]
+        finally:
+            os.chdir(cwd)
+    want = {"attention": ATTN_PER_CALL * buckets, "mel": 0}
+    if launches["orbax"] != want:
+        fail(f"test_aff2.main from orbax best/ launched "
+             f"{launches['orbax']}, expected {want}")
+    best = os.path.join("experiments", "avformer", "pretrain", "best")
+    if f"restored orbax checkpoint: {best}" not in said["orbax"]:
+        fail(f"test_aff2.main did not report orbax best/: {said['orbax']}")
+    check_submission(str(runs["orbax"].parents[2] / "results"),
+                     split["videos"], outs["orbax"])
+    if not np.array_equal(outs["orbax"], outs["pth"]):
+        fail("test_aff2 from orbax best/ differs from the .pth of the same "
+             f"weights by {np.abs(outs['orbax'] - outs['pth']).max()}")
+    for path in (runs["orbax"].parents[2] / "results" / "au").iterdir():
+        twin = runs["pth"].parents[2] / "results" / "au" / path.name
+        if path.read_bytes() != twin.read_bytes():
+            fail(f"submission file {path.name} differs between the orbax "
+                 "and the .pth runs")
+    emit("orbax", nvidia_smi=nvidia_smi(), fixtures=fixtures,
+         checkpoint_bytes=nbytes, state_dict_tensors=len(want_sd),
+         write_s=write_s, read_s=read_s, read_mb_per_s=nbytes / read_s / 1e6,
+         state_dict_s=state_dict_s,
+         state_dict_mb_per_s=nbytes / state_dict_s / 1e6,
+         test_aff2={"rows": int(outs["orbax"].shape[0]),
+                    "buckets": buckets, "seconds": seconds,
+                    "launches": launches, "said": said,
+                    "predictions_equal": True, "submissions_equal": True},
+         phase_s=time.perf_counter() - t_phase)
+    shutil.rmtree(work, ignore_errors=True)
+    return launches["orbax"]
 
 
 def phase_zoo(torch, dev, split: dict) -> dict:
@@ -4064,6 +4296,7 @@ def main() -> int:
     by_path["ingest"] = phase_ingest(
         torch, dev, Path(split["work"]) / "experiments" / "avformer"
         / "pretrain" / f"random_seed{SEED}.pth")
+    by_path["orbax"] = phase_orbax(torch, dev, split)
     shutil.rmtree(split["work"], ignore_errors=True)  # the split, the .pth
     paths, grad_cases, attention_in_step = phase_train(torch, dev)
     by_path.update(paths)

@@ -186,10 +186,12 @@ def test_unported_models_raise():
 
 
 def test_port_imports_no_jax_and_no_auformer():
-    """Nor cv2, PIL, sklearn, optax, orbax or matplotlib, which the card's
-    machine lacks: the port decodes and encodes JPEGs with its own native
-    reader, scores with its own numpy metrics, steps with torch's Adam and
-    checkpoints with torch.save."""
+    """Nor cv2, PIL, sklearn, optax, orbax, tensorstore, zstandard or
+    matplotlib, which the card's machine lacks: the port decodes and
+    encodes JPEGs with its own native reader, scores with its own numpy
+    metrics, steps with torch's Adam, checkpoints with torch.save and reads
+    the JAX package's orbax checkpoints with its own OCDBT reader and zstd
+    decoder."""
     code = (
         "import sys, auformer_torch, auformer_torch.infer, "
         "auformer_torch.core.weights, auformer_torch.ops, auformer_torch.nn, "
@@ -213,10 +215,13 @@ def test_port_imports_no_jax_and_no_auformer():
         "auformer_torch.nn.van, auformer_torch.nn.emonet, "
         "auformer_torch.nn.i3d, auformer_torch.nn.mc3d, "
         "auformer_torch.nn.tsav, auformer_torch.core.mesh, "
-        "auformer_torch.parallel.multiproc, auformer_torch.dryrun\n"
+        "auformer_torch.parallel.multiproc, auformer_torch.dryrun, "
+        "auformer_torch.core.ocdbt, auformer_torch.core.orbax_reader\n"
+        "auformer_torch.core.orbax_reader.read_orbax_checkpoint("
+        "'tests/data/orbax/ocdbt')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'auformer', 'cv2', 'PIL', 'sklearn', "
-        "'optax', 'orbax', 'matplotlib'))\n"
+        "'optax', 'orbax', 'tensorstore', 'zstandard', 'matplotlib'))\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
