@@ -35,21 +35,50 @@ cv2 and then edited box by box (tests/test_torch_video_ingest.py):
 The edit window compares each sample's presentation time (decode time
 plus its ``ctts`` offset), as ``mov_fix_index`` does: on a track with
 reordering offsets it keeps the samples cv2 returns
-(tests/data/videos/ctts_reorder.mp4 and ctts_cut.mp4).
+(tests/data/videos/ctts_reorder.mp4 and ctts_cut.mp4). On such a track
+the timestamps follow the order in which the decoder returns the frames,
+as cv2 reports them: ``output_order`` reads it from the stream's headers
+(``data/bitstream.py``: H.264 picture order counts, MPEG-4 VOP types), and
+the times count from the smallest kept presentation time.
 
-What raises ``NotImplementedError`` naming ROADMAP.md queue A9: the
-timestamps of an MP4 track with ``ctts`` (B-frames: cv2 reports them in
-the order its decoder returns the frames, which only a decoder knows; its
-count, fps and size still read), an edit list of more
-than one media edit or a rate other than 1, fragmented MP4 (``moof``),
-and Matroska/WebM. A file that is none of these formats raises
+``packet_index(path)`` lists the stream's packets in decode order (file
+offset, size, sync flag from ``stss`` or the AVI index, decode and
+presentation time, whether the edit list keeps it) with the codec and its
+setup data (``avcC``'s SPS and PPS, the ``esds`` VOL header), and
+``access_units`` reads each packet as a decoder takes it: H.264 in MP4 as
+Annex B, as ffmpeg's h264_mp4toannexb writes it, MPEG-4 part 2 in MP4
+with its VOL ahead of the first; each equals cv2's raw packet
+(``CAP_PROP_FORMAT`` -1) byte for byte (tests/test_torch_video_decode.py).
+
+What raises ``NotImplementedError`` naming ROADMAP.md queue A9: an edit
+list of more than one media edit or a rate other than 1, fragmented MP4
+(``moof``), Matroska/WebM, and the timestamps of a track with ``ctts``
+whose codec is neither H.264 (with ``avcC``) nor MPEG-4 part 2 (HEVC, for
+one), whose output order the port does not read. A file that is none of these formats raises
 ValueError.
 """
 from __future__ import annotations
 
 import struct
+from typing import Iterator, NamedTuple
+
+from . import bitstream
 
 _A9 = "ROADMAP.md queue A9 (offline ingest from videos)"
+
+
+class Packet(NamedTuple):
+    """One sample (MP4) or chunk (AVI) of the video stream. Times are in
+    the stream's time base; ``kept`` is False for an empty chunk and for a
+    sample outside the edit list."""
+    offset: int
+    size: int
+    sync: bool
+    dts: int
+    pts: int
+    kept: bool
+
+
 _MP4_CONTAINERS = {b"moov", b"trak", b"mdia", b"minf", b"stbl", b"edts"}
 
 
@@ -124,7 +153,10 @@ def _video_trak(moov: dict, path: str) -> dict:
     raise ValueError(f"{path}: no video track")
 
 
-def _mp4(f, path: str, timestamps: bool) -> dict:
+def _mp4_track(f, path: str) -> dict:
+    """The first video track's sample table: each sample's file offset,
+    size, sync flag, decode and presentation time, whether the edit list
+    keeps it, and the codec with its setup data."""
     moov = _tree(_top_level_mp4(f, path))
     if b"mvex" in moov:
         raise _unsupported(path, "a fragmented MP4 (mvex)")
@@ -162,19 +194,131 @@ def _mp4(f, path: str, timestamps: bool) -> dict:
             count, off = struct.unpack(">Ii", body[8 + 8 * k:16 + 8 * k])
             offsets += [off] * count
         cts = [d + o for d, o in zip(dts, offsets + [0] * len(dts))]
+    sync = [True] * len(sizes)
+    if b"stss" in stbl:
+        body = stbl[b"stss"][0]
+        n, = struct.unpack(">I", body[4:8])
+        sync = [False] * len(sizes)
+        for number in struct.unpack(f">{n}I", body[8:8 + 4 * n]):
+            if 0 < number <= len(sizes):
+                sync[number - 1] = True
     lo, hi = _edit_window(trak, movie_scale, scale, path)
-    kept = [k for k in range(len(sizes))
-            if lo <= cts[k] < hi and sizes[k] > 0]
-    out = {"num_frames": num_frames, "fps": fps, "width": width,
-           "height": height, "packets": len(kept)}
+    kept = [lo <= cts[k] < hi and sizes[k] > 0 for k in range(len(sizes))]
+    codec, setup = _mp4_codec(entry, path)
+    return {"num_frames": num_frames, "fps": fps, "width": width,
+            "height": height, "time_base": 1 / scale, "ctts": b"ctts" in stbl,
+            "codec": codec, "setup": setup,
+            "packets": [Packet(o, z, y, d, c, k) for o, z, y, d, c, k in zip(
+                _sample_offsets(stbl, sizes, path), sizes, sync, dts, cts,
+                kept)]}
+
+
+def _mp4(f, path: str, timestamps: bool) -> dict:
+    track = _mp4_track(f, path)
+    kept = [p for p in track["packets"] if p.kept]
+    out = {k: track[k] for k in ("num_frames", "fps", "width", "height")}
+    out["packets"] = len(kept)
     if timestamps:
-        if b"ctts" in stbl:
-            raise _unsupported(path, "the presentation order of a track "
-                                     "with composition offsets (ctts)")
-        tb = 1 / scale
-        first = cts[kept[0]] if kept else 0
-        out["timestamps_ms"] = [(cts[k] - first) * tb * 1000.0
-                                for k in kept]
+        if track["ctts"]:
+            order = output_order(path, track)
+            kept = [track["packets"][k] for k in order]
+        first = min((p.pts for p in kept), default=0)
+        out["timestamps_ms"] = [(p.pts - first) * track["time_base"] * 1000.0
+                                for p in kept]
+    return out
+
+
+def _descriptor(body: bytes, off: int) -> tuple[int, int, int]:
+    """(tag, payload offset, payload end) of an MPEG-4 descriptor."""
+    tag, size, off = body[off], 0, off + 1
+    for _ in range(4):
+        b = body[off]
+        off += 1
+        size = size << 7 | (b & 0x7F)
+        if not b & 0x80:
+            break
+    return tag, off, off + size
+
+
+def _esds_setup(esds: bytes) -> tuple[int, bytes]:
+    """(objectTypeIndication, DecoderSpecificInfo) of an ``esds`` body."""
+    tag, off, end = _descriptor(esds, 4)
+    if tag != 0x03:
+        raise ValueError("an esds without its ES_Descriptor")
+    flags = esds[off + 2]
+    off += 3 + (2 if flags & 0x80 else 0) + (2 if flags & 0x20 else 0)
+    if flags & 0x40:
+        off += 1 + esds[off]
+    tag, off, end = _descriptor(esds, off)
+    if tag != 0x04:
+        raise ValueError("an esds without its DecoderConfigDescriptor")
+    oti, info = esds[off], b""
+    if off + 13 < end:
+        tag, b0, b1 = _descriptor(esds, off + 13)
+        if tag == 0x05:
+            info = esds[b0:b1]
+    return oti, info
+
+
+def _mp4_codec(entry: bytes, path: str) -> tuple[str, dict]:
+    """(codec, setup) of a visual sample entry: ``"h264"`` with the SPS,
+    PPS and NAL length size of its ``avcC``, ``"mpeg4"`` (part 2) with the
+    VOL header of its ``esds``, ``"mjpeg"``, else the entry's fourcc."""
+    kind = entry[4:8]
+    boxes = dict((k, entry[b0:b1]) for k, b0, b1 in
+                 _boxes(entry, 86, struct.unpack(">I", entry[:4])[0]))
+    if kind in (b"avc1", b"avc3") and b"avcC" in boxes:
+        c = boxes[b"avcC"]
+        off, sets = 6, {"nal_length_size": (c[4] & 3) + 1}
+        for name, count in (("sps", c[5] & 0x1F), ("pps", None)):
+            if count is None:
+                count, off = c[off], off + 1
+            sets[name] = []
+            for _ in range(count):
+                n, = struct.unpack(">H", c[off:off + 2])
+                sets[name].append(c[off + 2:off + 2 + n])
+                off += 2 + n
+        return "h264", sets
+    if kind == b"mp4v" and b"esds" in boxes:
+        oti, info = _esds_setup(boxes[b"esds"])
+        if oti == 0x20:
+            return "mpeg4", {"vol": info}
+        if oti == 0x6C:
+            return "mjpeg", {}
+    if kind in (b"jpeg", b"mjpa", b"mjpg"):
+        return "mjpeg", {}
+    return kind.decode("latin-1"), {}
+
+
+def _sample_offsets(stbl: dict, sizes: list[int], path: str) -> list[int]:
+    """Each sample's file offset from ``stsc`` and ``stco``/``co64``."""
+    if b"stco" in stbl:
+        body = stbl[b"stco"][0]
+        n, = struct.unpack(">I", body[4:8])
+        chunks = struct.unpack(f">{n}I", body[8:8 + 4 * n])
+    elif b"co64" in stbl:
+        body = stbl[b"co64"][0]
+        n, = struct.unpack(">I", body[4:8])
+        chunks = struct.unpack(f">{n}Q", body[8:8 + 8 * n])
+    else:
+        raise ValueError(f"{path}: a video track without stco or co64")
+    body = stbl[b"stsc"][0]
+    n, = struct.unpack(">I", body[4:8])
+    runs = [struct.unpack(">III", body[8 + 12 * i:20 + 12 * i])
+            for i in range(n)]
+    out = []
+    for i, (first, per_chunk, _) in enumerate(runs):
+        last = runs[i + 1][0] - 1 if i + 1 < len(runs) else len(chunks)
+        for c in range(first - 1, min(last, len(chunks))):
+            off = chunks[c]
+            for _ in range(per_chunk):
+                if len(out) == len(sizes):
+                    return out
+                out.append(off)
+                off += sizes[len(out) - 1]
+    if len(out) < len(sizes):
+        raise ValueError(f"{path}: stsc and stco place {len(out)} of "
+                         f"{len(sizes)} samples")
     return out
 
 
@@ -240,11 +384,20 @@ def _chunks(f, off: int, end: int):
         off += 8 + size + (size & 1)
 
 
-def _avi(f, path: str, timestamps: bool) -> dict:
+_AVI_CODECS = {b"H264": "h264", b"X264": "h264", b"AVC1": "h264",
+               b"XVID": "mpeg4", b"DIVX": "mpeg4", b"DX50": "mpeg4",
+               b"FMP4": "mpeg4", b"MP4V": "mpeg4", b"M4S2": "mpeg4",
+               b"MJPG": "mjpeg"}
+
+
+def _avi_stream(f, path: str) -> dict:
+    """The first video stream's chunks: each one's file offset, size and
+    key-frame flag (from the OpenDML ``ix##`` indexes, else ``idx1``, else
+    all key frames), and its codec from the BITMAPINFOHEADER."""
     f.seek(0, 2)
     size_of_file = f.tell()
     stream = strh = strf = None
-    movis = []
+    movis, idx1 = [], None
     for fourcc, data, size, kind in _chunks(f, 0, size_of_file):
         if fourcc != b"RIFF" or kind not in (b"AVI ", b"AVIX"):
             continue
@@ -254,6 +407,9 @@ def _avi(f, path: str, timestamps: bool) -> dict:
                 movis.append((d + 4, min(d + s, end)))
             elif c4 == b"LIST" and k == b"hdrl" and stream is None:
                 stream, strh, strf = _avi_video_stream(f, d + 4, d + s, path)
+            elif c4 == b"idx1" and idx1 is None:
+                f.seek(d)
+                idx1 = f.read(s)
     if stream is None:
         raise ValueError(f"{path}: an AVI without a video stream")
     scale, rate, start, length = struct.unpack("<IIII", strh[20:36])
@@ -261,21 +417,65 @@ def _avi(f, path: str, timestamps: bool) -> dict:
         scale, rate = 1, 25          # avi_read_header's fallback
     width, height = struct.unpack("<ii", strf[4:12])
     ids = (f"{stream:02d}dc".encode(), f"{stream:02d}db".encode())
-    frames = []                       # each chunk's size, empty ones too
-    pending = list(movis)
-    while pending:
-        lo, hi = pending.pop(0)
-        for c4, d, s, k in _chunks(f, lo, hi):
-            if c4 == b"LIST" and k == b"rec ":
-                pending.insert(0, (d + 4, d + s))
-            elif c4 in ids:
-                frames.append(s)
-    out = {"num_frames": length, "fps": rate / scale, "width": width,
-           "height": abs(height), "packets": sum(s > 0 for s in frames)}
+    chunks, odml = [], {}             # (offset, size) of each, empty too
+    for lo, hi in movis:
+        for c4, d, s in _movi_chunks(f, lo, hi):
+            if c4 in ids:
+                chunks.append((d, s))
+            elif c4 == f"ix{stream:02d}".encode():
+                f.seek(d)
+                odml.update(_odml_key_flags(f.read(s)))
+    if odml:
+        sync = [odml.get(d, True) for d, _ in chunks]
+    elif idx1 is not None:
+        flags = [struct.unpack("<I", idx1[k + 4:k + 8])[0] & 0x10 != 0
+                 for k in range(0, len(idx1) - 15, 16)
+                 if idx1[k:k + 4] in ids]
+        sync = flags[:len(chunks)] + [True] * (len(chunks) - len(flags))
+    else:
+        sync = [True] * len(chunks)
+    tb = scale / rate
+    return {"num_frames": length, "fps": rate / scale, "width": width,
+            "height": abs(height), "time_base": tb,
+            "codec": _AVI_CODECS.get(strf[16:20].upper(),
+                                     strf[16:20].decode("latin-1")),
+            "setup": {},
+            "packets": [Packet(d, s, y, start + k, start + k, s > 0)
+                        for k, ((d, s), y) in enumerate(zip(chunks, sync))]}
+
+
+def _movi_chunks(f, lo: int, hi: int):
+    """(fourcc, data offset, size) of the chunks of a ``movi`` list in file
+    order, those of its ``rec `` lists in place."""
+    for c4, d, s, k in _chunks(f, lo, hi):
+        if c4 == b"LIST" and k == b"rec ":
+            yield from _movi_chunks(f, d + 4, d + s)
+        else:
+            yield c4, d, s
+
+
+def _odml_key_flags(ix: bytes) -> dict[int, bool]:
+    """{chunk data offset: key frame} of an OpenDML standard index chunk
+    (AVISTDINDEX: dwSize's bit 31 marks a delta frame)."""
+    per, _, kind, n = struct.unpack("<HBBI", ix[:8])
+    if kind != 1 or per != 2:           # AVI_INDEX_OF_CHUNKS, 2 dwords
+        return {}
+    base, = struct.unpack("<Q", ix[12:20])
+    out = {}
+    for k in range(n):
+        off, size = struct.unpack("<II", ix[24 + 8 * k:32 + 8 * k])
+        out[base + off] = not size & 0x80000000
+    return out
+
+
+def _avi(f, path: str, timestamps: bool) -> dict:
+    track = _avi_stream(f, path)
+    out = {k: track[k] for k in ("num_frames", "fps", "width", "height")}
+    kept = [p for p in track["packets"] if p.kept]
+    out["packets"] = len(kept)
     if timestamps:
-        tb = scale / rate
-        out["timestamps_ms"] = [(start + k) * tb * 1000.0
-                                for k, s in enumerate(frames) if s > 0]
+        out["timestamps_ms"] = [p.pts * track["time_base"] * 1000.0
+                                for p in kept]
     return out
 
 
@@ -305,17 +505,132 @@ def _avi_video_stream(f, off: int, end: int, path: str):
 
 # -- entry point --------------------------------------------------------------
 
+def _kind(f, path: str) -> str:
+    head = f.read(12)
+    f.seek(0)
+    if head[:4] == b"\x1a\x45\xdf\xa3":
+        raise _unsupported(path, "a Matroska/WebM file")
+    if head[:4] == b"RIFF" and head[8:12] == b"AVI ":
+        return "avi"
+    if head[4:8] in (b"ftyp", b"moov", b"mdat", b"free", b"skip", b"wide",
+                     b"pnot"):
+        return "mp4"
+    raise ValueError(f"{path}: not an MP4/MOV or AVI file")
+
+
 def probe(path: str, timestamps: bool = True) -> dict:
     """The first video stream's index (module docstring); without
     ``timestamps`` the ``timestamps_ms`` key is left out, and a track whose
     timestamps cannot be read still gives the rest."""
     with open(path, "rb") as f:
-        head = f.read(12)
-        if head[:4] == b"\x1a\x45\xdf\xa3":
-            raise _unsupported(path, "a Matroska/WebM file")
-        if head[:4] == b"RIFF" and head[8:12] == b"AVI ":
-            return _avi(f, path, timestamps)
-        if head[4:8] in (b"ftyp", b"moov", b"mdat", b"free", b"skip",
-                         b"wide", b"pnot"):
-            return _mp4(f, path, timestamps)
-    raise ValueError(f"{path}: not an MP4/MOV or AVI file")
+        return (_avi if _kind(f, path) == "avi" else _mp4)(f, path,
+                                                            timestamps)
+
+
+def packet_index(path: str) -> dict:
+    """The first video stream's packets in decode order (``packets``, a
+    list of :class:`Packet`), ``codec`` (``"h264"``, ``"mpeg4"``,
+    ``"mjpeg"`` or the fourcc), its ``setup`` (H.264: ``sps``, ``pps``,
+    ``nal_length_size``; MPEG-4 part 2 in MP4: ``vol``), ``time_base`` (s),
+    ``fps``, ``num_frames``, ``width`` and ``height``, as ``probe`` reads
+    them."""
+    with open(path, "rb") as f:
+        if _kind(f, path) == "avi":
+            return _avi_stream(f, path)
+        return _mp4_track(f, path)
+
+
+def _length_prefixed(sample: bytes, n: int) -> Iterator[bytes]:
+    off = 0
+    while off + n <= len(sample):
+        size = int.from_bytes(sample[off:off + n], "big")
+        yield sample[off + n:off + n + size]
+        off += n + size
+
+
+def _annexb(sample: bytes, setup: dict, state: dict) -> bytes:
+    """An MP4 H.264 sample as Annex B, as ffmpeg's h264_mp4toannexb writes
+    it: a start code before each NAL unit (4 bytes for the first one and
+    for parameter sets, else 3), and the ``avcC`` SPS and PPS ahead of the
+    first slice of an IDR picture that does not carry them.
+    ``state["new_idr"]`` carries over from one sample to the next."""
+    sps = b"".join(b"\x00\x00\x00\x01" + x for x in setup["sps"])
+    pps = b"".join(b"\x00\x00\x00\x01" + x for x in setup["pps"])
+    out = bytearray()
+    sps_seen = pps_seen = False
+    for nal in _length_prefixed(sample, setup["nal_length_size"]):
+        if not nal:
+            continue
+        kind = nal[0] & 0x1F
+        if kind == 7:
+            sps_seen = state["new_idr"] = True
+        elif kind == 8:
+            pps_seen = state["new_idr"] = True
+            if not sps_seen:
+                out += sps
+                sps_seen = True
+        if (not state["new_idr"] and kind == 5 and len(nal) > 1
+                and nal[1] & 0x80):
+            state["new_idr"] = True
+        if state["new_idr"] and kind == 5 and not sps_seen and not pps_seen:
+            out += sps + pps
+            state["new_idr"] = False
+        elif state["new_idr"] and kind == 5 and sps_seen and not pps_seen:
+            out += pps
+        out += (b"\x00\x00\x00\x01" if not out or kind in (7, 8)
+                else b"\x00\x00\x01") + nal
+        if not state["new_idr"] and kind == 1:
+            state["new_idr"] = True
+            sps_seen = pps_seen = False
+    return bytes(out)
+
+
+def access_units(path: str, index: dict | None = None, start: int = 0,
+                 kept_only: bool = True) -> Iterator[tuple[int, bytes]]:
+    """Yield ``(k, unit)`` for the packets of ``index`` (default:
+    ``packet_index(path)``) from position ``start`` in decode order, the
+    kept ones only unless ``kept_only`` is False: each packet as a decoder
+    takes it. H.264 in MP4 becomes Annex B (``_annexb``); MPEG-4 part 2 in
+    MP4 gets the ``esds`` VOL header ahead of the first unit; an AVI's
+    chunks (whose H.264 is Annex B already, and whose MPEG-4 carries its
+    VOL in band) and MJPEG frames are as stored."""
+    index = index or packet_index(path)
+    setup, state = index["setup"], {"new_idr": True}
+    first = True
+    with open(path, "rb") as f:
+        for k in range(start, len(index["packets"])):
+            p = index["packets"][k]
+            if kept_only and not p.kept:
+                continue
+            f.seek(p.offset)
+            unit = f.read(p.size)
+            if len(unit) != p.size:
+                raise ValueError(f"{path}: packet {k} runs past the end of "
+                                 "the file")
+            if "nal_length_size" in setup:
+                unit = _annexb(unit, setup, state)
+            elif first and setup.get("vol"):
+                unit = setup["vol"] + unit
+            first = False
+            yield k, unit
+
+
+def output_order(path: str, index: dict | None = None) -> list[int]:
+    """Positions in ``index["packets"]`` of the kept packets in the order
+    a decoder returns their frames: the presentation order that the
+    stream's headers give for H.264 and MPEG-4 part 2 (``data/
+    bitstream.py``; every packet from the first is read, since a picture's
+    order count can depend on the ones before it). Other codecs raise
+    naming A9."""
+    index = index or packet_index(path)
+    packets = index["packets"]
+    if index["codec"] not in ("h264", "mpeg4"):
+        raise _unsupported(path, f"the output order of a {index['codec']} "
+                           "stream")
+    ks, units = [], []
+    for k, unit in access_units(path, index, kept_only=False):
+        ks.append(k)
+        units.append(unit)
+    order = (bitstream.h264_output_order if index["codec"] == "h264"
+             else bitstream.mpeg4_output_order)(units)
+    return [ks[i] for i in order if packets[ks[i]].kept]

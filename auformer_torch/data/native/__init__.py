@@ -3,8 +3,8 @@
 
 Two sources share one C interface (``fs_open``, ``fs_close``,
 ``fs_num_entries``, ``fs_get_raw``, ``fs_decode_batch``,
-``fs_encode_jpeg``, ``fs_decode_jpeg``; ``framestore.h`` holds the store
-format both mmap):
+``fs_encode_jpeg``, ``fs_decode_jpeg``, ``fs_jpeg_info``,
+``fs_decode_jpeg_yuv``; ``framestore.h`` holds the store format both mmap):
 
   ``framestore_reader.cpp``  libjpeg, decode on a host thread pool
   ``framestore_nvjpeg.cpp``  nvJPEG from the CUDA toolkit, decode and
@@ -24,6 +24,12 @@ RFC 8878 decoder, with the CRC-32C that OCDBT files carry, for the JAX
 package's orbax checkpoints (``core/ocdbt.py``, ``core/orbax_reader.py``).
 It needs only the C++ compiler; there is no fallback to a Python package or
 to a system libzstd.
+
+``nvdec.cpp`` is a third: it asks the card's NVDEC video decoder for its
+capabilities (``data/nvdec.py``). Built the same way with the CUDA
+toolkit's ``cuda.h`` and libcuda's link stub, it opens the driver's
+libnvcuvid.so.1 with dlopen and declares the part of its API it calls in
+``nvcuvid_api.h``.
 """
 from __future__ import annotations
 
@@ -44,7 +50,10 @@ SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = Path(__file__).resolve().parents[3] / ".cache" / "native"
 SOURCES = {"libjpeg": "framestore_reader.cpp",
            "nvjpeg": "framestore_nvjpeg.cpp",
-           "zstd": "zstd_decode.cpp"}
+           "zstd": "zstd_decode.cpp",
+           "nvdec": "nvdec.cpp"}
+HEADERS = {"libjpeg": "framestore.h", "nvjpeg": "framestore.h",
+           "nvdec": "nvcuvid_api.h"}
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-pthread")
 
 _lock = threading.Lock()
@@ -68,6 +77,7 @@ def cuda_home() -> Path | None:
     return None
 
 
+@functools.cache
 def _has_libjpeg() -> bool:
     """Whether ``jpeglib.h`` preprocesses with the C++ compiler."""
     try:
@@ -98,32 +108,47 @@ def _command(name: str, target: Path) -> list[str]:
     if name == "zstd":
         return cmd
     if name == "libjpeg":
+        if not _has_libjpeg():
+            raise RuntimeError(f"{_what(name)} needs libjpeg, whose "
+                               f"jpeglib.h {_cxx()} does not find here")
         return cmd + ["-ljpeg"]
     cuda = cuda_home()
+    if cuda is None:
+        raise RuntimeError(f"{_what(name)} needs the CUDA toolkit (set "
+                           "CUDA_HOME or put nvcc on PATH)")
     lib = cuda / "lib64"
+    if name == "nvdec":
+        # libcuda's link stub; the driver's libcuda.so.1 at run time, and
+        # libnvcuvid.so.1 by dlopen
+        return cmd + [f"-I{cuda / 'include'}", f"-L{lib / 'stubs'}",
+                      "-lcuda", "-ldl"]
     return cmd + [f"-I{cuda / 'include'}", f"-L{lib}", f"-Wl,-rpath,{lib}",
                   "-lnvjpeg", "-lcudart"]
 
 
 def _target(name: str) -> Path:
-    """The library's path, named by a hash of its source, framestore.h (for
-    a reader) and the compiler command."""
+    """The library's path, named by a hash of its source, its header
+    (framestore.h for a reader, nvcuvid_api.h for nvdec) and the compiler
+    command."""
     h = hashlib.sha256((SRC_DIR / SOURCES[name]).read_bytes())
-    if name != "zstd":
-        h.update((SRC_DIR / "framestore.h").read_bytes())
+    if name in HEADERS:
+        h.update((SRC_DIR / HEADERS[name]).read_bytes())
     h.update(" ".join(_command(name, Path("lib.so"))).encode())
-    stem = "libzstd_decode" if name == "zstd" else f"libframestore_{name}"
+    stem = {"zstd": "libzstd_decode", "nvdec": "libnvdec"}.get(
+        name, f"libframestore_{name}")
     return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
 
 
 def _what(name: str) -> str:
-    return ("the zstd decoder" if name == "zstd"
-            else f"the {name} FrameStore reader")
+    return {"zstd": "the zstd decoder",
+            "nvdec": "the NVDEC caps probe"}.get(
+        name, f"the {name} FrameStore reader")
 
 
 def build(name: str | None = None) -> Path:
     """Compile the reader for ``name`` (default: :func:`decoder`; ``"zstd"``
-    the zstd decoder) unless it is built; returns the library's path.
+    the zstd decoder, ``"nvdec"`` the NVDEC caps probe) unless it is built;
+    returns the library's path.
     Raises RuntimeError with the compiler's output when the build fails."""
     name = name or decoder()
     target = _target(name)
@@ -180,6 +205,15 @@ def library(name: str | None = None) -> ctypes.CDLL:
         lib.fs_decode_jpeg.argtypes = [ctypes.c_char_p, ctypes.c_long, u8p,
                                        ctypes.c_int, ctypes.c_int,
                                        ctypes.c_int]
+        int_p = ctypes.POINTER(ctypes.c_int)
+        lib.fs_jpeg_info.restype = ctypes.c_int
+        lib.fs_jpeg_info.argtypes = [ctypes.c_char_p, ctypes.c_long, int_p,
+                                     int_p, int_p]
+        lib.fs_decode_jpeg_yuv.restype = ctypes.c_int
+        lib.fs_decode_jpeg_yuv.argtypes = [
+            ctypes.c_char_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
         _LIBS[target] = lib
         return lib
 
@@ -278,6 +312,33 @@ def decode_jpeg(data: bytes, height: int, width: int,
         raise ValueError(f"{len(data)} bytes do not decode as a {height}x"
                          f"{width}x{channels} JPEG")
     return out[..., 0] if channels == 1 else out
+
+
+def jpeg_info(data: bytes, name: str | None = None) -> tuple[int, int, int]:
+    """(height, width, layout) of a JPEG from its header, read by the
+    reader ``name`` (default: :func:`decoder`): layout 420, 422, 444, 400
+    (grey), or 0 for another sampling. Raises ValueError when the header
+    does not read."""
+    h, w, layout = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    if not library(name).fs_jpeg_info(data, len(data), ctypes.byref(h),
+                                  ctypes.byref(w), ctypes.byref(layout)):
+        raise ValueError(f"{len(data)} bytes do not read as a JPEG header")
+    return h.value, w.value, layout.value
+
+
+def decode_jpeg_yuv(data: bytes, y: int, cb: int, cr: int, height: int,
+                    width: int, layout: int, stream: int | None = None,
+                    name: str | None = None) -> None:
+    """Decode a 4:2:0 or 4:2:2 JPEG with the reader ``name`` (default:
+    :func:`decoder`) to its stored planes at the addresses ``y`` (height x
+    width), ``cb`` and ``cr`` (ceil(height / 2) or height rows of
+    ceil(width / 2)), each contiguous: host memory for libjpeg, device
+    memory on ``stream`` for nvJPEG. Raises ValueError when it does not
+    decode to that size and layout."""
+    if not library(name).fs_decode_jpeg_yuv(data, len(data), y, cb, cr,
+                                            height, width, layout, stream):
+        raise ValueError(f"{len(data)} bytes do not decode as a {height}x"
+                         f"{width} {layout} JPEG")
 
 
 class NativeFrameStore:

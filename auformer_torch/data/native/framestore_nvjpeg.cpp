@@ -15,7 +15,10 @@
 // Encode: baseline JPEG at the given quality, 4:2:0 for colour (as
 // cv2.imencode's default) and luminance only for one channel, with one
 // nvJPEG encoder per calling thread. fs_decode_jpeg decodes one JPEG held
-// in memory with nvjpegDecode, one decoder per calling thread.
+// in memory with nvjpegDecode, one decoder per calling thread;
+// fs_decode_jpeg_yuv decodes one to its Y, Cb and Cr planes in device
+// memory (NVJPEG_OUTPUT_YUV) on the caller's stream, for the colour
+// conversion kernel (ops/colour.py), and fs_jpeg_info reads its header.
 //
 // The library uses the CUDA runtime directly (the current device of the
 // calling thread, device 0 unless set); it does not go through torch.
@@ -102,6 +105,28 @@ struct Decoder {
 };
 
 thread_local Decoder single_decoder;
+
+bool ready(Decoder& d) {
+  if (!d.ok) {
+    if (cudaStreamCreateWithFlags(&d.stream, cudaStreamNonBlocking) !=
+            cudaSuccess ||
+        nvjpegCreateSimple(&d.handle) != NVJPEG_STATUS_SUCCESS ||
+        nvjpegJpegStateCreate(d.handle, &d.state) != NVJPEG_STATUS_SUCCESS)
+      return false;
+    d.ok = true;
+  }
+  return true;
+}
+
+int layout_of(nvjpegChromaSubsampling_t css, int n_comp) {
+  if (n_comp == 1) return 400;
+  switch (css) {
+    case NVJPEG_CSS_444: return 444;
+    case NVJPEG_CSS_422: return 422;
+    case NVJPEG_CSS_420: return 420;
+    default: return 0;
+  }
+}
 
 }  // namespace
 
@@ -275,14 +300,7 @@ long fs_encode_jpeg(const uint8_t* pixels, int height, int width,
 int fs_decode_jpeg(const uint8_t* data, long size, uint8_t* out, int height,
                    int width, int channels) {
   Decoder& d = single_decoder;
-  if (!d.ok) {
-    if (cudaStreamCreateWithFlags(&d.stream, cudaStreamNonBlocking) !=
-            cudaSuccess ||
-        nvjpegCreateSimple(&d.handle) != NVJPEG_STATUS_SUCCESS ||
-        nvjpegJpegStateCreate(d.handle, &d.state) != NVJPEG_STATUS_SUCCESS)
-      return 0;
-    d.ok = true;
-  }
+  if (!ready(d)) return 0;
   if (!fits(d.handle, data, static_cast<size_t>(size), height, width))
     return 0;
   const size_t bytes = static_cast<size_t>(height) * width * channels;
@@ -305,6 +323,53 @@ int fs_decode_jpeg(const uint8_t* data, long size, uint8_t* out, int height,
       cudaStreamSynchronize(d.stream) != cudaSuccess)
     return 0;
   return 1;
+}
+
+// The size and chroma layout of a JPEG (420, 422, 444, 400 grey, or 0 for
+// another sampling). 1, or 0 when its header does not read.
+int fs_jpeg_info(const uint8_t* data, long size, int* height, int* width,
+                 int* layout) {
+  Decoder& d = single_decoder;
+  int n_comp = 0;
+  nvjpegChromaSubsampling_t css;
+  int widths[NVJPEG_MAX_COMPONENT] = {0};
+  int heights[NVJPEG_MAX_COMPONENT] = {0};
+  if (!ready(d) ||
+      nvjpegGetImageInfo(d.handle, data, static_cast<size_t>(size), &n_comp,
+                         &css, widths, heights) != NVJPEG_STATUS_SUCCESS)
+    return 0;
+  *height = heights[0];
+  *width = widths[0];
+  *layout = layout_of(css, n_comp);
+  return 1;
+}
+
+// Decode a 4:2:0 or 4:2:2 JPEG to its stored planes, on the card: Y (H x W)
+// into y, Cb and Cr (ceil(H / 2) or H rows of ceil(W / 2)) into cb and cr,
+// each contiguous device memory, on ``stream``; no colour conversion and
+// no upsampling. 1, or 0 on a decode failure or another size or layout.
+int fs_decode_jpeg_yuv(const uint8_t* data, long size, uint8_t* y,
+                       uint8_t* cb, uint8_t* cr, int height, int width,
+                       int layout, void* stream) {
+  Decoder& d = single_decoder;
+  int h = 0, w = 0, got = 0;
+  if ((layout != 420 && layout != 422) ||
+      !fs_jpeg_info(data, size, &h, &w, &got) || got != layout ||
+      h != height || w != width)
+    return 0;
+  nvjpegImage_t dst;
+  memset(&dst, 0, sizeof(dst));
+  dst.channel[0] = y;
+  dst.channel[1] = cb;
+  dst.channel[2] = cr;
+  dst.pitch[0] = static_cast<size_t>(width);
+  dst.pitch[1] = dst.pitch[2] = static_cast<size_t>((width + 1) / 2);
+  return nvjpegDecode(d.handle, d.state, data, static_cast<size_t>(size),
+                      NVJPEG_OUTPUT_YUV, &dst,
+                      static_cast<cudaStream_t>(stream)) ==
+                 NVJPEG_STATUS_SUCCESS
+             ? 1
+             : 0;
 }
 
 }  // extern "C"

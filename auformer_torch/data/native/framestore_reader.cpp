@@ -23,6 +23,11 @@
 //                        long capacity);
 //   int   fs_decode_jpeg(const uint8_t* data, long size, uint8_t* out,
 //                        int height, int width, int channels);
+//   int   fs_jpeg_info(const uint8_t* data, long size, int* height,
+//                      int* width, int* layout);
+//   int   fs_decode_jpeg_yuv(const uint8_t* data, long size, uint8_t* y,
+//                            uint8_t* cb, uint8_t* cr, int height,
+//                            int width, int layout, void* stream);
 //
 // fs_decode_batch decodes keys[i] into out[i*H*W*C]; ok[i]=1 on success, 0
 // on an empty or missing key, a decode failure or a size mismatch (the
@@ -30,12 +35,18 @@
 // frame). fs_encode_jpeg writes a baseline JPEG (4:2:0 for colour, as
 // cv2.imencode's default) and returns its size, or -1. fs_decode_jpeg
 // decodes one JPEG held in memory into out (H*W*C) and returns 1, or 0 on
-// a decode failure or a size mismatch.
+// a decode failure or a size mismatch. fs_jpeg_info gives a JPEG's size and
+// chroma layout (420, 422, 444, 400 grey, or 0 for another sampling);
+// fs_decode_jpeg_yuv decodes a 4:2:0 or 4:2:2 one to its stored Y, Cb and
+// Cr planes (libjpeg's raw data: no colour conversion, no upsampling) in
+// host memory; ``stream`` is for the nvJPEG source's signature and unused.
 
 #include <atomic>
 #include <csetjmp>
 #include <cstdlib>
+#include <cstring>
 #include <thread>
+#include <vector>
 
 #include "framestore.h"
 
@@ -84,6 +95,93 @@ bool decode_jpeg(const uint8_t* data, size_t size, uint8_t* dst, int height,
   while (cinfo.output_scanline < cinfo.output_height) {
     JSAMPROW row = dst + cinfo.output_scanline * stride;
     jpeg_read_scanlines(&cinfo, &row, 1);
+  }
+  jpeg_finish_decompress(&cinfo);
+  jpeg_destroy_decompress(&cinfo);
+  return true;
+}
+
+int layout_of(const jpeg_decompress_struct& c) {
+  if (c.num_components == 1) return 400;
+  const jpeg_component_info* k = c.comp_info;
+  if (c.num_components != 3 || c.jpeg_color_space != JCS_YCbCr ||
+      k[1].h_samp_factor != 1 || k[1].v_samp_factor != 1 ||
+      k[2].h_samp_factor != 1 || k[2].v_samp_factor != 1)
+    return 0;
+  if (k[0].h_samp_factor == 2 && k[0].v_samp_factor == 2) return 420;
+  if (k[0].h_samp_factor == 2 && k[0].v_samp_factor == 1) return 422;
+  if (k[0].h_samp_factor == 1 && k[0].v_samp_factor == 1) return 444;
+  return 0;
+}
+
+// decode one 4:2:0 or 4:2:2 JPEG to its stored Y, Cb, Cr planes (raw data
+// out), or read only its header when y is null. Returns success.
+bool decode_yuv(const uint8_t* data, size_t size, uint8_t* y, uint8_t* cb,
+                uint8_t* cr, int* height, int* width, int* layout) {
+  jpeg_decompress_struct cinfo;
+  JpegErr jerr;
+  std::vector<uint8_t> scratch;
+  std::vector<JSAMPROW> rows;
+  cinfo.err = jpeg_std_error(&jerr.mgr);
+  jerr.mgr.error_exit = jpeg_err_exit;
+  if (setjmp(jerr.jb)) {
+    jpeg_destroy_decompress(&cinfo);
+    return false;
+  }
+  jpeg_create_decompress(&cinfo);
+  jpeg_mem_src(&cinfo, const_cast<uint8_t*>(data),
+               static_cast<unsigned long>(size));
+  jpeg_read_header(&cinfo, TRUE);
+  const int h = static_cast<int>(cinfo.image_height);
+  const int w = static_cast<int>(cinfo.image_width);
+  const int got = layout_of(cinfo);
+  if (!y) {
+    *height = h;
+    *width = w;
+    *layout = got;
+    jpeg_destroy_decompress(&cinfo);
+    return true;
+  }
+  if (h != *height || w != *width || got != *layout ||
+      (got != 420 && got != 422)) {
+    jpeg_destroy_decompress(&cinfo);
+    return false;
+  }
+  cinfo.raw_data_out = TRUE;
+  cinfo.out_color_space = JCS_YCbCr;
+  jpeg_start_decompress(&cinfo);
+  const int max_v = cinfo.max_v_samp_factor;
+  uint8_t* out[3] = {y, cb, cr};
+  const int out_w[3] = {w, (w + 1) / 2, (w + 1) / 2};
+  const int out_h[3] = {h, got == 420 ? (h + 1) / 2 : h,
+                        got == 420 ? (h + 1) / 2 : h};
+  int buf_rows[3], buf_w[3];
+  size_t total = 0;
+  for (int c = 0; c < 3; ++c) {
+    buf_rows[c] = cinfo.comp_info[c].v_samp_factor * DCTSIZE;
+    buf_w[c] = static_cast<int>(cinfo.comp_info[c].width_in_blocks) * DCTSIZE;
+    total += static_cast<size_t>(buf_rows[c]) * buf_w[c];
+  }
+  scratch.resize(total);
+  rows.resize(buf_rows[0] + buf_rows[1] + buf_rows[2]);
+  JSAMPARRAY planes[3];
+  size_t off = 0;
+  int r0 = 0;
+  for (int c = 0; c < 3; ++c) {
+    planes[c] = rows.data() + r0;
+    for (int r = 0; r < buf_rows[c]; ++r, off += buf_w[c])
+      rows[r0 + r] = scratch.data() + off;
+    r0 += buf_rows[c];
+  }
+  while (cinfo.output_scanline < cinfo.output_height) {
+    const int line = static_cast<int>(cinfo.output_scanline);
+    jpeg_read_raw_data(&cinfo, planes, DCTSIZE * max_v);
+    for (int c = 0; c < 3; ++c) {
+      const int first = line / max_v * cinfo.comp_info[c].v_samp_factor;
+      for (int r = 0; r < buf_rows[c] && first + r < out_h[c]; ++r)
+        memcpy(out[c] + static_cast<size_t>(first + r) * out_w[c],
+               planes[c][r], static_cast<size_t>(out_w[c]));
+    }
   }
   jpeg_finish_decompress(&cinfo);
   jpeg_destroy_decompress(&cinfo);
@@ -198,6 +296,23 @@ int fs_decode_jpeg(const uint8_t* data, long size, uint8_t* out, int height,
                    int width, int channels) {
   return decode_jpeg(data, static_cast<size_t>(size), out, height, width,
                      channels)
+             ? 1
+             : 0;
+}
+
+int fs_jpeg_info(const uint8_t* data, long size, int* height, int* width,
+                 int* layout) {
+  return decode_yuv(data, static_cast<size_t>(size), nullptr, nullptr,
+                    nullptr, height, width, layout)
+             ? 1
+             : 0;
+}
+
+int fs_decode_jpeg_yuv(const uint8_t* data, long size, uint8_t* y,
+                       uint8_t* cb, uint8_t* cr, int height, int width,
+                       int layout, void* /*stream*/) {
+  return decode_yuv(data, static_cast<size_t>(size), y, cb, cr, &height,
+                    &width, &layout)
              ? 1
              : 0;
 }

@@ -1,24 +1,72 @@
-"""A video file's frame count, rate and size (counterpart of
-auformer/data/video.py; reference dataloader/video.py:14-94), read from
-the container's index by ``data/container.py`` with no video decoder.
+"""A video file's frame count, rate and size, and its frames (counterpart
+of auformer/data/video.py; reference dataloader/video.py:14-94).
 
 ``Video(path).meta`` loads the ``<video.ext>meta.json`` side cache, or the
 legacy ``<video>meta.json``, else probes the container and, with
 ``write``, saves the cache as ``<video>meta.json``, where the JAX package
 saves it (tests/test_ingest.py checks that name). The keys and the
-``fps or 30.0`` rule are the JAX package's. Decoding pixels
-(``read_RGB``, ``frames``) needs an H.264/MPEG-4 decoder, which the port
-does not have: it raises naming ROADMAP.md queue A9.
+``fps or 30.0`` rule are the JAX package's; the index comes from
+``data/container.py``, with no video decoder.
+
+Frames (``read_RGB``, ``frames``, ``frame_tensors``) are decoded on the
+card unless the caller passes ``device="cpu"``, for MJPEG in AVI or MP4:
+each frame's JPEG goes to its Y, Cb and Cr planes (nvJPEG in the card's
+memory for a CUDA device, libjpeg on the host for the CPU, each raising
+where its library is missing: ``data/native``), and ``ops/colour.py``'s
+``yuv_rgb`` converts them as cv2's swscale does, so a frame
+differs from the JAX package's cv2 frame only where the two decoders'
+inverse DCTs round apart. H.264 and MPEG-4 part 2 need NVDEC, which the
+card's container refuses (``data/nvdec.py``): their frames raise naming
+ROADMAP.md queue A9, as do JPEG frames that are not 4:2:0 or 4:2:2.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import os
 from typing import Iterator
 
 import numpy as np
+import torch
 
 from . import container
+
+_A9 = "ROADMAP.md queue A9 (frame decoding)"
+
+
+def decode_mjpeg_frame(unit: bytes, device: torch.device) -> torch.Tensor:
+    """One MJPEG frame as an (H, W, 3) uint8 RGB tensor on ``device``, as
+    cv2 converts it (module docstring). On a CUDA device nvJPEG decodes the
+    planes into its memory on its current stream; on the CPU libjpeg
+    decodes them on the host. Either raises where its library is
+    missing."""
+    from . import native
+    from ..ops.colour import yuv_rgb
+    on_card = device.type == "cuda"
+    name = "nvjpeg" if on_card else "libjpeg"
+    with torch.cuda.device(device) if on_card else contextlib.nullcontext():
+        h, w, layout = native.jpeg_info(unit, name)
+        if layout not in (420, 422):
+            raise NotImplementedError(
+                f"a JPEG frame of chroma layout {layout or 'other'}: only "
+                "4:2:0 and 4:2:2 are converted as cv2 converts them; "
+                f"{_A9} lists the rest")
+        ch = (h + 1) // 2 if layout == 420 else h
+        y = torch.empty((h, w), dtype=torch.uint8, device=device)
+        cb = torch.empty((ch, (w + 1) // 2), dtype=torch.uint8,
+                         device=device)
+        cr = torch.empty_like(cb)
+        native.decode_jpeg_yuv(
+            unit, y.data_ptr(), cb.data_ptr(), cr.data_ptr(), h, w, layout,
+            torch.cuda.current_stream(device).cuda_stream if on_card
+            else None, name)
+        return yuv_rgb(y, cb, cr)
+
+
+def _resolve_device(device) -> torch.device:
+    from ..infer import resolve_device   # not at import: infer is heavy
+    return resolve_device(device)
 
 
 class Video:
@@ -26,6 +74,7 @@ class Video:
         self.path = path
         self.filename = os.path.splitext(os.path.basename(path))[0]
         self.meta = self._load_or_probe_meta(write)
+        self._next = 0
 
     def _meta_path(self) -> str:
         # the reference's cache name keeps the extension: <video.mp4>meta.json
@@ -64,17 +113,52 @@ class Video:
         counts packets, not decoded frames."""
         return container.probe(self.path, timestamps=False)["packets"]
 
-    def _no_decoder(self):
-        return NotImplementedError(
-            f"decoding the frames of {self.path} needs a video decoder, "
-            "which auformer_torch does not have: ROADMAP.md queue A9 "
-            "(frame decoding) lists it")
+    @functools.cached_property
+    def _decodable(self) -> tuple[dict, list[int]]:
+        """(the packet index, the positions of its kept packets: the frames
+        in display order), parsed once per ``Video``; raises for a codec
+        the port does not decode."""
+        index = container.packet_index(self.path)
+        if index["codec"] != "mjpeg":
+            raise NotImplementedError(
+                f"decoding the {index['codec']} frames of {self.path} needs "
+                "NVDEC, which the card's container refuses, or a software "
+                f"decoder, which auformer_torch does not have: {_A9} lists "
+                "it")
+        return index, [k for k, p in enumerate(index["packets"]) if p.kept]
 
-    def read_RGB(self, frame_idx: int | None = None) -> np.ndarray | None:
-        raise self._no_decoder()
+    def frame_tensors(self, device=None) -> Iterator[torch.Tensor]:
+        """Every frame in display order as an (H, W, 3) uint8 RGB tensor on
+        ``device`` (default the GPU)."""
+        index, _ = self._decodable
+        device = _resolve_device(device)
+        return (decode_mjpeg_frame(unit, device)
+                for _, unit in container.access_units(self.path, index))
 
-    def frames(self) -> Iterator[np.ndarray]:
-        raise self._no_decoder()
+    def frames(self, device=None) -> Iterator[np.ndarray]:
+        """Every frame in display order as (H, W, 3) uint8 RGB, as the JAX
+        package's ``frames()`` gives them; decoded on ``device``."""
+        return (t.cpu().numpy() for t in self.frame_tensors(device))
+
+    def read_RGB(self, frame_idx: int | None = None,
+                 device=None) -> np.ndarray | None:
+        """Frame ``frame_idx`` in display order (cv2's seek to
+        ``CAP_PROP_POS_FRAMES`` and ``read``), or with None the frame after
+        the one read last (cv2's ``read``), as (H, W, 3) uint8 RGB; None
+        past the last frame. Every MJPEG frame is a sync sample, so frame k
+        decodes from its own packet."""
+        index, kept = self._decodable
+        device = _resolve_device(device)
+        k = self._next if frame_idx is None else int(frame_idx)
+        if k < 0:
+            raise ValueError(f"read_RGB: frame {k} of {self.path}")
+        if k >= len(kept):
+            self._next = len(kept)
+            return None
+        self._next = k + 1
+        _, unit = next(container.access_units(self.path, index, kept[k]))
+        return decode_mjpeg_frame(unit, device).cpu().numpy()
 
     def release(self) -> None:
-        """Nothing to release: no decoder is opened."""
+        """Back to the first frame: no decoder stays open between calls."""
+        self._next = 0

@@ -19,7 +19,7 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".cache" / "kernels"
-KERNELS = ("attention", "mel")
+KERNELS = ("attention", "mel", "yuv_rgb")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

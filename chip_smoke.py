@@ -120,6 +120,25 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            best/ and launches 11 attention kernels per bucket, and its
            predictions and submission files equal the .pth run's bit for
            bit; the split is removed after it
+  decode   video frames (no model): (a) NVDEC's caps for H.264 and
+           MPEG-4 part 2, or the driver's refusal (this card's container
+           refuses them), and the H.264 fixtures' frames raising naming
+           A9; (b) tests/data/videos_decode/: every fixture's count and
+           timestamps (the B-frame MP4's in the decoder's output order)
+           against expected.json, the MJPEG fixture's frames on the card
+           against the JAX package's cv2 frames (mjpg_112.npz, within
+           MJPG_MAX and MJPG_MEAN) and against the plain conversion of
+           nvJPEG's planes, bit for bit; (c) the yuv_rgb kernel at
+           1280x720 against its plain version on the card, bit for bit,
+           on the main path's 4:2:0 planes, its device ms beside its
+           bound; (d) a
+           300-frame 1280x720 30 fps MJPEG AVI written here (nvJPEG q90)
+           through Video.frames() on the card, the main path: frames/s,
+           s per frame, 300 yuv_rgb launches, frame_tensors()' rate,
+           read_RGB at five indices equal to frames(), two runs of 30
+           frames' nvJPEG planes converted by the plain version on the
+           CPU equal to the card's, the frames' error against their
+           sources
   train    a synthetic train/val split written by the port's fixtures
            (videos of 1,500, 1,500, 600 and 100 frames: train, train,
            val, test; 112x112 JPEG q90). Before any training: the
@@ -224,7 +243,8 @@ spatial and temporal sites in both dtypes, beside SDPA's forward +
 backward, and the trace's forward and backward device ms per step by
 site); ``launches`` counts the slice's, the sweep's, the dataset's, the
 packed, the zoo, the ingest and orbax phases' test_aff2 runs (orbax:
-the run from best/), the train phase's,
+the run from best/), the decode phase's frames() (yuv_rgb), the train
+phase's,
 the feed's, the host_aug's and the graph's main path runs
 (``launches_by_path``; ``zoo`` sums the zoo phase's bf16 main path runs;
 ``feed`` is the --frame_dedup + wav arena epoch, ``host_aug`` the (h)
@@ -246,6 +266,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import io
 import json
 import os
@@ -270,6 +291,7 @@ HEADS = 8
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
+TENSOR_CORE_KERNELS = ("attention", "mel")   # yuv_rgb is integer work
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 
 PROFILER_SESSIONS = 4  # profiler sessions tried per measurement
@@ -440,6 +462,15 @@ INGEST_CLIP_FRAMES = 16
 INGEST_REPS = 5
 # the orbax phase: the committed checkpoints and the JAX avformer's leaves
 ORBAX_FIXTURES = ROOT / "tests" / "data" / "orbax"
+# the decode phase: MJPEG frames through nvJPEG's planes and the yuv_rgb
+# kernel; the fixtures and what the JAX package's cv2 read from them
+DECODE_FIXTURES = ROOT / "tests" / "data" / "videos_decode"
+DECODE_SIZE = (720, 1280)         # the full-width stream: 1280x720, 30 fps
+DECODE_FRAMES = 300
+DECODE_SEEKS = (0, 29, 150, 151, 299)
+DECODE_PLAIN_RUNS = ((0, 30), (150, 180))   # also converted on the CPU
+MJPG_MAX, MJPG_MEAN = 3, 0.1  # vs cv2: the two inverse DCTs round apart
+DECODE_SOURCE_MAE = 3.0       # JPEG q90 error against the source frames
 
 
 def emit(phase: str, **fields) -> None:
@@ -585,7 +616,7 @@ def phase_build() -> None:
              for name, log in logs.items()}
     tensor_core = {n: build.tensor_core_instructions(n)
                    for n in build.KERNELS}
-    if any(count == 0 for count in tensor_core.values()):
+    if any(tensor_core[n] == 0 for n in TENSOR_CORE_KERNELS):
         fail(f"a kernel runs no tensor-core instruction: {tensor_core}")
     emit("build", seconds=round(seconds, 3),
          sources=[str(build.source(n).relative_to(ROOT))
@@ -1733,17 +1764,8 @@ def ingest_videos(work: Path) -> dict:
         path = str(vdir / name)
         shutil.copy(videos / name, path)
         v = Video(path, write=False)
-        if name.startswith("ctts"):
-            # composition offsets: cv2's timestamps follow the order its
-            # decoder returns the frames in, which the port refuses (A9)
-            try:
-                ingest.extract_timestamps(path, str(work / "ts.txt"))
-                text = "read"
-            except NotImplementedError as e:
-                text = want["timestamps"] if "A9" in str(e) else str(e)
-        else:
-            text = Path(ingest.extract_timestamps(
-                path, str(work / "ts.txt"))).read_text()
+        text = Path(ingest.extract_timestamps(
+            path, str(work / "ts.txt"))).read_text()
         got = (v.meta, v.count_frames(), text, ingest.probe_video_meta(path))
         if got != (want["meta"], want["count_frames"], want["timestamps"],
                    want["meta"]):
@@ -2053,6 +2075,189 @@ def phase_orbax(torch, dev, split: dict) -> dict:
          phase_s=time.perf_counter() - t_phase)
     shutil.rmtree(work, ignore_errors=True)
     return launches["orbax"]
+
+
+def mjpeg_planes(torch, unit: bytes) -> tuple:
+    """nvJPEG's (Y, Cb, Cr) planes of a 4:2:0 JPEG, on the card."""
+    from auformer_torch.data import native
+    h, w, layout = native.jpeg_info(unit, "nvjpeg")
+    if layout != 420:
+        fail(f"a {layout} JPEG: the decode phase writes 4:2:0")
+    planes = [torch.empty(s, dtype=torch.uint8, device="cuda")
+              for s in ((h, w), ((h + 1) // 2, (w + 1) // 2),
+                        ((h + 1) // 2, (w + 1) // 2))]
+    native.decode_jpeg_yuv(unit, *[p.data_ptr() for p in planes], h, w,
+                           layout, torch.cuda.current_stream().cuda_stream,
+                           "nvjpeg")
+    return planes
+
+
+@functools.lru_cache(maxsize=1)
+def _decode_grid() -> tuple[np.ndarray, np.ndarray]:
+    h, w = DECODE_SIZE
+    yy, xx = np.mgrid[0:h, 0:w]
+    return yy, xx
+
+
+def decode_source(t: int) -> np.ndarray:
+    """Frame t of the full-width stream: gradients and a moving box."""
+    h, w = DECODE_SIZE
+    yy, xx = _decode_grid()
+    img = np.stack([xx * 255 // w, yy * 255 // h,
+                    (xx + yy + 3 * t) * 255 // (h + w + 3 * DECODE_FRAMES)],
+                   -1).astype(np.uint8)
+    x0 = (9 * t) % (w - 240)
+    img[240:480, x0:x0 + 240] = (220, 64, 96)
+    return img
+
+
+def decode_kernel_case(torch, dev, planes: list) -> dict:
+    """yuv_rgb at 1280x720 against its plain version on the card, on the
+    MJPEG route's 4:2:0 planes (the main path's); times and the bound."""
+    from auformer_torch.ops import colour
+    y, u, v = planes
+    got = colour.yuv_rgb(y, u, v)
+    want = colour.yuv_rgb_plain(y, u, v)
+    torch.cuda.synchronize()
+    h, w = y.shape
+    err = (got.int() - want.int()).abs().max().item()
+    if err:
+        fail(f"yuv_rgb kernel differs from its plain version by {err}")
+    ms, event_ms = timed(torch, lambda: colour.yuv_rgb(y, u, v), 200)
+    plain_ms, _ = timed(torch, lambda: colour.yuv_rgb_plain(y, u, v), 20)
+    nbytes = y.numel() + u.numel() + v.numel() + 3 * y.numel()
+    bound_ms, bound_by = bound(nbytes, 0.0)
+    return {"shape": [h, w], "max_abs_err": err, "ms": ms,
+            "event_ms": event_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes, "library_ms": None}
+
+
+def phase_decode(torch, dev) -> tuple[dict, dict]:
+    """The decode phase: (a) NVDEC's caps and the H.264 route's refusal,
+    (b) the committed fixtures, (c) the kernel at full width, (d) the
+    full-width MJPEG stream through Video on the card, its launches counted
+    with the counts set to 0 just before frames() and read just after.
+    Returns (launches, the kernel's numbers)."""
+    from auformer_torch.data import container, ingest, nvdec
+    from auformer_torch.data.fixtures import write_mjpeg_avi
+    from auformer_torch.data.native import encode_jpeg
+    from auformer_torch.data.video import Video
+    from auformer_torch.ops import colour
+
+    t_phase = time.perf_counter()
+    work = ROOT / ".cache" / "chip_smoke_decode"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    # (a) NVDEC, asked; the H.264 and MPEG-4 frames raise naming A9
+    caps = {}
+    for codec in ("h264", "mpeg4"):
+        try:
+            c = nvdec.caps(codec)
+        except RuntimeError as e:
+            caps[codec] = {"refused": str(e)}
+            continue
+        c["fits"] = {f"{w}x{h}": (c["min_width"] <= w <= c["max_width"]
+                                  and c["min_height"] <= h <= c["max_height"])
+                     for w, h in ((112, 112), (1280, 720))}
+        caps[codec] = c
+    expected = json.loads((DECODE_FIXTURES / "expected.json").read_text())
+    refusals = {}
+    for name in expected:
+        if name.startswith("mjpg"):
+            continue
+        try:
+            Video(str(DECODE_FIXTURES / name), write=False).read_RGB(
+                0, device=dev)
+        except NotImplementedError as e:
+            refusals[name] = "A9" in str(e)
+        else:
+            fail(f"{name}: H.264 frames decoded without a decoder")
+    if not all(refusals.values()):
+        fail(f"the H.264 refusals do not name A9: {refusals}")
+    # (b) counts and timestamps of every fixture (the B-frame MP4's follow
+    # the decoder's output order); the MJPEG fixture's frames on the card
+    for name, want in expected.items():
+        path = str(DECODE_FIXTURES / name)
+        got = (Video(path, write=False).count_frames(), Path(
+            ingest.extract_timestamps(path, str(work / "ts.txt"))
+        ).read_text())
+        if got != (want["count_frames"], want["timestamps"]):
+            fail(f"{name}: count and timestamps {got[0]}, expected "
+                 f"{want['count_frames']} and the JAX package's")
+    fixture = Video(str(DECODE_FIXTURES / "mjpg_112.avi"), write=False)
+    frames = [t.cpu() for t in fixture.frame_tensors(dev)]
+    cv2_frames = np.load(DECODE_FIXTURES / "mjpg_112.npz")["frames"]
+    diff = np.abs(np.stack([f.numpy() for f in frames]).astype(int)
+                  - cv2_frames.astype(int))
+    if diff.max() > MJPG_MAX or diff.mean() > MJPG_MEAN:
+        fail(f"mjpg_112.avi on the card against cv2: max {diff.max()}, "
+             f"mean {diff.mean()}")
+    for k, unit in container.access_units(
+            str(DECODE_FIXTURES / "mjpg_112.avi")):
+        plain = colour.yuv_rgb_plain(*[p.cpu() for p in mjpeg_planes(
+            torch, unit)])
+        if not torch.equal(plain, frames[k]):
+            fail(f"mjpg_112.avi frame {k}: the kernel's frame differs from "
+                 "the plain conversion of nvJPEG's planes")
+    fixtures = {"against_cv2": {"max": int(diff.max()),
+                                "mean": float(diff.mean())},
+                "counts_timestamps_equal": len(expected),
+                "h264_refused": refusals}
+    # (d) the full-width stream, written here: nvJPEG q90 frames in an AVI
+    h, w = DECODE_SIZE
+    path = str(work / "full.avi")
+    t0 = time.perf_counter()
+    write_mjpeg_avi(path, [encode_jpeg(decode_source(t), 90)
+                           for t in range(DECODE_FRAMES)], w, h, 30.0)
+    write_s = time.perf_counter() - t0
+    video = Video(path, write=False)
+    _, first = next(container.access_units(path))
+    kernel = decode_kernel_case(torch, dev, mjpeg_planes(torch, first))
+    torch.cuda.synchronize()
+    colour.yuv_rgb.launches = 0
+    t0 = time.perf_counter()
+    decoded = list(video.frames(device=dev))         # the main path
+    frames_s = time.perf_counter() - t0
+    launches = {"attention": 0, "mel": 0,
+                "yuv_rgb": colour.yuv_rgb.launches}
+    if launches["yuv_rgb"] != DECODE_FRAMES or len(decoded) != DECODE_FRAMES:
+        fail(f"frames(): {len(decoded)} frames, {launches} launches")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = sum(1 for _ in video.frame_tensors(dev))
+    torch.cuda.synchronize()
+    tensors_s = time.perf_counter() - t0
+    for k in DECODE_SEEKS:
+        if not np.array_equal(video.read_RGB(k, device=dev), decoded[k]):
+            fail(f"read_RGB({k}) differs from frames()[{k}]")
+    if video.read_RGB(device=dev) is not None:
+        fail("read_RGB() after the last frame is not None")
+    units = [unit for _, unit in container.access_units(path)]
+    for a, b in DECODE_PLAIN_RUNS:
+        for k in range(a, b):
+            plain = colour.yuv_rgb_plain(
+                *[p.cpu() for p in mjpeg_planes(torch, units[k])])
+            if not np.array_equal(plain.numpy(), decoded[k]):
+                fail(f"frame {k}: the card's differs from the plain "
+                     "conversion of its planes on the CPU")
+    mae = max(float(np.abs(decoded[k].astype(int) - decode_source(k)
+                           .astype(int)).mean())
+              for k in range(0, DECODE_FRAMES, 15))
+    if mae > DECODE_SOURCE_MAE or any(f.shape != (h, w, 3) for f in decoded):
+        fail(f"full-width frames against their sources: MAE {mae}")
+    stream = {"size": [w, h], "frames": DECODE_FRAMES, "fps": 30.0,
+              "bytes": os.path.getsize(path), "write_s": write_s,
+              "frames_s": frames_s, "frames_per_s": DECODE_FRAMES / frames_s,
+              "s_per_frame": frames_s / DECODE_FRAMES,
+              "frame_tensors_per_s": n / tensors_s,
+              "launches": launches["yuv_rgb"], "seeks_equal": DECODE_SEEKS,
+              "plain_equal_frames": [list(r) for r in DECODE_PLAIN_RUNS],
+              "max_source_mae": mae}
+    emit("decode", nvidia_smi=nvidia_smi(), nvdec_caps=caps,
+         fixtures=fixtures, kernel=kernel, stream=stream,
+         phase_s=time.perf_counter() - t_phase)
+    shutil.rmtree(work, ignore_errors=True)
+    return launches, kernel
 
 
 def phase_zoo(torch, dev, split: dict) -> dict:
@@ -4297,6 +4502,7 @@ def main() -> int:
         torch, dev, Path(split["work"]) / "experiments" / "avformer"
         / "pretrain" / f"random_seed{SEED}.pth")
     by_path["orbax"] = phase_orbax(torch, dev, split)
+    by_path["decode"], yuv = phase_decode(torch, dev)
     shutil.rmtree(split["work"], ignore_errors=True)  # the split, the .pth
     paths, grad_cases, attention_in_step = phase_train(torch, dev)
     by_path.update(paths)
@@ -4306,7 +4512,7 @@ def main() -> int:
     from auformer_torch.ops import build
 
     def launches(name: str) -> int:
-        return sum(counts[name] for counts in by_path.values())
+        return sum(counts.get(name, 0) for counts in by_path.values())
 
     def per_call(path: str, dtype: str) -> dict:
         """Sums over one call's attention launches (time x launches)."""
@@ -4378,7 +4584,16 @@ def main() -> int:
          "max_abs_err": max(c["max_abs_err"] for c in mel),
          "ms": mel_main["ms"], "plain_ms": mel_main["plain_ms"],
          "bound_ms": mel_main["bound_ms"], "bound_by": mel_main["bound_by"],
-         "library_ms": None}]}), flush=True)
+         "library_ms": None},
+        {"name": "yuv_rgb", "route": "cuda",
+         "source": str(build.source("yuv_rgb").relative_to(ROOT)),
+         "replaces": "auformer/data/video.py:70 (cv2's conversion on the "
+                     "host; no TPU kernel)",
+         "launches": launches("yuv_rgb"),
+         "launches_by_path": {"decode": by_path["decode"]["yuv_rgb"]},
+         **{key: yuv[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by",
+                                      "library_ms")}}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1022,3 +1022,75 @@ def test_multi_step_capture_that_fails_raises(cuda_device, monkeypatch):
     assert state.step == 2
     for key, value in step_k.model.state_dict().items():
         assert torch.equal(value, before[key]), key
+
+
+@pytest.mark.parametrize("shape", [(720, 1280), (112, 112), (99, 121)])
+@pytest.mark.parametrize("layout", ["420", "422"])
+def test_yuv_rgb_kernel_matches_plain(cuda_device, shape, layout):
+    """The colour conversion kernel equals its plain version bit for bit on
+    planar 4:2:0 and 4:2:2 planes with pitched rows."""
+    from auformer_torch.ops import colour
+    h, w = shape
+    cw = (w + 1) // 2
+    rs = np.random.RandomState(h + w)
+    rows = (h + 1) // 2 if layout == "420" else h
+    luma = torch.from_numpy(rs.randint(0, 256, (h, w + 64)).astype(np.uint8))
+    chroma = torch.from_numpy(
+        rs.randint(0, 256, (rows, 2 * cw + 64)).astype(np.uint8))
+
+    def planes(luma, chroma):
+        """Pitched rows: U and V side by side in one buffer."""
+        return luma[:, :w], chroma[:, :cw], chroma[:, cw + 32:2 * cw + 32]
+
+    want = colour.yuv_rgb_plain(*planes(luma, chroma))
+    before = colour.yuv_rgb.launches
+    got = colour.yuv_rgb(*planes(luma.to(cuda_device),
+                                 chroma.to(cuda_device)))
+    torch.cuda.synchronize()
+    assert colour.yuv_rgb.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_mjpeg_frames_on_the_card(cuda_device):
+    """Video.frames on the card: nvJPEG's planes through the kernel equal
+    the plain conversion of the same planes, and the frames stay within
+    the CPU tests' tolerance of the JAX package's (mjpg_112.npz)."""
+    from pathlib import Path
+
+    from auformer_torch.data import container, native
+    from auformer_torch.data.video import Video
+    from auformer_torch.ops import colour
+    d = Path(__file__).parent / "data" / "videos_decode"
+    v = Video(str(d / "mjpg_112.avi"), write=False)
+    before = colour.yuv_rgb.launches
+    frames = [t.cpu() for t in v.frame_tensors(cuda_device)]
+    assert colour.yuv_rgb.launches == before + len(frames) == before + 12
+    want = np.load(d / "mjpg_112.npz")["frames"]
+    diff = np.abs(np.stack([f.numpy() for f in frames]).astype(int)
+                  - want.astype(int))
+    assert diff.max() <= 3 and diff.mean() <= 0.1
+    _, unit = next(container.access_units(str(d / "mjpg_112.avi")))
+    h, w, layout = native.jpeg_info(unit, "nvjpeg")
+    planes = [torch.empty(s, dtype=torch.uint8, device=cuda_device)
+              for s in ((h, w), ((h + 1) // 2, (w + 1) // 2),
+                        ((h + 1) // 2, (w + 1) // 2))]
+    native.decode_jpeg_yuv(unit, *[p.data_ptr() for p in planes], h, w,
+                           layout, torch.cuda.current_stream().cuda_stream,
+                           "nvjpeg")
+    torch.cuda.synchronize()
+    assert torch.equal(frames[0], colour.yuv_rgb_plain(
+        *[p.cpu() for p in planes]))
+    assert np.array_equal(v.read_RGB(7, device=cuda_device),
+                          frames[7].numpy())
+
+
+def test_nvdec_caps_answer_or_name_the_refusal(cuda_device):
+    """NVDEC's caps: a yes for H.264 where the driver exposes the decoder,
+    else an error naming cuvidGetDecoderCaps and its CUresult."""
+    from auformer_torch.data import nvdec
+    try:
+        caps = nvdec.caps("h264")
+    except RuntimeError as e:
+        assert "cuvidGetDecoderCaps returned CUresult" in str(e)
+    else:
+        assert caps["supported"] == 1 and caps["output_formats"] & 1

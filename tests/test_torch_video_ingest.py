@@ -320,19 +320,13 @@ def test_video_and_ingest_match_jax_on_cv2_files(tmp_path, fourcc, ext, fps):
 def test_fixture_video_matches_expected(tmp_path, name):
     """The port on tests/data/videos/ equals what the JAX package read
     there when the fixtures were made; on the tracks with reordering
-    composition offsets its meta and count do, and its timestamps raise
-    naming A9."""
+    composition offsets too, whose timestamps follow the order the decoder
+    returns the frames in (decode order: their MPEG-4 has no B-VOPs)."""
     want = EXPECTED[name]
     path = str(VIDEOS / name)
     v = Video(path, write=False)
     assert v.meta == want["meta"]
     assert v.count_frames() == want["count_frames"]
-    if name.startswith("ctts"):
-        # composition offsets: cv2's timestamps follow the order its
-        # decoder returns the frames in, which the port refuses (A9)
-        with pytest.raises(NotImplementedError, match="A9"):
-            ingest.extract_timestamps(path, str(tmp_path / "ts.txt"))
-        return
     ts = ingest.extract_timestamps(path, str(tmp_path / "ts.txt"))
     assert Path(ts).read_text() == want["timestamps"]
 
@@ -351,7 +345,8 @@ def test_expected_still_what_jax_reads(tmp_path, name):
 
 
 def test_ctts_track_still_gives_count_fps_and_size():
-    """Composition offsets stop only the timestamps (A9)."""
+    """Composition offsets change neither the count, the rate nor the
+    size."""
     v = Video(str(VIDEOS / "ctts.mp4"), write=False)
     assert v.meta == EXPECTED["mp4v_30.mp4"]["meta"]
     assert v.count_frames() == 12
@@ -392,12 +387,24 @@ def test_postprocess_main_without_meta_json_matches_jax(tmp_path):
     assert outs["port"]["mp4v_30.txt"].count("\n") == 13
 
 
+def _retagged_hvc1(tmp_path) -> str:
+    """The B-frame H.264 fixture with its sample entry retagged as HEVC
+    (``hvc1``): a ctts track whose output order the port does not read."""
+    data = (Path(__file__).parent / "data" / "videos_decode" /
+            "ipb_112.mp4").read_bytes()
+    at = data.index(b"avc1", data.index(b"stsd"))
+    path = tmp_path / "hvc1_ctts.mp4"
+    path.write_bytes(data[:at] + b"hvc1" + data[at + 4:])
+    return str(path)
+
+
 @pytest.mark.parametrize("name,call", [
     ("matroska.mkv", "probe"), ("matroska.mkv", "timestamps"),
     ("fragmented.mp4", "timestamps"), ("fragmented.mp4", "count"),
-    ("ctts.mp4", "timestamps")])
+    ("fragmented.mp4", "probe"), ("hvc1_ctts.mp4", "timestamps")])
 def test_unread_containers_raise_naming_a9(tmp_path, name, call):
-    path = str(VIDEOS / name)
+    path = (_retagged_hvc1(tmp_path) if name == "hvc1_ctts.mp4"
+            else str(VIDEOS / name))
     with pytest.raises(NotImplementedError, match="A9"):
         if call == "probe":
             ingest.probe_video_meta(shutil.copy(path, tmp_path))
