@@ -139,8 +139,20 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            frames' nvJPEG planes converted by the plain version on the
            CPU equal to the card's, the frames' error against their
            sources
+  quickstart
+           ``python -m auformer_torch.quickstart`` (its ``main``, no
+           device argument), the port's examples/quickstart.py: its
+           synthetic split (four 40-frame 64x64 videos: train, train, val,
+           test), 2 epochs of vformer fp32 training at B=8 with the
+           loader's host AutoAugment, evaluation, and test-split inference
+           with the submission files; launches (4 attention forwards per
+           forward, 4 backward calls per step), seconds for the fixture,
+           each epoch and the inference, train clips/s, inference label
+           frames/s; the trained weights' inference on the CPU against the
+           card's; before it the attention gradient check at its spatial
+           (16 tokens, head dim 32, 32 rows) and temporal (5, 64, 8) sites
   train    a synthetic train/val split written by the port's fixtures
-           (videos of 1,500, 1,500, 600 and 100 frames: train, train,
+           (videos of 1,100, 1,100, 600 and 100 frames: train, train,
            val, test; 112x112 JPEG q90). Before any training: the
            attention autograd Function (kernel forward, recomputing
            backward) against autograd through the plain version at the
@@ -156,7 +168,8 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            30-step overfit of one batch, the checkpoint round trip, and
            the numbers: clips/s, StepTimer data and step ms, device ms,
            kernels and idle share per step, eval s, peak memory, loss per
-           epoch. Between them, the ``feed`` sub-phase (its own line):
+           epoch, and the seconds of each part of the phase (``part_s``).
+           Between them, the ``feed`` sub-phase (its own line):
            one epoch each of ``train.main --device_audio`` dense with raw
            windows and ``--frame_dedup`` with the default wav arena (the
            slice's main path), both ``--locality_run 64``, and the default
@@ -177,7 +190,7 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            path) and with --device_augment (d); per run clips/s,
            StepTimer data and step ms, attention launches and backward
            calls (checked), peak memory; (h)'s first batch equal at 1 and
-           4 loader threads; 8 steps of (h) augmenting in the loader's
+           4 loader threads; 4 steps of (h) augmenting in the loader's
            threads instead; on this machine's CPU the digest of the
            port's train_augment against PIL's (a constant: no PIL here),
            its ms per (64, 16) batch in one thread and a loader batch at
@@ -241,10 +254,11 @@ fusion head's site beside its launches per step, and the traced device ms
 per step of the kernel and of the backward; ``vformer``: per call at its
 spatial and temporal sites in both dtypes, beside SDPA's forward +
 backward, and the trace's forward and backward device ms per step by
-site); ``launches`` counts the slice's, the sweep's, the dataset's, the
-packed, the zoo, the ingest and orbax phases' test_aff2 runs (orbax:
-the run from best/), the decode phase's frames() (yuv_rgb), the train
-phase's,
+site; ``quickstart``: per forward and per site of the quickstart's
+vformer, and its gradient check); ``launches`` counts the slice's, the
+sweep's, the dataset's, the packed, the zoo, the ingest and orbax phases'
+test_aff2 runs (orbax: the run from best/), the decode phase's frames()
+(yuv_rgb), the quickstart's run, the train phase's,
 the feed's, the host_aug's and the graph's main path runs
 (``launches_by_path``; ``zoo`` sums the zoo phase's bf16 main path runs;
 ``feed`` is the --frame_dedup + wav arena epoch, ``host_aug`` the (h)
@@ -317,6 +331,12 @@ LABEL_FRAME = 48     # T=16, dilation 3
 FEATURE_WINDOWS = (0, 1, 5, 47, 48, 299, 300, 600, 1000, 1279, 1280, 1281,
                    1950, 2000, 2098, 2099)
 
+# the quickstart phase: python -m auformer_torch.quickstart's split (four
+# videos of 40 frames: train, train, val, test) at B=8 (T=4), its eval and
+# test batches
+QUICKSTART_FRAMES = 40
+QUICKSTART_BATCH = 8
+
 # attention sites: (path, name, tokens, head dim, batch, launches per call)
 # with 8 heads; a call is one clip-batch forward (slice) or one sweep
 # bucket, whose trunk batch is the bucket, its history frames and the
@@ -341,7 +361,12 @@ ATTENTION_SITES = (("slice", "spatial", 49, 32, BATCH * FRAMES, 1),
                    ("zoo", "dsformer_spatial", 49, 32, BATCH, 2),
                    # emonet's AU head over a SingleFrameSweep bucket
                    ("zoo", "emonet_sweep_au_tokens", 12, 32,
-                    EMONET_SWEEP_BUCKET, 2))
+                    EMONET_SWEEP_BUCKET, 2),
+                   # the quickstart's vformer (64x64: a 4x4 map; T=4 + 1
+                   # tokens) per B=8 forward, fp32 on its path
+                   ("quickstart", "spatial", 16, 32, QUICKSTART_BATCH * 4,
+                    1),
+                   ("quickstart", "temporal", 5, 64, QUICKSTART_BATCH, 3))
 ATTN_PER_CALL = 11
 ATTN_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-3)}
 MEL_ATOL = 2e-3          # normalized units (0.04 dB): sum order only
@@ -385,8 +410,9 @@ ZOO_BF16_REL = 5e-2       # card bf16 vs card fp32 logits, norm-relative
 SINGLE_FRAME_ROWS = 64    # sformer's clip-path check: the first 64 frames
 
 # the train phase's split: train, train, val, test; with downsample_rate 2
-# that is 23 steps of 64 clips per epoch and one val batch of 256
-TRAIN_FRAMES = (1500, 1500, 600, 100)
+# that is 17 steps of 64 clips per epoch (TRACE_STEPS needs 16) and one val
+# batch of 256
+TRAIN_FRAMES = (1100, 1100, 600, 100)
 TRAIN_BATCH = 64
 # attention gradient sites: (name, tokens, head dim, batch) with 8 heads
 GRAD_SITES = (("fusion_head", 12, 32, TRAIN_BATCH),
@@ -439,14 +465,14 @@ FEED_GRAPH_K = 4
 # no PIL)
 HOST_AUG_THREADS = (1, 4)
 HOST_AUG_BATCHES = 4
-HOST_AUG_IN_THREAD_STEPS = 8
+HOST_AUG_IN_THREAD_STEPS = 4
 # the dp sub-phase: the NCCL world of one's fp32 step and graph checks
 # (B=16), K, steps; the gloo world of two's global batch and timed steps;
 # the two swept videos' frames; the draws' cost at 8 ranks of 8 rows
 DP_STEP_BATCH, DP_GRAPH_K, DP_GRAPH_STEPS = 16, 4, 8
 DP_GLOO_BATCH, DP_TIMED_STEPS, DP_SERVE_FRAMES = 16, 3, 300
 DP_DRAW_WORLD = DP_DRAW_LOCAL = 8
-DP_OVERHEAD_ROUNDS, DP_OVERHEAD_STEPS = 8, 4
+DP_OVERHEAD_ROUNDS, DP_OVERHEAD_STEPS = 4, 4
 # tests/test_parallel.py's tolerances: loss, gradients (rtol, atol), stats
 DP_LOSS_REL, DP_GRAD_TOL, DP_STATS_ATOL = 1e-5, (5e-3, 5e-5), 1e-4
 DP_TIMEOUT_S = 600
@@ -471,6 +497,10 @@ DECODE_SEEKS = (0, 29, 150, 151, 299)
 DECODE_PLAIN_RUNS = ((0, 30), (150, 180))   # also converted on the CPU
 MJPG_MAX, MJPG_MEAN = 3, 0.1  # vs cv2: the two inverse DCTs round apart
 DECODE_SOURCE_MAE = 3.0       # JPEG q90 error against the source frames
+# the quickstart phase's attention gradient sites (name, tokens, head dim,
+# batch)
+QUICKSTART_GRAD_SITES = (("quickstart_spatial", 16, 32, QUICKSTART_BATCH * 4),
+                         ("quickstart_temporal", 5, 64, QUICKSTART_BATCH))
 
 
 def emit(phase: str, **fields) -> None:
@@ -743,10 +773,12 @@ def profile_forward(torch, infer, batch: dict) -> dict:
                     for e in events[:12]]}
 
 
-def check_submission(result_dir: str, want_rows: dict, out) -> None:
+def check_submission(result_dir: str, want_rows: dict, out,
+                     n_rows: int | None = None) -> None:
     """Each video's AU file: the header and one row of 12 binary labels per
     label frame (``want_rows``: video id -> rows); inference.pkl holds the
-    returned (rows, 21) predictions."""
+    returned (``n_rows``, 21) predictions, by default one row per label
+    frame."""
     for vid, rows in want_rows.items():
         lines = Path(result_dir, "au", f"{vid}.txt").read_text().splitlines()
         if (lines[0] != "AU1,AU2,AU4,AU6,AU7,AU10,AU12,AU15,AU23,AU24,AU25,"
@@ -756,7 +788,7 @@ def check_submission(result_dir: str, want_rows: dict, out) -> None:
             fail(f"submission file of {vid} is malformed")
     with open(Path(result_dir, "inference.pkl"), "rb") as f:
         preds = pickle.load(f)["predictions"]
-    n = sum(want_rows.values())
+    n = sum(want_rows.values()) if n_rows is None else n_rows
     if preds.shape != (n, 21) or not np.array_equal(preds, out):
         fail(f"inference.pkl holds {preds.shape}, expected ({n}, 21)")
 
@@ -2260,6 +2292,137 @@ def phase_decode(torch, dev) -> tuple[dict, dict]:
     return launches, kernel
 
 
+def phase_quickstart(torch, dev) -> tuple[dict, list]:
+    """The quickstart phase: ``python -m auformer_torch.quickstart`` (its
+    ``main`` with no device argument: the card) into a work directory,
+    its launches counted with the counts set to 0 just before it and read
+    just after: 2 epochs of vformer fp32 training on host-augmented B=8
+    batches, evaluation, and test-split inference with the submission
+    files; then the trained weights (``latest.pth``) through the same
+    inference on the CPU. Before it, the attention gradient check at its
+    two sites. Returns (launches, the gradient cases)."""
+    from auformer_torch import quickstart
+    from auformer_torch.core.weights import (load_reference_state_dict,
+                                             load_weights)
+    from auformer_torch.data import Aff2TestDataset
+    from auformer_torch.infer import run_inference
+    from auformer_torch.nn import build_model
+    from auformer_torch.ops.attention import fused_attention
+    from auformer_torch.ops.audio_kernel import mel_frontend
+
+    t_phase = time.perf_counter()
+    grad_cases = attention_grad_cases(torch, dev, QUICKSTART_GRAD_SITES)
+    work = ROOT / ".cache" / "chip_smoke_quickstart"
+    shutil.rmtree(work, ignore_errors=True)
+
+    # the dataset's and the inference's seconds: the quickstart's own
+    # steps, wrapped here for the run (instrumentation of this script)
+    seconds = {}
+    steps = {"fixture": "make_dataset", "inference": "infer"}
+    plain = {name: getattr(quickstart, fn) for name, fn in steps.items()}
+
+    def timed_step(name):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = plain[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            return out
+        return run
+
+    for name, fn in steps.items():
+        setattr(quickstart, fn, timed_step(name))
+    torch.cuda.synchronize()
+    fused_attention.launches = fused_attention.backward_calls = 0
+    mel_frontend.launches = 0
+    t0 = time.perf_counter()
+    try:
+        history, predictions, _ = quickstart.main(["--workdir", str(work)])
+    finally:
+        for name, fn in steps.items():
+            setattr(quickstart, fn, plain[name])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = {"attention": fused_attention.launches,
+                "mel": mel_frontend.launches}
+    backward_calls = fused_attention.backward_calls
+
+    # forwards: the train steps, the eval steps (5 a 40-frame val split,
+    # 4 where the epoch's shuffled downsample mask drops one of its rows)
+    # and the test batches
+    n_steps = sum(h["steps"] for h in history)
+    eval_steps = QUICKSTART_FRAMES // QUICKSTART_BATCH
+    infer_batches = -(-QUICKSTART_FRAMES // QUICKSTART_BATCH)
+    fwd, bwd = VFORMER_ATTN_PER_STEP
+    least = n_steps + len(history) * (eval_steps - 1) + infer_batches
+    most = n_steps + len(history) * eval_steps + infer_batches
+    if (len(history) != 2 or n_steps == 0 or launches["mel"] != 0
+            or not fwd * least <= launches["attention"] <= fwd * most
+            or launches["attention"] % max(fwd, 1)
+            or backward_calls != bwd * n_steps):
+        fail(f"quickstart: {len(history)} epochs, {n_steps} steps, "
+             f"launches {launches} (expected attention {fwd} x "
+             f"{least}-{most} forwards), backward calls {backward_calls}")
+    for h in history:
+        if not (np.isfinite(h["loss"])
+                and np.isfinite(h["scores"]["AU"]["score"])):
+            fail(f"quickstart epoch {h['epoch']} has no finite loss and AU "
+                 f"score: {h}")
+
+    cfg = quickstart.quickstart_config(str(work))
+    dataset = Aff2TestDataset(cfg)
+    test_rows = np.nonzero(dataset.test_ids)[0]
+    want_rows = {}
+    for i in test_rows:
+        vid = os.path.dirname(dataset.image_path[i])
+        want_rows[vid] = want_rows.get(vid, 0) + 1
+    if sum(want_rows.values()) != QUICKSTART_FRAMES:
+        fail(f"quickstart test split: {want_rows}")
+    check_submission(str(work / "results"), want_rows, predictions,
+                     n_rows=len(dataset))
+
+    # the same weights through the same inference on the CPU
+    model = build_model(cfg)
+    load_weights(model, load_reference_state_dict(
+        str(work / "exp" / "pretrain" / "latest.pth")))
+    t0 = time.perf_counter()
+    cpu = run_inference(cfg, model, result_path=str(work / "results_cpu"),
+                        device="cpu")
+    cpu_s = time.perf_counter() - t0
+    rtol, atol = SLICE_TOL
+    err = float(np.abs(predictions - cpu).max())
+    if not (np.isfinite(predictions).all()
+            and np.allclose(predictions, cpu, rtol=rtol, atol=atol)
+            and predictions[test_rows, :12].any()):
+        fail(f"quickstart: card inference against the CPU's, max |err| "
+             f"{err}")
+
+    epochs = [{"epoch": h["epoch"], "steps": h["steps"],
+               "seconds": h["seconds"], "eval_s": h["eval_seconds"],
+               "train_clips_per_s": h["steps"] * QUICKSTART_BATCH
+               / h["seconds"],
+               "step_timer_ms": {"data": h["data_ms"], "step": h["step_ms"]},
+               "loss": h["loss"], "au_score": h["scores"]["AU"]["score"]}
+              for h in history]
+    emit("quickstart", nvidia_smi=nvidia_smi(), videos=4,
+         frames_per_video=QUICKSTART_FRAMES, image=cfg.image_size,
+         t=cfg.n_frames, batch=QUICKSTART_BATCH, dtype=cfg.compute_dtype,
+         main_s=main_s, fixture_s=seconds["fixture"], epochs=epochs,
+         inference_s=seconds["inference"],
+         inference_label_frames_per_s=QUICKSTART_FRAMES
+         / seconds["inference"],
+         launches=launches, backward_calls=backward_calls,
+         forwards=launches["attention"] // max(fwd, 1),
+         launches_per_forward=fwd, backward_calls_per_step=bwd,
+         submission={vid: rows for vid, rows in want_rows.items()},
+         card_vs_cpu={"max_abs_err": err, "rtol": rtol, "atol": atol,
+                      "cpu_inference_s": cpu_s},
+         attention_gradient=grad_cases,
+         phase_s=time.perf_counter() - t_phase)
+    shutil.rmtree(work, ignore_errors=True)
+    return launches, grad_cases
+
+
 def phase_zoo(torch, dev, split: dict) -> dict:
     """The zoo's clip forwards, VformerSweep, SingleFrameSweep and
     vformer's run_inference_sweep over the dataset phase's split. Returns
@@ -2570,11 +2733,11 @@ def phase_zoo(torch, dev, split: dict) -> dict:
     return launches
 
 
-def attention_grad_cases(torch, dev) -> list[dict]:
+def attention_grad_cases(torch, dev, sites=GRAD_SITES) -> list[dict]:
     """The attention autograd Function (the kernel forward, the recomputing
-    backward) against autograd through the plain version, on the head
-    split of a fused QKV projection: the output and the projection's
-    gradient. Times per call: the kernel forward, the backward
+    backward) against autograd through the plain version at ``sites``, on
+    the head split of a fused QKV projection: the output and the
+    projection's gradient. Times per call: the kernel forward, the backward
     (``attention_backward_reference``), the plain version's forward +
     backward through autograd, and SDPA's forward + backward."""
     import torch.nn.functional as F
@@ -2583,7 +2746,7 @@ def attention_grad_cases(torch, dev) -> list[dict]:
                                               fused_attention)
     rs = np.random.RandomState(SEED + 5)
     cases = []
-    for site, n, d, batch in GRAD_SITES:
+    for site, n, d, batch in sites:
         base = rs.randn(batch, n, 3 * HEADS * d).astype(np.float32)
         grad = rs.randn(batch, HEADS, n, d).astype(np.float32)
         scale = d ** -0.5
@@ -2939,10 +3102,13 @@ def profile_steps(torch, dev, model, work: Path, argv: list,
     wall_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
     with attention_site_ranges(torch):
         prof = device_profile(torch, run, cpu=True)
+    # aggregated once: each key_averages() call walks the session's tens of
+    # thousands of CPU and device events again
+    averages = [] if prof is None else prof.key_averages()
     # the ranges' device-side spans overlap the kernels they hold: kernels
     # only in the step's totals
-    events = [] if prof is None else [
-        e for e in prof.key_averages()
+    events = [
+        e for e in averages
         if on_device(e) and e.device_time_total > 0
         and not e.key.startswith(("attention_fwd_N", "attention_bwd_N"))]
     events.sort(key=lambda e: e.device_time_total, reverse=True)
@@ -2955,7 +3121,7 @@ def profile_steps(torch, dev, model, work: Path, argv: list,
         launched)."""
         if prof is None:
             return None
-        found = [e for e in prof.key_averages() if matches(e)]
+        found = [e for e in averages if matches(e)]
         return {"ms_per_step": sum(e.device_time_total for e in found)
                 / 1e3 / len(batches),
                 "calls_per_step": sum(e.count for e in found) / len(batches)}
@@ -4278,14 +4444,23 @@ def phase_train(torch, dev) -> tuple[dict, list, dict]:
                                image_size=IMAGE, seed=SEED, with_masks=False,
                                splits=["train", "train", "val", "test"])
     fixture_s = time.perf_counter() - t0
+    # the seconds of each part of the phase, for the line
+    part_s, t_part = {}, [time.perf_counter()]
+
+    def part(name: str) -> None:
+        now = time.perf_counter()
+        part_s[name] = now - t_part[0]
+        t_part[0] = now
 
     # before any training: the gradient checks
     grad_cases = attention_grad_cases(torch, dev)
+    part("attention_gradient")
     sd = random_reference_state_dict(
         build_model(Config(compute_dtype="float32")), SEED)
     model_grads = model_gradient_check(torch, dev, sd)
     step_check = card_vs_cpu_step(torch, dev, sd)
     aug = augment_check(torch, dev)
+    part("model_gradient_card_vs_cpu_step_augmentation")
     torch.cuda.empty_cache()
 
     # the main path: python -m auformer_torch.train, bf16, --device_augment,
@@ -4316,6 +4491,7 @@ def phase_train(torch, dev) -> tuple[dict, list, dict]:
             fail(f"epoch {h['epoch']} has no finite loss and scores: {h}")
     if not (pretrain / "latest.pth").is_file():
         fail("train.main wrote no latest.pth")
+    part("main")
 
     # 1 epoch with --resume, then the checkpoint round trip: latest.pth
     # into a fresh model against the trained model in memory, fp32 eval
@@ -4352,18 +4528,24 @@ def phase_train(torch, dev) -> tuple[dict, list, dict]:
     if audio_state.step != 5 or not np.isfinite(audio_hist[0]["loss"]):
         fail(f"--device_audio ran {audio_state.step} steps")
     del audio_state
+    part("resume_checkpoint_device_audio")
     fed = phase_feed(torch, dev, work, sd)
+    part("feed")
     host_aug = phase_host_aug(torch, dev, work)
+    part("host_aug")
     graph = phase_graph(torch, dev, work, sd, fed)
+    part("graph")
     dp = phase_dp(torch, dev, work, [h["steps"] * TRAIN_BATCH / h["seconds"]
                                      for h in history])
     emit("dp", nvidia_smi=nvidia_smi(), **dp)
+    part("dp")
 
     prof = profile_steps(torch, dev, state.model, work,
                          train_argv(work, "exp_profile"),
                          (ATTN_FWD_PER_STEP, ATTN_BWD_PER_STEP),
                          {"spatial": (49, 32), "temporal": (17, 64),
                           "au_tokens": (12, 32)})
+    part("profile")
     losses = overfit(torch, dev, sd, work)
     if not (np.isfinite(losses).all()
             and np.mean(losses[-5:]) < 0.8 * np.mean(losses[:5])):
@@ -4377,7 +4559,9 @@ def phase_train(torch, dev) -> tuple[dict, list, dict]:
     # --model_name vformer (1 epoch, bf16, --device_augment), its launches
     # counted from 0 just before it; then its profiled steps and 3 bf16
     # steps of every other zoo model at full width
+    part("overfit")
     zoo_steps = zoo_card_vs_cpu_steps(torch, dev)
+    part("zoo_card_vs_cpu_step")
     vf_argv = train_argv(work, "exp_vformer", "--model_name", "vformer",
                          "--modality", "V", "--epochs", "1")
     torch.cuda.reset_peak_memory_stats()
@@ -4424,7 +4608,9 @@ def phase_train(torch, dev) -> tuple[dict, list, dict]:
                             VFORMER_ATTN_PER_STEP, VFORMER_SITES)
     del vf_state
     torch.cuda.empty_cache()
+    part("vformer")
     zoo_train = zoo_train_steps(torch, dev)
+    part("zoo_train_steps")
     graph["zoo"] = {name: r.pop("graph") for name, r in zoo_train.items()}
     emit("graph", nvidia_smi=nvidia_smi(), batch=TRAIN_BATCH,
          steps_per_dispatch={"checks": GRAPH_K, "fed_loop": FEED_GRAPH_K},
@@ -4461,7 +4647,7 @@ def phase_train(torch, dev) -> tuple[dict, list, dict]:
                   "checkpoint_max_abs_err": vf_ckpt_err,
                   "peak_memory_mb": vf_peak_mb, "profile": vf_prof},
          zoo_train_steps=zoo_train,
-         phase_s=time.perf_counter() - t_phase)
+         part_s=part_s, phase_s=time.perf_counter() - t_phase)
     shutil.rmtree(work, ignore_errors=True)   # the split and the .pth files
     launches = {key: launches[key] + vf_launches[key] for key in launches}
     return {"train": launches, "feed": fed["launches"],
@@ -4504,6 +4690,7 @@ def main() -> int:
     by_path["orbax"] = phase_orbax(torch, dev, split)
     by_path["decode"], yuv = phase_decode(torch, dev)
     shutil.rmtree(split["work"], ignore_errors=True)  # the split, the .pth
+    by_path["quickstart"], quickstart_grads = phase_quickstart(torch, dev)
     paths, grad_cases, attention_in_step = phase_train(torch, dev)
     by_path.update(paths)
     emit("done", seconds=time.perf_counter() - T_START,
@@ -4575,7 +4762,26 @@ def main() -> int:
              c["site"] + "_" + c["dtype"]: {key: c[key] for key in (
                  "shape", "launches_per_call", "ms", "plain_ms",
                  "library_ms", "bound_ms", "bound_by", "max_abs_err")}
-             for c in attn if c["path"] == "zoo"}},
+             for c in attn if c["path"] == "zoo"},
+         # the quickstart's vformer: per forward (1 spatial + 3 temporal
+         # launches) and per site, and the gradient check at its sites
+         "quickstart": {
+             "per_forward": {d: per_call("quickstart", d) for d in dtypes},
+             "launches_per_step": dict(zip(("forward", "backward"),
+                                           VFORMER_ATTN_PER_STEP)),
+             "sites": {
+                 c["site"] + "_" + c["dtype"]: {key: c[key] for key in (
+                     "shape", "launches_per_call", "ms", "plain_ms",
+                     "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+                 for c in attn if c["path"] == "quickstart"},
+             "gradient": {
+                 c["site"] + "_" + c["dtype"]: {key: c[key] for key in (
+                     "shape", "max_abs_err_out", "max_abs_err_grad",
+                     "forward_ms", "backward_ms", "plain_fwd_bwd_ms",
+                     "library_fwd_bwd_ms", "forward_bound_ms",
+                     "forward_bound_by", "backward_bound_ms",
+                     "backward_bound_by")}
+                 for c in quickstart_grads}}},
         {"name": "mel_frontend", "route": "cuda",
          "source": str(build.source("mel").relative_to(ROOT)),
          "replaces": "auformer/ops/audio_pallas.py:185",

@@ -216,7 +216,8 @@ def test_port_imports_no_jax_and_no_auformer():
         "auformer_torch.nn.i3d, auformer_torch.nn.mc3d, "
         "auformer_torch.nn.tsav, auformer_torch.core.mesh, "
         "auformer_torch.parallel.multiproc, auformer_torch.dryrun, "
-        "auformer_torch.core.ocdbt, auformer_torch.core.orbax_reader\n"
+        "auformer_torch.core.ocdbt, auformer_torch.core.orbax_reader, "
+        "auformer_torch.quickstart\n"
         "auformer_torch.core.orbax_reader.read_orbax_checkpoint("
         "'tests/data/orbax/ocdbt')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -18,8 +18,9 @@
   * ``train_lib.train`` on the port's fixtures with ``device="cpu"``:
     checkpoints, curves, scores, resume, determinism; the checkpoint loads
     into the JAX package and into the port's ``test_aff2``;
-  * the entry point refuses the CPU unless asked, host augmentation raises
-    naming its ROADMAP item, and ``--steps_per_dispatch 2`` runs.
+  * the entry point's own runs are in tests/test_torch_train_entry.py,
+    whose fixtures the train loop tests share (one intra-op thread from
+    the first train loop on).
 
 One synthetic reference-layout state dict
 (``tests/test_torch_import.py::synthetic_avformer_sd``) loads into both
@@ -64,6 +65,8 @@ from auformer_torch.ops.attention import (attention_backward_reference,
                                           fused_attention)
 from auformer_torch.parallel import step as tstep
 from test_torch_import import synthetic_avformer_sd  # noqa: F401 (fixture)
+from test_torch_train_entry import (  # noqa: F401 (fixtures)
+    _argv, fixture_dirs, one_intra_op_thread)
 
 ATTN_TOL = {torch.float32: (1e-5, 1e-6),
             # one bf16 ulp where the f32 sums round differently
@@ -690,26 +693,6 @@ def test_prep_batch_device_audio_matches_jax():
 # -- the train loop -----------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def fixture_dirs(tmp_path_factory):
-    from auformer_torch.data.fixtures import generate_synthetic_dataset
-    base = tmp_path_factory.mktemp("train")
-    root, labels = str(base / "root"), str(base / "labels")
-    generate_synthetic_dataset(root, labels, n_videos=4,
-                               frames_per_video=[40, 40, 40, 20],
-                               image_size=32, n_threads=2)
-    return base, root, labels
-
-
-def _argv(base, root, labels, exp, *extra):
-    return ["--root", root, "--lmdb_label_dir", labels,
-            "--cache_dir", str(base / "cache"), "--exp_dir", str(base / exp),
-            "--image_size", "32", "--batch_size", "4",
-            "--downsample_rate", "2", "--epochs", "2",
-            "--device_augment", "--compute_dtype", "float32",
-            "--host_threads", "2", "--seed", "7", *extra]
-
-
-@pytest.fixture(scope="module")
 def trained(fixture_dirs):
     """Two runs of 2 epochs x 3 steps with one seed (train_lib.train with
     a step cap; the entry point's parse + device="cpu")."""
@@ -812,59 +795,3 @@ def test_checkpoint_loads_into_test_aff2(trained, fixture_dirs, tmp_path,
                           "float32"], device="cpu")
     assert "Loading weight from" in capsys.readouterr().out
     assert np.isfinite(out).all() and out[:, :12].any()
-
-
-def test_entry_point_refuses_the_cpu_unasked(fixture_dirs):
-    if torch.cuda.is_available():
-        pytest.skip("a GPU is present; the default device is valid")
-    base, root, labels = fixture_dirs
-    with pytest.raises(RuntimeError, match="CUDA"):
-        train_entry.main(_argv(base, root, labels, "exp_cpu"))
-
-
-def test_steps_per_dispatch_runs(fixture_dirs):
-    """--steps_per_dispatch 2 (ROADMAP.md A13), refused until the K-step
-    dispatch was ported: 3 steps are a dispatch of 2 and a 1-step tail
-    (tests/test_torch_multistep.py holds them against K = 1)."""
-    base, root, labels = fixture_dirs
-    cfg = train_entry.parse_opt(_argv(base, root, labels, "exp_spd",
-                                      "--steps_per_dispatch", "2",
-                                      "--epochs", "1", "--n_frames", "4"))
-    state, history = train_lib.train(cfg, max_steps_per_epoch=3,
-                                     device="cpu")
-    assert state.step == history[0]["steps"] == 3
-    assert np.isfinite(history[0]["loss"])
-
-
-def test_host_augmentation_trains(fixture_dirs):
-    """Without --device_augment (the JAX package's default) the loader
-    augments each clip on the host: 2 steps; the epoch's aug_seed is
-    seed * 100003 + epoch and the evaluation reads plain clips; and
-    --frame_dedup stays off, since host augmentation is per sample
-    (tests/test_torch_host_augment.py holds the ops against PIL)."""
-    from auformer_torch.data import Aff2CompDataset
-    base, root, labels = fixture_dirs
-    argv = [a for a in _argv(base, root, labels, "exp_host",
-                             "--epochs", "1", "--n_frames", "4",
-                             "--frame_dedup")
-            if a != "--device_augment"]
-    cfg = train_entry.parse_opt(argv)
-    dataset = Aff2CompDataset(cfg)
-    state, history = train_lib.train(cfg, dataset=dataset,
-                                     max_steps_per_epoch=2, device="cpu")
-    assert state.step == history[0]["steps"] == 2
-    assert np.isfinite(history[0]["loss"])
-    assert not dataset.aug and dataset.aug_seed == 7 * 100003
-    assert not dataset.frame_dedup
-
-
-def test_device_audio_trains_without_the_arena(fixture_dirs):
-    """--device_audio --audio_arena_mb 0: raw windows ride the batch and
-    the step computes their features; one step."""
-    base, root, labels = fixture_dirs
-    cfg = train_entry.parse_opt(_argv(base, root, labels, "exp_audio",
-                                      "--device_audio", "--audio_arena_mb",
-                                      "0", "--epochs", "1"))
-    state, history = train_lib.train(cfg, max_steps_per_epoch=1,
-                                      device="cpu")
-    assert state.step == 1 and np.isfinite(history[0]["loss"])

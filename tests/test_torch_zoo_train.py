@@ -6,10 +6,11 @@ augmentation, left-right symmetric clips so that the random flip is the
 identity) of vformer (its spatial transformer trains: the attention
 backward at the spatial site), sformer, i3d, mc3d, tsav, van and emonet,
 each from one seeded reference-layout state dict, against JAX's loss,
-gradients and BatchNorm statistics of the same step; ``prep_batch`` and
-``device_batch_keys`` for every kind of model input; and the train entry
-point on the port's fixtures for mc3d, its checkpoint loaded into JAX.
-Small size: 64x64 (emonet needs a multiple of 64), T=2, B=4.
+gradients and BatchNorm statistics of the same step; and ``prep_batch``
+and ``device_batch_keys`` for every kind of model input. Small size: 64x64
+(emonet needs a multiple of 64), T=2, B=4. This file steps emonet, mc3d,
+van and vformer; tests/test_torch_zoo_train_more.py steps the others and
+runs the train entry point.
 """
 import functools
 
@@ -24,12 +25,9 @@ from auformer.nn import build_model as jax_build_model
 from auformer.nn import example_batch as jax_example_batch
 from auformer.nn import loss_suite as jax_loss_suite
 from auformer.parallel import step as jstep
-from auformer_torch import train as train_entry
 from auformer_torch import train_lib
 from auformer_torch.core.config import Config
-from auformer_torch.core.weights import (load_reference_state_dict,
-                                         load_weights, state_dict_from_jax)
-from auformer_torch.data.fixtures import generate_synthetic_dataset
+from auformer_torch.core.weights import load_weights, state_dict_from_jax
 from auformer_torch.nn import build_model, loss_suite
 from auformer_torch.parallel import step as tstep
 from test_torch_zoo import seeded_state_dict
@@ -54,6 +52,9 @@ STEP_MODELS = {
     "van": ("van", "V", "AU", 1),
     "emonet": ("emonet", "V", "AU", 1),
 }
+# the cases of this file; tests/test_torch_zoo_train_more.py runs the others
+# on another test worker
+STEP_CASES = ("emonet", "mc3d", "van", "vformer")
 
 
 def step_config(case: str) -> dict:
@@ -142,8 +143,7 @@ def stable_flax_variance(monkeypatch):
         lambda *a, **kw: compute(*a, **dict(kw, use_fast_variance=False)))
 
 
-@pytest.mark.parametrize("case", sorted(STEP_MODELS))
-def test_zoo_train_step_matches_jax(case, stable_flax_variance):
+def check_train_step(case: str) -> None:
     """The port's make_train_step against JAX: the loss, every gradient
     (captured before the Adam step) and every BatchNorm statistic after
     the step; every parameter trains (only avformer freezes any)."""
@@ -184,6 +184,11 @@ def test_zoo_train_step_matches_jax(case, stable_flax_variance):
     for key, got in stats.items():
         np.testing.assert_allclose(got.numpy(), want[key].numpy(),
                                    *STATS_TOL, err_msg=key)
+
+
+@pytest.mark.parametrize("case", STEP_CASES)
+def test_zoo_train_step_matches_jax(case, stable_flax_variance):
+    check_train_step(case)
 
 
 # -- prep_batch and the batch keys for every kind of model input ---------------
@@ -243,59 +248,3 @@ def test_prep_batch_serves_every_input_kind(kind):
     model.train()
     out = tstep._forward(cfg, model, x)
     assert out.shape == (BATCH, 21) and torch.isfinite(out).all()
-
-
-# -- the train entry point -----------------------------------------------------
-
-@pytest.fixture(scope="module")
-def fixture_dirs(tmp_path_factory):
-    base = tmp_path_factory.mktemp("zoo_train")
-    root, labels = str(base / "root"), str(base / "labels")
-    generate_synthetic_dataset(root, labels, n_videos=3,
-                               frames_per_video=[30, 30, 20], image_size=32,
-                               splits=["train", "val", "test"], n_threads=2)
-    return base, root, labels
-
-
-def test_train_entry_point_trains_a_zoo_model(fixture_dirs):
-    """``python -m auformer_torch.train --device_augment --model_name
-    <zoo model>`` (its ``main`` with device="cpu") on the port's fixtures:
-    two epochs with finite losses and scores, ``latest.pth`` in the
-    reference layout, which JAX's ``convert_checkpoint`` + ``merge_into``
-    turn into a concrete variables tree whose logits equal the trained
-    port model's."""
-    base, root, labels = fixture_dirs
-    name, modality = "mc3d", "V"
-    argv = ["--root", root, "--lmdb_label_dir", labels,
-            "--cache_dir", str(base / "cache"),
-            "--exp_dir", str(base / f"exp_{name}"), "--model_name", name,
-            "--modality", modality, "--n_frames", "4", "--image_size", "32",
-            "--batch_size", "4", "--downsample_rate", "2", "--epochs", "2",
-            "--device_augment", "--compute_dtype", "float32",
-            "--host_threads", "2", "--seed", "7"]
-    state, history = train_entry.main(argv, device="cpu")
-    assert [h["epoch"] for h in history] == [0, 1]
-    assert state.step == sum(h["steps"] for h in history) > 0
-    for h in history:
-        assert np.isfinite(h["loss"]) and np.isfinite(h["score"])
-    path = base / f"exp_{name}" / "pretrain" / "latest.pth"
-    sd = {k: v.numpy() for k, v in load_reference_state_dict(
-        str(path)).items() if not k.endswith("num_batches_tracked")}
-    cfg = dict(model_name=name, modality=modality, task="AU", n_frames=4,
-               image_size=32, compute_dtype="float32")
-    jcfg = JaxConfig(use_pallas=False, **cfg)
-    model = jax_build_model(jcfg)
-    abstract = jax.eval_shape(
-        functools.partial(model.init, train=False),
-        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
-        jax_example_batch(jcfg, batch_size=2))
-    variables = merge_into(dict(abstract), convert_checkpoint(name, sd))
-    assert all(isinstance(leaf, np.ndarray)
-               for leaf in jax.tree_util.tree_leaves(variables))
-    x = jax_example_batch(jcfg, batch_size=2, rng=np.random.RandomState(74))
-    want = np.asarray(jax.jit(functools.partial(model.apply, train=False))(
-        variables, x))
-    trained = state.model.eval()
-    with torch.no_grad():
-        got = trained({k: torch.from_numpy(v) for k, v in x.items()})
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
