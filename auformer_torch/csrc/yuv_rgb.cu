@@ -1,22 +1,26 @@
-// Full-range YUV 4:2:0 / 4:2:2 -> RGB colour conversion of a decoded MJPEG
-// frame, for Hopper (sm_90a).
+// YUV 4:2:0 / 4:2:2 -> RGB colour conversion of a decoded video frame, full
+// range (an MJPEG frame) or limited range (an MPEG-4 part 2 frame), for
+// Hopper (sm_90a).
 //
 // Replaces no TPU kernel: the JAX package decodes videos through cv2, whose
 // FFMPEG capture converts each decoded frame to BGR24 with swscale on the
-// host and then swaps to RGB. For a JPEG's yuvj420p/yuvj422p frame (full
-// range) of even height swscale takes its unscaled yuv2rgb converter, whose
-// x86 SIMD path is 16-bit fixed point with nearest chroma. The port decodes
-// an MJPEG video's frames into Y, U and V planes in device memory with
-// nvJPEG, and this kernel turns them into the (H, W, 3) uint8 RGB frame
-// that cv2 gives, bit for bit on the same planes. ops/colour.py's plain
-// version repeats the arithmetic and matched cv2 on 12,288 random (U, V)
-// pairs, each under random Y values (tests/test_torch_video_decode.py):
+// host and then swaps to RGB. For a 4:2:0 or 4:2:2 frame of even height
+// swscale takes its unscaled yuv2rgb converter, whose x86 SIMD path is
+// 16-bit fixed point with nearest chroma. The port decodes an MJPEG video's
+// frames into Y, U and V planes in device memory with nvJPEG, and an MPEG-4
+// video's on the host with its own decoder (data/mpeg4.py), copied to the
+// card; this kernel turns them into the (H, W, 3) uint8 RGB frame that cv2
+// gives, bit for bit on the same planes. ops/colour.py's plain version
+// repeats the arithmetic and matched cv2 on swept (U, V) pairs under random
+// Y values (tests/test_torch_video_decode.py):
 //
-//   R = Y + (((8 V - 1024) * 11485) >> 16)         pmulhw: floor
-//   G = Y + (((8 U - 1024) * -2819) >> 16) + (((8 V - 1024) * -5850) >> 16)
-//   B = Y + (((8 U - 1024) * 14516) >> 16)
-//   each clamped to [0, 255] (BT.601, ff_yuv2rgb_c_init_tables; the luma
-//   term, (8 Y * 8192) >> 16 at full range, is Y itself).
+//   full range (yuvj420p, yuvj422p: a JPEG's planes), yt = Y:
+//     R = yt + (((8 V - 1024) * 11485) >> 16)      pmulhw: floor
+//     G = yt + (((8 U - 1024) * -2819) >> 16) + (((8 V - 1024) * -5850) >> 16)
+//     B = yt + (((8 U - 1024) * 14516) >> 16)
+//   limited range (yuv420p: a video decoder's planes), the luma offset 16:
+//     yt = ((8 Y - 128) * 9539) >> 16, then 13075, -3209, -6660, 16525
+//   each clamped to [0, 255] (BT.601, ff_yuv2rgb_c_init_tables).
 //
 // Bound on this card: bytes. At 4:2:0 it reads 1.5 B and writes 3 B a
 // pixel and does a dozen integer operations on them: 4.15 MB at 1280x720,
@@ -35,11 +39,15 @@ __device__ __forceinline__ uint8_t clamp255(int v) {
   return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
 }
 
+struct Coefficients {
+  int limited, crv, cgu, cgv, cbu;
+};
+
 __global__ void yuv_rgb_kernel(const uint8_t *__restrict__ y, int y_pitch,
                                const uint8_t *__restrict__ u,
                                const uint8_t *__restrict__ v, int c_pitch,
                                int v_shift, int height, int width,
-                               uint8_t *__restrict__ dst) {
+                               Coefficients k, uint8_t *__restrict__ dst) {
   const int x0 = 2 * (blockIdx.x * blockDim.x + threadIdx.x);
   const int y0 = 2 * (blockIdx.y * blockDim.y + threadIdx.y);
   if (x0 >= width || y0 >= height) return;
@@ -52,11 +60,12 @@ __global__ void yuv_rgb_kernel(const uint8_t *__restrict__ y, int y_pitch,
       const size_t c = c_row + (col >> 1);
       const int cu = 8 * u[c] - 1024;
       const int cv = 8 * v[c] - 1024;
-      const int yt = y[(size_t)row * y_pitch + col];
-      out[3 * dx + 0] = clamp255(yt + ((cv * 11485) >> 16));
+      int yt = y[(size_t)row * y_pitch + col];
+      if (k.limited) yt = ((8 * yt - 128) * 9539) >> 16;
+      out[3 * dx + 0] = clamp255(yt + ((cv * k.crv) >> 16));
       out[3 * dx + 1] =
-          clamp255(yt + ((cu * -2819) >> 16) + ((cv * -5850) >> 16));
-      out[3 * dx + 2] = clamp255(yt + ((cu * 14516) >> 16));
+          clamp255(yt + ((cu * k.cgu) >> 16) + ((cv * k.cgv) >> 16));
+      out[3 * dx + 2] = clamp255(yt + ((cu * k.cbu) >> 16));
     }
   }
 }
@@ -65,11 +74,13 @@ __global__ void yuv_rgb_kernel(const uint8_t *__restrict__ y, int y_pitch,
 
 extern "C" int yuv_rgb(const void *y, int y_pitch, const void *u,
                        const void *v, int c_pitch, int v_shift, int height,
-                       int width, void *dst, void *stream) {
+                       int width, int limited, void *dst, void *stream) {
+  const Coefficients k = limited ? Coefficients{1, 13075, -3209, -6660, 16525}
+                                 : Coefficients{0, 11485, -2819, -5850, 14516};
   const dim3 block(32, 8);
   const dim3 grid((width + 63) / 64, (height + 15) / 16);
   yuv_rgb_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const uint8_t *)y, y_pitch, (const uint8_t *)u, (const uint8_t *)v,
-      c_pitch, v_shift, height, width, (uint8_t *)dst);
+      c_pitch, v_shift, height, width, k, (uint8_t *)dst);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
-"""The headers of H.264 and MPEG-4 part 2 video streams, read without a
-decoder: enough to know the order in which a decoder returns the frames of
-a stream whose pictures are stored out of presentation order (B-frames).
+"""The headers of H.264 video streams, read without a decoder: enough to
+know the order in which a decoder returns the frames of a stream whose
+pictures are stored out of presentation order (B-frames).
 
 ``h264_output_order(units)`` takes the access units of an H.264 stream in
 decode order (Annex B: start codes, the SPS and PPS in band, as
@@ -10,11 +10,8 @@ types 0 and 2) within each run of pictures that starts at an IDR picture,
 which a decoder flushes before it (no_output_of_prior_pics_flag 0). Field
 pictures and POC type 1 raise naming ROADMAP.md queue A9; a memory
 management operation 5 (a POC reset without an IDR) is not looked for.
-
-``mpeg4_output_order(units)`` does the same for MPEG-4 part 2 (ISO/IEC
-14496-2): a B-VOP is output when it is decoded, an I-, P- or S-VOP when
-the next one arrives (or at the end), so without B-VOPs the order is the
-decode order.
+MPEG-4 part 2's order comes from the port's decoder itself
+(``mpeg4.output_frames``).
 """
 from __future__ import annotations
 
@@ -201,36 +198,3 @@ def h264_output_order(units) -> list[int]:
                 frame_index += 1
     return [k for run in runs for _, k in sorted(run)]
 
-
-def mpeg4_vop_types(unit: bytes) -> list[int]:
-    """The vop_coding_type (0 I, 1 P, 2 B, 3 S) of each VOP in a unit."""
-    return [unit[m.end()] >> 6 for m in re.finditer(b"\x00\x00\x01\xb6", unit)
-            if m.end() < len(unit)]
-
-
-def mpeg4_output_order(units) -> list[int]:
-    """Indices of ``units`` (MPEG-4 part 2 VOPs in decode order) in the
-    order a decoder outputs them (module docstring). A unit of two VOPs
-    (a packed bitstream) raises."""
-    types = []
-    for k, unit in enumerate(units):
-        vops = mpeg4_vop_types(unit)
-        if len(vops) > 1:
-            raise _unread("a packed MPEG-4 bitstream (two VOPs in one "
-                          "packet)")
-        types.append(vops[0] if vops else None)
-    if 2 not in types:
-        return [k for k, t in enumerate(types) if t is not None]
-    out, held = [], None
-    for k, t in enumerate(types):
-        if t is None:
-            continue
-        if t == 2:
-            out.append(k)
-        else:
-            if held is not None:
-                out.append(held)
-            held = k
-    if held is not None:
-        out.append(held)
-    return out

@@ -38,8 +38,16 @@ reordering offsets it keeps the samples cv2 returns
 (tests/data/videos/ctts_reorder.mp4 and ctts_cut.mp4). On such a track
 the timestamps follow the order in which the decoder returns the frames,
 as cv2 reports them: ``output_order`` reads it from the stream's headers
-(``data/bitstream.py``: H.264 picture order counts, MPEG-4 VOP types), and
-the times count from the smallest kept presentation time.
+(``data/bitstream.py``: H.264 picture order counts), and the times count
+from the smallest kept presentation time. An MPEG-4 part 2 stream's
+timestamps are those of the frames its decoder returns
+(``mpeg4.output_frames``, the decoder reading the headers alone; none for
+a VOP with vop_coded 0), as cv2 reports them (ROADMAP.md C12): a frame's
+presentation time, which is that of the packet whose properties ffmpeg
+gives it (its own, or the last one's for a frame returned at the end of a
+stream after a VOP of vop_coded 0); where there is none, as in an AVI
+whose stream is not low delay, the decode time of the chunk whose decoding
+returned the frame (0 for one returned at the end of the stream).
 
 ``packet_index(path)`` lists the stream's packets in decode order (file
 offset, size, sync flag from ``stss`` or the AVI index, decode and
@@ -219,13 +227,32 @@ def _mp4(f, path: str, timestamps: bool) -> dict:
     out = {k: track[k] for k in ("num_frames", "fps", "width", "height")}
     out["packets"] = len(kept)
     if timestamps:
-        if track["ctts"]:
+        first = min((p.pts for p in kept), default=0)
+        if track["codec"] == "mpeg4":
+            kept = [track["packets"][props]
+                    for _, props, _ in _mpeg4_frames(path, track)[0]]
+        elif track["ctts"]:
             order = output_order(path, track)
             kept = [track["packets"][k] for k in order]
-        first = min((p.pts for p in kept), default=0)
         out["timestamps_ms"] = [(p.pts - first) * track["time_base"] * 1000.0
                                 for p in kept]
     return out
+
+
+def _mpeg4_frames(path: str, track: dict) -> tuple[list, bool]:
+    """``mpeg4.output_frames`` in packet positions, the frames of kept
+    packets only: an MPEG-4 part 2 stream's frames as ffmpeg's decoder
+    returns them (a VOP of vop_coded 0 returns none), and whether the
+    stream is low delay."""
+    from . import mpeg4           # here: mpeg4 imports this module
+    ks, units = [], []
+    for k, unit in access_units(path, track, kept_only=False):
+        ks.append(k)
+        units.append(unit)
+    frames, low_delay = mpeg4.output_frames(units)
+    return [(ks[own], ks[props], None if trigger is None else ks[trigger])
+            for own, props, trigger in frames
+            if track["packets"][ks[own]].kept], low_delay
 
 
 def _descriptor(body: bytes, off: int) -> tuple[int, int, int]:
@@ -439,6 +466,7 @@ def _avi_stream(f, path: str) -> dict:
             "height": abs(height), "time_base": tb,
             "codec": _AVI_CODECS.get(strf[16:20].upper(),
                                      strf[16:20].decode("latin-1")),
+            "fourcc": strf[16:20].decode("latin-1"),
             "setup": {},
             "packets": [Packet(d, s, y, start + k, start + k, s > 0)
                         for k, ((d, s), y) in enumerate(zip(chunks, sync))]}
@@ -474,7 +502,17 @@ def _avi(f, path: str, timestamps: bool) -> dict:
     kept = [p for p in track["packets"] if p.kept]
     out["packets"] = len(kept)
     if timestamps:
-        out["timestamps_ms"] = [p.pts * track["time_base"] * 1000.0
+        if track["codec"] == "mpeg4":
+            # an AVI stores no presentation times: ffmpeg infers them (the
+            # decode times) for a low-delay stream only; otherwise each
+            # frame carries the decode time of the chunk whose decoding
+            # returned it (0 at the end of the stream)
+            frames, low_delay = _mpeg4_frames(path, track)
+            kept = [track["packets"][props] if low_delay else
+                    None if trigger is None else track["packets"][trigger]
+                    for _, props, trigger in frames]
+        out["timestamps_ms"] = [0.0 if p is None else
+                                p.pts * track["time_base"] * 1000.0
                                 for p in kept]
     return out
 
@@ -533,7 +571,7 @@ def packet_index(path: str) -> dict:
     ``"mjpeg"`` or the fourcc), its ``setup`` (H.264: ``sps``, ``pps``,
     ``nal_length_size``; MPEG-4 part 2 in MP4: ``vol``), ``time_base`` (s),
     ``fps``, ``num_frames``, ``width`` and ``height``, as ``probe`` reads
-    them."""
+    them; an AVI's also its ``fourcc``."""
     with open(path, "rb") as f:
         if _kind(f, path) == "avi":
             return _avi_stream(f, path)
@@ -617,20 +655,19 @@ def access_units(path: str, index: dict | None = None, start: int = 0,
 
 def output_order(path: str, index: dict | None = None) -> list[int]:
     """Positions in ``index["packets"]`` of the kept packets in the order
-    a decoder returns their frames: the presentation order that the
-    stream's headers give for H.264 and MPEG-4 part 2 (``data/
-    bitstream.py``; every packet from the first is read, since a picture's
-    order count can depend on the ones before it). Other codecs raise
-    naming A9."""
+    a decoder returns their frames: the presentation order that an H.264
+    stream's headers give (``data/bitstream.py``; every packet from the
+    first is read, since a picture's order count can depend on the ones
+    before it). Other codecs raise naming A9 (MPEG-4 part 2's order is
+    ``mpeg4.output_frames``'s)."""
     index = index or packet_index(path)
     packets = index["packets"]
-    if index["codec"] not in ("h264", "mpeg4"):
+    if index["codec"] != "h264":
         raise _unsupported(path, f"the output order of a {index['codec']} "
                            "stream")
     ks, units = [], []
     for k, unit in access_units(path, index, kept_only=False):
         ks.append(k)
         units.append(unit)
-    order = (bitstream.h264_output_order if index["codec"] == "h264"
-             else bitstream.mpeg4_output_order)(units)
+    order = bitstream.h264_output_order(units)
     return [ks[i] for i in order if packets[ks[i]].kept]

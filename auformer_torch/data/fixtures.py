@@ -662,12 +662,28 @@ def _full_box(kind: bytes, version: int, flags: int, *parts: bytes) -> bytes:
 _MATRIX = struct.pack(">9I", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000)
 
 
+def _esds(info: bytes) -> bytes:
+    """An ``esds`` box for MPEG-4 part 2 whose DecoderSpecificInfo is
+    ``info`` (the VOS, VO and VOL headers)."""
+    def desc(tag: int, body: bytes) -> bytes:
+        n = len(body)
+        return bytes([tag, 0x80 | n >> 21 & 0x7F, 0x80 | n >> 14 & 0x7F,
+                      0x80 | n >> 7 & 0x7F, n & 0x7F]) + body
+    config = desc(0x04, bytes([0x20, 0x11]) + bytes(3)
+                  + struct.pack(">II", 0, 0) + desc(0x05, info))
+    return _full_box(b"esds", 0, 0, desc(0x03, struct.pack(">HB", 1, 0)
+                                         + config + desc(0x06, b"\x02")))
+
+
 def _mp4(samples: list[bytes], sync: list[bool], offsets: list[int],
-         delta: int, scale: int, width: int, height: int, avcc: bytes,
-         shift: int) -> bytes:
+         delta: int, scale: int, width: int, height: int, config: bytes,
+         shift: int, kind: bytes = b"avc1") -> bytes:
     """An MP4 of one video track, one sample per chunk, ``moov`` after
     ``mdat``; a ``ctts`` box and an edit list from the first presentation
-    time where ``offsets`` (composition offsets in ticks) are not all 0."""
+    time where ``offsets`` (composition offsets in ticks) are not all 0.
+    ``kind`` is the sample entry: ``avc1`` with ``config`` as its
+    ``avcC``, or ``mp4v`` with ``config`` as its ``esds``
+    DecoderSpecificInfo."""
     ftyp = _box(b"ftyp", b"isom", struct.pack(">I", 512),
                 b"isomiso2avc1mp41")
     mdat = _box(b"mdat", *samples)
@@ -684,10 +700,10 @@ def _mp4(samples: list[bytes], sync: list[bool], offsets: list[int],
             runs.append([1, o])
     stbl = [
         _full_box(b"stsd", 0, 0, struct.pack(">I", 1), _box(
-            b"avc1", bytes(6), struct.pack(">H", 1), bytes(16),
+            kind, bytes(6), struct.pack(">H", 1), bytes(16),
             struct.pack(">HHIII", width, height, 0x480000, 0x480000, 0),
             struct.pack(">H", 1), bytes(32), struct.pack(">Hh", 24, -1),
-            _box(b"avcC", avcc))),
+            _box(b"avcC", config) if kind == b"avc1" else _esds(config))),
         _full_box(b"stts", 0, 0, struct.pack(">III", 1, n, delta))]
     if any(offsets):
         stbl.append(_full_box(b"ctts", 0, 0, struct.pack(">I", len(runs)),
@@ -812,3 +828,717 @@ def write_h264(path: str, width: int, height: int, n_frames: int,
                      avcc, shift * delta))
     return order
 
+
+
+# ---- MPEG-4 part 2 (write_mpeg4) -------------------------------------------
+#
+# An encoder of the tools the port's decoder reads (data/native/
+# mpeg4_decode.cpp) and cv2's writer does not use: B-VOPs, 4MV, AC
+# prediction, DQUANT, intra macroblocks in P-VOPs, not-coded macroblocks,
+# MPEG quantisation with loaded matrices, video packets with header
+# extension, and VOPs with vop_coded 0. It is open loop: each residual is
+# taken against the source frame at the whole-pel part of the chosen
+# vector, not against the decoded one, so the decoded frames drift from the
+# source; what they are is what any conforming decoder makes of the stream
+# (cv2 judges it in the tests). The header VLCs (MCBPC, CBPY, MVD, DC size,
+# MODB, MB_TYPE) are the standard's; every coefficient is coded with the
+# third escape (fixed length), so no TCOEF table is shared with the decoder.
+
+_M4_INTRA_MCBPC = [(1, 1), (1, 3), (2, 3), (3, 3), (1, 4), (1, 6), (2, 6),
+                   (3, 6)]
+# P-VOP MCBPC by (type, cbpc): types inter, intra, inter+q, intra+q, 4MV
+_M4_INTER_MCBPC = [(1, 1), (3, 4), (2, 4), (5, 6), (3, 5), (4, 8), (3, 8),
+                   (3, 7), (3, 3), (7, 7), (6, 7), (5, 9), (4, 6), (4, 9),
+                   (3, 9), (2, 9), (2, 3), (5, 7), (4, 7), (5, 8)]
+_M4_CBPY = [(3, 4), (5, 5), (4, 5), (9, 4), (3, 5), (7, 4), (2, 6), (11, 4),
+            (2, 5), (3, 6), (5, 4), (10, 4), (4, 4), (8, 4), (6, 4), (3, 2)]
+_M4_MVD = [(1, 1), (1, 2), (1, 3), (1, 4), (3, 6), (5, 7), (4, 7), (3, 7),
+           (11, 9), (10, 9), (9, 9), (17, 10), (16, 10), (15, 10), (14, 10),
+           (13, 10), (12, 10), (11, 10), (10, 10), (9, 10), (8, 10),
+           (7, 10), (6, 10), (5, 10), (4, 10), (7, 11), (6, 11), (5, 11),
+           (4, 11), (3, 11), (2, 11), (3, 12), (2, 12)]
+_M4_DC_LUMA = [(3, 3), (3, 2), (2, 2), (2, 3), (1, 3), (1, 4), (1, 5),
+               (1, 6), (1, 7), (1, 8), (1, 9), (1, 10), (1, 11)]
+_M4_DC_CHROMA = [(3, 2), (2, 2), (1, 2), (1, 3), (1, 4), (1, 5), (1, 6),
+                 (1, 7), (1, 8), (1, 9), (1, 10), (1, 11), (1, 12)]
+_M4_Y_DC = [0, 8, 8, 8, 8, 10, 12, 14, 16, 17, 18, 19, 20, 21, 22, 23, 24,
+            25, 26, 27, 28, 29, 30, 31, 32, 34, 36, 38, 40, 42, 44, 46]
+_M4_C_DC = [0, 8, 8, 8, 8, 9, 9, 10, 10, 11, 11, 12, 12, 13, 13, 14, 14, 15,
+            15, 16, 16, 17, 17, 18, 18, 19, 20, 21, 22, 23, 24, 25]
+_M4_ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33,
+    40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43,
+    36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53,
+    60, 61, 54, 47, 55, 62, 63])
+_M4_ALT_HORIZONTAL = np.array([
+    0, 1, 2, 3, 8, 9, 16, 17, 10, 11, 4, 5, 6, 7, 15, 14, 13, 12, 19, 18, 24,
+    25, 32, 33, 26, 27, 20, 21, 22, 23, 28, 29, 30, 31, 34, 35, 40, 41, 48,
+    49, 42, 43, 36, 37, 38, 39, 44, 45, 46, 47, 50, 51, 56, 57, 58, 59, 52,
+    53, 54, 55, 60, 61, 62, 63])
+# the alternate vertical scan is the horizontal one transposed
+_M4_ALT_VERTICAL = (_M4_ALT_HORIZONTAL % 8) * 8 + _M4_ALT_HORIZONTAL // 8
+# loaded matrices of the MPEG-quantised fixtures (raster order); the intra
+# one is sent with an early 0, so its last 24 zigzag entries repeat
+_M4_INTRA_MATRIX = np.minimum(8 + 3 * (np.arange(64) // 8 + np.arange(64)
+                                       % 8), 60)
+_M4_INTRA_MATRIX[_M4_ZIGZAG[40:]] = _M4_INTRA_MATRIX[_M4_ZIGZAG[39]]
+_M4_INTER_MATRIX = 16 + (np.arange(64) * 7) % 13
+_M4_DCT = np.array([[np.sqrt((1 if k else 0.5) / 4) * np.cos(
+    (2 * n + 1) * k * np.pi / 16) for n in range(8)] for k in range(8)])
+_QUANT_TAB = {-1: 0, -2: 1, 1: 2, 2: 3}
+
+
+class _BitList:
+    """Codes MSB first, packed into bytes at the end with numpy."""
+
+    def __init__(self):
+        self.codes: list[int] = []
+        self.lens: list[int] = []
+        self.n = 0
+
+    def put(self, v: int, n: int) -> None:
+        if n:
+            self.codes.append(v)
+            self.lens.append(n)
+            self.n += n
+
+    def stuff(self) -> None:
+        """Stuffing to the byte boundary: a 0, then 1s (a whole 0x7F byte
+        when already aligned)."""
+        k = 8 - self.n % 8
+        self.put((1 << (k - 1)) - 1, k)
+
+    def tobytes(self) -> bytes:
+        lens = np.array(self.lens, np.int64)
+        starts = np.repeat(np.cumsum(lens) - lens, lens)
+        shift = (np.repeat(lens, lens) - 1 - (np.arange(int(lens.sum()))
+                                               - starts)).astype(np.uint64)
+        bits = (np.repeat(np.array(self.codes, np.uint64), lens) >> shift) \
+            & np.uint64(1)
+        return np.packbits(bits.astype(np.uint8)).tobytes()
+
+
+def _m4_mvd(out: _BitList, diff: int, f_code: int) -> None:
+    """A motion vector difference (half-pel) in the f_code range."""
+    half = 16 << f_code
+    diff = (diff + half) % (2 * half) - half
+    if diff == 0:
+        out.put(1, 1)
+        return
+    a, f = abs(diff), f_code - 1
+    code, res = ((a - 1) >> f) + 1, (a - 1) & ((1 << f) - 1)
+    out.put(*_M4_MVD[code])
+    out.put(diff < 0, 1)
+    out.put(res, f)
+
+
+def _m4_headers(width: int, height: int, res: int, low_delay: bool,
+                mpeg_quant: bool, resync: bool) -> bytes:
+    """VOS, visual object, VO and VOL headers."""
+    w = _BitList()
+    w.put(0x000001B0, 32)
+    w.put(0xF5, 8)                          # Advanced Simple profile
+    w.put(0x000001B5, 32)
+    w.put(0, 1)                             # is_visual_object_identifier
+    w.put(1, 4)                             # visual_object_type: video
+    w.put(0, 1)                             # video_signal_type
+    w.stuff()
+    w.put(0x00000100, 32)                   # video_object_start_code
+    w.put(0x00000120, 32)                   # video_object_layer_start_code
+    w.put(0, 1)                             # random_accessible_vol
+    w.put(17, 8)                            # Advanced Simple
+    w.put(1, 1)                             # is_object_layer_identifier
+    w.put(2, 4)                             # video_object_layer_verid
+    w.put(1, 3)                             # priority
+    w.put(1, 4)                             # aspect_ratio_info: square
+    w.put(1, 1)                             # vol_control_parameters
+    w.put(1, 2)                             # chroma_format 4:2:0
+    w.put(int(low_delay), 1)
+    w.put(0, 1)                             # vbv_parameters
+    w.put(0, 2)                             # rectangular
+    w.put(1, 1)
+    w.put(res, 16)                          # vop_time_increment_resolution
+    w.put(1, 1)
+    w.put(0, 1)                             # fixed_vop_rate
+    w.put(1, 1)
+    w.put(width, 13)
+    w.put(1, 1)
+    w.put(height, 13)
+    w.put(1, 1)
+    w.put(0, 1)                             # interlaced
+    w.put(1, 1)                             # obmc_disable
+    w.put(0, 2)                             # sprite_enable
+    w.put(0, 1)                             # not_8_bit
+    w.put(int(mpeg_quant), 1)
+    if mpeg_quant:
+        w.put(1, 1)                         # load_intra_quant_mat
+        for k in range(40):
+            w.put(int(_M4_INTRA_MATRIX[_M4_ZIGZAG[k]]), 8)
+        w.put(0, 8)                         # the rest repeat the last
+        w.put(1, 1)                         # load_nonintra_quant_mat
+        for k in range(64):
+            w.put(int(_M4_INTER_MATRIX[_M4_ZIGZAG[k]]), 8)
+    w.put(0, 1)                             # quarter_sample
+    w.put(1, 1)                             # complexity_estimation_disable
+    w.put(int(not resync), 1)               # resync_marker_disable
+    w.put(0, 1)                             # data_partitioned
+    w.put(0, 1)                             # newpred_enable
+    w.put(0, 1)                             # reduced_resolution_vop_enable
+    w.put(0, 1)                             # scalability
+    w.stuff()
+    return w.tobytes()
+
+
+def _m4_planes(planes, mb_h: int, mb_w: int) -> list[np.ndarray]:
+    """Y, U, V padded by edge replication to whole macroblocks, int32."""
+    return [np.pad(p, ((0, mb_h * n - p.shape[0]), (0, mb_w * n
+                                                    - p.shape[1])),
+                   mode="edge").astype(np.int32)
+            for p, n in zip(planes, (16, 8, 8))]
+
+
+def _m4_blocks(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """(mb_h, mb_w, 6, 8, 8) blocks of macroblock-aligned planes."""
+    mb_h, mb_w = y.shape[0] // 16, y.shape[1] // 16
+    luma = y.reshape(mb_h, 2, 8, mb_w, 2, 8).transpose(0, 3, 1, 4, 2, 5)
+    luma = luma.reshape(mb_h, mb_w, 4, 8, 8)
+    chroma = [c.reshape(mb_h, 8, mb_w, 8).transpose(0, 2, 1, 3)[:, :, None]
+              for c in (u, v)]
+    return np.concatenate([luma] + chroma, 2)
+
+
+def _m4_predict(ref: list[np.ndarray], disp: np.ndarray) -> list:
+    """The planes of ``ref`` displaced by whole pels: ``disp`` (mb_h, mb_w,
+    2) luma (dy, dx), edge-clamped (the residual's reference, open loop)."""
+    out = []
+    for plane, n, d in zip(ref, (16, 8, 8), (disp, disp // 2, disp // 2)):
+        h, w = plane.shape
+        dy = np.repeat(np.repeat(d[..., 0], n, 0), n, 1)
+        dx = np.repeat(np.repeat(d[..., 1], n, 0), n, 1)
+        iy = np.clip(np.arange(h)[:, None] + dy, 0, h - 1)
+        ix = np.clip(np.arange(w)[None, :] + dx, 0, w - 1)
+        out.append(plane[iy, ix])
+    return out
+
+
+class _M4Vop:
+    """The prediction state of one VOP as the decoder keeps it: intra DC
+    values and AC rows and columns, each macroblock's quantiser, motion
+    vectors per 8x8 block, the video packet's first macroblock."""
+
+    def __init__(self, mb_h: int, mb_w: int):
+        self.mb_h, self.mb_w = mb_h, mb_w
+        self.dc = [np.full((2 * mb_h + 1, 2 * mb_w + 1), 1024, np.int32)] + [
+            np.full((mb_h + 1, mb_w + 1), 1024, np.int32) for _ in range(2)]
+        # per block: its first column (1-7) then its first row (9-15)
+        self.ac = [np.zeros(a.shape + (16,), np.int64) for a in self.dc]
+        self.q = np.zeros((mb_h, mb_w), np.int64)
+        self.mv = np.zeros((2 * mb_h + 1, 2 * mb_w + 2, 2), np.int32)
+        self.rx = self.ry = self.start = 0
+        self.first_line = True
+
+    def start_mb(self, x: int, y: int) -> None:
+        if self.rx == x and self.ry + 1 == y:
+            self.first_line = False
+
+    def resync(self, x: int, y: int) -> None:
+        self.rx, self.ry, self.first_line = x, y, True
+        self.start = y * self.mb_w + x
+
+    def _pos(self, n: int, x: int, y: int):
+        if n < 4:
+            return self.dc[0], 2 * y + (n >> 1) + 1, 2 * x + (n & 1) + 1
+        return self.dc[n - 3], y + 1, x + 1
+
+    def dc_pred(self, n: int, x: int, y: int, scale: int
+                ) -> tuple[int, int]:
+        """(the predicted DC level, the direction: 0 left, 1 top)."""
+        arr, r, c = self._pos(n, x, y)
+        a, b, cc = int(arr[r, c - 1]), int(arr[r - 1, c - 1]), \
+            int(arr[r - 1, c])
+        if self.first_line and n != 3:
+            if n != 2:
+                b = cc = 1024
+            if n != 1 and x == self.rx:
+                b = a = 1024
+        if x == self.rx and y == self.ry + 1 and n in (0, 4, 5):
+            b = 1024
+        top = abs(a - b) < abs(b - cc)
+        return ((cc if top else a) + (scale >> 1)) // scale, int(top)
+
+    def ac_pred(self, n: int, x: int, y: int, top: int, q: int
+                ) -> np.ndarray:
+        """The decoder's AC prediction (raster positions) of block n of
+        macroblock (x, y) from its left or top neighbour: 0 outside the
+        video packet or for a macroblock that is not intra, rescaled to
+        ``q`` from another macroblock's quantiser."""
+        arr, r, c = self._pos(n, x, y)
+        ac = self.ac[0 if n < 4 else n - 3]
+        out = np.zeros(64, np.int64)
+        if top:
+            src, other = ac[r - 1, c, 9:], (x, y - 1)
+            inside = n in (2, 3)
+            pos = np.arange(1, 8)
+        else:
+            src, other = ac[r, c - 1, 1:8], (x - 1, y)
+            inside = n in (1, 3)
+            pos = np.arange(1, 8) * 8
+        if not inside:
+            ox, oy = other
+            if ox < 0 or oy < 0 or oy * self.mb_w + ox < self.start:
+                return out
+            oq = int(self.q[oy, ox])
+            if oq != q:
+                a = src * oq
+                src = np.where(a >= 0, (a + (q >> 1)) // q,
+                               -((-a + (q >> 1)) // q))
+        out[pos] = src
+        return out
+
+    def set_ac(self, n: int, x: int, y: int, levels: np.ndarray) -> None:
+        arr, r, c = self._pos(n, x, y)
+        ac = self.ac[0 if n < 4 else n - 3]
+        ac[r, c, 1:8] = levels[np.arange(1, 8) * 8]
+        ac[r, c, 9:] = levels[1:8]
+
+    def set_dc(self, n: int, x: int, y: int, value: int) -> None:
+        arr, r, c = self._pos(n, x, y)
+        arr[r, c] = value
+
+    def not_intra(self, x: int, y: int) -> None:
+        self.dc[0][2 * y + 1:2 * y + 3, 2 * x + 1:2 * x + 3] = 1024
+        self.dc[1][y + 1, x + 1] = self.dc[2][y + 1, x + 1] = 1024
+        self.ac[0][2 * y + 1:2 * y + 3, 2 * x + 1:2 * x + 3] = 0
+        self.ac[1][y + 1, x + 1] = self.ac[2][y + 1, x + 1] = 0
+
+    def mv_pred(self, k: int, x: int, y: int) -> tuple[int, int]:
+        """ffmpeg's ff_h263_pred_motion for block k of macroblock (x, y)."""
+        r, c = 2 * y + (k >> 1) + 1, 2 * x + (k & 1) + 1
+        m = self.mv
+        A = m[r, c - 1]
+        off = (2, 1, 1, -1)[k]
+        if self.first_line and k < 3:
+            if k == 0:
+                if x == self.rx:
+                    return 0, 0
+                if x + 1 == self.rx:
+                    C = m[r - 1, c + off]
+                    if x == 0:
+                        return int(C[0]), int(C[1])
+                    return tuple(int(sorted((A[i], 0, C[i]))[1])
+                                 for i in (0, 1))
+                return int(A[0]), int(A[1])
+            if k == 1:
+                if x + 1 == self.rx:
+                    C = m[r - 1, c + off]
+                    return tuple(int(sorted((A[i], 0, C[i]))[1])
+                                 for i in (0, 1))
+                return int(A[0]), int(A[1])
+            if x == self.rx:
+                m[r, c - 1] = 0
+        B, C = m[r - 1, c], m[r - 1, c + off]
+        return tuple(int(sorted((A[i], B[i], C[i]))[1]) for i in (0, 1))
+
+    def set_mv(self, k: int, x: int, y: int, mv) -> None:
+        self.mv[2 * y + (k >> 1) + 1, 2 * x + (k & 1) + 1] = mv
+
+
+def _m4_levels(coef: np.ndarray, q: np.ndarray, intra: bool, mpeg: bool
+               ) -> np.ndarray:
+    """Quantised levels (mb_h, mb_w, 6, 64) of every block's DCT
+    coefficients (mb_h, mb_w, 6, 8, 8) at each macroblock's quantiser ``q``
+    (mb_h, mb_w); an intra block's DC is left at 0 (it is coded apart)."""
+    c = coef.reshape(coef.shape[:3] + (64,))
+    q = q[:, :, None, None].astype(np.float64)
+    if mpeg:
+        lv = np.trunc(c * 8 / (q * (_M4_INTRA_MATRIX if intra
+                                    else _M4_INTER_MATRIX)))
+    elif intra:
+        lv = np.trunc(c / (2 * q))
+    else:
+        lv = np.sign(c) * np.floor(np.maximum(np.abs(c) - q / 2, 0) / (2 * q))
+    lv = np.clip(lv, -127, 127).astype(np.int64)
+    if intra:
+        lv[..., 0] = 0
+    return lv
+
+
+def _m4_block_codes(lv: np.ndarray, intra: np.ndarray):
+    """Every block's coefficients by the third escape (ESC, '11', last,
+    run, marker, the 12-bit level, marker: 30 bits each) in zigzag order:
+    (codes, offsets), block b's codes being codes[offsets[b]:offsets[b +
+    1]]. ``lv`` is (blocks, 64) in raster order; an ``intra`` block's
+    position 0 (its DC) is not among them."""
+    z = lv[:, _M4_ZIGZAG]
+    mask = z != 0
+    mask[intra, 0] = False
+    blk, pos = np.nonzero(mask)
+    counts = np.bincount(blk, minlength=len(lv))
+    off = np.concatenate(([0], np.cumsum(counts)))
+    first = np.ones(len(blk), bool)
+    first[1:] = blk[1:] != blk[:-1]
+    prev = np.concatenate(([0], pos[:-1]))
+    prev = np.where(first, np.where(intra[blk], 0, -1), prev)
+    last = np.zeros(len(blk), np.int64)
+    last[off[1:][counts > 0] - 1] = 1
+    codes = (((((0b0000011 << 2 | 3) << 1 | last) << 6 | (pos - prev - 1))
+              << 1 | 1) << 12 | (z[blk, pos] & 0xFFF)) << 1 | 1
+    return codes.tolist(), off.tolist()
+
+
+def _m4_intra_dc(st: _M4Vop, n: int, x: int, y: int, dc: float, q: int
+                 ) -> tuple[int, int]:
+    """An intra block's DC level against its prediction: (the difference
+    to code, the prediction's direction); the decoder's DC value is
+    stored."""
+    scale = _M4_Y_DC[q] if n < 4 else _M4_C_DC[q]
+    level = int(np.rint(dc / scale))
+    pred, top = st.dc_pred(n, x, y, scale)
+    value = level * scale
+    st.set_dc(n, x, y, value if not value & ~2047 else
+              (0 if value < 0 else 2047))
+    return level - pred, top
+
+
+def _m4_put_dc(out: _BitList, n: int, diff: int) -> None:
+    """The DC difference: its size VLC, the bits and, past 8 bits, a
+    marker."""
+    size = abs(diff).bit_length()
+    out.put(*(_M4_DC_LUMA if n < 4 else _M4_DC_CHROMA)[size])
+    if size:
+        out.put(diff if diff > 0 else diff + (1 << size) - 1, size)
+        if size > 8:
+            out.put(1, 1)
+
+
+def _m4_scan_codes(lv: np.ndarray, scan: np.ndarray) -> list[int]:
+    """One intra block's AC levels (raster) by the third escape in
+    ``scan`` order."""
+    z = lv[scan]
+    nz = np.flatnonzero(z[1:]) + 1
+    runs = np.diff(nz, prepend=0) - 1
+    last = (np.arange(len(nz)) == len(nz) - 1).astype(np.int64)
+    return ((((((0b0000011 << 2 | 3) << 1 | last) << 6 | runs) << 1 | 1)
+             << 12 | (z[nz] & 0xFFF)) << 1 | 1).tolist()
+
+
+def _m4_choices(kind: str, choice: np.ndarray, qscale: int, skipped):
+    """Each macroblock's mode and the quantiser it is coded at: I
+    ``("intra", dquant, ac_pred)``; P also ``("skip",)``, ``("four",)``
+    (4MV) and ``("inter", dquant)``; B ``("skip",)`` (its co-located
+    macroblock was not coded), ``("direct0",)`` (MODB '1') and ``("b",
+    mb_type, cbp coded, dbquant)``, mb_type 0 direct, 1 interpolated, 2
+    backward, 3 forward."""
+    mb_h, mb_w = choice.shape
+    modes, qs, q = [], np.empty((mb_h, mb_w), np.int64), qscale
+    for y in range(mb_h):
+        for x in range(mb_w):
+            c = int(choice[y, x])
+            dq = 0
+            if kind != "B" and c % 10 == 1:
+                dq = (-1, -2, 1, 2)[c // 10 % 4]
+                if not 2 <= q + dq <= 31:
+                    dq = -dq
+            if kind == "I" or (kind == "P" and c < 6):
+                q += dq
+                modes.append(("intra", dq, c % 2))
+            elif kind == "P":
+                if c >= 85:
+                    modes.append(("skip",))
+                elif c >= 60 and not dq:
+                    modes.append(("four",))
+                else:
+                    q += dq
+                    modes.append(("inter", dq))
+            elif skipped[y, x]:
+                modes.append(("skip",))
+            elif c < 15:
+                modes.append(("direct0",))
+            else:
+                mtype = c % 5 if c % 5 < 4 else 0
+                with_cbp = c % 3 != 0
+                dbq = ((0, -2, 2)[c // 3 % 3] if with_cbp and mtype
+                       and 3 < q < 30 else 0)
+                q += dbq
+                modes.append(("b", mtype, with_cbp, dbq))
+            qs[y, x] = q
+    return modes, qs
+
+
+def mpeg4_access_units(width: int, height: int, n_frames: int,
+                       fps: float = 30.0, gop: int = 12, b_frames: int = 0,
+                       mpeg_quant: bool = False, not_coded=(),
+                       resync: int = 0, qscale: int = 8, seed: int = 0,
+                       source=None):
+    """(VOS/VO/VOL headers, [(display index, kind, VOP bytes)] in decode
+    order) of an MPEG-4 part 2 stream (module section above): VOPs in
+    ``h264_gop_order``, kind ``"I"``, ``"P"``, ``"B"`` or ``"N"`` (a P
+    position in ``not_coded``, sent with vop_coded 0). ``resync`` > 0 puts
+    a video packet every ``resync`` macroblocks of I- and P-VOPs, every
+    other one with a header extension. ``source(t)`` gives frame t's
+    (Y, U, V) planes (default ``h264_source_yuv(seed, t, height,
+    width)``)."""
+    if width % 2 or height % 2:
+        raise ValueError(f"4:2:0 needs an even size, not {width}x{height}")
+    source = source or (lambda t: h264_source_yuv(seed, t, height, width))
+    res = int(round(fps))
+    bits = max(1, (res - 1).bit_length())
+    mb_h, mb_w = -(-height // 16), -(-width // 16)
+    mb_bits = max(1, (mb_h * mb_w - 1).bit_length())
+    order = h264_gop_order(n_frames, gop, b_frames)
+    for t in not_coded:
+        if (t, "P") not in order:
+            raise ValueError(f"frame {t} is not a P-VOP: it cannot be sent "
+                             "not coded")
+    headers = _m4_headers(width, height, res, not b_frames, mpeg_quant,
+                          resync > 0)
+    planes = {}
+
+    def plane(t):
+        if t not in planes:
+            planes[t] = _m4_planes(source(t), mb_h, mb_w)
+        return planes[t]
+
+    time_base = last_time_base = 0
+    skip_of = {}                       # reference display index -> skips
+    past = future = None               # display indices of the references
+    out_units = []
+    for t, kind in order:
+        rs = np.random.RandomState([seed, t, 4])
+        w = _BitList()
+        w.put(0x000001B6, 32)
+        w.put({"I": 0, "P": 1, "B": 2}[kind], 2)
+        sec = t // res
+        incr = sec - (last_time_base if kind == "B" else time_base)
+        if kind != "B":
+            last_time_base, time_base = time_base, sec
+        w.put((1 << (incr + 1)) - 2, incr + 1)       # modulo_time_base
+        w.put(1, 1)
+        w.put(t % res, bits)
+        w.put(1, 1)
+        if t in not_coded:
+            w.put(0, 1)                               # vop_coded
+            w.stuff()
+            out_units.append((t, "N", w.tobytes()))
+            continue
+        w.put(1, 1)
+        if kind == "P":
+            w.put(t % 2, 1)                           # vop_rounding_type
+        w.put(0, 3)                                   # intra_dc_vlc_thr
+        w.put(qscale, 5)
+        if kind != "I":
+            w.put(2, 3)                               # vop_fcode_forward
+        if kind == "B":
+            w.put(2, 3)                               # vop_fcode_backward
+        # the macroblocks' choices, every block's DCT and levels at once
+        choice = rs.randint(0, 100, (mb_h, mb_w))
+        mv = rs.randint(-5, 6, (mb_h, mb_w, 4, 2)) + (t % 5 - 2)
+        edge = np.zeros((mb_h, mb_w), bool)
+        edge[[0, -1], :] = edge[:, [0, -1]] = True
+        mv[edge & (choice % 7 == 0)] -= 20           # out past the edge
+        disp = mv[:, :, 0] >> 1
+        cur = plane(t)
+        if kind == "I":
+            resid = cur
+        elif kind == "P":
+            resid = [a - b for a, b in zip(cur, _m4_predict(plane(future),
+                                                             disp))]
+        else:
+            back = choice % 5 == 2
+            pf = _m4_predict(plane(past), disp)
+            pb = _m4_predict(plane(future), disp)
+            resid = [a - np.where(np.repeat(np.repeat(back, n, 0), n, 1),
+                                  b2, b1)
+                     for a, b1, b2, n in zip(cur, pf, pb, (16, 8, 8))]
+        coefs = _M4_DCT @ _m4_blocks(*resid) @ _M4_DCT.T
+        icoefs = coefs if kind == "I" else \
+            _M4_DCT @ _m4_blocks(*cur) @ _M4_DCT.T
+        modes, qs = _m4_choices(kind, choice, qscale,
+                                skip_of.get(future))
+        intra = np.array([m[0] == "intra" for m in modes]).reshape(mb_h,
+                                                                  mb_w)
+        lv = np.where(intra[..., None, None],
+                      _m4_levels(icoefs, qs, True, mpeg_quant),
+                      _m4_levels(coefs, qs, False, mpeg_quant))
+        for mb, m in enumerate(modes):
+            y, x = divmod(mb, mb_w)
+            if m[0] == "b" and not m[2]:
+                lv[y, x] = 0                          # MODB '01': no cbp
+            elif m[0] == "b" and m[1] and not lv[y, x].any():
+                lv[y, x, 0, 0] = 1                    # so DBQUANT is sent
+        coded = (lv != 0).any(-1)
+        codes, off = _m4_block_codes(lv.reshape(-1, 64),
+                                     np.repeat(intra.reshape(-1), 6))
+
+        def block(b: int, out=w) -> None:
+            n = off[b + 1] - off[b]
+            out.codes.extend(codes[off[b]:off[b + 1]])
+            out.lens.extend([30] * n)
+            out.n += 30 * n
+
+        st = _M4Vop(mb_h, mb_w)
+        skips = np.zeros((mb_h, mb_w), bool)
+        last_mv = [[0, 0], [0, 0]]
+        q = qscale
+        for mb, m in enumerate(modes):
+            y, x = divmod(mb, mb_w)
+            if mb and resync and kind != "B" and mb % resync == 0:
+                w.stuff()
+                w.put(1, 17 if kind == "I" else 15 + 2 + 1)
+                w.put(mb, mb_bits)
+                w.put(q, 5)
+                hec = (mb // resync) % 2
+                w.put(hec, 1)
+                if hec:
+                    w.put((1 << (incr + 1)) - 2, incr + 1)
+                    w.put(1, 1)
+                    w.put(t % res, bits)
+                    w.put(1, 1)
+                    w.put({"I": 0, "P": 1}[kind], 2)
+                    w.put(0, 3)
+                    if kind == "P":
+                        w.put(2, 3)
+                st.resync(x, y)
+            st.start_mb(x, y)
+            q = int(qs[y, x])
+            cb = coded[y, x]
+            cbpy = int(cb[0]) << 3 | int(cb[1]) << 2 | int(cb[2]) << 1 \
+                | int(cb[3])
+            cbpc = int(cb[4]) << 1 | int(cb[5])
+            if m[0] == "intra":
+                _, dq, ac = m
+                st.q[y, x] = q
+                dcs = [_m4_intra_dc(st, n, x, y, icoefs[y, x, n, 0, 0], q)
+                       for n in range(6)]
+                acs = []
+                for n in range(6):
+                    actual = lv[y, x, n]
+                    if ac:
+                        top = dcs[n][1]
+                        pred = st.ac_pred(n, x, y, top, q)
+                        sent = np.clip(actual - pred, -2047, 2047)
+                        actual = sent + pred
+                        acs.append(_m4_scan_codes(
+                            sent, _M4_ALT_HORIZONTAL if top
+                            else _M4_ALT_VERTICAL))
+                    else:
+                        acs.append(codes[off[6 * mb + n]:
+                                         off[6 * mb + n + 1]])
+                    st.set_ac(n, x, y, actual)
+                cb = [bool(a) for a in acs]
+                cbpy = cb[0] << 3 | cb[1] << 2 | cb[2] << 1 | cb[3]
+                cbpc = cb[4] << 1 | cb[5]
+                if kind == "I":
+                    w.put(*_M4_INTRA_MCBPC[(4 if dq else 0) + cbpc])
+                else:
+                    w.put(0, 1)                       # coded
+                    w.put(*_M4_INTER_MCBPC[(12 if dq else 4) + cbpc])
+                w.put(ac, 1)                          # ac_pred_flag
+                w.put(*_M4_CBPY[cbpy])
+                if dq:
+                    w.put(_QUANT_TAB[dq], 2)
+                for n in range(6):
+                    _m4_put_dc(w, n, dcs[n][0])
+                    w.codes.extend(acs[n])
+                    w.lens.extend([30] * len(acs[n]))
+                    w.n += 30 * len(acs[n])
+                for k in range(4):
+                    st.set_mv(k, x, y, (0, 0))
+                continue
+            st.not_intra(x, y)
+            if kind == "P":
+                if m[0] == "skip":                    # not coded
+                    w.put(1, 1)
+                    skips[y, x] = True
+                    for k in range(4):
+                        st.set_mv(k, x, y, (0, 0))
+                    continue
+                four = m[0] == "four"
+                dq = 0 if four else m[1]
+                w.put(0, 1)
+                w.put(*_M4_INTER_MCBPC[4 * (4 if four else 2 if dq else 0)
+                                       + cbpc])
+                w.put(*_M4_CBPY[cbpy ^ 15])
+                if dq:
+                    w.put(_QUANT_TAB[dq], 2)
+                for k in range(4 if four else 1):
+                    px, py = st.mv_pred(k, x, y)
+                    vx, vy = (int(v) for v in mv[y, x, k])
+                    _m4_mvd(w, vx - px, 2)
+                    _m4_mvd(w, vy - py, 2)
+                    if four:
+                        st.set_mv(k, x, y, (vx, vy))
+                if not four:
+                    for k in range(4):
+                        st.set_mv(k, x, y, mv[y, x, 0])
+                for b in range(6 * mb, 6 * mb + 6):
+                    block(b)
+                continue
+            # B-VOP
+            if x == 0:
+                last_mv = [[0, 0], [0, 0]]
+            if m[0] == "skip":
+                continue                              # no bits
+            if m[0] == "direct0":
+                w.put(1, 1)                           # MODB: direct, no data
+                continue
+            _, mtype, with_cbp, dbq = m
+            w.put(0, 1)
+            w.put(int(not with_cbp), 1)
+            w.put(1, mtype + 1)                       # MB_TYPE
+            if with_cbp:
+                w.put(cbpy << 2 | cbpc, 6)            # CBPB
+                if mtype:
+                    w.put(2 | (dbq > 0), 2) if dbq else w.put(0, 1)
+            if mtype == 0:
+                _m4_mvd(w, int(mv[y, x, 1, 0]) % 5 - 2, 1)
+                _m4_mvd(w, int(mv[y, x, 1, 1]) % 5 - 2, 1)
+            for d in ((0,) if mtype == 3 else (1,) if mtype == 2 else
+                      (0, 1) if mtype == 1 else ()):
+                vx, vy = (int(v) for v in mv[y, x, 2 + d])
+                _m4_mvd(w, vx - last_mv[d][0], 2)
+                _m4_mvd(w, vy - last_mv[d][1], 2)
+                last_mv[d] = [vx, vy]
+            for b in range(6 * mb, 6 * mb + 6):
+                block(b)
+        w.stuff()
+        out_units.append((t, kind, w.tobytes()))
+        if kind != "B":
+            skip_of[t] = skips
+            past, future = future, t
+    return headers, out_units
+
+
+def write_mpeg4(path: str, width: int, height: int, n_frames: int,
+                fps: float = 30.0, gop: int = 12, b_frames: int = 0,
+                mpeg_quant: bool = False, not_coded=(), resync: int = 0,
+                qscale: int = 8, seed: int = 0, source=None
+                ) -> list[tuple[int, str]]:
+    """Write the stream of ``mpeg4_access_units`` to ``path``: an MP4
+    (``mp4v`` with the VOS, VO and VOL headers in its ``esds``, ``stss``,
+    and ``ctts`` plus an edit list from the first presentation time where
+    there are B-VOPs) or an AVI (``FMP4`` chunks of one VOP each, the
+    headers ahead of every I-VOP, ``idx1`` key flags). Returns (display
+    index, kind) of each VOP in decode order."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext not in (".mp4", ".mov", ".avi"):
+        raise ValueError(f"write_mpeg4 writes .mp4, .mov or .avi, not {ext}")
+    headers, units = mpeg4_access_units(
+        width, height, n_frames, fps, gop, b_frames, mpeg_quant, not_coded,
+        resync, qscale, seed, source)
+    delta, scale = _frame_rate(fps)
+    order = [(t, kind) for t, kind, _ in units]
+    sync = [kind == "I" for _, kind in order]
+    with open(path, "wb") as f:
+        if ext == ".avi":
+            samples = [(headers if kind == "I" else b"") + vop
+                       for _, kind, vop in units]
+            f.write(_avi(samples, sync, b"FMP4", delta, scale, width,
+                         height))
+            return order
+        shift = max(0, max(k - t for k, (t, _) in enumerate(order)))
+        offsets = [(t + shift - k) * delta for k, (t, _) in enumerate(order)]
+        f.write(_mp4([vop for _, _, vop in units], sync, offsets, delta,
+                     scale, width, height, headers, shift * delta,
+                     kind=b"mp4v"))
+    return order

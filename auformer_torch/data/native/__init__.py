@@ -25,7 +25,11 @@ package's orbax checkpoints (``core/ocdbt.py``, ``core/orbax_reader.py``).
 It needs only the C++ compiler; there is no fallback to a Python package or
 to a system libzstd.
 
-``nvdec.cpp`` is a third: it asks the card's NVDEC video decoder for its
+``mpeg4_decode.cpp`` is built the same way with the C++ compiler alone:
+the port's MPEG-4 part 2 video decoder (``data/mpeg4.py``), which gives
+the frames cv2's ffmpeg gives for MPEG-4 videos. A failed build raises.
+
+``nvdec.cpp`` is a fourth: it asks the card's NVDEC video decoder for its
 capabilities (``data/nvdec.py``). Built the same way with the CUDA
 toolkit's ``cuda.h`` and libcuda's link stub, it opens the driver's
 libnvcuvid.so.1 with dlopen and declares the part of its API it calls in
@@ -51,6 +55,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / ".cache" / "native"
 SOURCES = {"libjpeg": "framestore_reader.cpp",
            "nvjpeg": "framestore_nvjpeg.cpp",
            "zstd": "zstd_decode.cpp",
+           "mpeg4": "mpeg4_decode.cpp",
            "nvdec": "nvdec.cpp"}
 HEADERS = {"libjpeg": "framestore.h", "nvjpeg": "framestore.h",
            "nvdec": "nvcuvid_api.h"}
@@ -105,7 +110,7 @@ def decoder() -> str:
 def _command(name: str, target: Path) -> list[str]:
     cmd = [_cxx(), *CXX_FLAGS, str(SRC_DIR / SOURCES[name]), "-o",
            str(target)]
-    if name == "zstd":
+    if name in ("zstd", "mpeg4"):
         return cmd
     if name == "libjpeg":
         if not _has_libjpeg():
@@ -134,20 +139,23 @@ def _target(name: str) -> Path:
     if name in HEADERS:
         h.update((SRC_DIR / HEADERS[name]).read_bytes())
     h.update(" ".join(_command(name, Path("lib.so"))).encode())
-    stem = {"zstd": "libzstd_decode", "nvdec": "libnvdec"}.get(
+    stem = {"zstd": "libzstd_decode", "mpeg4": "libmpeg4_decode",
+            "nvdec": "libnvdec"}.get(
         name, f"libframestore_{name}")
     return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
 
 
 def _what(name: str) -> str:
     return {"zstd": "the zstd decoder",
+            "mpeg4": "the MPEG-4 part 2 decoder",
             "nvdec": "the NVDEC caps probe"}.get(
         name, f"the {name} FrameStore reader")
 
 
 def build(name: str | None = None) -> Path:
     """Compile the reader for ``name`` (default: :func:`decoder`; ``"zstd"``
-    the zstd decoder, ``"nvdec"`` the NVDEC caps probe) unless it is built;
+    the zstd decoder, ``"mpeg4"`` the MPEG-4 part 2 decoder, ``"nvdec"``
+    the NVDEC caps probe) unless it is built;
     returns the library's path.
     Raises RuntimeError with the compiler's output when the build fails."""
     name = name or decoder()

@@ -8,16 +8,33 @@ saves it (tests/test_ingest.py checks that name). The keys and the
 ``fps or 30.0`` rule are the JAX package's; the index comes from
 ``data/container.py``, with no video decoder.
 
-Frames (``read_RGB``, ``frames``, ``frame_tensors``) are decoded on the
-card unless the caller passes ``device="cpu"``, for MJPEG in AVI or MP4:
-each frame's JPEG goes to its Y, Cb and Cr planes (nvJPEG in the card's
-memory for a CUDA device, libjpeg on the host for the CPU, each raising
-where its library is missing: ``data/native``), and ``ops/colour.py``'s
-``yuv_rgb`` converts them as cv2's swscale does, so a frame
-differs from the JAX package's cv2 frame only where the two decoders'
-inverse DCTs round apart. H.264 and MPEG-4 part 2 need NVDEC, which the
-card's container refuses (``data/nvdec.py``): their frames raise naming
-ROADMAP.md queue A9, as do JPEG frames that are not 4:2:0 or 4:2:2.
+Frames (``read_RGB``, ``frames``, ``frame_tensors``) come out on the card
+unless the caller passes ``device="cpu"``, for two codecs in AVI or MP4:
+
+  MJPEG          each frame's JPEG goes to its Y, Cb and Cr planes
+                 (nvJPEG in the card's memory for a CUDA device, libjpeg on
+                 the host for the CPU, each raising where its library is
+                 missing: ``data/native``); a frame differs from the JAX
+                 package's cv2 frame only where the two decoders' inverse
+                 DCTs round apart.
+  MPEG-4 part 2  the port's own software decoder (``data/mpeg4.py``)
+                 decodes on the host, as cv2's ffmpeg does, to planes equal
+                 to ffmpeg's bit for bit; the frames in ffmpeg's output
+                 order, the planes copied to the card for a CUDA device.
+
+``ops/colour.py``'s ``yuv_rgb`` converts the planes as cv2's swscale does
+(full range for a JPEG's, limited range for MPEG-4's), on the card with
+its kernel for a CUDA device. H.264 waits for a software decoder of the
+port's own (NVDEC, the card's video decoder, is refused by the
+container the card runs in: ``data/nvdec.py``); its frames raise naming
+ROADMAP.md queue A9, as do JPEG frames that are not 4:2:0 or 4:2:2 and
+the MPEG-4 tools the decoder refuses.
+
+``read_RGB(k)`` seeks as cv2's ``CAP_PROP_POS_FRAMES`` does for MPEG-4:
+from the sync packet at or before the display position 16 frames before
+``k``, counting the frames the decoder returns from the first one's
+display position. Where no VOP with vop_coded 0 lies between them, that is
+``frames()``'s frame ``k``.
 """
 from __future__ import annotations
 
@@ -30,9 +47,10 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from . import container
+from . import container, mpeg4
 
 _A9 = "ROADMAP.md queue A9 (frame decoding)"
+_SEEK_BACK = 16      # cv2's seek: from 16 frames before the one asked for
 
 
 def decode_mjpeg_frame(unit: bytes, device: torch.device) -> torch.Tensor:
@@ -75,6 +93,7 @@ class Video:
         self.filename = os.path.splitext(os.path.basename(path))[0]
         self.meta = self._load_or_probe_meta(write)
         self._next = 0
+        self._session = None
 
     def _meta_path(self) -> str:
         # the reference's cache name keeps the extension: <video.mp4>meta.json
@@ -107,11 +126,20 @@ class Video:
         return self.meta["fps"]
 
     def count_frames(self) -> int:
-        """The video packets of the container's index that hold data (the
-        samples an edit list keeps, or the stream's AVI chunks): the count
-        a decode loop returns where each packet decodes to one frame. It
-        counts packets, not decoded frames."""
-        return container.probe(self.path, timestamps=False)["packets"]
+        """What a decode loop of cv2's ``grab()`` returns. MJPEG, H.264 and
+        the rest: the video packets of the container's index that hold data
+        (the samples an edit list keeps, or the stream's AVI chunks), which
+        is the count where each packet decodes to one frame. MPEG-4 part
+        2: the frames its decoder returns, from the VOP headers
+        (``mpeg4.frame_count``): a VOP with vop_coded 0 returns none, and
+        at the end of a low-delay stream the last frame once more
+        (ROADMAP.md C12)."""
+        index = container.packet_index(self.path)
+        if index["codec"] != "mpeg4":
+            return container.probe(self.path, timestamps=False)["packets"]
+        units = [u for _, u in container.access_units(self.path, index,
+                                                      kept_only=False)]
+        return mpeg4.frame_count(units, [p.kept for p in index["packets"]])
 
     @functools.cached_property
     def _decodable(self) -> tuple[dict, list[int]]:
@@ -119,12 +147,12 @@ class Video:
         in display order), parsed once per ``Video``; raises for a codec
         the port does not decode."""
         index = container.packet_index(self.path)
-        if index["codec"] != "mjpeg":
+        if index["codec"] not in ("mjpeg", "mpeg4"):
             raise NotImplementedError(
                 f"decoding the {index['codec']} frames of {self.path} needs "
-                "NVDEC, which the card's container refuses, or a software "
-                f"decoder, which auformer_torch does not have: {_A9} lists "
-                "it")
+                "a software decoder of the port's own, which auformer_torch "
+                "has for MJPEG and MPEG-4 part 2 only (the card's NVDEC is "
+                f"refused by its container): {_A9} lists it")
         return index, [k for k, p in enumerate(index["packets"]) if p.kept]
 
     def frame_tensors(self, device=None) -> Iterator[torch.Tensor]:
@@ -132,6 +160,9 @@ class Video:
         ``device`` (default the GPU)."""
         index, _ = self._decodable
         device = _resolve_device(device)
+        if index["codec"] == "mpeg4":
+            return _mpeg4_rgb(mpeg4.decode_range(self.path, index,
+                                                 device=device))
         return (decode_mjpeg_frame(unit, device)
                 for _, unit in container.access_units(self.path, index))
 
@@ -142,13 +173,15 @@ class Video:
 
     def read_RGB(self, frame_idx: int | None = None,
                  device=None) -> np.ndarray | None:
-        """Frame ``frame_idx`` in display order (cv2's seek to
-        ``CAP_PROP_POS_FRAMES`` and ``read``), or with None the frame after
-        the one read last (cv2's ``read``), as (H, W, 3) uint8 RGB; None
-        past the last frame. Every MJPEG frame is a sync sample, so frame k
-        decodes from its own packet."""
+        """Frame ``frame_idx`` (cv2's seek to ``CAP_PROP_POS_FRAMES`` and
+        ``read``), or with None the frame after the one read last (cv2's
+        ``read``), as (H, W, 3) uint8 RGB; None past the last frame. Every
+        MJPEG frame is a sync sample, so frame k decodes from its own
+        packet; MPEG-4 seeks as the module docstring says."""
         index, kept = self._decodable
         device = _resolve_device(device)
+        if index["codec"] == "mpeg4":
+            return self._read_mpeg4(index, frame_idx, device)
         k = self._next if frame_idx is None else int(frame_idx)
         if k < 0:
             raise ValueError(f"read_RGB: frame {k} of {self.path}")
@@ -159,6 +192,64 @@ class Video:
         _, unit = next(container.access_units(self.path, index, kept[k]))
         return decode_mjpeg_frame(unit, device).cpu().numpy()
 
+    def _read_mpeg4(self, index: dict, frame_idx, device):
+        """cv2's seek and read on an MPEG-4 stream: a decode from the sync
+        packet of ``_seek_key`` that stays open for the reads after it."""
+        if frame_idx is not None or self._session is None:
+            k = 0 if frame_idx is None else int(frame_idx)
+            if k < 0:
+                raise ValueError(f"read_RGB: frame {k} of {self.path}")
+            self._close_session()
+            key, skip = _seek_key(index, min(k, index["num_frames"]))
+            self._session = _mpeg4_rgb(mpeg4.decode_range(
+                self.path, index, key, device=device))
+            for _ in range(skip):
+                if next(self._session, None) is None:
+                    break
+        frame = next(self._session, None)
+        return None if frame is None else frame.cpu().numpy()
+
+    def _close_session(self) -> None:
+        if self._session is not None:
+            self._session.close()
+            self._session = None
+
     def release(self) -> None:
-        """Back to the first frame: no decoder stays open between calls."""
+        """Back to the first frame, closing an open MPEG-4 decode."""
         self._next = 0
+        self._close_session()
+
+
+def _mpeg4_rgb(planes) -> Iterator[torch.Tensor]:
+    """RGB frames of ``mpeg4.decode_range``'s planes (limited range)."""
+    from ..ops.colour import yuv_rgb
+    try:
+        for _, (y, u, v) in planes:
+            yield yuv_rgb(y, u, v, limited=True)
+    finally:
+        planes.close()
+
+
+def _seek_key(index: dict, k: int) -> tuple[int, int]:
+    """(sync packet, frames to pass over) of cv2's seek to frame ``k``
+    (cap_ffmpeg_impl.hpp ``seek``): ffmpeg seeks back from the display
+    position ``k - 16`` to a sync packet, and cv2 numbers the first frame
+    it decodes there by its presentation time, then counts the frames it
+    reads."""
+    packets = index["packets"]
+    kept = [p.pts for p in packets if p.kept]
+    if not kept:
+        return 0, k
+    fps, tb, start = index["fps"], index["time_base"], min(kept)
+
+    def position(p) -> int:             # cv2's dts_to_frame_number
+        return int(fps * (p.pts - start) * tb + 0.5)
+
+    target = max(k - _SEEK_BACK, 0)
+    key = 0
+    for j, p in enumerate(packets):
+        if p.sync and position(p) <= target and position(p) >= position(
+                packets[key]):
+            key = j
+    # the first frame out of a closed GOP is its sync VOP's
+    return key, k - max(position(packets[key]), 0)

@@ -138,7 +138,21 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            read_RGB at five indices equal to frames(), two runs of 30
            frames' nvJPEG planes converted by the plain version on the
            CPU equal to the card's, the frames' error against their
-           sources
+           sources; then MPEG-4 part 2 (the port's software decoder on
+           the host): (e) every tests/data/videos_mpeg4/ fixture through
+           frame_tensors() on the card against the SHA-256s of the JAX
+           package's cv2 frames (expected.json), its seeks, count and
+           timestamps, and the host decoder's s per frame on cv2's own
+           176x144 streams over MPEG4_PASSES passes; (f) a 12-VOP
+           1280x720 stream (I, P, B) written here by write_mpeg4 (every
+           coefficient by escape 3, so far more bytes a frame than an
+           encoder's) through Video.frames(), the main path: 12 yuv_rgb
+           launches and none of the other kernels, each frame equal to the
+           plain conversion of the decoder's planes on the CPU, then
+           frames/s of MPEG4_PASSES passes and the host decoder's s per
+           frame over as many, with the stream's bytes a frame; (g) the
+           kernel's limited range at 1280x720 against its plain version,
+           its device ms beside its bound
   quickstart
            ``python -m auformer_torch.quickstart`` (its ``main``, no
            device argument), the port's examples/quickstart.py: its
@@ -190,7 +204,7 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            path) and with --device_augment (d); per run clips/s,
            StepTimer data and step ms, attention launches and backward
            calls (checked), peak memory; (h)'s first batch equal at 1 and
-           4 loader threads; 4 steps of (h) augmenting in the loader's
+           4 loader threads; 2 steps of (h) augmenting in the loader's
            threads instead; on this machine's CPU the digest of the
            port's train_augment against PIL's (a constant: no PIL here),
            its ms per (64, 16) batch in one thread and a loader batch at
@@ -203,7 +217,7 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            in bf16 for 1 epoch (4 attention launches and 4 backward calls
            per step), its checkpoint round trip, 5 profiled steps with the
            attention forward and backward device ms per step at each site
-           (spatial and temporal); and 3 bf16 steps of every other zoo
+           (spatial and temporal); and 2 bf16 steps of every other zoo
            model at full width (emonet 256x256) on ready device batches:
            attention per step, device ms, kernels and peak memory. The
            ``graph`` sub-phase (its own line, ``--steps_per_dispatch K``:
@@ -444,7 +458,7 @@ ZOO_STEP_MODELS = tuple(dict.fromkeys(
 # forward launches (ZOO_MODELS) and as many backward calls
 ZOO_TRAIN_ATTN = {name: attn for _, name, _, _, _, attn, _ in ZOO_MODELS}
 VFORMER_ATTN_PER_STEP = (ZOO_TRAIN_ATTN["vformer"],) * 2
-ZOO_TRAIN_STEPS = 3      # bf16 steps per model at full width, B=64
+ZOO_TRAIN_STEPS = 2      # bf16 steps per model at full width, B=64
 # the feed sub-phase: one epoch of train.main per feed; the dense and the
 # frame-dedup + wav-arena runs shuffle runs of FEED_RUN indices, so both see
 # the same batches
@@ -464,8 +478,8 @@ FEED_GRAPH_K = 4
 # (tests/test_torch_host_augment.py computes it from PIL; this machine has
 # no PIL)
 HOST_AUG_THREADS = (1, 4)
-HOST_AUG_BATCHES = 4
-HOST_AUG_IN_THREAD_STEPS = 4
+HOST_AUG_BATCHES = 2
+HOST_AUG_IN_THREAD_STEPS = 2
 # the dp sub-phase: the NCCL world of one's fp32 step and graph checks
 # (B=16), K, steps; the gloo world of two's global batch and timed steps;
 # the two swept videos' frames; the draws' cost at 8 ranks of 8 rows
@@ -497,6 +511,14 @@ DECODE_SEEKS = (0, 29, 150, 151, 299)
 DECODE_PLAIN_RUNS = ((0, 30), (150, 180))   # also converted on the CPU
 MJPG_MAX, MJPG_MEAN = 3, 0.1  # vs cv2: the two inverse DCTs round apart
 DECODE_SOURCE_MAE = 3.0       # JPEG q90 error against the source frames
+# MPEG-4 part 2: the committed fixtures (frames whose SHA-256 cv2 gave) and
+# a full-width stream written here by write_mpeg4 (I, P and B-VOPs)
+MPEG4_FIXTURES = ROOT / "tests" / "data" / "videos_mpeg4"
+MPEG4_FRAMES = 12
+MPEG4_GOP, MPEG4_B_FRAMES, MPEG4_QSCALE = 12, 2, 8
+MPEG4_SEEKS = (0, 5, 11)
+MPEG4_PASSES = 5                  # timed passes of frames() and the decoder
+MPEG4_CV2_STREAMS = ("mp4v_176.mp4", "xvid_176.avi")
 # the quickstart phase's attention gradient sites (name, tokens, head dim,
 # batch)
 QUICKSTART_GRAD_SITES = (("quickstart_spatial", 16, 32, QUICKSTART_BATCH * 4),
@@ -2143,33 +2165,181 @@ def decode_source(t: int) -> np.ndarray:
     return img
 
 
-def decode_kernel_case(torch, dev, planes: list) -> dict:
-    """yuv_rgb at 1280x720 against its plain version on the card, on the
-    MJPEG route's 4:2:0 planes (the main path's); times and the bound."""
+def decode_kernel_case(torch, dev, planes: list, limited: bool = False
+                       ) -> dict:
+    """yuv_rgb at 1280x720 against its plain version on the card, on a
+    route's 4:2:0 planes (MJPEG's full range, MPEG-4's ``limited`` range:
+    the main path's); times and the bound."""
     from auformer_torch.ops import colour
     y, u, v = planes
-    got = colour.yuv_rgb(y, u, v)
-    want = colour.yuv_rgb_plain(y, u, v)
+    got = colour.yuv_rgb(y, u, v, limited)
+    want = colour.yuv_rgb_plain(y, u, v, limited)
     torch.cuda.synchronize()
     h, w = y.shape
     err = (got.int() - want.int()).abs().max().item()
     if err:
-        fail(f"yuv_rgb kernel differs from its plain version by {err}")
-    ms, event_ms = timed(torch, lambda: colour.yuv_rgb(y, u, v), 200)
-    plain_ms, _ = timed(torch, lambda: colour.yuv_rgb_plain(y, u, v), 20)
+        fail(f"yuv_rgb kernel (limited {limited}) differs from its plain "
+             f"version by {err}")
+    ms, event_ms = timed(torch, lambda: colour.yuv_rgb(y, u, v, limited),
+                         200)
+    plain_ms, _ = timed(torch, lambda: colour.yuv_rgb_plain(y, u, v,
+                                                            limited), 20)
     nbytes = y.numel() + u.numel() + v.numel() + 3 * y.numel()
     bound_ms, bound_by = bound(nbytes, 0.0)
-    return {"shape": [h, w], "max_abs_err": err, "ms": ms,
-            "event_ms": event_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "bytes": nbytes, "library_ms": None}
+    return {"shape": [h, w], "limited": limited, "max_abs_err": err,
+            "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "library_ms": None}
 
 
-def phase_decode(torch, dev) -> tuple[dict, dict]:
+def counted_decode(run) -> tuple[object, float, dict]:
+    """``run()``, a decode through Video (the decode phase's main path),
+    with every kernel's launch count set to 0 just before it and read just
+    after: (its result, its seconds, the counts). It fails where the path
+    launched a kernel other than yuv_rgb."""
+    from auformer_torch.ops import colour
+    from auformer_torch.ops.attention import fused_attention
+    from auformer_torch.ops.audio_kernel import mel_frontend
+
+    fused_attention.launches = mel_frontend.launches = 0
+    colour.yuv_rgb.launches = 0
+    t0 = time.perf_counter()
+    out = run()
+    seconds = time.perf_counter() - t0
+    launches = {"attention": fused_attention.launches,
+                "mel": mel_frontend.launches,
+                "yuv_rgb": colour.yuv_rgb.launches}
+    if launches["attention"] or launches["mel"]:
+        fail(f"a video decode launched {launches}")
+    return out, seconds, launches
+
+
+def phase_decode_mpeg4(torch, dev, work: Path) -> tuple[dict, dict, dict]:
+    """The decode phase's MPEG-4 part 2 part: (e) every committed fixture's
+    frames through frame_tensors on the card against the SHA-256s of cv2's
+    frames, its count and timestamps; (f) a 1280x720 stream written here
+    by write_mpeg4 through Video.frames() on the card, the main path, its
+    launches counted with the count set to 0 just before and read just
+    after, against the plain conversion of the decoder's planes on the
+    CPU, then timed again, as is the host decoder alone, MPEG4_PASSES
+    times in all; (g) the limited-range kernel at 1280x720 on that
+    stream's planes. Returns (the main path's launches, the fixtures and
+    the stream, the kernel's numbers)."""
+    import hashlib
+
+    from auformer_torch.data import container, ingest, mpeg4
+    from auformer_torch.data.fixtures import write_mpeg4
+    from auformer_torch.data.video import Video
+    from auformer_torch.ops import colour
+
+    def sha(t) -> str:
+        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+    expected = json.loads((MPEG4_FIXTURES / "expected.json").read_text())
+    t0 = time.perf_counter()
+    frames = 0
+    for name, want in expected.items():
+        path = str(MPEG4_FIXTURES / name)
+        video = Video(path, write=False)
+        got = [sha(t) for t in video.frame_tensors(dev)]
+        if got != want["frames_sha256"]:
+            bad = [k for k, (a, b) in enumerate(zip(got, want[
+                "frames_sha256"])) if a != b]
+            fail(f"{name} on the card: {len(got)} frames, these differ "
+                 f"from cv2's: {bad[:8]}")
+        for k, digest in want["read_RGB_sha256"].items():
+            img = video.read_RGB(int(k), device=dev)
+            if (None if img is None else hashlib.sha256(
+                    img.tobytes()).hexdigest()) != digest:
+                fail(f"{name}: read_RGB({k}) on the card is not cv2's")
+        stamps = Path(ingest.extract_timestamps(path, str(work / "ts.txt"))
+                      ).read_text()
+        if (video.count_frames(), stamps) != (want["count_frames"],
+                                              want["timestamps"]):
+            fail(f"{name}: count and timestamps are not cv2's")
+        frames += len(got)
+    fixtures = {"files": len(expected), "frames_equal_cv2": frames,
+                "seeks_equal_cv2": sum(len(w["read_RGB_sha256"])
+                                       for w in expected.values()),
+                "s": time.perf_counter() - t0}
+    # the host decoder on a real encoder's streams (cv2's, 176x144)
+    fixtures["host_decode"] = {}
+    for name in MPEG4_CV2_STREAMS:
+        path = str(MPEG4_FIXTURES / name)
+        index = container.packet_index(path)
+        per_frame = []
+        for _ in range(MPEG4_PASSES):
+            t0 = time.perf_counter()
+            n = sum(1 for _ in mpeg4.decode_range(path, index))
+            per_frame.append((time.perf_counter() - t0) / n)
+        fixtures["host_decode"][name] = {
+            "size": [index["width"], index["height"]],
+            "bytes_per_frame": os.path.getsize(path) / n,
+            "s_per_frame": per_frame}
+    # (f) the full-width stream, written here
+    h, w = DECODE_SIZE
+    path = str(work / "full.mp4")
+    t0 = time.perf_counter()
+    order = write_mpeg4(path, w, h, MPEG4_FRAMES, gop=MPEG4_GOP,
+                        b_frames=MPEG4_B_FRAMES, qscale=MPEG4_QSCALE, seed=SEED)
+    write_s = time.perf_counter() - t0
+    video = Video(path, write=False)
+    index = container.packet_index(path)
+    decode_s = []
+    for _ in range(MPEG4_PASSES):
+        t0 = time.perf_counter()
+        host = [planes for _, planes in mpeg4.decode_range(path, index)]
+        decode_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    decoded, frames_s, launches = counted_decode(         # the main path
+        lambda: list(video.frames(device=dev)))
+    passes_s = [frames_s]
+    for _ in range(MPEG4_PASSES - 1):
+        t0 = time.perf_counter()
+        n = sum(1 for _ in video.frames(device=dev))
+        passes_s.append(time.perf_counter() - t0)
+        if n != MPEG4_FRAMES:
+            fail(f"MPEG-4 frames(), pass {len(passes_s)}: {n} frames")
+    if (launches["yuv_rgb"] != MPEG4_FRAMES or len(decoded) != MPEG4_FRAMES
+            or len(host) != MPEG4_FRAMES):
+        fail(f"MPEG-4 frames(): {len(decoded)} frames, {len(host)} "
+             f"decoded, {launches} launches")
+    for k, planes in enumerate(host):
+        plain = colour.yuv_rgb_plain(*planes, limited=True).numpy()
+        if not np.array_equal(plain, decoded[k]) or \
+                decoded[k].shape != (h, w, 3):
+            fail(f"MPEG-4 frame {k}: the card's differs from the plain "
+                 "conversion of the decoder's planes on the CPU")
+    for k in MPEG4_SEEKS:
+        if not np.array_equal(video.read_RGB(k, device=dev), decoded[k]):
+            fail(f"MPEG-4 read_RGB({k}) differs from frames()[{k}]")
+    kernel = decode_kernel_case(torch, dev, [p.to(dev) for p in host[0]],
+                                limited=True)
+    size = os.path.getsize(path)
+    stream = {"size": [w, h], "frames": MPEG4_FRAMES,
+              "vops": "".join(kind for _, kind in order),
+              "coding": f"write_mpeg4, qscale {MPEG4_QSCALE}, every "
+                        "coefficient by escape 3 (fixed length)",
+              "bytes": size, "bytes_per_frame": size / MPEG4_FRAMES,
+              "write_s": write_s, "passes": MPEG4_PASSES,
+              "frames_s": passes_s,
+              "frames_per_s": [MPEG4_FRAMES / t for t in passes_s],
+              "s_per_frame": [t / MPEG4_FRAMES for t in passes_s],
+              "host_decode_s_per_frame": [t / MPEG4_FRAMES
+                                          for t in decode_s],
+              "colour_ms_per_frame": kernel["ms"],
+              "launches": launches["yuv_rgb"], "seeks_equal": MPEG4_SEEKS}
+    return launches, {"fixtures": fixtures, "stream": stream}, kernel
+
+
+def phase_decode(torch, dev) -> tuple[dict, dict, dict]:
     """The decode phase: (a) NVDEC's caps and the H.264 route's refusal,
     (b) the committed fixtures, (c) the kernel at full width, (d) the
     full-width MJPEG stream through Video on the card, its launches counted
-    with the counts set to 0 just before frames() and read just after.
-    Returns (launches, the kernel's numbers)."""
+    with the counts set to 0 just before frames() and read just after,
+    then (e)-(g) MPEG-4 part 2 (``phase_decode_mpeg4``). Returns (the
+    MJPEG path's launches, the MPEG-4 path's, the kernel's numbers with
+    the limited-range case under ``limited_range``)."""
     from auformer_torch.data import container, ingest, nvdec
     from auformer_torch.data.fixtures import write_mjpeg_avi
     from auformer_torch.data.native import encode_jpeg
@@ -2246,12 +2416,8 @@ def phase_decode(torch, dev) -> tuple[dict, dict]:
     _, first = next(container.access_units(path))
     kernel = decode_kernel_case(torch, dev, mjpeg_planes(torch, first))
     torch.cuda.synchronize()
-    colour.yuv_rgb.launches = 0
-    t0 = time.perf_counter()
-    decoded = list(video.frames(device=dev))         # the main path
-    frames_s = time.perf_counter() - t0
-    launches = {"attention": 0, "mel": 0,
-                "yuv_rgb": colour.yuv_rgb.launches}
+    decoded, frames_s, launches = counted_decode(         # the main path
+        lambda: list(video.frames(device=dev)))
     if launches["yuv_rgb"] != DECODE_FRAMES or len(decoded) != DECODE_FRAMES:
         fail(f"frames(): {len(decoded)} frames, {launches} launches")
     torch.cuda.synchronize()
@@ -2285,11 +2451,17 @@ def phase_decode(torch, dev) -> tuple[dict, dict]:
               "launches": launches["yuv_rgb"], "seeks_equal": DECODE_SEEKS,
               "plain_equal_frames": [list(r) for r in DECODE_PLAIN_RUNS],
               "max_source_mae": mae}
+    mpeg4_launches, mpeg4, limited = phase_decode_mpeg4(torch, dev, work)
     emit("decode", nvidia_smi=nvidia_smi(), nvdec_caps=caps,
-         fixtures=fixtures, kernel=kernel, stream=stream,
-         phase_s=time.perf_counter() - t_phase)
+         fixtures=fixtures, kernel=kernel, stream=stream, mpeg4=mpeg4,
+         limited_kernel=limited, phase_s=time.perf_counter() - t_phase)
     shutil.rmtree(work, ignore_errors=True)
-    return launches, kernel
+    kernel = dict(kernel, limited_range={
+        key: limited[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by")})
+    kernel["max_abs_err"] = max(kernel["max_abs_err"],
+                                limited["max_abs_err"])
+    return launches, mpeg4_launches, kernel
 
 
 def phase_quickstart(torch, dev) -> tuple[dict, list]:
@@ -4688,7 +4860,8 @@ def main() -> int:
         torch, dev, Path(split["work"]) / "experiments" / "avformer"
         / "pretrain" / f"random_seed{SEED}.pth")
     by_path["orbax"] = phase_orbax(torch, dev, split)
-    by_path["decode"], yuv = phase_decode(torch, dev)
+    by_path["decode"], by_path["decode_mpeg4"], yuv = phase_decode(torch,
+                                                                    dev)
     shutil.rmtree(split["work"], ignore_errors=True)  # the split, the .pth
     by_path["quickstart"], quickstart_grads = phase_quickstart(torch, dev)
     paths, grad_cases, attention_in_step = phase_train(torch, dev)
@@ -4796,10 +4969,11 @@ def main() -> int:
          "replaces": "auformer/data/video.py:70 (cv2's conversion on the "
                      "host; no TPU kernel)",
          "launches": launches("yuv_rgb"),
-         "launches_by_path": {"decode": by_path["decode"]["yuv_rgb"]},
+         "launches_by_path": {p: by_path[p]["yuv_rgb"]
+                              for p in ("decode", "decode_mpeg4")},
          **{key: yuv[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                      "bound_ms", "bound_by",
-                                      "library_ms")}}]}), flush=True)
+                                      "bound_ms", "bound_by", "library_ms",
+                                      "limited_range")}}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1051,6 +1051,58 @@ def test_yuv_rgb_kernel_matches_plain(cuda_device, shape, layout):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("shape", [(720, 1280), (96, 112), (90, 120),
+                                   (99, 121)])
+def test_yuv_rgb_limited_kernel_matches_plain(cuda_device, shape):
+    """The kernel's limited-range conversion (MPEG-4 part 2 frames) equals
+    its plain version bit for bit on 4:2:0 planes with pitched rows."""
+    from auformer_torch.ops import colour
+    h, w = shape
+    cw, ch = (w + 1) // 2, (h + 1) // 2
+    rs = np.random.RandomState(h * w)
+    luma = torch.from_numpy(rs.randint(0, 256, (h, w + 32)).astype(np.uint8))
+    chroma = torch.from_numpy(
+        rs.randint(0, 256, (ch, 2 * cw + 64)).astype(np.uint8))
+
+    def planes(luma, chroma):
+        return luma[:, :w], chroma[:, :cw], chroma[:, cw + 32:2 * cw + 32]
+
+    want = colour.yuv_rgb_plain(*planes(luma, chroma), limited=True)
+    before = colour.yuv_rgb.launches
+    got = colour.yuv_rgb(*planes(luma.to(cuda_device),
+                                 chroma.to(cuda_device)), limited=True)
+    torch.cuda.synchronize()
+    assert colour.yuv_rgb.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert not torch.equal(want, colour.yuv_rgb_plain(*planes(luma,
+                                                              chroma)))
+
+
+def test_mpeg4_frames_on_the_card(cuda_device):
+    """Video.frame_tensors on the card for every MPEG-4 part 2 fixture:
+    the port's decoder on the host, the planes copied to the card, the
+    kernel's limited-range conversion; each frame's SHA-256 is that of
+    cv2's frame (expected.json), one launch a frame, and a seek equals."""
+    import hashlib
+    import json
+    from pathlib import Path
+
+    from auformer_torch.data.video import Video
+    from auformer_torch.ops import colour
+    d = Path(__file__).parent / "data" / "videos_mpeg4"
+    expected = json.loads((d / "expected.json").read_text())
+    for name, want in expected.items():
+        v = Video(str(d / name), write=False)
+        before = colour.yuv_rgb.launches
+        frames = [t.cpu().numpy() for t in v.frame_tensors(cuda_device)]
+        assert colour.yuv_rgb.launches == before + len(frames)
+        assert [hashlib.sha256(f.tobytes()).hexdigest()
+                for f in frames] == want["frames_sha256"], name
+        img = v.read_RGB(13, device=cuda_device)
+        assert hashlib.sha256(img.tobytes()).hexdigest() == \
+            want["read_RGB_sha256"]["13"], name
+
+
 def test_mjpeg_frames_on_the_card(cuda_device):
     """Video.frames on the card: nvJPEG's planes through the kernel equal
     the plain conversion of the same planes, and the frames stay within

@@ -24,7 +24,7 @@ from PIL import Image
 
 from auformer.data import ingest as jax_ingest
 from auformer.data.video import Video as JaxVideo
-from auformer_torch.data import bitstream, container, ingest
+from auformer_torch.data import bitstream, container, fixtures, ingest, mpeg4
 from auformer_torch.data.fixtures import (h264_access_units, h264_gop_order,
                                           write_h264, write_mjpeg_avi)
 from auformer_torch.data.video import Video, decode_mjpeg_frame
@@ -114,15 +114,26 @@ def test_h264_output_order_is_display_order(b_frames, gop, n):
 
 def test_mpeg4_output_order():
     """A B-VOP is output when decoded, an I- or P-VOP when the next one
-    arrives; without B-VOPs the decode order stands."""
-    def vop(kind):
-        return b"\x00\x00\x01\xb6" + bytes([kind << 6, 0])
-    ipbb = [vop(0), vop(1), vop(2), vop(2), vop(1), vop(2)]
-    assert bitstream.mpeg4_output_order(ipbb) == [0, 2, 3, 1, 5, 4]
-    assert bitstream.mpeg4_output_order([vop(0), vop(1), vop(1)]) == [0, 1,
-                                                                      2]
+    arrives; without B-VOPs the decode order stands (the port's MPEG-4
+    decoder reading the VOP headers alone). The frames of a packed unit
+    (two VOPs) raise naming A9."""
+    head = fixtures._m4_headers(32, 32, 30, False, False, False)
+
+    def vop(kind, t):                  # a VOP header up to vop_coded 1
+        w = fixtures._BitList()
+        for value, bits in ((0x1B6, 32), (kind, 2), (0, 1), (1, 1), (t, 5),
+                            (1, 1), (1, 1)):
+            w.put(value, bits)
+        w.stuff()
+        return w.tobytes()
+    ipbb = [head + vop(0, 0), vop(1, 3), vop(2, 1), vop(2, 2), vop(1, 5),
+            vop(2, 4)]
+    frames, _ = mpeg4.output_frames(ipbb)
+    assert [k for k, _, _ in frames] == [0, 2, 3, 1, 5, 4]
+    ipp = [head + vop(0, 0), vop(1, 1), vop(1, 2)]
+    assert [k for k, _, _ in mpeg4.output_frames(ipp)[0]] == [0, 1, 2]
     with pytest.raises(NotImplementedError, match="A9"):
-        bitstream.mpeg4_output_order([vop(1) + vop(2)])
+        mpeg4.Decoder().send(head + vop(1, 1) + vop(2, 2), 0)
 
 
 @pytest.mark.parametrize("name", sorted(EXPECTED))
