@@ -1,6 +1,6 @@
 // YUV 4:2:0 / 4:2:2 -> RGB colour conversion of a decoded video frame, full
-// range (an MJPEG frame) or limited range (an MPEG-4 part 2 frame), for
-// Hopper (sm_90a).
+// range (an MJPEG frame) or limited range (an MPEG-4 part 2 or H.264 frame,
+// with the stream's colour matrix), for Hopper (sm_90a).
 //
 // Replaces no TPU kernel: the JAX package decodes videos through cv2, whose
 // FFMPEG capture converts each decoded frame to BGR24 with swscale on the
@@ -19,8 +19,11 @@
 //     G = yt + (((8 U - 1024) * -2819) >> 16) + (((8 V - 1024) * -5850) >> 16)
 //     B = yt + (((8 U - 1024) * 14516) >> 16)
 //   limited range (yuv420p: a video decoder's planes), the luma offset 16:
-//     yt = ((8 Y - 128) * 9539) >> 16, then 13075, -3209, -6660, 16525
-//   each clamped to [0, 255] (BT.601, ff_yuv2rgb_c_init_tables).
+//     yt = ((8 Y - 128) * 9539) >> 16, then BT.601's 13075, -3209, -6660,
+//     16525, or the row of swscale's ff_yuv2rgb_coeffs that an H.264
+//     stream's VUI matrix_coefficients selects (BT.709: 14686, -1747,
+//     -4366, 17305; FCC, SMPTE 240M, BT.2020), which the caller passes
+//   each clamped to [0, 255] (ff_yuv2rgb_c_init_tables).
 //
 // Bound on this card: bytes. At 4:2:0 it reads 1.5 B and writes 3 B a
 // pixel and does a dozen integer operations on them: 4.15 MB at 1280x720,
@@ -72,11 +75,13 @@ __global__ void yuv_rgb_kernel(const uint8_t *__restrict__ y, int y_pitch,
 
 }  // namespace
 
+// crv, cgu, cgv, cbu: the 13-bit chroma coefficients of the frame's colour
+// matrix and range (ops/colour.py: coefficients, CRV...)
 extern "C" int yuv_rgb(const void *y, int y_pitch, const void *u,
                        const void *v, int c_pitch, int v_shift, int height,
-                       int width, int limited, void *dst, void *stream) {
-  const Coefficients k = limited ? Coefficients{1, 13075, -3209, -6660, 16525}
-                                 : Coefficients{0, 11485, -2819, -5850, 14516};
+                       int width, int limited, int crv, int cgu, int cgv,
+                       int cbu, void *dst, void *stream) {
+  const Coefficients k{limited, crv, cgu, cgv, cbu};
   const dim3 block(32, 8);
   const dim3 grid((width + 63) / 64, (height + 15) / 16);
   yuv_rgb_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(

@@ -10,7 +10,11 @@ types 0 and 2) within each run of pictures that starts at an IDR picture,
 which a decoder flushes before it (no_output_of_prior_pics_flag 0). Field
 pictures and POC type 1 raise naming ROADMAP.md queue A9; a memory
 management operation 5 (a POC reset without an IDR) is not looked for.
-MPEG-4 part 2's order comes from the port's decoder itself
+``h264_output_frames(units)`` gives the same order with the unit whose
+decoding returns each frame, as ffmpeg's decoder returns them: one frame a
+picture once more pictures wait than the VUI's max_num_reorder_frames
+(the level's DPB size where the SPS has no bitstream restriction), the rest
+at the end of the stream. MPEG-4 part 2's order comes from the port's decoder itself
 (``mpeg4.output_frames``).
 """
 from __future__ import annotations
@@ -89,7 +93,7 @@ def parse_sps(nal: bytes) -> dict:
     needs (ITU-T H.264 7.3.2.1.1)."""
     r = BitReader(rbsp(nal[1:]))
     profile = r.u(8)
-    r.u(16)                                    # constraints, level_idc
+    level = r.u(16) & 0xFF                     # constraints, level_idc
     sps_id = r.ue()
     separate_planes = 0
     if profile in _HIGH_PROFILES:
@@ -112,10 +116,75 @@ def parse_sps(nal: bytes) -> dict:
         raise _unread("H.264 picture order count type 1")
     r.ue()                                     # max_num_ref_frames
     r.u(1)                                     # gaps_in_frame_num_allowed
-    r.ue()
-    r.ue()                                     # picture size in MBs
+    mbs = (r.ue() + 1) * (r.ue() + 1)          # picture size in MBs
     sps["frame_mbs_only"] = r.u(1)
+    sps["num_reorder_frames"] = _max_dpb_frames(level, mbs)
+    if not sps["frame_mbs_only"]:
+        r.u(1)                                 # mb_adaptive_frame_field
+    r.u(1)                                     # direct_8x8_inference
+    if r.u(1):                                 # frame_cropping_flag
+        for _ in range(4):
+            r.ue()
+    if r.u(1):                                 # vui_parameters_present
+        _vui(r, sps)
     return sps
+
+
+# MaxDpbMbs by level_idc (ITU-T H.264 Table A-1)
+_MAX_DPB_MBS = {9: 396, 10: 396, 11: 900, 12: 2376, 13: 2376, 20: 2376,
+                21: 4752, 22: 8100, 30: 8100, 31: 18000, 32: 20480,
+                40: 32768, 41: 32768, 42: 34816, 50: 110400, 51: 184320,
+                52: 184320}
+
+
+def _max_dpb_frames(level: int, mbs: int) -> int:
+    """The DPB size in frames, what a stream without a bitstream
+    restriction may reorder (as data/native/h264_decode.cpp takes it)."""
+    return max(1, min(_MAX_DPB_MBS.get(level, 184320) // max(mbs, 1), 16))
+
+
+def _vui(r: BitReader, sps: dict) -> None:
+    """The VUI (ITU-T H.264 E.1.1) as far as max_num_reorder_frames."""
+    if r.u(1) and r.u(8) == 255:               # aspect_ratio_idc
+        r.u(32)
+    if r.u(1):                                 # overscan_info_present
+        r.u(1)
+    if r.u(1):                                 # video_signal_type_present
+        r.u(4)
+        if r.u(1):
+            r.u(24)                            # colour description
+    if r.u(1):                                 # chroma_loc_info_present
+        r.ue()
+        r.ue()
+    if r.u(1):                                 # timing_info_present
+        r.u(32)
+        r.u(32)
+        r.u(1)
+    hrd = [r.u(1)]
+
+    def skip_hrd():
+        count = r.ue() + 1
+        r.u(8)
+        for _ in range(count):
+            r.ue()
+            r.ue()
+            r.u(1)
+        r.u(20)
+
+    if hrd[0]:
+        skip_hrd()
+    hrd.append(r.u(1))
+    if hrd[1]:
+        skip_hrd()
+    if any(hrd):
+        r.u(1)                                 # low_delay_hrd_flag
+    r.u(1)                                     # pic_struct_present_flag
+    if r.u(1):                                 # bitstream_restriction
+        r.u(1)
+        for _ in range(4):
+            r.ue()
+        sps["num_reorder_frames"] = r.ue()
+        r.ue()                                 # max_dec_frame_buffering
 
 
 def parse_pps(nal: bytes) -> dict:
@@ -157,9 +226,42 @@ def h264_output_order(units) -> list[int]:
     """Indices of ``units`` (Annex B access units in decode order) in the
     order a decoder outputs their pictures (module docstring). A unit that
     holds no slice outputs no picture and is left out."""
+    return [k for k, _ in h264_output_frames(units)]
+
+
+def h264_output_frames(units) -> list[tuple[int, int | None]]:
+    """(index of the unit, index of the unit whose decoding returns it or
+    None at the end of the stream) of each picture of ``units`` in the
+    order a decoder outputs them (module docstring)."""
+    pictures = _pictures(units)
+    out: list[tuple[int, int | None]] = []
+    delayed: list[tuple[int, int, bool]] = []
+
+    def select() -> tuple[int, int, bool]:
+        # the smallest POC before the next IDR picture
+        best = 0
+        for i in range(1, len(delayed)):
+            if delayed[i][2]:
+                break
+            if delayed[i][1] < delayed[best][1]:
+                best = i
+        return delayed.pop(best)
+
+    for k, poc, idr, depth in pictures:
+        delayed.append((k, poc, idr))
+        if len(delayed) > depth:
+            out.append((select()[0], k))
+    while delayed:
+        out.append((select()[0], None))
+    return out
+
+
+def _pictures(units) -> list[tuple[int, int, bool, int]]:
+    """(unit index, POC, IDR, reorder depth) of each picture in decode
+    order, the POC counted from 0 at each IDR picture."""
     sps_by_id: dict = {}
     pps_by_id: dict = {}
-    runs: list[list[tuple[int, int]]] = []
+    pictures = []
     prev_msb = prev_lsb = 0
     frame_index = 0
     for k, unit in enumerate(units):
@@ -176,9 +278,6 @@ def h264_output_order(units) -> list[int]:
                 s = _slice_poc_fields(nal, sps_by_id, pps_by_id)
                 if s["idr"]:
                     prev_msb = prev_lsb = 0
-                    runs.append([])
-                elif not runs:
-                    runs.append([])
                 if s["sps"]["poc_type"] == 2:
                     poc = frame_index       # output order = decode order
                 else:
@@ -194,7 +293,8 @@ def h264_output_order(units) -> list[int]:
                     poc = min(top, top + s["delta_bottom"])
                     if s["reference"]:
                         prev_msb, prev_lsb = msb, lsb
-                runs[-1].append((poc, k))
+                pictures.append((k, poc, s["idr"],
+                                 s["sps"]["num_reorder_frames"]))
                 frame_index += 1
-    return [k for run in runs for _, k in sorted(run)]
+    return pictures
 

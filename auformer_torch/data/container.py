@@ -47,7 +47,10 @@ presentation time, which is that of the packet whose properties ffmpeg
 gives it (its own, or the last one's for a frame returned at the end of a
 stream after a VOP of vop_coded 0); where there is none, as in an AVI
 whose stream is not low delay, the decode time of the chunk whose decoding
-returned the frame (0 for one returned at the end of the stream).
+returned the frame (0 for one returned at the end of the stream). An H.264
+stream in AVI takes that rule too, with the frames ffmpeg's decoder returns
+(``bitstream.h264_output_frames``): a stream with B frames has its
+timestamps one or more chunks late and 0 for the last.
 
 ``packet_index(path)`` lists the stream's packets in decode order (file
 offset, size, sync flag from ``stss`` or the AVI index, decode and
@@ -511,6 +514,12 @@ def _avi(f, path: str, timestamps: bool) -> dict:
             kept = [track["packets"][props] if low_delay else
                     None if trigger is None else track["packets"][trigger]
                     for _, props, trigger in frames]
+        elif track["codec"] == "h264":
+            # the same for H.264: the chunk whose decoding returned each
+            # frame, in the output ffmpeg's decoder gives (bitstream.py)
+            kept = [None if trigger is None else track["packets"][trigger]
+                    for k, trigger in _h264_frames(path, track)
+                    if track["packets"][k].kept]
         out["timestamps_ms"] = [0.0 if p is None else
                                 p.pts * track["time_base"] * 1000.0
                                 for p in kept]
@@ -653,6 +662,18 @@ def access_units(path: str, index: dict | None = None, start: int = 0,
             yield k, unit
 
 
+def _h264_frames(path: str, index: dict) -> list[tuple[int, int | None]]:
+    """``bitstream.h264_output_frames`` in packet positions: (the packet
+    of each frame, the packet whose decoding returns it or None at the end
+    of the stream), every packet from the first read."""
+    ks, units = [], []
+    for k, unit in access_units(path, index, kept_only=False):
+        ks.append(k)
+        units.append(unit)
+    return [(ks[i], None if t is None else ks[t])
+            for i, t in bitstream.h264_output_frames(units)]
+
+
 def output_order(path: str, index: dict | None = None) -> list[int]:
     """Positions in ``index["packets"]`` of the kept packets in the order
     a decoder returns their frames: the presentation order that an H.264
@@ -665,9 +686,4 @@ def output_order(path: str, index: dict | None = None) -> list[int]:
     if index["codec"] != "h264":
         raise _unsupported(path, f"the output order of a {index['codec']} "
                            "stream")
-    ks, units = [], []
-    for k, unit in access_units(path, index, kept_only=False):
-        ks.append(k)
-        units.append(unit)
-    order = bitstream.h264_output_order(units)
-    return [ks[i] for i in order if packets[ks[i]].kept]
+    return [k for k, _ in _h264_frames(path, index) if packets[k].kept]

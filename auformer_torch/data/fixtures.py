@@ -933,15 +933,26 @@ def _m4_mvd(out: _BitList, diff: int, f_code: int) -> None:
 
 
 def _m4_headers(width: int, height: int, res: int, low_delay: bool,
-                mpeg_quant: bool, resync: bool) -> bytes:
-    """VOS, visual object, VO and VOL headers."""
+                mpeg_quant: bool, resync: bool,
+                colour: tuple[int, int] | None = None) -> bytes:
+    """VOS, visual object, VO and VOL headers; with ``colour``,
+    (matrix_coefficients, video_range), the visual object carries a
+    video_signal_type of that range and a colour description of that
+    matrix (BT.709 primaries and transfer)."""
     w = _BitList()
     w.put(0x000001B0, 32)
     w.put(0xF5, 8)                          # Advanced Simple profile
     w.put(0x000001B5, 32)
     w.put(0, 1)                             # is_visual_object_identifier
     w.put(1, 4)                             # visual_object_type: video
-    w.put(0, 1)                             # video_signal_type
+    w.put(int(colour is not None), 1)       # video_signal_type
+    if colour is not None:
+        w.put(5, 3)                         # video_format: unspecified
+        w.put(colour[1], 1)                 # video_range
+        w.put(1, 1)                         # colour_description
+        w.put(1, 8)                         # colour_primaries
+        w.put(1, 8)                         # transfer_characteristics
+        w.put(colour[0], 8)                 # matrix_coefficients
     w.stuff()
     w.put(0x00000100, 32)                   # video_object_start_code
     w.put(0x00000120, 32)                   # video_object_layer_start_code
@@ -1269,7 +1280,7 @@ def mpeg4_access_units(width: int, height: int, n_frames: int,
                        fps: float = 30.0, gop: int = 12, b_frames: int = 0,
                        mpeg_quant: bool = False, not_coded=(),
                        resync: int = 0, qscale: int = 8, seed: int = 0,
-                       source=None):
+                       source=None, colour: tuple[int, int] | None = None):
     """(VOS/VO/VOL headers, [(display index, kind, VOP bytes)] in decode
     order) of an MPEG-4 part 2 stream (module section above): VOPs in
     ``h264_gop_order``, kind ``"I"``, ``"P"``, ``"B"`` or ``"N"`` (a P
@@ -1277,7 +1288,7 @@ def mpeg4_access_units(width: int, height: int, n_frames: int,
     a video packet every ``resync`` macroblocks of I- and P-VOPs, every
     other one with a header extension. ``source(t)`` gives frame t's
     (Y, U, V) planes (default ``h264_source_yuv(seed, t, height,
-    width)``)."""
+    width)``); ``colour`` writes a video_signal_type (``_m4_headers``)."""
     if width % 2 or height % 2:
         raise ValueError(f"4:2:0 needs an even size, not {width}x{height}")
     source = source or (lambda t: h264_source_yuv(seed, t, height, width))
@@ -1291,7 +1302,7 @@ def mpeg4_access_units(width: int, height: int, n_frames: int,
             raise ValueError(f"frame {t} is not a P-VOP: it cannot be sent "
                              "not coded")
     headers = _m4_headers(width, height, res, not b_frames, mpeg_quant,
-                          resync > 0)
+                          resync > 0, colour)
     planes = {}
 
     def plane(t):
@@ -1512,20 +1523,22 @@ def mpeg4_access_units(width: int, height: int, n_frames: int,
 def write_mpeg4(path: str, width: int, height: int, n_frames: int,
                 fps: float = 30.0, gop: int = 12, b_frames: int = 0,
                 mpeg_quant: bool = False, not_coded=(), resync: int = 0,
-                qscale: int = 8, seed: int = 0, source=None
+                qscale: int = 8, seed: int = 0, source=None,
+                colour: tuple[int, int] | None = None
                 ) -> list[tuple[int, str]]:
     """Write the stream of ``mpeg4_access_units`` to ``path``: an MP4
     (``mp4v`` with the VOS, VO and VOL headers in its ``esds``, ``stss``,
     and ``ctts`` plus an edit list from the first presentation time where
     there are B-VOPs) or an AVI (``FMP4`` chunks of one VOP each, the
     headers ahead of every I-VOP, ``idx1`` key flags). Returns (display
-    index, kind) of each VOP in decode order."""
+    index, kind) of each VOP in decode order. ``colour``: a
+    video_signal_type in the visual object header (``_m4_headers``)."""
     ext = os.path.splitext(path)[1].lower()
     if ext not in (".mp4", ".mov", ".avi"):
         raise ValueError(f"write_mpeg4 writes .mp4, .mov or .avi, not {ext}")
     headers, units = mpeg4_access_units(
         width, height, n_frames, fps, gop, b_frames, mpeg_quant, not_coded,
-        resync, qscale, seed, source)
+        resync, qscale, seed, source, colour)
     delta, scale = _frame_rate(fps)
     order = [(t, kind) for t, kind, _ in units]
     sync = [kind == "I" for _, kind in order]

@@ -14,12 +14,15 @@ raise.
 
 ``decode_range(path, index, start_key, stop, device)`` feeds the packets
 of ``container.access_units`` from the sync packet ``start_key`` in
-decode order and yields ``(k, (y, u, v))`` for each frame the decoder
-outputs, in ffmpeg's output order (display order), that comes from a
+decode order and yields ``(k, (y, u, v), colour)`` for each frame the
+decoder outputs, in ffmpeg's output order (display order), that comes from a
 packet the container keeps (an edit list's leading samples are decoded as
 references and dropped, as ffmpeg drops them). The planes land in host
 tensors; for a CUDA device in pinned ones, copied to the card on the
-current stream.
+current stream. ``colour`` is (matrix_coefficients, video_range) of the
+visual object header's video_signal_type ((2, 0) where there is none), as
+ffmpeg gives them to the frames and cv2 converts by them (ROADMAP.md C13):
+the arguments of ``yuv_rgb``'s ``matrix`` and, negated, ``limited``.
 
 ``output_frames(units)`` gives the frames the decoder returns for a
 stream's access units, in its order, without their pixels: the same
@@ -66,6 +69,8 @@ def _library() -> ctypes.CDLL:
     lib.m4v_receive.restype = i
     lib.m4v_low_delay.argtypes = [ptr]
     lib.m4v_low_delay.restype = i
+    lib.m4v_colour.argtypes = [ptr, ip, ip]
+    lib.m4v_colour.restype = None
     return lib
 
 
@@ -132,6 +137,12 @@ class Decoder:
         """Whether the stream returns each VOP when it is decoded."""
         return bool(self._lib.m4v_low_delay(self._h))
 
+    def colour(self) -> tuple[int, int]:
+        """(matrix_coefficients, video_range) the frames carry."""
+        m, r = ctypes.c_int(), ctypes.c_int()
+        self._lib.m4v_colour(self._h, ctypes.byref(m), ctypes.byref(r))
+        return m.value, r.value
+
     def close(self) -> None:
         if self._h:
             self._lib.m4v_close(self._h)
@@ -146,7 +157,7 @@ def planes_shape(height: int, width: int) -> tuple[tuple, tuple]:
     return (height, width), ((height + 1) // 2, (width + 1) // 2)
 
 
-class _Staging:
+class Staging:
     """Pinned host planes in turn for the copies to a CUDA device: a set
     is written again only once its last copy has finished."""
 
@@ -174,10 +185,10 @@ class _Staging:
 
 def decode_range(path: str, index: dict | None = None, start_key: int = 0,
                  stop: int | None = None, device="cpu"
-                 ) -> Iterator[tuple[int, tuple]]:
-    """Yield ``(k, (y, u, v))`` for the frames decoded from the sync packet
-    ``start_key`` (module docstring), at most ``stop`` of them; the planes
-    on ``device``."""
+                 ) -> Iterator[tuple[int, tuple, tuple[int, int]]]:
+    """Yield ``(k, (y, u, v), colour)`` for the frames decoded from the sync
+    packet ``start_key`` (module docstring), at most ``stop`` of them; the
+    planes on ``device``."""
     index = index or container.packet_index(path)
     if index["codec"] != "mpeg4":
         raise ValueError(f"{path}: a {index['codec']} stream, not MPEG-4 "
@@ -195,7 +206,7 @@ def decode_range(path: str, index: dict | None = None, start_key: int = 0,
         h, w = dec.size()
         if on_card:
             if staging is None:
-                staging = _Staging(h, w)
+                staging = Staging(h, w)
             k, planes = staging.take()
             tag = dec.receive(*planes)
             return tag, (lambda: staging.upload(k, device))
@@ -211,14 +222,14 @@ def decode_range(path: str, index: dict | None = None, start_key: int = 0,
             if dec.send(unit, k):
                 tag, planes = frame()
                 if packets[tag].kept:
-                    yield tag, planes()
+                    yield tag, planes(), dec.colour()
                     shown += 1
                     if stop is not None and shown >= stop:
                         return
         if dec.flush():
             tag, planes = frame()
             if packets[tag].kept:
-                yield tag, planes()
+                yield tag, planes(), dec.colour()
     finally:
         dec.close()
 

@@ -28,6 +28,8 @@ to a system libzstd.
 ``mpeg4_decode.cpp`` is built the same way with the C++ compiler alone:
 the port's MPEG-4 part 2 video decoder (``data/mpeg4.py``), which gives
 the frames cv2's ffmpeg gives for MPEG-4 videos. A failed build raises.
+``h264_decode.cpp`` is another, the same way: the port's H.264 decoder
+(``data/h264.py``, CAVLC), whose planes are ffmpeg's bit for bit.
 
 ``nvdec.cpp`` is a fourth: it asks the card's NVDEC video decoder for its
 capabilities (``data/nvdec.py``). Built the same way with the CUDA
@@ -56,6 +58,7 @@ SOURCES = {"libjpeg": "framestore_reader.cpp",
            "nvjpeg": "framestore_nvjpeg.cpp",
            "zstd": "zstd_decode.cpp",
            "mpeg4": "mpeg4_decode.cpp",
+           "h264": "h264_decode.cpp",
            "nvdec": "nvdec.cpp"}
 HEADERS = {"libjpeg": "framestore.h", "nvjpeg": "framestore.h",
            "nvdec": "nvcuvid_api.h"}
@@ -110,7 +113,7 @@ def decoder() -> str:
 def _command(name: str, target: Path) -> list[str]:
     cmd = [_cxx(), *CXX_FLAGS, str(SRC_DIR / SOURCES[name]), "-o",
            str(target)]
-    if name in ("zstd", "mpeg4"):
+    if name in ("zstd", "mpeg4", "h264"):
         return cmd
     if name == "libjpeg":
         if not _has_libjpeg():
@@ -140,6 +143,7 @@ def _target(name: str) -> Path:
         h.update((SRC_DIR / HEADERS[name]).read_bytes())
     h.update(" ".join(_command(name, Path("lib.so"))).encode())
     stem = {"zstd": "libzstd_decode", "mpeg4": "libmpeg4_decode",
+            "h264": "libh264_decode",
             "nvdec": "libnvdec"}.get(
         name, f"libframestore_{name}")
     return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
@@ -148,13 +152,15 @@ def _target(name: str) -> Path:
 def _what(name: str) -> str:
     return {"zstd": "the zstd decoder",
             "mpeg4": "the MPEG-4 part 2 decoder",
+            "h264": "the H.264 decoder",
             "nvdec": "the NVDEC caps probe"}.get(
         name, f"the {name} FrameStore reader")
 
 
 def build(name: str | None = None) -> Path:
     """Compile the reader for ``name`` (default: :func:`decoder`; ``"zstd"``
-    the zstd decoder, ``"mpeg4"`` the MPEG-4 part 2 decoder, ``"nvdec"``
+    the zstd decoder, ``"mpeg4"`` the MPEG-4 part 2 decoder, ``"h264"``
+    the H.264 decoder, ``"nvdec"``
     the NVDEC caps probe) unless it is built;
     returns the library's path.
     Raises RuntimeError with the compiler's output when the build fails."""

@@ -53,6 +53,7 @@
 //                     uint8_t* v, int c_pitch, long long* tag,
 //                     long long* props);
 //   int   m4v_low_delay(void* h);
+//   void  m4v_colour(void* h, int* matrix, int* full_range);
 // m4v_send decodes one access unit (any VOS, VO, VOL, GOV and user data
 // headers, then one VOP) and sets *ready to the number of frames now ready
 // for output (0 or 1), in the order ffmpeg outputs them: a B-VOP at once,
@@ -65,7 +66,9 @@
 // call it) and gives back the tag of the unit it came from and that of the
 // unit whose packet properties ffmpeg gives it: its own, but the last
 // unit's for the frame m4v_flush returns after a VOP of vop_coded 0 (its
-// skipped_last_frame). m4v_low_delay says whether the stream returns each
+// skipped_last_frame). m4v_colour gives the matrix_coefficients (2 where
+// none was sent) and the video_range of the last visual object header's
+// video_signal_type. m4v_low_delay says whether the stream returns each
 // VOP at once. Calls return 0, or 1 for a malformed stream and 2 for a
 // refused tool, with the message in err.
 
@@ -489,11 +492,18 @@ class Decoder {
   bool receive(uint8_t* y, int yp, uint8_t* u, uint8_t* v, int cp,
                long long* tag, long long* props);
   bool low_delay() const { return vol_.low_delay; }
+  // the colour matrix and range the frames carry: the last visual object
+  // header's video_signal_type, as ffmpeg keeps it
+  void colour(int* matrix, int* full_range) const {
+    *matrix = matrix_;
+    *full_range = full_range_;
+  }
 
  private:
   // stream state
   std::string fourcc_;
   bool headers_only_;
+  int matrix_ = 2, full_range_ = 0;
   bool divx_packed_ = false;      // user data "DivX...p"
   std::vector<uint8_t> pending_;  // a packed unit's second VOP (headers_only)
   size_t vop_at_ = 0;             // start code of the unit's VOP
@@ -834,9 +844,24 @@ void Decoder::parse_headers(const uint8_t* data, size_t n, long long tag) {
       Bits b(body, len);
       vop(b, tag);
       return;
-    } else if (code <= 0x1F || code == 0xB0 || code == 0xB1 || code == 0xB3 ||
-               code == 0xB5) {
-      // VO, VOS, end of VOS, GOV, visual object: nothing the pixels need
+    } else if (code == 0xB5) {
+      // visual object (6.2.2): video_signal_type's range and colour
+      // description, which ffmpeg gives the frames and cv2 converts by
+      Bits b(body, len);
+      if (b.left() >= 8) {
+        if (b.get1()) b.get(7);  // visual_object_verid, priority
+        int type = (int)b.get(4);
+        if ((type == 1 || type == 2) && b.left() >= 1 && b.get1() && b.left() >= 5) {
+          b.get(3);  // video_format
+          full_range_ = b.get1();
+          if (b.get1() && b.left() >= 24) {  // colour_description
+            b.get(16);                      // primaries, transfer
+            matrix_ = (int)b.get(8);
+          }
+        }
+      }
+    } else if (code <= 0x1F || code == 0xB0 || code == 0xB1 || code == 0xB3) {
+      // VO, VOS, end of VOS, GOV: nothing the pixels need
       if (code == 0xB0 && len >= 1 && body[0] >= 0xE1 && body[0] <= 0xE8)
         refuse("the Simple Studio profile");
     } else if (code >= 0x40 && code <= 0x5F) {
@@ -1712,5 +1737,9 @@ int m4v_receive(void* h, uint8_t* y, int y_pitch, uint8_t* u, uint8_t* v,
 }
 
 int m4v_low_delay(void* h) { return static_cast<Decoder*>(h)->low_delay(); }
+
+void m4v_colour(void* h, int* matrix, int* full_range) {
+  static_cast<Decoder*>(h)->colour(matrix, full_range);
+}
 
 }  // extern "C"

@@ -9,7 +9,7 @@ saves it (tests/test_ingest.py checks that name). The keys and the
 ``data/container.py``, with no video decoder.
 
 Frames (``read_RGB``, ``frames``, ``frame_tensors``) come out on the card
-unless the caller passes ``device="cpu"``, for two codecs in AVI or MP4:
+unless the caller passes ``device="cpu"``, for three codecs in AVI or MP4:
 
   MJPEG          each frame's JPEG goes to its Y, Cb and Cr planes
                  (nvJPEG in the card's memory for a CUDA device, libjpeg on
@@ -21,20 +21,26 @@ unless the caller passes ``device="cpu"``, for two codecs in AVI or MP4:
                  decodes on the host, as cv2's ffmpeg does, to planes equal
                  to ffmpeg's bit for bit; the frames in ffmpeg's output
                  order, the planes copied to the card for a CUDA device.
+  H.264          the port's own software decoder (``data/h264.py``: CAVLC,
+                 progressive, 8-bit 4:2:0, flat scaling) the same way.
 
 ``ops/colour.py``'s ``yuv_rgb`` converts the planes as cv2's swscale does
-(full range for a JPEG's, limited range for MPEG-4's), on the card with
-its kernel for a CUDA device. H.264 waits for a software decoder of the
-port's own (NVDEC, the card's video decoder, is refused by the
-container the card runs in: ``data/nvdec.py``); its frames raise naming
-ROADMAP.md queue A9, as do JPEG frames that are not 4:2:0 or 4:2:2 and
-the MPEG-4 tools the decoder refuses.
+(full range for a JPEG's; for MPEG-4's and H.264's, the range and
+matrix_coefficients that the stream's headers give: the visual object's
+video_signal_type, the SPS's VUI; limited range BT.601 where they give
+none), on the card with its kernel for a CUDA device. NVDEC, the card's
+video decoder, is refused by the container the card runs in
+(``data/nvdec.py``) and is not tried. JPEG
+frames that are not 4:2:0 or 4:2:2, and the MPEG-4 and H.264 tools the
+decoders refuse (H.264's CABAC, scaling matrices, field pictures, 4:4:4,
+high bit depths and the rest), raise naming ROADMAP.md queue A9, as do
+other codecs.
 
-``read_RGB(k)`` seeks as cv2's ``CAP_PROP_POS_FRAMES`` does for MPEG-4:
-from the sync packet at or before the display position 16 frames before
-``k``, counting the frames the decoder returns from the first one's
-display position. Where no VOP with vop_coded 0 lies between them, that is
-``frames()``'s frame ``k``.
+``read_RGB(k)`` seeks as cv2's ``CAP_PROP_POS_FRAMES`` does for MPEG-4 and
+H.264: from the sync packet at or before the display position 16 frames
+before ``k``, counting the frames the decoder returns from the first one's
+display position. Where no MPEG-4 VOP with vop_coded 0 lies between them,
+that is ``frames()``'s frame ``k``.
 """
 from __future__ import annotations
 
@@ -47,7 +53,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from . import container, mpeg4
+from . import container, h264, mpeg4
 
 _A9 = "ROADMAP.md queue A9 (frame decoding)"
 _SEEK_BACK = 16      # cv2's seek: from 16 frames before the one asked for
@@ -147,12 +153,12 @@ class Video:
         in display order), parsed once per ``Video``; raises for a codec
         the port does not decode."""
         index = container.packet_index(self.path)
-        if index["codec"] not in ("mjpeg", "mpeg4"):
+        if index["codec"] not in ("mjpeg", "mpeg4", "h264"):
             raise NotImplementedError(
                 f"decoding the {index['codec']} frames of {self.path} needs "
                 "a software decoder of the port's own, which auformer_torch "
-                "has for MJPEG and MPEG-4 part 2 only (the card's NVDEC is "
-                f"refused by its container): {_A9} lists it")
+                "has for MJPEG, MPEG-4 part 2 and H.264 only (the card's "
+                f"NVDEC is refused by its container): {_A9} lists it")
         return index, [k for k, p in enumerate(index["packets"]) if p.kept]
 
     def frame_tensors(self, device=None) -> Iterator[torch.Tensor]:
@@ -160,9 +166,9 @@ class Video:
         ``device`` (default the GPU)."""
         index, _ = self._decodable
         device = _resolve_device(device)
-        if index["codec"] == "mpeg4":
-            return _mpeg4_rgb(mpeg4.decode_range(self.path, index,
-                                                 device=device))
+        if index["codec"] in _SOFTWARE:
+            return _planes_rgb(_SOFTWARE[index["codec"]](self.path, index,
+                                                         device=device))
         return (decode_mjpeg_frame(unit, device)
                 for _, unit in container.access_units(self.path, index))
 
@@ -177,11 +183,11 @@ class Video:
         ``read``), or with None the frame after the one read last (cv2's
         ``read``), as (H, W, 3) uint8 RGB; None past the last frame. Every
         MJPEG frame is a sync sample, so frame k decodes from its own
-        packet; MPEG-4 seeks as the module docstring says."""
+        packet; MPEG-4 and H.264 seek as the module docstring says."""
         index, kept = self._decodable
         device = _resolve_device(device)
-        if index["codec"] == "mpeg4":
-            return self._read_mpeg4(index, frame_idx, device)
+        if index["codec"] in _SOFTWARE:
+            return self._read_decoded(index, frame_idx, device)
         k = self._next if frame_idx is None else int(frame_idx)
         if k < 0:
             raise ValueError(f"read_RGB: frame {k} of {self.path}")
@@ -192,22 +198,23 @@ class Video:
         _, unit = next(container.access_units(self.path, index, kept[k]))
         return decode_mjpeg_frame(unit, device).cpu().numpy()
 
-    def _read_mpeg4(self, index: dict, frame_idx, device):
-        """cv2's seek and read on an MPEG-4 stream: a decode from the sync
-        packet of ``_seek_key`` that stays open for the reads after it."""
+    def _read_decoded(self, index: dict, frame_idx, device):
+        """cv2's seek and read on an MPEG-4 or H.264 stream: a decode from
+        the sync packet of ``_seek_key`` that stays open for the reads
+        after it; the frames passed over are not converted."""
         if frame_idx is not None or self._session is None:
             k = 0 if frame_idx is None else int(frame_idx)
             if k < 0:
                 raise ValueError(f"read_RGB: frame {k} of {self.path}")
             self._close_session()
             key, skip = _seek_key(index, min(k, index["num_frames"]))
-            self._session = _mpeg4_rgb(mpeg4.decode_range(
-                self.path, index, key, device=device))
+            self._session = _SOFTWARE[index["codec"]](self.path, index, key,
+                                                      device=device)
             for _ in range(skip):
                 if next(self._session, None) is None:
                     break
         frame = next(self._session, None)
-        return None if frame is None else frame.cpu().numpy()
+        return None if frame is None else _rgb(frame).cpu().numpy()
 
     def _close_session(self) -> None:
         if self._session is not None:
@@ -215,17 +222,29 @@ class Video:
             self._session = None
 
     def release(self) -> None:
-        """Back to the first frame, closing an open MPEG-4 decode."""
+        """Back to the first frame, closing an open MPEG-4 or H.264
+        decode."""
         self._next = 0
         self._close_session()
 
 
-def _mpeg4_rgb(planes) -> Iterator[torch.Tensor]:
-    """RGB frames of ``mpeg4.decode_range``'s planes (limited range)."""
+# the codecs the port's host decoders read: decode_range by codec
+_SOFTWARE = {"mpeg4": mpeg4.decode_range, "h264": h264.decode_range}
+
+
+def _rgb(frame) -> torch.Tensor:
+    """The RGB frame of a host decoder's ``(k, planes, colour)``, converted
+    with the stream's colour matrix and range."""
     from ..ops.colour import yuv_rgb
+    _, (y, u, v), (matrix, full_range) = frame
+    return yuv_rgb(y, u, v, limited=not full_range, matrix=matrix)
+
+
+def _planes_rgb(planes) -> Iterator[torch.Tensor]:
+    """RGB frames of a host decoder's ``decode_range``."""
     try:
-        for _, (y, u, v) in planes:
-            yield yuv_rgb(y, u, v, limited=True)
+        for frame in planes:
+            yield _rgb(frame)
     finally:
         planes.close()
 

@@ -1,13 +1,18 @@
 """YUV -> RGB conversion of decoded video frames (``csrc/yuv_rgb.cu``).
 
 The JAX package reads frames through cv2, whose FFMPEG capture converts
-each decoded frame with swscale's yuv2rgb (BT.601, nearest chroma, 16-bit
-fixed point) to BGR24 and then to RGB: a JPEG's full-range 4:2:0 or 4:2:2
-planes (yuvj420p, yuvj422p: MJPEG) as they are, a video decoder's
-limited-range yuv420p planes (MPEG-4 part 2, H.264) with luma offset 16
-and wider coefficients (``limited=True``). ``yuv_rgb_plain`` is that
-arithmetic in PyTorch, bit for bit on every (Y, U, V) input that the tests
-sweep (tests/test_torch_video_decode.py, tests/test_torch_video_mpeg4.py);
+each decoded frame with swscale's yuv2rgb (nearest chroma, 16-bit fixed
+point) to BGR24 and then to RGB: full-range 4:2:0 or 4:2:2 planes (MJPEG's
+yuvj420p and yuvj422p, and a video stream that says it is full range) as
+they are, a video decoder's limited-range yuv420p planes (MPEG-4 part 2,
+H.264) with luma offset 16 and wider coefficients (``limited=True``); the
+chroma coefficients from the row of swscale's ff_yuv2rgb_coeffs that the
+stream's colour matrix selects (``matrix``: the matrix_coefficients of
+H.264's VUI or of MPEG-4 part 2's colour description; BT.601 where there
+is none: ``coefficients``). ``yuv_rgb_plain`` is
+that arithmetic in PyTorch, bit for bit on every (Y, U, V) input that the
+tests sweep (tests/test_torch_video_decode.py,
+tests/test_torch_video_mpeg4.py, tests/test_torch_video_h264.py);
 ``yuv_rgb`` takes it for CPU planes and launches the CUDA kernel for CUDA
 ones.
 
@@ -24,13 +29,35 @@ import torch
 
 from .build import check, library
 
-# swscale's 13-bit full-range BT.601 coefficients (ff_yuv2rgb_c_init_tables:
-# vrCoeff, ugCoeff, vgCoeff, ubCoeff); its luma term, (8 Y * 8192) >> 16
-# with yCoeff 8192 and no offset, is Y itself
-CRV, CGU, CGV, CBU = 11485, -2819, -5850, 14516
-# and its limited-range (MPEG) ones: luma ((8 Y - 128) * 9539) >> 16
-LIMITED_CY, LIMITED_CRV, LIMITED_CGU, LIMITED_CGV, LIMITED_CBU = (
-    9539, 13075, -3209, -6660, 16525)
+# swscale's luma term (ff_yuv2rgb_c_init_tables: yCoeff, yOffset): full
+# range (8 Y * 8192) >> 16, which is Y itself; limited range, the offset
+# 16: ((8 Y - 128) * 9539) >> 16
+LIMITED_CY = 9539
+
+# swscale's ff_yuv2rgb_coeffs rows (crv, cbu, -cgu, -cgv in 16.16) by the
+# matrix_coefficients value that cv2 passes to sws_getCoefficients, which
+# takes BT.601's row for every value it does not list
+_SWS_ROWS = {1: (117489, 138438, 13975, 34925),     # BT.709
+             4: (104448, 132798, 24759, 53109),     # FCC
+             7: (117579, 136230, 16907, 35559),     # SMPTE 240M
+             9: (110013, 140363, 12277, 42626),     # BT.2020 NCL
+             10: (110013, 140363, 12277, 42626)}    # BT.2020 CL
+_BT601_ROW = (104597, 132201, 25675, 53279)
+
+
+def coefficients(matrix: int = 2, limited: bool = True
+                 ) -> tuple[int, int, int, int]:
+    """(crv, cgu, cgv, cbu) of the conversion for a stream's
+    matrix_coefficients: ff_yuv2rgb_c_init_tables' 13-bit rounding of the
+    row, (c * 8192 + 32768) >> 16, each first scaled by 224 / 255
+    (truncated) for full range. BT.601 gives (11485, -2819, -5850, 14516)
+    in full range and (13075, -3209, -6660, 16525) in limited range."""
+    crv, cbu, cgu, cgv = _SWS_ROWS.get(int(matrix), _BT601_ROW)
+    row = (crv, -cgu, -cgv, cbu)
+    if not limited:     # C's division, truncated toward zero
+        row = tuple((abs(c) * 224 // 255) * (1 if c >= 0 else -1)
+                    for c in row)
+    return tuple((c * 8192 + 32768) >> 16 for c in row)
 
 
 def _check_planes(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> int:
@@ -58,9 +85,10 @@ def _check_planes(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> int:
 
 
 def yuv_rgb_plain(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                  limited: bool = False) -> torch.Tensor:
+                  limited: bool = False, matrix: int = 2) -> torch.Tensor:
     """(H, W, 3) uint8 RGB of the planes, as cv2 converts them: full range
-    (a JPEG's), or limited range with ``limited``."""
+    (a JPEG's), or limited range with ``limited`` and the colour matrix
+    ``matrix`` (module docstring)."""
     shift = _check_planes(y, u, v)
     h, w = y.shape
     rows = torch.arange(h, device=y.device) >> shift
@@ -68,11 +96,9 @@ def yuv_rgb_plain(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     cu = u.to(torch.int32)[rows][:, cols] * 8 - 1024
     cv = v.to(torch.int32)[rows][:, cols] * 8 - 1024
     yt = y.to(torch.int32)
-    crv, cgu, cgv, cbu = CRV, CGU, CGV, CBU
+    crv, cgu, cgv, cbu = coefficients(matrix, limited)
     if limited:
         yt = ((yt * 8 - 128) * LIMITED_CY) >> 16
-        crv, cgu, cgv, cbu = (LIMITED_CRV, LIMITED_CGU, LIMITED_CGV,
-                              LIMITED_CBU)
     r = yt + ((cv * crv) >> 16)
     g = yt + ((cu * cgu) >> 16) + ((cv * cgv) >> 16)
     b = yt + ((cu * cbu) >> 16)
@@ -83,20 +109,21 @@ def yuv_rgb_plain(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
 def _library() -> ctypes.CDLL:
     lib = library("yuv_rgb")
     ptr, i = ctypes.c_void_p, ctypes.c_int
-    lib.yuv_rgb.argtypes = [ptr, i, ptr, ptr, i, i, i, i, i, ptr, ptr]
+    lib.yuv_rgb.argtypes = [ptr, i, ptr, ptr, i, i, i, i, i, i, i, i, i,
+                            ptr, ptr]
     lib.yuv_rgb.restype = ctypes.c_int
     return lib
 
 
 def yuv_rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-            limited: bool = False) -> torch.Tensor:
+            limited: bool = False, matrix: int = 2) -> torch.Tensor:
     """(H, W, 3) uint8 RGB of the planes (module docstring), full or
-    ``limited`` range: ``yuv_rgb_plain`` for CPU planes, the kernel on the
-    current stream for CUDA ones (or an error). ``yuv_rgb.launches``
-    counts kernel launches."""
+    ``limited`` range with the colour ``matrix``: ``yuv_rgb_plain`` for CPU
+    planes, the kernel on the current stream for CUDA ones (or an error).
+    ``yuv_rgb.launches`` counts kernel launches."""
     shift = _check_planes(y, u, v)
     if all(p.device.type == "cpu" for p in (y, u, v)):
-        return yuv_rgb_plain(y, u, v, limited)
+        return yuv_rgb_plain(y, u, v, limited, matrix)
     if not (y.device.type == "cuda" and u.device == y.device
             and v.device == y.device):
         raise ValueError(f"yuv_rgb: planes on {y.device}, {u.device}, "
@@ -104,10 +131,12 @@ def yuv_rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     h, w = y.shape
     out = torch.empty((h, w, 3), dtype=torch.uint8, device=y.device)
     stream = torch.cuda.current_stream(y.device).cuda_stream
+    crv, cgu, cgv, cbu = coefficients(matrix, limited)
     with torch.cuda.device(y.device):
         err = _library().yuv_rgb(y.data_ptr(), y.stride(0), u.data_ptr(),
                                  v.data_ptr(), u.stride(0), shift, h, w,
-                                 int(limited), out.data_ptr(), stream)
+                                 int(limited), crv, cgu, cgv, cbu,
+                                 out.data_ptr(), stream)
     check(err, "yuv_rgb kernel")
     yuv_rgb.launches += 1
     return out

@@ -122,8 +122,9 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            bit; the split is removed after it
   decode   video frames (no model): (a) NVDEC's caps for H.264 and
            MPEG-4 part 2, or the driver's refusal (this card's container
-           refuses them), and the H.264 fixtures' frames raising naming
-           A9; (b) tests/data/videos_decode/: every fixture's count and
+           refuses them), and the I_PCM H.264 fixtures' frames through
+           frame_tensors() on the card against the SHA-256s of cv2's;
+           (b) tests/data/videos_decode/: every fixture's count and
            timestamps (the B-frame MP4's in the decoder's output order)
            against expected.json, the MJPEG fixture's frames on the card
            against the JAX package's cv2 frames (mjpg_112.npz, within
@@ -152,6 +153,18 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            frames/s of MPEG4_PASSES passes and the host decoder's s per
            frame over as many, with the stream's bytes a frame; (g) the
            kernel's limited range at 1280x720 against its plain version,
+           its device ms beside its bound; then H.264 (the port's software
+           decoder on the host, data/h264.py): (h) every
+           tests/data/videos_h264/ stream that the decoder takes (x264,
+           CAVLC) through frame_tensors() on the card against the SHA-256s
+           of cv2's frames, its seeks, count and timestamps, and the
+           refused ones (CABAC, MBAFF, scaling matrices, 4:4:4) raising
+           naming A9; ipb_1280x720.mp4 (24 frames, High profile CAVLC)
+           through Video.frames() on the card, the main path: 24 yuv_rgb
+           launches and none of the other kernels, each frame cv2's, then
+           frames/s of H264_PASSES passes and the host decoder's ms per
+           frame over as many; the kernel at 1280x720 for each colour
+           matrix and range cv2 converts by, against its plain version,
            its device ms beside its bound
   quickstart
            ``python -m auformer_torch.quickstart`` (its ``main``, no
@@ -484,9 +497,9 @@ HOST_AUG_IN_THREAD_STEPS = 2
 # (B=16), K, steps; the gloo world of two's global batch and timed steps;
 # the two swept videos' frames; the draws' cost at 8 ranks of 8 rows
 DP_STEP_BATCH, DP_GRAPH_K, DP_GRAPH_STEPS = 16, 4, 8
-DP_GLOO_BATCH, DP_TIMED_STEPS, DP_SERVE_FRAMES = 16, 3, 300
+DP_GLOO_BATCH, DP_TIMED_STEPS, DP_SERVE_FRAMES = 16, 2, 150
 DP_DRAW_WORLD = DP_DRAW_LOCAL = 8
-DP_OVERHEAD_ROUNDS, DP_OVERHEAD_STEPS = 4, 4
+DP_OVERHEAD_ROUNDS, DP_OVERHEAD_STEPS = 4, 2
 # tests/test_parallel.py's tolerances: loss, gradients (rtol, atol), stats
 DP_LOSS_REL, DP_GRAD_TOL, DP_STATS_ATOL = 1e-5, (5e-3, 5e-5), 1e-4
 DP_TIMEOUT_S = 600
@@ -519,6 +532,14 @@ MPEG4_GOP, MPEG4_B_FRAMES, MPEG4_QSCALE = 12, 2, 8
 MPEG4_SEEKS = (0, 5, 11)
 MPEG4_PASSES = 5                  # timed passes of frames() and the decoder
 MPEG4_CV2_STREAMS = ("mp4v_176.mp4", "xvid_176.avi")
+# H.264: x264's streams (tests/data/videos_h264), the full-width one the
+# main path
+H264_FIXTURES = ROOT / "tests" / "data" / "videos_h264"
+H264_STREAM = "ipb_1280x720.mp4"
+H264_PASSES = 3
+# (matrix_coefficients, full range) of the kernel's cases: BT.601, BT.709,
+# FCC, SMPTE 240M, BT.2020, and full range BT.601 and BT.709
+H264_COLOURS = ((2, 0), (1, 0), (4, 0), (7, 0), (9, 0), (2, 1), (1, 1))
 # the quickstart phase's attention gradient sites (name, tokens, head dim,
 # batch)
 QUICKSTART_GRAD_SITES = (("quickstart_spatial", 16, 32, QUICKSTART_BATCH * 4),
@@ -2165,28 +2186,30 @@ def decode_source(t: int) -> np.ndarray:
     return img
 
 
-def decode_kernel_case(torch, dev, planes: list, limited: bool = False
-                       ) -> dict:
+def decode_kernel_case(torch, dev, planes: list, limited: bool = False,
+                       matrix: int = 2) -> dict:
     """yuv_rgb at 1280x720 against its plain version on the card, on a
-    route's 4:2:0 planes (MJPEG's full range, MPEG-4's ``limited`` range:
-    the main path's); times and the bound."""
+    route's 4:2:0 planes (MJPEG's full range, MPEG-4's and H.264's
+    ``limited`` range, H.264's colour ``matrix``: the main path's); times
+    and the bound."""
     from auformer_torch.ops import colour
     y, u, v = planes
-    got = colour.yuv_rgb(y, u, v, limited)
-    want = colour.yuv_rgb_plain(y, u, v, limited)
+    got = colour.yuv_rgb(y, u, v, limited, matrix)
+    want = colour.yuv_rgb_plain(y, u, v, limited, matrix)
     torch.cuda.synchronize()
     h, w = y.shape
     err = (got.int() - want.int()).abs().max().item()
     if err:
-        fail(f"yuv_rgb kernel (limited {limited}) differs from its plain "
-             f"version by {err}")
-    ms, event_ms = timed(torch, lambda: colour.yuv_rgb(y, u, v, limited),
-                         200)
-    plain_ms, _ = timed(torch, lambda: colour.yuv_rgb_plain(y, u, v,
-                                                            limited), 20)
+        fail(f"yuv_rgb kernel (limited {limited}, matrix {matrix}) differs "
+             f"from its plain version by {err}")
+    ms, event_ms = timed(torch, lambda: colour.yuv_rgb(y, u, v, limited,
+                                                       matrix), 200)
+    plain_ms, _ = timed(torch, lambda: colour.yuv_rgb_plain(
+        y, u, v, limited, matrix), 20)
     nbytes = y.numel() + u.numel() + v.numel() + 3 * y.numel()
     bound_ms, bound_by = bound(nbytes, 0.0)
-    return {"shape": [h, w], "limited": limited, "max_abs_err": err,
+    return {"shape": [h, w], "limited": limited, "matrix": matrix,
+            "max_abs_err": err,
             "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
             "library_ms": None}
@@ -2288,7 +2311,7 @@ def phase_decode_mpeg4(torch, dev, work: Path) -> tuple[dict, dict, dict]:
     decode_s = []
     for _ in range(MPEG4_PASSES):
         t0 = time.perf_counter()
-        host = [planes for _, planes in mpeg4.decode_range(path, index)]
+        host = [planes for _, planes, _ in mpeg4.decode_range(path, index)]
         decode_s.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
     decoded, frames_s, launches = counted_decode(         # the main path
@@ -2332,14 +2355,127 @@ def phase_decode_mpeg4(torch, dev, work: Path) -> tuple[dict, dict, dict]:
     return launches, {"fixtures": fixtures, "stream": stream}, kernel
 
 
+def phase_decode_h264(torch, dev, work: Path) -> tuple[dict, dict, dict]:
+    """The decode phase's H.264 part (h): every committed x264 stream the
+    decoder takes through frame_tensors on the card against the SHA-256s
+    of cv2's frames, its seeks, count and timestamps, the refused ones
+    raising naming A9; the full-width stream through Video.frames() on the
+    card, the main path, its launches counted with the count set to 0 just
+    before and read just after, each frame cv2's, then timed again, as is
+    the host decoder alone, H264_PASSES times in all; the kernel at
+    1280x720 on that stream's planes for each of H264_COLOURS. Returns
+    (the main path's launches, the fixtures and the stream, the kernel's
+    numbers by colour)."""
+    import hashlib
+
+    from auformer_torch.data import container, h264, ingest
+    from auformer_torch.data.video import Video
+
+    def sha(a) -> str:
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    expected = json.loads((H264_FIXTURES / "expected.json").read_text())
+    t0 = time.perf_counter()
+    frames, refused = 0, {}
+    for name, want in expected.items():
+        path = str(H264_FIXTURES / name)
+        video = Video(path, write=False)
+        if "planes_sha256" not in want:
+            try:
+                video.read_RGB(0, device=dev)
+            except NotImplementedError as e:
+                refused[name] = "A9" in str(e)
+                continue
+            fail(f"{name}: a stream the decoder refuses gave a frame")
+        if name == H264_STREAM:
+            continue                      # the main path's, below
+        got = [sha(t.cpu().numpy()) for t in video.frame_tensors(dev)]
+        if got != want["frames_sha256"]:
+            bad = [k for k, (a, b) in enumerate(zip(got, want[
+                "frames_sha256"])) if a != b]
+            fail(f"{name} on the card: {len(got)} frames, these differ "
+                 f"from cv2's: {bad[:8]}")
+        for k, digest in want["read_RGB_sha256"].items():
+            img = video.read_RGB(int(k), device=dev)
+            if (None if img is None else sha(img)) != digest:
+                fail(f"{name}: read_RGB({k}) on the card is not cv2's")
+        stamps = Path(ingest.extract_timestamps(path, str(work / "ts.txt"))
+                      ).read_text()
+        if (video.count_frames(), stamps) != (want["count_frames"],
+                                              want["timestamps"]):
+            fail(f"{name}: count and timestamps are not cv2's")
+        frames += len(got)
+    if not refused or not all(refused.values()):
+        fail(f"the refused H.264 streams do not name A9: {refused}")
+    fixtures = {"files": len(expected) - len(refused) - 1,
+                "frames_equal_cv2": frames,
+                "seeks_equal_cv2": sum(
+                    len(w["read_RGB_sha256"]) for n, w in expected.items()
+                    if "planes_sha256" in w and n != H264_STREAM),
+                "refused_naming_a9": sorted(refused),
+                "s": time.perf_counter() - t0}
+    # the full-width stream: the host decoder alone, then the main path
+    path = str(H264_FIXTURES / H264_STREAM)
+    want = expected[H264_STREAM]
+    n_frames = len(want["frames_sha256"])
+    index = container.packet_index(path)
+    decode_s = []
+    for _ in range(H264_PASSES):
+        t0 = time.perf_counter()
+        host = [(yuv, c) for _, yuv, c in h264.decode_range(path, index)]
+        decode_s.append(time.perf_counter() - t0)
+    if [[sha(p.numpy()) for p in yuv] for yuv, _ in host] != [
+            [p["y"], p["u"], p["v"]] for p in want["planes_sha256"]]:
+        fail(f"{H264_STREAM}: the host decoder's planes are not "
+             "libavcodec's")
+    video = Video(path, write=False)
+    torch.cuda.synchronize()
+    decoded, frames_s, launches = counted_decode(         # the main path
+        lambda: list(video.frames(device=dev)))
+    if [sha(f) for f in decoded] != want["frames_sha256"]:
+        fail(f"{H264_STREAM}: Video.frames() on the card is not cv2's")
+    if launches["yuv_rgb"] != n_frames:
+        fail(f"{H264_STREAM}: {launches} launches for {n_frames} frames")
+    passes_s = [frames_s]
+    for _ in range(H264_PASSES - 1):
+        t0 = time.perf_counter()
+        n = sum(1 for _ in video.frames(device=dev))
+        passes_s.append(time.perf_counter() - t0)
+        if n != n_frames:
+            fail(f"{H264_STREAM} frames(), pass {len(passes_s)}: {n} frames")
+    for k in (0, n_frames // 2, n_frames - 1):
+        if sha(video.read_RGB(k, device=dev)) != want["frames_sha256"][k]:
+            fail(f"{H264_STREAM}: read_RGB({k}) on the card is not cv2's")
+    planes = [p.to(dev) for p in host[0][0]]
+    kernels = {f"matrix{m}_{'full' if full else 'limited'}":
+               decode_kernel_case(torch, dev, planes, not full, m)
+               for m, full in H264_COLOURS}
+    size = os.path.getsize(path)
+    stream = {"file": H264_STREAM, "size": [index["width"], index["height"]],
+              "frames": n_frames, "x264": want["x264"], "bytes": size,
+              "bytes_per_frame": size / n_frames, "passes": H264_PASSES,
+              "frames_s": passes_s,
+              "frames_per_s": [n_frames / t for t in passes_s],
+              "ms_per_frame": [1000 * t / n_frames for t in passes_s],
+              "host_decode_ms_per_frame": [1000 * t / n_frames
+                                           for t in decode_s],
+              "launches": launches["yuv_rgb"],
+              "colour_ms_per_frame": kernels["matrix2_limited"]["ms"]}
+    return launches, {"fixtures": fixtures, "stream": stream}, kernels
+
+
 def phase_decode(torch, dev) -> tuple[dict, dict, dict]:
-    """The decode phase: (a) NVDEC's caps and the H.264 route's refusal,
-    (b) the committed fixtures, (c) the kernel at full width, (d) the
-    full-width MJPEG stream through Video on the card, its launches counted
-    with the counts set to 0 just before frames() and read just after,
-    then (e)-(g) MPEG-4 part 2 (``phase_decode_mpeg4``). Returns (the
-    MJPEG path's launches, the MPEG-4 path's, the kernel's numbers with
-    the limited-range case under ``limited_range``)."""
+    """The decode phase: (a) NVDEC's caps and the I_PCM H.264 fixtures'
+    frames, (b) the committed fixtures, (c) the kernel at full width, (d)
+    the full-width MJPEG stream through Video on the card, its launches
+    counted with the counts set to 0 just before frames() and read just
+    after, then (e)-(g) MPEG-4 part 2 (``phase_decode_mpeg4``) and (h)
+    H.264 (``phase_decode_h264``). Returns (the MJPEG path's launches, the
+    MPEG-4 path's, the H.264 path's, the kernel's numbers with the
+    limited-range case under ``limited_range`` and H.264's colours under
+    ``matrices``)."""
+    import hashlib
+
     from auformer_torch.data import container, ingest, nvdec
     from auformer_torch.data.fixtures import write_mjpeg_avi
     from auformer_torch.data.native import encode_jpeg
@@ -2350,7 +2486,7 @@ def phase_decode(torch, dev) -> tuple[dict, dict, dict]:
     work = ROOT / ".cache" / "chip_smoke_decode"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    # (a) NVDEC, asked; the H.264 and MPEG-4 frames raise naming A9
+    # (a) NVDEC, asked (and not used); the I_PCM H.264 frames on the card
     caps = {}
     for codec in ("h264", "mpeg4"):
         try:
@@ -2363,19 +2499,17 @@ def phase_decode(torch, dev) -> tuple[dict, dict, dict]:
                      for w, h in ((112, 112), (1280, 720))}
         caps[codec] = c
     expected = json.loads((DECODE_FIXTURES / "expected.json").read_text())
-    refusals = {}
-    for name in expected:
+    h264_equal = {}
+    for name, want in expected.items():
         if name.startswith("mjpg"):
             continue
-        try:
-            Video(str(DECODE_FIXTURES / name), write=False).read_RGB(
-                0, device=dev)
-        except NotImplementedError as e:
-            refusals[name] = "A9" in str(e)
-        else:
-            fail(f"{name}: H.264 frames decoded without a decoder")
-    if not all(refusals.values()):
-        fail(f"the H.264 refusals do not name A9: {refusals}")
+        got = [hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+               for t in Video(str(DECODE_FIXTURES / name),
+                              write=False).frame_tensors(dev)]
+        h264_equal[name] = got == want["frames_sha256"]
+    if not all(h264_equal.values()):
+        fail(f"the I_PCM H.264 fixtures on the card are not cv2's: "
+             f"{h264_equal}")
     # (b) counts and timestamps of every fixture (the B-frame MP4's follow
     # the decoder's output order); the MJPEG fixture's frames on the card
     for name, want in expected.items():
@@ -2404,7 +2538,7 @@ def phase_decode(torch, dev) -> tuple[dict, dict, dict]:
     fixtures = {"against_cv2": {"max": int(diff.max()),
                                 "mean": float(diff.mean())},
                 "counts_timestamps_equal": len(expected),
-                "h264_refused": refusals}
+                "h264_frames_equal_cv2": h264_equal}
     # (d) the full-width stream, written here: nvJPEG q90 frames in an AVI
     h, w = DECODE_SIZE
     path = str(work / "full.avi")
@@ -2452,16 +2586,21 @@ def phase_decode(torch, dev) -> tuple[dict, dict, dict]:
               "plain_equal_frames": [list(r) for r in DECODE_PLAIN_RUNS],
               "max_source_mae": mae}
     mpeg4_launches, mpeg4, limited = phase_decode_mpeg4(torch, dev, work)
+    t_h264 = time.perf_counter()
+    h264_launches, h264, matrices = phase_decode_h264(torch, dev, work)
+    h264["s"] = time.perf_counter() - t_h264
     emit("decode", nvidia_smi=nvidia_smi(), nvdec_caps=caps,
          fixtures=fixtures, kernel=kernel, stream=stream, mpeg4=mpeg4,
-         limited_kernel=limited, phase_s=time.perf_counter() - t_phase)
+         limited_kernel=limited, h264=h264, h264_kernels=matrices,
+         phase_s=time.perf_counter() - t_phase)
     shutil.rmtree(work, ignore_errors=True)
-    kernel = dict(kernel, limited_range={
-        key: limited[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                      "bound_ms", "bound_by")})
-    kernel["max_abs_err"] = max(kernel["max_abs_err"],
-                                limited["max_abs_err"])
-    return launches, mpeg4_launches, kernel
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    kernel = dict(kernel, limited_range={key: limited[key] for key in keys},
+                  matrices={name: {key: c[key] for key in keys}
+                            for name, c in matrices.items()})
+    kernel["max_abs_err"] = max([kernel["max_abs_err"], limited["max_abs_err"]]
+                                + [c["max_abs_err"] for c in matrices.values()])
+    return launches, mpeg4_launches, h264_launches, kernel
 
 
 def phase_quickstart(torch, dev) -> tuple[dict, list]:
@@ -4860,8 +4999,8 @@ def main() -> int:
         torch, dev, Path(split["work"]) / "experiments" / "avformer"
         / "pretrain" / f"random_seed{SEED}.pth")
     by_path["orbax"] = phase_orbax(torch, dev, split)
-    by_path["decode"], by_path["decode_mpeg4"], yuv = phase_decode(torch,
-                                                                    dev)
+    (by_path["decode"], by_path["decode_mpeg4"], by_path["decode_h264"],
+     yuv) = phase_decode(torch, dev)
     shutil.rmtree(split["work"], ignore_errors=True)  # the split, the .pth
     by_path["quickstart"], quickstart_grads = phase_quickstart(torch, dev)
     paths, grad_cases, attention_in_step = phase_train(torch, dev)
@@ -4970,10 +5109,12 @@ def main() -> int:
                      "host; no TPU kernel)",
          "launches": launches("yuv_rgb"),
          "launches_by_path": {p: by_path[p]["yuv_rgb"]
-                              for p in ("decode", "decode_mpeg4")},
+                              for p in ("decode", "decode_mpeg4",
+                                        "decode_h264")},
          **{key: yuv[key] for key in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms",
-                                      "limited_range")}}]}), flush=True)
+                                      "limited_range", "matrices")}}]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,22 @@
-"""Write the video fixtures of tests/data/videos_decode/ and what the JAX
-package reads from them (expected.json, mjpg_112.npz).
+"""Write the H.264 video fixtures and what the JAX package reads from them:
+tests/data/videos_decode/ (the port's own I_PCM writer) and, with
+``--x264``, tests/data/videos_h264/ (streams of a real encoder).
 
 Needs cv2 with its FFMPEG backend and the JAX package (auformer.data.video
-and auformer.data.ingest read each file through cv2). Run from the root of
-the repository:
+and auformer.data.ingest read each file through cv2); ``--x264`` needs
+``gcc`` and the system's FFmpeg libraries with their headers (libavcodec 59
+linked against libx264 164), through which it encodes. Neither the port nor
+a test runs this script: the tests read the committed files. Run from the
+root of the repository:
 
     python scripts/make_h264_fixtures.py [--out tests/data/videos_decode]
+    JAX_PLATFORMS=cpu python scripts/make_h264_fixtures.py --x264 \
+        [--out tests/data/videos_h264]
 
-Files (112x112, 30 fps, written by auformer_torch.data.fixtures; the H.264
-ones are I_PCM IDR pictures every 12 frames, P pictures of P_Skip with a
-moving band of I_PCM macroblock columns, and, in ipb_112.mp4, two B_Skip
-pictures between references):
+tests/data/videos_decode/ (112x112, 30 fps, written by
+auformer_torch.data.fixtures; the H.264 ones are I_PCM IDR pictures every 12
+frames, P pictures of P_Skip with a moving band of I_PCM macroblock columns,
+and, in ipb_112.mp4, two B_Skip pictures between references):
   ip_112.mp4     H.264 I+P in MP4 (avcC, stss)
   ipb_112.mp4    H.264 I+P+B in MP4, with ctts and an edit list from the
                  first presentation time: decode order differs from
@@ -23,6 +29,20 @@ expected.json: for each file, the JAX package's ``count_frames()``, the text
 ``frames()`` and of ``read_RGB(k)`` at a few k; mjpg_112.npz holds the MJPEG
 frames themselves, which the port matches within a tolerance (its inverse
 DCT is libjpeg's or nvJPEG's, not ffmpeg's).
+
+tests/data/videos_h264/ (x264 through libavcodec, 30 fps, of
+``x264_source``'s frames: a textured background that pans by fractions of
+a sample and three textured discs that move each their own way, so that
+the motion vectors vary; each stream muxed by auformer_torch.data.fixtures,
+in MP4 with avcC, stss, and ctts plus an edit list where there are B
+frames, or in AVI). ``X264_STREAMS`` lists each file's size, frame count,
+x264 options and what it exercises; expected.json repeats the options and
+the account beside cv2's numbers: the JAX package's ``count_frames()`` and
+its timestamps text; for the streams the port decodes, also the SHA-256 of
+each RGB frame and of ``read_RGB(k)`` at ``SEEKS_X264`` (null past the last
+frame), and the SHA-256 of each frame's Y, U and V planes from libavcodec's
+own ``h264`` decoder (``planes_sha256``), so that a mismatch can be placed
+in the decoder or in the colour conversion.
 """
 from __future__ import annotations
 
@@ -43,31 +63,28 @@ def sha(img: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
 
 
-def main(argv=None) -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="tests/data/videos_decode")
-    args = ap.parse_args(argv)
-    sys.path.insert(0, os.getcwd())
+def write_pcm(out: str) -> None:
+    """tests/data/videos_decode/ (module docstring)."""
     from auformer.data import ingest
     from auformer.data.video import Video
     from auformer_torch.data.fixtures import (fixture_frame, write_h264,
                                               write_mjpeg_avi)
     from auformer_torch.data.native import encode_jpeg
-    os.makedirs(args.out, exist_ok=True)
-    write_h264(os.path.join(args.out, "ip_112.mp4"), SIZE, SIZE, FRAMES,
+    os.makedirs(out, exist_ok=True)
+    write_h264(os.path.join(out, "ip_112.mp4"), SIZE, SIZE, FRAMES,
                gop=GOP, seed=1)
-    write_h264(os.path.join(args.out, "ipb_112.mp4"), SIZE, SIZE, FRAMES,
+    write_h264(os.path.join(out, "ipb_112.mp4"), SIZE, SIZE, FRAMES,
                gop=GOP, b_frames=2, band=2, seed=2)
-    write_h264(os.path.join(args.out, "ip_112.avi"), SIZE, SIZE, FRAMES,
+    write_h264(os.path.join(out, "ip_112.avi"), SIZE, SIZE, FRAMES,
                gop=GOP, seed=3)
-    write_mjpeg_avi(os.path.join(args.out, "mjpg_112.avi"),
+    write_mjpeg_avi(os.path.join(out, "mjpg_112.avi"),
                     [encode_jpeg(fixture_frame(4, 0, t, SIZE), 90)
                      for t in range(12)], SIZE, SIZE)
     expected = {}
-    for name in sorted(os.listdir(args.out)):
+    for name in sorted(os.listdir(out)):
         if not name.endswith((".mp4", ".avi")):
             continue
-        path = os.path.join(args.out, name)
+        path = os.path.join(out, name)
         v = Video(path, write=False)
         frames = list(v.frames())
         seeks = {str(k): sha(v.read_RGB(k)) for k in SEEKS
@@ -83,11 +100,357 @@ def main(argv=None) -> None:
                           "frames_sha256": [sha(f) for f in frames],
                           "read_RGB_sha256": seeks}
         if name.startswith("mjpg"):
-            np.savez_compressed(os.path.join(args.out, "mjpg_112.npz"),
+            np.savez_compressed(os.path.join(out, "mjpg_112.npz"),
                                 frames=np.stack(frames))
-    with open(os.path.join(args.out, "expected.json"), "w") as f:
+    with open(os.path.join(out, "expected.json"), "w") as f:
         json.dump(expected, f, indent=1, sort_keys=True)
         f.write("\n")
+
+
+
+# ---- tests/data/videos_h264: x264 through libavcodec ----------------------
+
+SEEKS_X264 = (0, 5, 11, 12, 13, 17, 22, 23, 35, 40)
+
+# (file, width, height, frames, x264 options, what it exercises); every
+# stream but the refused ones is CAVLC
+X264_STREAMS = [
+    ("ip_cavlc_120x90.mp4", 120, 90, 24,
+     "cabac=0:bframes=0:ref=1:8x8dct=0:keyint=12",
+     "Baseline-style I and P pictures, IDR every 12, coded 120x96 and "
+     "cropped to 90 rows"),
+    ("ipb_main_176x144.mp4", 176, 144, 30,
+     "cabac=0:bframes=3:b-pyramid=normal:ref=4:weightp=2:direct=spatial:"
+     "8x8dct=0:slices=3:keyint=12",
+     "Main profile CAVLC: B-pyramids (B pictures as references), four "
+     "references, explicit weighted P prediction, spatial direct, three "
+     "slices a picture"),
+    ("ipb_temporal_176x144.mp4", 176, 144, 30,
+     "cabac=0:bframes=3:b-pyramid=normal:ref=4:direct=temporal:weightb=1:"
+     "constrained-intra=1:8x8dct=0:keyint=12",
+     "temporal direct, implicit weighted bi-prediction "
+     "(weighted_bipred_idc 2), constrained intra prediction"),
+    ("high_cavlc_176x144.mp4", 176, 144, 30,
+     "cabac=0:8x8dct=1:analyse=all:deblock=-2,-1:chroma-qp-offset=2:"
+     "bframes=3:b-pyramid=normal:ref=3:keyint=12",
+     "High profile CAVLC: the 8x8 transform and Intra_8x8, every "
+     "partition, deblocking offsets, a chroma QP offset"),
+    ("qp_low_176x144.mp4", 176, 144, 12,
+     "cabac=0:qp=4:bframes=2:8x8dct=1:analyse=all:keyint=12",
+     "QP 4: large levels (level_prefix 15 and up, suffixLength growth)"),
+    ("qp_high_176x144.mp4", 176, 144, 24,
+     "cabac=0:qp=48:bframes=2:keyint=12",
+     "QP 48: few coefficients, the strongest deblocking"),
+    ("nodeblock_176x144.avi", 176, 144, 24,
+     "cabac=0:no-deblock=1:bframes=2:b-pyramid=none:keyint=12",
+     "disable_deblocking_filter_idc 1, B pictures in AVI (Annex B chunks, "
+     "no presentation times: cv2's timestamps are the decode times of the "
+     "chunks that return the frames)"),
+    ("bt709_176x144.mp4", 176, 144, 3, "cabac=0:colormatrix=bt709",
+     "VUI matrix_coefficients 1: cv2 converts with BT.709"),
+    ("smpte240m_176x144.mp4", 176, 144, 3, "cabac=0:colormatrix=smpte240m",
+     "VUI matrix_coefficients 7: SMPTE 240M"),
+    ("bt2020nc_176x144.mp4", 176, 144, 3, "cabac=0:colormatrix=bt2020nc",
+     "VUI matrix_coefficients 9: BT.2020 non-constant luminance"),
+    ("fcc_176x144.mp4", 176, 144, 3, "cabac=0:colormatrix=fcc",
+     "VUI matrix_coefficients 4: FCC"),
+    ("fullrange_176x144.mp4", 176, 144, 3, "cabac=0:fullrange=on",
+     "video_full_range_flag 1: cv2 converts as full range (yuvj420p)"),
+    ("fullrange_bt709_176x144.mp4", 176, 144, 3,
+     "cabac=0:fullrange=on:colormatrix=bt709",
+     "full range with BT.709: swscale's row scaled by 224 / 255"),
+    ("ipb_1280x720.mp4", 1280, 720, 24,
+     "cabac=0:8x8dct=1:bframes=3:b-pyramid=normal:ref=3:weightp=2:crf=26",
+     "High profile CAVLC at full width, at an encoder's rate (crf 26)"),
+    # refused by the port: NotImplementedError naming A9
+    ("cabac_176x144.mp4", 176, 144, 3, "bframes=2",
+     "x264's default CABAC"),
+    ("interlaced_176x144.mp4", 176, 144, 3, "cabac=0:interlaced=1",
+     "MBAFF (frame_mbs_only_flag 0)"),
+    ("cqm_176x144.mp4", 176, 144, 3, "cabac=0:cqm=jvt",
+     "scaling matrices in the SPS and PPS"),
+    ("yuv444_176x144.mp4", 176, 144, 3, "cabac=0",
+     "chroma_format_idc 3 (4:4:4)"),
+]
+X264_REFUSED = ("cabac_", "interlaced_", "cqm_", "yuv444_")
+
+X264_TOOL = r"""
+#include <stdint.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include <libavcodec/avcodec.h>
+#include <libavutil/frame.h>
+#include <libavutil/opt.h>
+
+/* encode W H N CHROMA444 PARAMS OUT: raw planar frames on stdin; each
+   packet to OUT as int64 pts, int64 dts, int32 key, int32 size, bytes */
+static int put(AVCodecContext *c, AVPacket *p, FILE *out) {
+  int rc;
+  while ((rc = avcodec_receive_packet(c, p)) == 0) {
+    int64_t t[2] = {p->pts, p->dts};
+    int32_t k[2] = {(p->flags & AV_PKT_FLAG_KEY) != 0, p->size};
+    fwrite(t, 8, 2, out);
+    fwrite(k, 4, 2, out);
+    fwrite(p->data, 1, p->size, out);
+    av_packet_unref(p);
+  }
+  return rc == AVERROR(EAGAIN) || rc == AVERROR_EOF ? 0 : rc;
+}
+
+static int encode(int w, int h, int n, int yuv444, const char *params,
+                  const char *path) {
+  const AVCodec *codec = avcodec_find_encoder_by_name("libx264");
+  if (!codec) return 10;
+  AVCodecContext *c = avcodec_alloc_context3(codec);
+  c->width = w;
+  c->height = h;
+  c->time_base = (AVRational){1, 30};
+  c->framerate = (AVRational){30, 1};
+  c->pix_fmt = yuv444 ? AV_PIX_FMT_YUV444P : AV_PIX_FMT_YUV420P;
+  c->thread_count = 1;
+  av_opt_set(c->priv_data, "preset", "medium", 0);
+  av_opt_set(c->priv_data, "x264-params", params, 0);
+  if (avcodec_open2(c, codec, NULL) < 0) return 11;
+  FILE *out = fopen(path, "wb");
+  AVFrame *f = av_frame_alloc();
+  f->format = c->pix_fmt;
+  f->width = w;
+  f->height = h;
+  av_frame_get_buffer(f, 0);
+  AVPacket *p = av_packet_alloc();
+  int cw = yuv444 ? w : (w + 1) / 2, ch = yuv444 ? h : (h + 1) / 2;
+  for (int t = 0; t < n; ++t) {
+    av_frame_make_writable(f);
+    for (int k = 0; k < 3; ++k)
+      for (int r = 0; r < (k ? ch : h); ++r)
+        if (fread(f->data[k] + r * f->linesize[k], 1, k ? cw : w, stdin) !=
+            (size_t)(k ? cw : w))
+          return 12;
+    f->pts = t;
+    if (avcodec_send_frame(c, f) < 0 || put(c, p, out)) return 13;
+  }
+  avcodec_send_frame(c, NULL);
+  if (put(c, p, out)) return 14;
+  fclose(out);
+  return 0;
+}
+
+/* decode OUT: Annex B units (int32 size, bytes) on stdin through
+   libavcodec's h264 decoder; each frame's cropped Y, U, V planes to OUT */
+static int decode(const char *path) {
+  const AVCodec *codec = avcodec_find_decoder_by_name("h264");
+  AVCodecContext *c = avcodec_alloc_context3(codec);
+  c->thread_count = 1;
+  if (avcodec_open2(c, codec, NULL) < 0) return 20;
+  FILE *out = fopen(path, "wb");
+  AVPacket *p = av_packet_alloc();
+  AVFrame *f = av_frame_alloc();
+  for (int end = 0; !end;) {
+    int32_t size;
+    if (fread(&size, 4, 1, stdin) == 1) {
+      av_new_packet(p, size);
+      if (fread(p->data, 1, size, stdin) != (size_t)size) return 21;
+      if (avcodec_send_packet(c, p) < 0) return 22;
+      av_packet_unref(p);
+    } else {
+      avcodec_send_packet(c, NULL);
+      end = 1;
+    }
+    while (avcodec_receive_frame(c, f) == 0) {
+      if (f->format != AV_PIX_FMT_YUV420P && f->format != AV_PIX_FMT_YUVJ420P)
+        return 23;
+      for (int k = 0; k < 3; ++k) {
+        int pw = k ? (f->width + 1) / 2 : f->width;
+        int ph = k ? (f->height + 1) / 2 : f->height;
+        for (int r = 0; r < ph; ++r)
+          fwrite(f->data[k] + r * f->linesize[k], 1, pw, out);
+      }
+      av_frame_unref(f);
+    }
+  }
+  fclose(out);
+  return 0;
+}
+
+int main(int argc, char **argv) {
+  if (argc == 8 && !strcmp(argv[1], "encode"))
+    return encode(atoi(argv[2]), atoi(argv[3]), atoi(argv[4]), atoi(argv[5]),
+                  argv[6], argv[7]);
+  if (argc == 3 && !strcmp(argv[1], "decode")) return decode(argv[2]);
+  return 2;
+}
+"""
+
+
+def build_x264_tool(tmp: str) -> str:
+    """Compile X264_TOOL against the system's libavcodec; its path."""
+    import subprocess
+    src, exe = os.path.join(tmp, "x264tool.c"), os.path.join(tmp, "x264tool")
+    with open(src, "w") as f:
+        f.write(X264_TOOL)
+    subprocess.run(["gcc", "-O2", src, "-o", exe, "-lavcodec", "-lavutil"],
+                   check=True)
+    return exe
+
+
+def _sample(tex: np.ndarray, x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """Bilinear sample of a texture at 4x magnification, wrapping."""
+    n = tex.shape[0]
+    x, y = x / 4.0, y / 4.0
+    x0, y0 = np.floor(x).astype(int), np.floor(y).astype(int)
+    fx, fy = x - x0, y - y0
+    x0, y0 = x0 % n, y0 % n
+    x1, y1 = (x0 + 1) % n, (y0 + 1) % n
+    return ((1 - fy) * ((1 - fx) * tex[y0, x0] + fx * tex[y0, x1])
+            + fy * ((1 - fx) * tex[y1, x0] + fx * tex[y1, x1]))
+
+
+def x264_source(seed: int, t: int, height: int, width: int, yuv444=False
+                ) -> list[np.ndarray]:
+    """Frame t's Y, U and V planes (4:2:0, or 4:4:4): a texture that pans
+    1.3 samples right and 0.7 down a frame, three textured discs that move
+    each their own way, a little noise, smooth moving chroma."""
+    rs = np.random.RandomState(seed)
+    tex = rs.rand(64, 64)
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float64)
+    y = 40 + 150 * _sample(tex, xx + 1.3 * t, yy + 0.7 * t)
+    for k in range(3):
+        cx = width * (0.2 + 0.3 * k) + (2.5 - 1.75 * k) * t
+        cy = height * (0.3 + 0.2 * k) + (1.0 + 0.6 * k) * t * (-1) ** k
+        r = min(height, width) * (0.12 + 0.04 * k)
+        disc = (xx - cx) ** 2 + (yy - cy) ** 2 < r * r
+        y = np.where(disc, 60 + 120 * _sample(tex, xx - cx + 40 * k, yy - cy),
+                     y)
+    y += np.random.RandomState([seed, t]).standard_normal(y.shape) * 2
+    cyy, cxx = (yy, xx) if yuv444 else (yy[::2, ::2], xx[::2, ::2])
+    u = 128 + 60 * np.sin((cxx + t) / width * 6.3) * np.cos(cyy / height * 3)
+    v = 128 + 60 * np.cos((cyy - t) / height * 6.3)
+    return [np.clip(np.rint(p), 0, 255).astype(np.uint8) for p in (y, u, v)]
+
+
+def x264_encode(tool: str, tmp: str, width: int, height: int, n: int,
+                params: str, seed: int, yuv444=False) -> list[tuple]:
+    """(pts, key, Annex B bytes) of each packet in decode order."""
+    import struct
+    import subprocess
+    raw = b"".join(p.tobytes() for t in range(n)
+                   for p in x264_source(seed, t, height, width, yuv444))
+    out = os.path.join(tmp, "packets")
+    subprocess.run([tool, "encode", str(width), str(height), str(n),
+                    str(int(yuv444)), params, out], input=raw, check=True,
+                   capture_output=True)
+    data, off, packets = open(out, "rb").read(), 0, []
+    while off < len(data):
+        pts, _, key, size = struct.unpack_from("<qqii", data, off)
+        off += 24
+        packets.append((pts, bool(key), data[off:off + size]))
+        off += size
+    return packets
+
+
+def x264_planes(tool: str, tmp: str, units: list[bytes], width: int,
+                height: int) -> list[dict]:
+    """SHA-256 of libavcodec's Y, U and V planes of each frame it outputs."""
+    import struct
+    import subprocess
+    out = os.path.join(tmp, "planes")
+    subprocess.run([tool, "decode", out], check=True, capture_output=True,
+                   input=b"".join(struct.pack("<i", len(u)) + u
+                                  for u in units))
+    raw = np.fromfile(out, np.uint8)
+    cw, ch = (width + 1) // 2, (height + 1) // 2
+    size = width * height + 2 * cw * ch
+    frames = []
+    for k in range(len(raw) // size):
+        f = raw[k * size:(k + 1) * size]
+        y, u = f[:width * height], f[width * height:width * height + cw * ch]
+        v = f[width * height + cw * ch:]
+        frames.append({"y": sha(y), "u": sha(u), "v": sha(v)})
+    return frames
+
+
+def x264_mux(path: str, packets: list[tuple], width: int, height: int
+             ) -> None:
+    """Write the packets to an MP4 (avcC from the first SPS and PPS, the
+    parameter sets out of the samples; ctts and an edit list where decode
+    order differs from presentation order) or an AVI (Annex B chunks)."""
+    import struct
+    from auformer_torch.data.bitstream import annexb_nals
+    from auformer_torch.data.fixtures import _avi, _frame_rate, _mp4
+    delta, scale = _frame_rate(30.0)
+    sync = [key for _, key, _ in packets]
+    with open(path, "wb") as f:
+        if path.endswith(".avi"):
+            f.write(_avi([u for _, _, u in packets], sync, b"H264", delta,
+                         scale, width, height))
+            return
+        nals = [annexb_nals(u) for _, _, u in packets]
+        sps = next(n for ns in nals for n in ns if n[0] & 0x1F == 7)
+        pps = next(n for ns in nals for n in ns if n[0] & 0x1F == 8)
+        avcc = (bytes([1, sps[1], sps[2], sps[3], 0xFF, 0xE1])
+                + struct.pack(">H", len(sps)) + sps + b"\x01"
+                + struct.pack(">H", len(pps)) + pps)
+        samples = [b"".join(struct.pack(">I", len(n)) + n for n in ns
+                            if n[0] & 0x1F not in (7, 8, 9))
+                   for ns in nals]
+        order = [pts for pts, _, _ in packets]
+        shift = max(0, max(k - t for k, t in enumerate(order)))
+        offsets = [(t + shift - k) * delta for k, t in enumerate(order)]
+        f.write(_mp4(samples, sync, offsets, delta, scale, width, height,
+                     avcc, shift * delta))
+
+
+def write_x264(out: str) -> None:
+    """tests/data/videos_h264/ (module docstring)."""
+    from auformer.data import ingest
+    from auformer.data.video import Video
+    os.makedirs(out, exist_ok=True)
+    expected = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tool = build_x264_tool(tmp)
+        for seed, (name, w, h, n, params, what) in enumerate(X264_STREAMS):
+            yuv444 = name.startswith("yuv444_")
+            packets = x264_encode(tool, tmp, w, h, n, params, seed + 1,
+                                  yuv444)
+            path = os.path.join(out, name)
+            x264_mux(path, packets, w, h)
+            ts = ingest.extract_timestamps(path, os.path.join(tmp, "ts.txt"))
+            with open(ts) as f:
+                stamps = f.read()
+            entry = {"x264": params, "exercises": what,
+                     "count_frames": Video(path, write=False).count_frames(),
+                     "timestamps": stamps}
+            # the refused streams keep no frames: the port gives none, and
+            # cv2's of the MBAFF stream are not even the same twice
+            # (swscale refuses to convert them)
+            if not name.startswith(X264_REFUSED):
+                v = Video(path, write=False)
+                entry["frames_sha256"] = [sha(f) for f in v.frames()]
+                entry["read_RGB_sha256"] = {
+                    str(k): sha(img) if (img := v.read_RGB(k)) is not None
+                    else None for k in SEEKS_X264}
+                v.release()
+                entry["planes_sha256"] = x264_planes(
+                    tool, tmp, [u for _, _, u in packets], w, h)
+            expected[name] = entry
+            print(name, os.path.getsize(path), "bytes")
+    with open(os.path.join(out, "expected.json"), "w") as f:
+        json.dump(expected, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--x264", action="store_true",
+                    help="write tests/data/videos_h264 (x264 streams)")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, os.getcwd())
+    if args.x264:
+        write_x264(args.out or "tests/data/videos_h264")
+    else:
+        write_pcm(args.out or "tests/data/videos_decode")
 
 
 if __name__ == "__main__":

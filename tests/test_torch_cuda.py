@@ -1103,6 +1103,54 @@ def test_mpeg4_frames_on_the_card(cuda_device):
             want["read_RGB_sha256"]["13"], name
 
 
+@pytest.mark.parametrize("matrix,limited", [(1, True), (4, True),
+                                            (7, True), (9, True),
+                                            (2, False), (1, False)])
+def test_yuv_rgb_matrix_kernel_matches_plain(cuda_device, matrix, limited):
+    """The kernel with an H.264 stream's colour matrix and range equals its
+    plain version bit for bit on 4:2:0 planes with pitched rows."""
+    from auformer_torch.ops import colour
+    h, w = 90, 121
+    cw, ch = (w + 1) // 2, (h + 1) // 2
+    rs = np.random.RandomState(matrix)
+    luma = torch.from_numpy(rs.randint(0, 256, (h, w + 32)).astype(np.uint8))
+    chroma = torch.from_numpy(
+        rs.randint(0, 256, (ch, 2 * cw + 64)).astype(np.uint8))
+
+    def planes(luma, chroma):
+        return luma[:, :w], chroma[:, :cw], chroma[:, cw + 32:2 * cw + 32]
+
+    want = colour.yuv_rgb_plain(*planes(luma, chroma), limited, matrix)
+    got = colour.yuv_rgb(*planes(luma.to(cuda_device),
+                                 chroma.to(cuda_device)), limited, matrix)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+def test_h264_frames_on_the_card(cuda_device):
+    """Video.frame_tensors on the card for every H.264 fixture the decoder
+    takes: the port's decoder on the host, the planes copied to the card,
+    the kernel with the stream's colour matrix and range; each frame's
+    SHA-256 is that of cv2's frame (expected.json), one launch a frame."""
+    import hashlib
+    import json
+    from pathlib import Path
+
+    from auformer_torch.data.video import Video
+    from auformer_torch.ops import colour
+    d = Path(__file__).parent / "data" / "videos_h264"
+    expected = json.loads((d / "expected.json").read_text())
+    for name, want in expected.items():
+        if "planes_sha256" not in want:
+            continue
+        v = Video(str(d / name), write=False)
+        before = colour.yuv_rgb.launches
+        frames = [t.cpu().numpy() for t in v.frame_tensors(cuda_device)]
+        assert colour.yuv_rgb.launches == before + len(frames)
+        assert [hashlib.sha256(f.tobytes()).hexdigest()
+                for f in frames] == want["frames_sha256"], name
+
+
 def test_mjpeg_frames_on_the_card(cuda_device):
     """Video.frames on the card: nvJPEG's planes through the kernel equal
     the plain conversion of the same planes, and the frames stay within

@@ -168,23 +168,24 @@ def _png_tree(tmp_path):
     return str(tmp_path / "tree")
 
 
-H264 = os.path.join(os.path.dirname(VIDEOS), "videos_decode", "ip_112.mp4")
+H264 = os.path.join(os.path.dirname(VIDEOS), "videos_h264",
+                    "cabac_176x144.mp4")
 
 
 @pytest.mark.parametrize("call", [
-    lambda t: Video(H264, write=False).read_RGB(0),
+    lambda t: Video(H264, write=False).read_RGB(0, device="cpu"),
     lambda t: ingest.extract_timestamps(os.path.join(VIDEOS,
                                                      "matroska.mkv"),
                                         str(t / "ts.txt")),
     lambda t: ingest.probe_video_meta(shutil.copy(
         os.path.join(VIDEOS, "fragmented.mp4"), t)),
-    lambda t: Video(H264, write=False).frames(),
+    lambda t: next(Video(H264, write=False).frames(device="cpu")),
 ], ids=["read_RGB", "extract_timestamps", "probe_video_meta", "frames"])
 def test_decoder_paths_raise_naming_a9(tmp_path, call):
-    """What still needs a video decoder the port does not have (H.264
-    pixels: NVDEC is refused by the card's container, and the port's own
-    software decoder reads MPEG-4 part 2 only) or a container the port does
-    not read (Matroska, fragmented MP4) raises naming A9."""
+    """What still needs a decoder tool the port does not have (H.264's
+    CABAC: NVDEC is refused by the card's container, and the port's own
+    software decoder reads CAVLC only) or a container the port does not
+    read (Matroska, fragmented MP4) raises naming A9."""
     with pytest.raises(NotImplementedError, match="A9"):
         call(tmp_path)
 

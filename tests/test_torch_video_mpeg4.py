@@ -393,14 +393,17 @@ def test_packed_count_and_timestamps_equal_jax(tmp_path, signature, n_vops):
 
 
 def test_h264_still_raises_and_mpeg4_needs_no_nvdec(monkeypatch):
-    """H.264 frames raise naming A9; MPEG-4 frames decode without the
-    NVDEC probe (it is never asked) and the GPU default still raises
-    without a GPU."""
+    """H.264 frames the port's decoder refuses (CABAC) still raise naming
+    A9; H.264 and MPEG-4 frames decode without the NVDEC probe (it is
+    never asked) and the GPU default still raises without a GPU."""
     from auformer_torch.data import nvdec
     monkeypatch.setattr(nvdec, "caps", lambda *a: pytest.fail("NVDEC"))
-    v = Video(str(D.parent / "videos_decode" / "ip_112.mp4"), write=False)
+    v = Video(str(D.parent / "videos_h264" / "cabac_176x144.mp4"),
+              write=False)
     with pytest.raises(NotImplementedError, match="A9"):
         v.read_RGB(0, device="cpu")
+    v = Video(str(D.parent / "videos_decode" / "ip_112.mp4"), write=False)
+    assert v.read_RGB(0, device="cpu").shape == (112, 112, 3)
     v = Video(str(D / "mp4v_176.mp4"), write=False)
     assert v.read_RGB(0, device="cpu").shape == (144, 176, 3)
     if not torch.cuda.is_available():
@@ -429,13 +432,13 @@ def test_decode_range_from_a_sync_packet():
     path = str(D / "ipb_112x96.mp4")
     index = container.packet_index(path)
     whole = [(k, [p.clone() for p in planes])
-             for k, planes in mpeg4.decode_range(path, index)]
+             for k, planes, _ in mpeg4.decode_range(path, index)]
     key = next(k for k, p in enumerate(index["packets"])
                if p.sync and k > 0)
     part = list(mpeg4.decode_range(path, index, key, stop=5))
     assert len(part) == 5
     at = [k for k, _ in whole].index(part[0][0])
-    for (k, planes), (k2, planes2) in zip(whole[at:], part):
+    for (k, planes), (k2, planes2, _) in zip(whole[at:], part):
         assert k == k2 and all(torch.equal(a, b)
                                for a, b in zip(planes, planes2))
     with pytest.raises(ValueError, match="not a sync packet"):
