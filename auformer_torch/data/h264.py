@@ -5,14 +5,16 @@ cv2's FFMPEG capture decodes H.264 (``avc1`` in MP4, ``H264`` and its
 fourccs in AVI) with ffmpeg's software ``h264`` decoder on the host. The
 port decodes them on the host too, with ``data/native/h264_decode.cpp``,
 built with the C++ compiler into ``.cache/native`` at first use
-(``data/native``): progressive 8-bit 4:2:0 streams with CAVLC entropy
-coding and flat scaling, whose Y, U and V planes are ffmpeg's bit for bit.
+(``data/native``): progressive 8-bit 4:2:0 streams with CAVLC or CABAC
+entropy coding (the Baseline, Main and High profiles) and any scaling
+lists, whose Y, U and V planes are ffmpeg's bit for bit.
 ``ops/colour.py``'s ``yuv_rgb``, with the range and the colour matrix the
 stream's VUI names, turns them into cv2's RGB frames. There is no
 fallback: a decoder that does not build, a stream that does not decode and
-a tool the decoder refuses (CABAC, scaling matrices, field pictures and the
-rest: ``NotImplementedError`` naming ROADMAP.md queue A9) all raise; NVDEC
-is not tried.
+a tool the decoder refuses (field pictures and MBAFF, 4:4:4 and the rest:
+``NotImplementedError`` naming ROADMAP.md queue A9) all raise; NVDEC is not
+tried. ``cabac_tables`` and ``Decoder.counts`` / ``scaling_lists`` read
+the decoder's tables and state for tests.
 
 ``decode_range(path, index, start_key, stop, device)`` feeds the packets
 of ``container.access_units`` from the sync packet ``start_key`` in
@@ -59,7 +61,33 @@ def _library() -> ctypes.CDLL:
     lib.h264_receive.argtypes = [ptr, ptr, i, ptr, ptr, i,
                                  ctypes.POINTER(ll)]
     lib.h264_receive.restype = i
+    lib.h264_counts.argtypes = [ptr, ctypes.POINTER(ll)]
+    lib.h264_counts.restype = None
+    lib.h264_scaling.argtypes = [ptr, ptr, ptr]
+    lib.h264_scaling.restype = None
+    lib.h264_cabac_tables.argtypes = [ptr] * 5
+    lib.h264_cabac_tables.restype = None
     return lib
+
+
+def cabac_tables() -> dict:
+    """The decoder's CABAC tables (``h264_cabac_tables``): ``init`` (4, 460,
+    2) int8, the (m, n) of ctxIdx 0-459 for cabac_init_idc 0, 1, 2 and I
+    slices; ``range_lps`` (64, 4) uint8, rangeTabLPS; ``trans`` (2, 64),
+    transIdxLPS and transIdxMPS; ``ctx8x8`` (2, 63), the 8x8 block's frame
+    ctxIdxInc of significant_coeff_flag and last_significant_coeff_flag;
+    ``defaults`` the four default scaling lists in raster order (4x4 intra
+    and inter, 8x8 intra and inter)."""
+    import numpy as np
+    out = {"init": np.zeros((4, 460, 2), np.int8),
+           "range_lps": np.zeros((64, 4), np.uint8),
+           "trans": np.zeros((2, 64), np.uint8),
+           "ctx8x8": np.zeros((2, 63), np.uint8),
+           "defaults": np.zeros(160, np.uint8)}
+    _library().h264_cabac_tables(*(a.ctypes.data for a in out.values()))
+    d = out.pop("defaults")
+    out["defaults"] = (d[:16], d[16:32], d[32:96], d[96:])
+    return out
 
 
 class Decoder:
@@ -116,6 +144,23 @@ class Decoder:
                                   ctypes.byref(tag)):
             raise RuntimeError("H.264 decode: no frame is ready")
         return tag.value
+
+    def counts(self) -> dict:
+        """What the decoder has seen so far: slices, CABAC slices, I_PCM
+        macroblocks and slices with scaling lists."""
+        out = (ctypes.c_longlong * 4)()
+        self._lib.h264_counts(self._h, out)
+        return dict(zip(("slices", "cabac_slices", "pcm_macroblocks",
+                         "scaled_slices"), out))
+
+    def scaling_lists(self) -> tuple:
+        """The last slice's scaling lists in force, raster order: (6, 16)
+        uint8, Intra Y, Cb, Cr and Inter Y, Cb, Cr 4x4, and (2, 64), Intra
+        and Inter Y 8x8."""
+        import numpy as np
+        w4, w8 = np.zeros((6, 16), np.uint8), np.zeros((2, 64), np.uint8)
+        self._lib.h264_scaling(self._h, w4.ctypes.data, w8.ctypes.data)
+        return w4, w8
 
     def close(self) -> None:
         if self._h:

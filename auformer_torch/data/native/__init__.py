@@ -29,7 +29,8 @@ to a system libzstd.
 the port's MPEG-4 part 2 video decoder (``data/mpeg4.py``), which gives
 the frames cv2's ffmpeg gives for MPEG-4 videos. A failed build raises.
 ``h264_decode.cpp`` is another, the same way: the port's H.264 decoder
-(``data/h264.py``, CAVLC), whose planes are ffmpeg's bit for bit.
+(``data/h264.py``, CAVLC and CABAC), whose planes are ffmpeg's bit for
+bit.
 
 ``nvdec.cpp`` is a fourth: it asks the card's NVDEC video decoder for its
 capabilities (``data/nvdec.py``). Built the same way with the CUDA

@@ -21,8 +21,9 @@ unless the caller passes ``device="cpu"``, for three codecs in AVI or MP4:
                  decodes on the host, as cv2's ffmpeg does, to planes equal
                  to ffmpeg's bit for bit; the frames in ffmpeg's output
                  order, the planes copied to the card for a CUDA device.
-  H.264          the port's own software decoder (``data/h264.py``: CAVLC,
-                 progressive, 8-bit 4:2:0, flat scaling) the same way.
+  H.264          the port's own software decoder (``data/h264.py``: CAVLC
+                 and CABAC, any scaling lists, progressive, 8-bit 4:2:0)
+                 the same way.
 
 ``ops/colour.py``'s ``yuv_rgb`` converts the planes as cv2's swscale does
 (full range for a JPEG's; for MPEG-4's and H.264's, the range and
@@ -32,9 +33,8 @@ none), on the card with its kernel for a CUDA device. NVDEC, the card's
 video decoder, is refused by the container the card runs in
 (``data/nvdec.py``) and is not tried. JPEG
 frames that are not 4:2:0 or 4:2:2, and the MPEG-4 and H.264 tools the
-decoders refuse (H.264's CABAC, scaling matrices, field pictures, 4:4:4,
-high bit depths and the rest), raise naming ROADMAP.md queue A9, as do
-other codecs.
+decoders refuse (H.264's field pictures and MBAFF, 4:4:4, high bit depths
+and the rest), raise naming ROADMAP.md queue A9, as do other codecs.
 
 ``read_RGB(k)`` seeks as cv2's ``CAP_PROP_POS_FRAMES`` does for MPEG-4 and
 H.264: from the sync packet at or before the display position 16 frames

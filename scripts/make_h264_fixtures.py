@@ -112,8 +112,8 @@ def write_pcm(out: str) -> None:
 
 SEEKS_X264 = (0, 5, 11, 12, 13, 17, 22, 23, 35, 40)
 
-# (file, width, height, frames, x264 options, what it exercises); every
-# stream but the refused ones is CAVLC
+# (file, width, height, frames, x264 options, what it exercises); a
+# stream's seed is its place in the list, so new streams go at the end
 X264_STREAMS = [
     ("ip_cavlc_120x90.mp4", 120, 90, 24,
      "cabac=0:bframes=0:ref=1:8x8dct=0:keyint=12",
@@ -162,17 +162,63 @@ X264_STREAMS = [
     ("ipb_1280x720.mp4", 1280, 720, 24,
      "cabac=0:8x8dct=1:bframes=3:b-pyramid=normal:ref=3:weightp=2:crf=26",
      "High profile CAVLC at full width, at an encoder's rate (crf 26)"),
-    # refused by the port: NotImplementedError naming A9
+    # x264's defaults: CABAC; with cqm, scaling matrices
     ("cabac_176x144.mp4", 176, 144, 3, "bframes=2",
-     "x264's default CABAC"),
+     "x264's default CABAC: I, P and B slices, spatial direct, the 8x8 "
+     "transform"),
+    # refused by the port: NotImplementedError naming A9
     ("interlaced_176x144.mp4", 176, 144, 3, "cabac=0:interlaced=1",
      "MBAFF (frame_mbs_only_flag 0)"),
     ("cqm_176x144.mp4", 176, 144, 3, "cabac=0:cqm=jvt",
-     "scaling matrices in the SPS and PPS"),
+     "CAVLC with the standard's default scaling lists (cqm=jvt)"),
     ("yuv444_176x144.mp4", 176, 144, 3, "cabac=0",
      "chroma_format_idc 3 (4:4:4)"),
+    # CABAC and scaling matrices
+    ("ip_cabac_176x144.mp4", 176, 144, 24,
+     "bframes=0:ref=1:8x8dct=0:keyint=12",
+     "CABAC I and P pictures: mb_skip_flag, P partitions down to 4x4, "
+     "ref_idx and mvd contexts with one reference"),
+    ("high_cabac_176x144.mp4", 176, 144, 30,
+     "8x8dct=1:analyse=all:deblock=-2,-1:chroma-qp-offset=2:bframes=3:"
+     "b-pyramid=normal:ref=3:weightp=2:keyint=12",
+     "High profile CABAC: transform_size_8x8_flag and the 8x8 significance "
+     "map (ctxBlockCat 5), Intra_8x8, B-pyramids, three references, "
+     "explicit weighted P prediction, deblocking and chroma QP offsets"),
+    ("slices_cabac_176x144.mp4", 176, 144, 30,
+     "bframes=3:b-pyramid=normal:ref=4:direct=temporal:weightb=1:"
+     "constrained-intra=1:8x8dct=0:slices=3:keyint=12",
+     "CABAC with three slices a picture (engine and context initialisation "
+     "per slice, neighbours across slice edges unavailable), temporal "
+     "direct, implicit weights, constrained intra prediction"),
+    ("idc1_cabac_176x144.mp4", 176, 144, 12,
+     "cabac-idc=1:bframes=2:keyint=12", "cabac_init_idc 1"),
+    ("idc2_cabac_176x144.mp4", 176, 144, 12,
+     "cabac-idc=2:bframes=2:keyint=12", "cabac_init_idc 2"),
+    ("qp_low_cabac_176x144.mp4", 176, 144, 12,
+     "qp=1:psy=0:subme=7:bframes=2:8x8dct=1:analyse=all:keyint=12",
+     "QP 1: large levels (the UEG0 suffix of coeff_abs_level_minus1, "
+     "long mvd suffixes), I_PCM where x264 chooses it"),
+    ("qp_high_cabac_176x144.mp4", 176, 144, 24,
+     "qp=48:bframes=2:keyint=12",
+     "QP 48: mostly skipped macroblocks, few coefficients"),
+    ("cqm_cabac_176x144.mp4", 176, 144, 12,
+     "cqm=jvt:8x8dct=1:bframes=2:keyint=12",
+     "CABAC with the default scaling lists (useDefaultScalingMatrixFlag), "
+     "4x4 and 8x8"),
+    ("cqm_custom_176x144.mp4", 176, 144, 12,
+     "cqm4iy=" + ",".join(str(6 + 3 * k) for k in range(16))
+     + ":cqm4pc=" + ",".join(str(24 - k) for k in range(16))
+     + ":cqm8i=" + ",".join(str(8 + (k % 8) + 2 * (k // 8))
+                            for k in range(64))
+     + ":8x8dct=1:bframes=2:keyint=12",
+     "lists that are neither flat nor the defaults: Intra Y 4x4, Inter "
+     "chroma 4x4 and Intra 8x8 given, the others by the fall-back rules"),
+    ("ipb_cabac_1280x720.mp4", 1280, 720, 24,
+     "bframes=3:b-pyramid=normal:ref=3:weightp=2:8x8dct=1:crf=26",
+     "x264's High profile defaults at full width, at an encoder's rate "
+     "(crf 26)"),
 ]
-X264_REFUSED = ("cabac_", "interlaced_", "cqm_", "yuv444_")
+X264_REFUSED = ("interlaced_", "yuv444_")
 
 X264_TOOL = r"""
 #include <stdint.h>

@@ -8,10 +8,11 @@ timestamps are held to cv2's bit for bit, and the decoder's Y, U and V
 planes to libavcodec's own h264 decoder's, on the x264 streams of
 tests/data/videos_h264/ (regenerate with ``JAX_PLATFORMS=cpu python
 scripts/make_h264_fixtures.py --x264``, which needs cv2, the JAX package
-and the system's libavcodec with libx264). Every tool the decoder refuses
-raises naming ROADMAP.md queue A9: on x264 streams (CABAC, MBAFF, scaling
-matrices, 4:4:4) and on streams whose headers are written here. The last
-part holds MPEG-4 part 2's colour description to cv2 (ROADMAP.md C13).
+and the system's libavcodec with libx264): CAVLC and CABAC, with and without
+scaling lists. Every tool the decoder refuses raises naming ROADMAP.md
+queue A9: on x264 streams (MBAFF, 4:4:4) and on streams whose headers are
+written here, where scaling lists in the SPS or PPS decode. The last part
+holds MPEG-4 part 2's colour description to cv2 (ROADMAP.md C13).
 """
 import hashlib
 import json
@@ -85,8 +86,8 @@ def test_seeks_count_and_timestamps_match_cv2(name, tmp_path):
     n = want["count_frames"]
     assert v.count_frames() == jv.count_frames() == n
     for k, digest in want["read_RGB_sha256"].items():
-        if name.startswith("ipb_1280") and int(k) not in (0, 13, 23, 35):
-            continue            # the full-width stream: a few seeks
+        if "1280x720" in name and int(k) not in (0, 13, 23, 35):
+            continue            # the full-width streams: a few seeks
         assert _sha(v.read_RGB(int(k), device="cpu")) == digest, k
     for k in (n - 1, 0, None, None, n // 2, None, n):
         ours, theirs = v.read_RGB(k, device="cpu"), jv.read_RGB(k)
@@ -128,9 +129,9 @@ def test_coefficients_are_swscales():
 @pytest.mark.parametrize("name", REFUSED)
 @pytest.mark.parametrize("call", ["read_RGB", "frames", "frame_tensors"])
 def test_refused_streams_raise_naming_a9(name, call, tmp_path):
-    """CABAC, MBAFF, scaling matrices and 4:4:4 (x264 streams) raise
-    NotImplementedError naming A9 from each entry point; the count and the
-    timestamps, which need no pixels, are still cv2's."""
+    """MBAFF and 4:4:4 (x264 streams) raise NotImplementedError naming A9
+    from each entry point; the count and the timestamps, which need no
+    pixels, are still cv2's."""
     path = str(D / name)
     v = Video(path, write=False)
     with pytest.raises(NotImplementedError, match="A9"):
@@ -200,9 +201,23 @@ def test_frames_on_cuda_tensors_need_the_card():
 
 # ---- refusals on headers written here --------------------------------------
 
-def _sps(profile=100, chroma=1, depth=0, bypass=0, scaling=0, poc_type=0,
+def _scaling_lists(w, n: int, lists: dict) -> None:
+    """n scaling_list_present_flags, each present list delta-coded: lists
+    maps an index to its values in zig-zag order, or to None for
+    useDefaultScalingMatrixFlag."""
+    for i in range(n):
+        w.u(1, int(i in lists))
+        if i in lists:
+            last = 8
+            for v in lists[i] or [0]:
+                w.se((v - last + 128) % 256 - 128)
+                last = v
+
+
+def _sps(profile=100, chroma=1, depth=0, bypass=0, scaling=None, poc_type=0,
          frame_mbs_only=1) -> bytes:
-    """An SPS of a 32x32 picture (log2_max_frame_num 8, POC lsb 8 bits)."""
+    """An SPS of a 32x32 picture (log2_max_frame_num 8, POC lsb 8 bits);
+    scaling: the lists of ``_scaling_lists``, None for none."""
     w = fixtures._Bits()
     w.u(8, profile)
     w.u(16, 40)                       # constraint flags, level_idc
@@ -214,10 +229,9 @@ def _sps(profile=100, chroma=1, depth=0, bypass=0, scaling=0, poc_type=0,
         w.ue(depth)
         w.ue(depth)
         w.u(1, bypass)
-        w.u(1, scaling)
-        if scaling:
-            for _ in range(8):
-                w.u(1, 0)
+        w.u(1, int(scaling is not None))
+        if scaling is not None:
+            _scaling_lists(w, 8, scaling)
     w.ue(4)                           # log2_max_frame_num_minus4
     w.ue(poc_type)
     if poc_type == 0:
@@ -239,7 +253,9 @@ def _sps(profile=100, chroma=1, depth=0, bypass=0, scaling=0, poc_type=0,
     return fixtures._nal(3, 7, w.trailing())
 
 
-def _pps(cabac=0, slice_groups=1, redundant=0, scaling=0) -> bytes:
+def _pps(cabac=0, slice_groups=1, redundant=0, scaling=None, t8=0
+         ) -> bytes:
+    """A PPS; scaling as ``_sps``'s (6 + 2 * t8 lists)."""
     w = fixtures._Bits()
     w.ue(0)
     w.ue(0)
@@ -259,11 +275,10 @@ def _pps(cabac=0, slice_groups=1, redundant=0, scaling=0) -> bytes:
     w.u(1, 1)                         # deblocking_filter_control_present
     w.u(1, 0)
     w.u(1, redundant)
-    if scaling:
-        w.u(1, 0)                     # transform_8x8_mode_flag
+    if scaling is not None:
+        w.u(1, t8)                    # transform_8x8_mode_flag
         w.u(1, 1)                     # pic_scaling_matrix_present_flag
-        for _ in range(6):
-            w.u(1, 0)
+        _scaling_lists(w, 6 + 2 * t8, scaling)
         w.se(0)
     return fixtures._nal(3, 8, w.trailing())
 
@@ -290,18 +305,38 @@ def _idr(slice_type=7, redundant_pic_cnt=None) -> bytes:
 
 
 def _decode(*nals: bytes) -> int:
+    return len(_frames(*nals))
+
+
+def _frames(*nals: bytes) -> list[list[bytes]]:
+    """The Y, U and V planes of each frame the decoder gives the units."""
     dec = h264.Decoder()
     try:
         n = dec.send(b"".join(b"\x00\x00\x00\x01" + x for x in nals), 0)
-        return n + dec.flush()
+        n += dec.flush()
+        out = []
+        for _ in range(n):
+            h, w, _ = dec.size()
+            planes = [torch.empty(s, dtype=torch.uint8)
+                      for s in ((h, w), ((h + 1) // 2, (w + 1) // 2),
+                                ((h + 1) // 2, (w + 1) // 2))]
+            dec.receive(*planes)
+            out.append([p.numpy().tobytes() for p in planes])
+        return out
     finally:
         dec.close()
 
 
+LIST4 = [6 + 2 * k for k in range(16)]          # neither flat nor a default
+LIST8 = [8 + k // 4 for k in range(64)]
+
+
 @pytest.mark.parametrize("what,nals", [
-    ("CABAC", lambda: (_sps(), _pps(cabac=1), _idr())),
-    ("scaling matrices", lambda: (_sps(scaling=1), _pps(), _idr())),
-    ("scaling matrices", lambda: (_sps(), _pps(scaling=1), _idr())),
+    ("scaling matrices",
+     lambda: (_sps(scaling={0: LIST4, 3: None, 6: LIST8}), _pps(), _idr())),
+    ("scaling matrices",
+     lambda: (_sps(), _pps(scaling={1: LIST4, 3: None, 7: LIST8}, t8=1),
+              _idr())),
     ("field pictures", lambda: (_sps(frame_mbs_only=0), _pps(), _idr())),
     ("slice groups", lambda: (_sps(), _pps(slice_groups=2), _idr())),
     ("SP and SI", lambda: (_sps(), _pps(), _idr(slice_type=8))),
@@ -319,9 +354,14 @@ def _decode(*nals: bytes) -> int:
 def test_refused_headers_raise_naming_a9(what, nals):
     """Each tool the decoder does not decode raises NotImplementedError
     naming A9 and the tool, on a stream whose headers ask for it; the same
-    stream without it decodes."""
-    with pytest.raises(NotImplementedError, match=f"(?s){what}.*A9"):
-        _decode(*nals())
+    stream without it decodes. Scaling lists in the SPS or the PPS, which
+    the decoder now decodes, give the list-free stream's frame (I_PCM
+    samples are not scaled)."""
+    if what == "scaling matrices":
+        assert _frames(*nals()) == _frames(_sps(), _pps(), _idr())
+    else:
+        with pytest.raises(NotImplementedError, match=f"(?s){what}.*A9"):
+            _decode(*nals())
     assert _decode(_sps(), _pps(), _idr()) == 1
     assert _decode(_sps(), _pps(redundant=1), _idr(redundant_pic_cnt=0)) == 1
 
