@@ -116,8 +116,10 @@ def parse_sps(nal: bytes) -> dict:
         raise _unread("H.264 picture order count type 1")
     r.ue()                                     # max_num_ref_frames
     r.u(1)                                     # gaps_in_frame_num_allowed
-    mbs = (r.ue() + 1) * (r.ue() + 1)          # picture size in MBs
+    mbs = (r.ue() + 1) * (r.ue() + 1)          # width x height in map units
     sps["frame_mbs_only"] = r.u(1)
+    # FrameHeightInMbs: twice the map units of a stream coded for fields
+    mbs *= 2 - sps["frame_mbs_only"]
     sps["num_reorder_frames"] = _max_dpb_frames(level, mbs)
     if not sps["frame_mbs_only"]:
         r.u(1)                                 # mb_adaptive_frame_field

@@ -5,13 +5,16 @@ cv2's FFMPEG capture decodes H.264 (``avc1`` in MP4, ``H264`` and its
 fourccs in AVI) with ffmpeg's software ``h264`` decoder on the host. The
 port decodes them on the host too, with ``data/native/h264_decode.cpp``,
 built with the C++ compiler into ``.cache/native`` at first use
-(``data/native``): progressive 8-bit 4:2:0 streams with CAVLC or CABAC
-entropy coding (the Baseline, Main and High profiles) and any scaling
-lists, whose Y, U and V planes are ffmpeg's bit for bit.
+(``data/native``): 8-bit 4:2:0 streams of frame pictures with CAVLC or
+CABAC entropy coding (the Baseline, Main and High profiles) and any
+scaling lists, progressive or interlaced (MBAFF frames, as x264's
+``--interlaced`` writes them), whose Y, U and V planes are ffmpeg's bit
+for bit; an interlaced frame comes out as ffmpeg outputs it, its two
+fields woven and not deinterlaced.
 ``ops/colour.py``'s ``yuv_rgb``, with the range and the colour matrix the
 stream's VUI names, turns them into cv2's RGB frames. There is no
 fallback: a decoder that does not build, a stream that does not decode and
-a tool the decoder refuses (field pictures and MBAFF, 4:4:4 and the rest:
+a tool the decoder refuses (field pictures, 4:4:4 and the rest:
 ``NotImplementedError`` naming ROADMAP.md queue A9) all raise; NVDEC is not
 tried. ``cabac_tables`` and ``Decoder.counts`` / ``scaling_lists`` read
 the decoder's tables and state for tests.
@@ -76,17 +79,20 @@ def cabac_tables() -> dict:
     slices; ``range_lps`` (64, 4) uint8, rangeTabLPS; ``trans`` (2, 64),
     transIdxLPS and transIdxMPS; ``ctx8x8`` (2, 63), the 8x8 block's frame
     ctxIdxInc of significant_coeff_flag and last_significant_coeff_flag;
-    ``defaults`` the four default scaling lists in raster order (4x4 intra
-    and inter, 8x8 intra and inter)."""
+    ``ctx8x8_field`` (63,), a field macroblock's of significant_coeff_flag
+    (its last_significant_coeff_flag takes the frame one's); ``defaults``
+    the four default scaling lists in raster order (4x4 intra and inter,
+    8x8 intra and inter)."""
     import numpy as np
     out = {"init": np.zeros((4, 460, 2), np.int8),
            "range_lps": np.zeros((64, 4), np.uint8),
            "trans": np.zeros((2, 64), np.uint8),
-           "ctx8x8": np.zeros((2, 63), np.uint8),
+           "ctx8x8": np.zeros((3, 63), np.uint8),
            "defaults": np.zeros(160, np.uint8)}
     _library().h264_cabac_tables(*(a.ctypes.data for a in out.values()))
     d = out.pop("defaults")
     out["defaults"] = (d[:16], d[16:32], d[32:96], d[96:])
+    out["ctx8x8"], out["ctx8x8_field"] = out["ctx8x8"][:2], out["ctx8x8"][2]
     return out
 
 
@@ -147,11 +153,13 @@ class Decoder:
 
     def counts(self) -> dict:
         """What the decoder has seen so far: slices, CABAC slices, I_PCM
-        macroblocks and slices with scaling lists."""
-        out = (ctypes.c_longlong * 4)()
+        macroblocks, slices with scaling lists, and the macroblock pairs of
+        MBAFF frames coded as fields and as frames."""
+        out = (ctypes.c_longlong * 6)()
         self._lib.h264_counts(self._h, out)
         return dict(zip(("slices", "cabac_slices", "pcm_macroblocks",
-                         "scaled_slices"), out))
+                         "scaled_slices", "field_pairs", "frame_pairs"),
+                        out))
 
     def scaling_lists(self) -> tuple:
         """The last slice's scaling lists in force, raster order: (6, 16)

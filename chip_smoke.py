@@ -156,19 +156,25 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            its device ms beside its bound; then H.264 (the port's software
            decoder on the host, data/h264.py): (h) every
            tests/data/videos_h264/ stream that the decoder takes (x264,
-           CAVLC and CABAC, with and without scaling lists, among them
-           ipb_1280x720.mp4, High profile CAVLC at full width, whose host
-           decoder ms a frame one decode gives) through frame_tensors() on
-           the card against the SHA-256s of cv2's frames, its seeks, count
-           and timestamps, and the refused ones (MBAFF, 4:4:4) raising
-           naming A9; ipb_cabac_1280x720.mp4 (24 frames, x264's High
-           profile defaults: CABAC, the 8x8 transform, B-pyramids)
+           CAVLC and CABAC, with and without scaling lists, progressive
+           and interlaced (MBAFF), among them ipb_1280x720.mp4, High
+           profile CAVLC at full width, whose host decoder ms a frame one
+           decode gives) through frame_tensors() on the card against the
+           SHA-256s of expected.json's frames (cv2's; swscale's for the
+           MBAFF streams, whose frames cv2 does not convert, C14), its
+           seeks, count and timestamps, and the refused one (4:4:4)
+           raising naming A9; ipb_cabac_1280x720.mp4 (24 frames, x264's
+           High profile defaults: CABAC, the 8x8 transform, B-pyramids)
            through Video.frames() on the card, the main path: 24 yuv_rgb
            launches and none of the other kernels, each frame cv2's, then
            frames/s of H264_PASSES passes and the host decoder's ms per
-           frame over as many; the kernel at 1280x720 for each colour
-           matrix and range cv2 converts by, against its plain version,
-           its device ms beside its bound
+           frame over as many; ipb_mbaff_1920x1080.mp4 (12 MBAFF frames,
+           1080i as AVCHD writes it) the same way (``mbaff_stream``: 12
+           yuv_rgb launches, its own path ``decode_h264_mbaff``, frames
+           swscale's, H264_MBAFF_PASSES passes); the kernel at 1280x720
+           for each colour matrix and range cv2 converts by, and at
+           1920x1080 on the 1080i stream's planes, against its plain
+           version, its device ms beside its bound
   quickstart
            ``python -m auformer_torch.quickstart`` (its ``main``, no
            device argument), the port's examples/quickstart.py: its
@@ -288,7 +294,8 @@ site; ``quickstart``: per forward and per site of the quickstart's
 vformer, and its gradient check); ``launches`` counts the slice's, the
 sweep's, the dataset's, the packed, the zoo, the ingest and orbax phases'
 test_aff2 runs (orbax: the run from best/), the decode phase's frames()
-(yuv_rgb), the quickstart's run, the train phase's,
+(yuv_rgb; the 1080i stream's under ``decode_h264_mbaff``), the
+quickstart's run, the train phase's,
 the feed's, the host_aug's and the graph's main path runs
 (``launches_by_path``; ``zoo`` sums the zoo phase's bf16 main path runs;
 ``feed`` is the --frame_dedup + wav arena epoch, ``host_aug`` the (h)
@@ -536,11 +543,15 @@ MPEG4_SEEKS = (0, 5, 11)
 MPEG4_PASSES = 5                  # timed passes of frames() and the decoder
 MPEG4_CV2_STREAMS = ("mp4v_176.mp4", "xvid_176.avi")
 # H.264: x264's streams (tests/data/videos_h264), the full-width CABAC one
-# the main path; the full-width streams' seeks in the checked loop
+# the main path, with the full-width MBAFF (1080i) one beside it; the
+# full-width streams' seeks in the checked loop
 H264_FIXTURES = ROOT / "tests" / "data" / "videos_h264"
 H264_STREAM = "ipb_cabac_1280x720.mp4"
+H264_MBAFF_STREAM = "ipb_mbaff_1920x1080.mp4"
 H264_CAVLC_STREAM = "ipb_1280x720.mp4"
 H264_PASSES = 3
+H264_MBAFF_PASSES = 2
+H264_FULL_WIDTH = ("1280x720", "1920x1080")
 H264_WIDE_SEEKS = ("0", "13", "23", "35")
 # (matrix_coefficients, full range) of the kernel's cases: BT.601, BT.709,
 # FCC, SMPTE 240M, BT.2020, and full range BT.601 and BT.709
@@ -2193,8 +2204,8 @@ def decode_source(t: int) -> np.ndarray:
 
 def decode_kernel_case(torch, dev, planes: list, limited: bool = False,
                        matrix: int = 2) -> dict:
-    """yuv_rgb at 1280x720 against its plain version on the card, on a
-    route's 4:2:0 planes (MJPEG's full range, MPEG-4's and H.264's
+    """yuv_rgb against its plain version on the card, on a route's 4:2:0
+    planes at the main path's size (MJPEG's full range, MPEG-4's and H.264's
     ``limited`` range, H.264's colour ``matrix``: the main path's); times
     and the bound."""
     from auformer_torch.ops import colour
@@ -2362,20 +2373,25 @@ def phase_decode_mpeg4(torch, dev, work: Path) -> tuple[dict, dict, dict]:
 
 def phase_decode_h264(torch, dev, work: Path) -> tuple[dict, dict, dict]:
     """The decode phase's H.264 part (h): every committed x264 stream the
-    decoder takes (CAVLC and CABAC) through frame_tensors on the card
-    against the SHA-256s of cv2's frames, its seeks (H264_WIDE_SEEKS of the
+    decoder takes (CAVLC and CABAC, progressive and MBAFF) through
+    frame_tensors on the card against the SHA-256s of expected.json's
+    frames (cv2's, or swscale's where cv2 flags the frames interlaced and
+    does not convert them, C14), its seeks (H264_WIDE_SEEKS of the
     full-width ones), count and timestamps, the refused ones raising
     naming A9, the full-width CAVLC stream's host decoder timed over one
     decode; the full-width CABAC stream through Video.frames() on the
     card, the main path, its launches counted with the count set to 0 just
     before and read just after, each frame cv2's, then timed again, as is
-    the host decoder alone, H264_PASSES times in all; the kernel at
-    1280x720 on that stream's planes for each of H264_COLOURS. Returns
-    (the main path's launches, the fixtures and the stream, the kernel's
-    numbers by colour)."""
+    the host decoder alone, H264_PASSES times in all; the 1080i MBAFF
+    stream the same way (its planes libavcodec's, its frames swscale's,
+    H264_MBAFF_PASSES passes); the kernel at 1280x720 on the CABAC stream's
+    planes for each of H264_COLOURS, and at 1920x1080 on the 1080i
+    stream's planes with its colour (``mbaff_1920x1080``). Returns (the
+    launches of the main path and of the 1080i stream's, the fixtures and
+    the streams, the kernel's numbers by case)."""
     import hashlib
 
-    from auformer_torch.data import container, h264, ingest
+    from auformer_torch.data import h264, ingest
     from auformer_torch.data.video import Video
 
     def sha(a) -> str:
@@ -2383,7 +2399,7 @@ def phase_decode_h264(torch, dev, work: Path) -> tuple[dict, dict, dict]:
 
     expected = json.loads((H264_FIXTURES / "expected.json").read_text())
     t0 = time.perf_counter()
-    frames, checked, refused, cavlc_ms = 0, 0, {}, None
+    frames, swscale_frames, checked, refused, cavlc_ms = 0, 0, 0, {}, None
     for name, want in expected.items():
         path = str(H264_FIXTURES / name)
         video = Video(path, write=False)
@@ -2394,20 +2410,22 @@ def phase_decode_h264(torch, dev, work: Path) -> tuple[dict, dict, dict]:
                 refused[name] = "A9" in str(e)
                 continue
             fail(f"{name}: a stream the decoder refuses gave a frame")
-        if name == H264_STREAM:
+        if name in (H264_STREAM, H264_MBAFF_STREAM):
             continue                      # the main path's, below
+        source = want["frames_from"]      # "cv2", or "swscale" (C14)
         got = [sha(t.cpu().numpy()) for t in video.frame_tensors(dev)]
         if got != want["frames_sha256"]:
             bad = [k for k, (a, b) in enumerate(zip(got, want[
                 "frames_sha256"])) if a != b]
             fail(f"{name} on the card: {len(got)} frames, these differ "
-                 f"from cv2's: {bad[:8]}")
+                 f"from {source}'s: {bad[:8]}")
+        wide = any(w in name for w in H264_FULL_WIDTH)
         seeks = {k: d for k, d in want["read_RGB_sha256"].items()
-                 if "1280x720" not in name or k in H264_WIDE_SEEKS}
+                 if not wide or k in H264_WIDE_SEEKS}
         for k, digest in seeks.items():
             img = video.read_RGB(int(k), device=dev)
             if (None if img is None else sha(img)) != digest:
-                fail(f"{name}: read_RGB({k}) on the card is not cv2's")
+                fail(f"{name}: read_RGB({k}) on the card is not {source}'s")
         stamps = Path(ingest.extract_timestamps(path, str(work / "ts.txt"))
                       ).read_text()
         if (video.count_frames(), stamps) != (want["count_frames"],
@@ -2417,67 +2435,106 @@ def phase_decode_h264(torch, dev, work: Path) -> tuple[dict, dict, dict]:
             t1 = time.perf_counter()
             n = sum(1 for _ in h264.decode_range(path))
             cavlc_ms = 1000 * (time.perf_counter() - t1) / n
-        frames += len(got)
+        frames += len(got) if source == "cv2" else 0
+        swscale_frames += len(got) if source == "swscale" else 0
         checked += len(seeks)
     if not refused or not all(refused.values()):
         fail(f"the refused H.264 streams do not name A9: {refused}")
-    fixtures = {"files": len(expected) - len(refused) - 1,
+    main = (H264_STREAM, H264_MBAFF_STREAM)
+    fixtures = {"files": len(expected) - len(refused) - len(main),
                 "cabac_files": sorted(
                     n for n, w in expected.items() if "planes_sha256" in w
-                    and "cabac=0" not in w["x264"] and n != H264_STREAM),
+                    and "cabac=0" not in w["x264"] and n not in main),
+                "mbaff_files": sorted(
+                    n for n, w in expected.items() if "planes_sha256" in w
+                    and w["frames_from"] == "swscale" and n not in main),
                 "frames_equal_cv2": frames,
-                "seeks_equal_cv2": checked,
+                "frames_equal_swscale": swscale_frames,
+                "seeks_equal_expected": checked,
                 "refused_naming_a9": sorted(refused),
                 "cavlc_1280x720_host_decode_ms_per_frame": cavlc_ms,
                 "s": time.perf_counter() - t0}
-    # the full-width stream: the host decoder alone, then the main path
-    path = str(H264_FIXTURES / H264_STREAM)
-    want = expected[H264_STREAM]
+    # the full-width streams: the host decoder alone, then the main path
+    launches, stream, (first, _) = h264_stream(torch, dev, expected,
+                                               H264_STREAM, H264_PASSES)
+    planes = [p.to(dev) for p in first]
+    kernels = {f"matrix{m}_{'full' if full else 'limited'}":
+               decode_kernel_case(torch, dev, planes, not full, m)
+               for m, full in H264_COLOURS}
+    stream["colour_ms_per_frame"] = kernels["matrix2_limited"]["ms"]
+    mbaff_launches, mbaff, (first, (m, full)) = h264_stream(
+        torch, dev, expected, H264_MBAFF_STREAM, H264_MBAFF_PASSES)
+    kernels["mbaff_1920x1080"] = decode_kernel_case(   # its path's shape
+        torch, dev, [p.to(dev) for p in first], not full, m)
+    mbaff["colour_ms_per_frame"] = kernels["mbaff_1920x1080"]["ms"]
+    return (launches, mbaff_launches), {"fixtures": fixtures, "stream": stream,
+                                        "mbaff_stream": mbaff}, kernels
+
+
+def h264_stream(torch, dev, expected: dict, name: str,
+                passes: int) -> tuple[dict, dict, tuple]:
+    """A full-width x264 stream of H264_FIXTURES: the host decoder alone,
+    its planes libavcodec's, then Video.frames() on the card under
+    counted_decode (one yuv_rgb launch a frame, none of any other kernel),
+    each frame expected.json's (cv2's, or swscale's: C14) at the stream's
+    size, ``passes`` passes of each timed; read_RGB at the first, middle
+    and last frame (the first only for MBAFF's one-GOP 1080i stream, whose
+    later seeks decode it whole). Returns (the launches, the stream's
+    numbers, the first frame's host planes and its (matrix, full range))."""
+    import hashlib
+
+    from auformer_torch.data import container, h264
+    from auformer_torch.data.video import Video
+
+    def sha(a) -> str:
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    path = str(H264_FIXTURES / name)
+    want = expected[name]
+    source = want["frames_from"]
     n_frames = len(want["frames_sha256"])
     index = container.packet_index(path)
     decode_s = []
-    for _ in range(H264_PASSES):
+    for _ in range(passes):
         t0 = time.perf_counter()
-        host = [(yuv, c) for _, yuv, c in h264.decode_range(path, index)]
+        host = list(h264.decode_range(path, index))
         decode_s.append(time.perf_counter() - t0)
-    if [[sha(p.numpy()) for p in yuv] for yuv, _ in host] != [
+    if [[sha(p.numpy()) for p in yuv] for _, yuv, _ in host] != [
             [p["y"], p["u"], p["v"]] for p in want["planes_sha256"]]:
-        fail(f"{H264_STREAM}: the host decoder's planes are not "
-             "libavcodec's")
+        fail(f"{name}: the host decoder's planes are not libavcodec's")
     video = Video(path, write=False)
     torch.cuda.synchronize()
     decoded, frames_s, launches = counted_decode(         # the main path
         lambda: list(video.frames(device=dev)))
     if [sha(f) for f in decoded] != want["frames_sha256"]:
-        fail(f"{H264_STREAM}: Video.frames() on the card is not cv2's")
-    if launches["yuv_rgb"] != n_frames:
-        fail(f"{H264_STREAM}: {launches} launches for {n_frames} frames")
+        fail(f"{name}: Video.frames() on the card is not {source}'s")
+    shape = (index["height"], index["width"], 3)
+    if launches["yuv_rgb"] != n_frames or any(f.shape != shape
+                                              for f in decoded):
+        fail(f"{name}: {launches} launches, shapes "
+             f"{sorted({f.shape for f in decoded})} for {n_frames} frames")
     passes_s = [frames_s]
-    for _ in range(H264_PASSES - 1):
+    for _ in range(passes - 1):
         t0 = time.perf_counter()
         n = sum(1 for _ in video.frames(device=dev))
         passes_s.append(time.perf_counter() - t0)
         if n != n_frames:
-            fail(f"{H264_STREAM} frames(), pass {len(passes_s)}: {n} frames")
-    for k in (0, n_frames // 2, n_frames - 1):
+            fail(f"{name} frames(), pass {len(passes_s)}: {n} frames")
+    seeks = (0,) if name == H264_MBAFF_STREAM else (0, n_frames // 2,
+                                                    n_frames - 1)
+    for k in seeks:
         if sha(video.read_RGB(k, device=dev)) != want["frames_sha256"][k]:
-            fail(f"{H264_STREAM}: read_RGB({k}) on the card is not cv2's")
-    planes = [p.to(dev) for p in host[0][0]]
-    kernels = {f"matrix{m}_{'full' if full else 'limited'}":
-               decode_kernel_case(torch, dev, planes, not full, m)
-               for m, full in H264_COLOURS}
+            fail(f"{name}: read_RGB({k}) on the card is not {source}'s")
     size = os.path.getsize(path)
-    stream = {"file": H264_STREAM, "size": [index["width"], index["height"]],
-              "frames": n_frames, "x264": want["x264"], "bytes": size,
-              "bytes_per_frame": size / n_frames, "passes": H264_PASSES,
-              "frames_s": passes_s,
-              "frames_per_s": [n_frames / t for t in passes_s],
-              "ms_per_frame": [1000 * t / n_frames for t in passes_s],
-              "host_decode_ms_per_frame": [1000 * t / n_frames
-                                           for t in decode_s],
-              "launches": launches["yuv_rgb"],
-              "colour_ms_per_frame": kernels["matrix2_limited"]["ms"]}
-    return launches, {"fixtures": fixtures, "stream": stream}, kernels
+    return launches, {
+        "file": name, "size": [index["width"], index["height"]],
+        "frames": n_frames, "x264": want["x264"], "bytes": size,
+        "bytes_per_frame": size / n_frames, "passes": passes,
+        "frames_from": source, "frames_s": passes_s,
+        "frames_per_s": [n_frames / t for t in passes_s],
+        "ms_per_frame": [1000 * t / n_frames for t in passes_s],
+        "host_decode_ms_per_frame": [1000 * t / n_frames for t in decode_s],
+        "launches": launches["yuv_rgb"], "seeks_equal": list(seeks)}, host[0][1:]
 
 
 def phase_decode(torch, dev) -> tuple[dict, dict, dict]:
@@ -2487,9 +2544,9 @@ def phase_decode(torch, dev) -> tuple[dict, dict, dict]:
     counted with the counts set to 0 just before frames() and read just
     after, then (e)-(g) MPEG-4 part 2 (``phase_decode_mpeg4``) and (h)
     H.264 (``phase_decode_h264``). Returns (the MJPEG path's launches, the
-    MPEG-4 path's, the H.264 path's, the kernel's numbers with the
-    limited-range case under ``limited_range`` and H.264's colours under
-    ``matrices``)."""
+    MPEG-4 path's, the H.264 paths' (progressive, MBAFF), the kernel's
+    numbers with the limited-range case under ``limited_range`` and
+    H.264's colours under ``matrices``)."""
     import hashlib
 
     from auformer_torch.data import container, ingest, nvdec
@@ -2610,7 +2667,7 @@ def phase_decode(torch, dev) -> tuple[dict, dict, dict]:
          limited_kernel=limited, h264=h264, h264_kernels=matrices,
          phase_s=time.perf_counter() - t_phase)
     shutil.rmtree(work, ignore_errors=True)
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernel = dict(kernel, limited_range={key: limited[key] for key in keys},
                   matrices={name: {key: c[key] for key in keys}
                             for name, c in matrices.items()})
@@ -5015,7 +5072,8 @@ def main() -> int:
         torch, dev, Path(split["work"]) / "experiments" / "avformer"
         / "pretrain" / f"random_seed{SEED}.pth")
     by_path["orbax"] = phase_orbax(torch, dev, split)
-    (by_path["decode"], by_path["decode_mpeg4"], by_path["decode_h264"],
+    (by_path["decode"], by_path["decode_mpeg4"],
+     (by_path["decode_h264"], by_path["decode_h264_mbaff"]),
      yuv) = phase_decode(torch, dev)
     shutil.rmtree(split["work"], ignore_errors=True)  # the split, the .pth
     by_path["quickstart"], quickstart_grads = phase_quickstart(torch, dev)
@@ -5126,7 +5184,7 @@ def main() -> int:
          "launches": launches("yuv_rgb"),
          "launches_by_path": {p: by_path[p]["yuv_rgb"]
                               for p in ("decode", "decode_mpeg4",
-                                        "decode_h264")},
+                                        "decode_h264", "decode_h264_mbaff")},
          **{key: yuv[key] for key in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms",
                                       "limited_range", "matrices")}}]}),

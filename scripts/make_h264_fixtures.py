@@ -42,7 +42,14 @@ its timestamps text; for the streams the port decodes, also the SHA-256 of
 each RGB frame and of ``read_RGB(k)`` at ``SEEKS_X264`` (null past the last
 frame), and the SHA-256 of each frame's Y, U and V planes from libavcodec's
 own ``h264`` decoder (``planes_sha256``), so that a mismatch can be placed
-in the decoder or in the colour conversion.
+in the decoder or in the colour conversion. The frames are cv2's where
+they are real (``frames_from`` "cv2": the same in another process and
+equal to swscale's conversion of libavcodec's planes); cv2 flags MBAFF
+frames interlaced and returns a buffer it never wrote (ROADMAP.md C14), so
+for those streams they are the system's libswscale 6.7 conversion of
+libavcodec's frames, with cv2's flags (``frames_from`` "swscale"), a route the script first checks against every progressive
+stream's cv2 frames bit for bit. x264 drops weightp on interlaced
+streams.
 """
 from __future__ import annotations
 
@@ -166,11 +173,12 @@ X264_STREAMS = [
     ("cabac_176x144.mp4", 176, 144, 3, "bframes=2",
      "x264's default CABAC: I, P and B slices, spatial direct, the 8x8 "
      "transform"),
-    # refused by the port: NotImplementedError naming A9
-    ("interlaced_176x144.mp4", 176, 144, 3, "cabac=0:interlaced=1",
-     "MBAFF (frame_mbs_only_flag 0)"),
+    ("interlaced_176x144.mp4", 176, 144, 12, "cabac=0:interlaced=1",
+     "MBAFF CAVLC, top field first: field and frame macroblock pairs, "
+     "field scans, B pictures"),
     ("cqm_176x144.mp4", 176, 144, 3, "cabac=0:cqm=jvt",
      "CAVLC with the standard's default scaling lists (cqm=jvt)"),
+    # refused by the port: NotImplementedError naming A9
     ("yuv444_176x144.mp4", 176, 144, 3, "cabac=0",
      "chroma_format_idc 3 (4:4:4)"),
     # CABAC and scaling matrices
@@ -217,8 +225,28 @@ X264_STREAMS = [
      "bframes=3:b-pyramid=normal:ref=3:weightp=2:8x8dct=1:crf=26",
      "x264's High profile defaults at full width, at an encoder's rate "
      "(crf 26)"),
+    # interlaced: frame_mbs_only_flag 0, the source's two fields half a
+    # frame apart (x264_source), so that x264 codes pairs as fields
+    ("mbaff_cabac_176x144.mp4", 176, 144, 24,
+     "interlaced=1:bframes=3:b-pyramid=normal:ref=3:8x8dct=1:keyint=12",
+     "MBAFF CABAC, top field first: mb_field_decoding_flag, CABAC's field "
+     "contexts, field reference lists, B-pyramids, the 8x8 transform"),
+    ("mbaff_bff_cabac_176x144.mp4", 176, 144, 12, "bff=1:keyint=12",
+     "MBAFF CABAC, bottom field first"),
+    ("mbaff_temporal_cabac_176x144.mp4", 176, 144, 24,
+     "interlaced=1:bframes=3:b-pyramid=normal:direct=temporal:weightb=1:"
+     "slices=3:keyint=12",
+     "MBAFF temporal direct (co-located field and frame pairs), implicit "
+     "weights from field order counts, three slices a picture"),
+    ("fakeint_cabac_176x144.mp4", 176, 144, 12,
+     "fake-interlaced=1:bframes=2:keyint=12",
+     "frame_mbs_only_flag 0 without MBAFF (fake-interlaced): frame "
+     "pictures of a stream flagged for fields"),
+    ("ipb_mbaff_1920x1080.mp4", 1920, 1080, 12, "interlaced=1:crf=26",
+     "MBAFF at AVCHD's 1920x1080 (CropUnitY 4: 1088 rows cropped by 8), "
+     "x264's High profile defaults at an encoder's rate (crf 26)"),
 ]
-X264_REFUSED = ("interlaced_", "yuv444_")
+X264_REFUSED = ("yuv444_",)
 
 X264_TOOL = r"""
 #include <stdint.h>
@@ -227,7 +255,9 @@ X264_TOOL = r"""
 #include <string.h>
 #include <libavcodec/avcodec.h>
 #include <libavutil/frame.h>
+#include <libavutil/mem.h>
 #include <libavutil/opt.h>
+#include <libswscale/swscale.h>
 
 /* encode W H N CHROMA444 PARAMS OUT: raw planar frames on stdin; each
    packet to OUT as int64 pts, int64 dts, int32 key, int32 size, bytes */
@@ -266,8 +296,12 @@ static int encode(int w, int h, int n, int yuv444, const char *params,
   av_frame_get_buffer(f, 0);
   AVPacket *p = av_packet_alloc();
   int cw = yuv444 ? w : (w + 1) / 2, ch = yuv444 ? h : (h + 1) / 2;
+  /* libavcodec hands x264 each frame's field order: top field first
+     unless the stream asks for bff */
+  int interlaced = strstr(params, "interlaced=1") || strstr(params, "bff=1");
   for (int t = 0; t < n; ++t) {
     av_frame_make_writable(f);
+    if (interlaced) f->top_field_first = !strstr(params, "bff=1");
     for (int k = 0; k < 3; ++k)
       for (int r = 0; r < (k ? ch : h); ++r)
         if (fread(f->data[k] + r * f->linesize[k], 1, k ? cw : w, stdin) !=
@@ -282,14 +316,42 @@ static int encode(int w, int h, int n, int yuv444, const char *params,
   return 0;
 }
 
-/* decode OUT: Annex B units (int32 size, bytes) on stdin through
-   libavcodec's h264 decoder; each frame's cropped Y, U, V planes to OUT */
-static int decode(const char *path) {
+/* swscale's conversion to BGR24 as cv2's FFMPEG capture asks for it:
+   bicubic at the same size, the frame's matrix and range */
+static int bgr(AVFrame *f, FILE *out) {
+  struct SwsContext *s = sws_getContext(f->width, f->height, f->format,
+                                        f->width, f->height, AV_PIX_FMT_BGR24,
+                                        SWS_BICUBIC, NULL, NULL, NULL);
+  if (!s) return 1;
+  int full = f->color_range == AVCOL_RANGE_JPEG ||
+             f->format == AV_PIX_FMT_YUVJ420P;
+  sws_setColorspaceDetails(s, sws_getCoefficients(f->colorspace), full,
+                           sws_getCoefficients(SWS_CS_DEFAULT), full, 0,
+                           1 << 16, 1 << 16);
+  /* rows padded as av_image_alloc pads them: swscale writes past 3 w */
+  int pitch = (3 * f->width + 63) & ~63;
+  uint8_t *rgb = av_malloc((size_t)pitch * (f->height + 2));
+  uint8_t *dst[4] = {rgb, NULL, NULL, NULL};
+  int dst_pitch[4] = {pitch, 0, 0, 0};
+  sws_scale(s, (const uint8_t *const *)f->data, f->linesize, 0, f->height,
+            dst, dst_pitch);
+  for (int r = 0; r < f->height; ++r)
+    fwrite(rgb + (size_t)r * pitch, 1, 3 * (size_t)f->width, out);
+  av_free(rgb);
+  sws_freeContext(s);
+  return 0;
+}
+
+/* decode OUT [BGR]: Annex B units (int32 size, bytes) on stdin through
+   libavcodec's h264 decoder; each frame's cropped Y, U, V planes to OUT,
+   and its swscale BGR24 frame to BGR */
+static int decode(const char *path, const char *bgr_path) {
   const AVCodec *codec = avcodec_find_decoder_by_name("h264");
   AVCodecContext *c = avcodec_alloc_context3(codec);
   c->thread_count = 1;
   if (avcodec_open2(c, codec, NULL) < 0) return 20;
   FILE *out = fopen(path, "wb");
+  FILE *rgb = bgr_path ? fopen(bgr_path, "wb") : NULL;
   AVPacket *p = av_packet_alloc();
   AVFrame *f = av_frame_alloc();
   for (int end = 0; !end;) {
@@ -312,10 +374,12 @@ static int decode(const char *path) {
         for (int r = 0; r < ph; ++r)
           fwrite(f->data[k] + r * f->linesize[k], 1, pw, out);
       }
+      if (rgb && bgr(f, rgb)) return 24;
       av_frame_unref(f);
     }
   }
   fclose(out);
+  if (rgb) fclose(rgb);
   return 0;
 }
 
@@ -323,7 +387,8 @@ int main(int argc, char **argv) {
   if (argc == 8 && !strcmp(argv[1], "encode"))
     return encode(atoi(argv[2]), atoi(argv[3]), atoi(argv[4]), atoi(argv[5]),
                   argv[6], argv[7]);
-  if (argc == 3 && !strcmp(argv[1], "decode")) return decode(argv[2]);
+  if ((argc == 3 || argc == 4) && !strcmp(argv[1], "decode"))
+    return decode(argv[2], argc == 4 ? argv[3] : NULL);
   return 2;
 }
 """
@@ -335,8 +400,8 @@ def build_x264_tool(tmp: str) -> str:
     src, exe = os.path.join(tmp, "x264tool.c"), os.path.join(tmp, "x264tool")
     with open(src, "w") as f:
         f.write(X264_TOOL)
-    subprocess.run(["gcc", "-O2", src, "-o", exe, "-lavcodec", "-lavutil"],
-                   check=True)
+    subprocess.run(["gcc", "-O2", src, "-o", exe, "-lavcodec", "-lswscale",
+                    "-lavutil"], check=True)
     return exe
 
 
@@ -352,27 +417,55 @@ def _sample(tex: np.ndarray, x: np.ndarray, y: np.ndarray) -> np.ndarray:
             + fy * ((1 - fx) * tex[y1, x0] + fx * tex[y1, x1]))
 
 
-def x264_source(seed: int, t: int, height: int, width: int, yuv444=False
-                ) -> list[np.ndarray]:
+def x264_source(seed: int, t: int, height: int, width: int, yuv444=False,
+                fields: str | None = None, speed: float = 1) -> list[np.ndarray]:
     """Frame t's Y, U and V planes (4:2:0, or 4:4:4): a texture that pans
     1.3 samples right and 0.7 down a frame, three textured discs that move
-    each their own way, a little noise, smooth moving chroma."""
+    each their own way (``speed`` times as fast), a little noise, smooth
+    moving chroma. With ``fields`` ("tff" or "bff") the frame is
+    interlaced: the first field's rows (even ones for "tff", odd ones for
+    "bff") show instant t, the other field's t + 1/2, the discs
+    ``FIELD_SPEED`` times as fast, so that x264 codes the pairs they cross
+    as fields and the slowly panning background as frames."""
+    if fields is not None:
+        first = x264_source(seed, t, height, width, yuv444, speed=FIELD_SPEED)
+        second = x264_source(seed, t + 0.5, height, width, yuv444,
+                             speed=FIELD_SPEED)
+        odd_first = fields == "bff"
+        for a, b in zip(first, second):
+            a[1 - odd_first::2] = b[1 - odd_first::2]
+        return first
     rs = np.random.RandomState(seed)
     tex = rs.rand(64, 64)
     yy, xx = np.mgrid[0:height, 0:width].astype(np.float64)
     y = 40 + 150 * _sample(tex, xx + 1.3 * t, yy + 0.7 * t)
     for k in range(3):
-        cx = width * (0.2 + 0.3 * k) + (2.5 - 1.75 * k) * t
-        cy = height * (0.3 + 0.2 * k) + (1.0 + 0.6 * k) * t * (-1) ** k
+        cx = width * (0.2 + 0.3 * k) + (2.5 - 1.75 * k) * (t * speed)
+        cy = (height * (0.3 + 0.2 * k)
+              + (1.0 + 0.6 * k) * (t * speed) * (-1) ** k)
         r = min(height, width) * (0.12 + 0.04 * k)
         disc = (xx - cx) ** 2 + (yy - cy) ** 2 < r * r
         y = np.where(disc, 60 + 120 * _sample(tex, xx - cx + 40 * k, yy - cy),
                      y)
-    y += np.random.RandomState([seed, t]).standard_normal(y.shape) * 2
+    noise = [seed, t] if t == int(t) else [seed, int(t), 1]
+    y += np.random.RandomState(noise).standard_normal(y.shape) * 2
     cyy, cxx = (yy, xx) if yuv444 else (yy[::2, ::2], xx[::2, ::2])
     u = 128 + 60 * np.sin((cxx + t) / width * 6.3) * np.cos(cyy / height * 3)
     v = 128 + 60 * np.cos((cyy - t) / height * 6.3)
     return [np.clip(np.rint(p), 0, 255).astype(np.uint8) for p in (y, u, v)]
+
+
+FIELD_SPEED = 6
+
+
+def field_order(params: str) -> str | None:
+    """"tff" or "bff" for an x264 stream coded interlaced (MBAFF), whose
+    source x264_source renders as two fields; None for a progressive
+    source (fake-interlaced streams too)."""
+    opts = dict(o.split("=", 1) for o in params.split(":"))
+    if opts.get("bff") == "1":
+        return "bff"
+    return "tff" if opts.get("interlaced") == "1" else None
 
 
 def x264_encode(tool: str, tmp: str, width: int, height: int, n: int,
@@ -380,8 +473,10 @@ def x264_encode(tool: str, tmp: str, width: int, height: int, n: int,
     """(pts, key, Annex B bytes) of each packet in decode order."""
     import struct
     import subprocess
+    fields = field_order(params)
     raw = b"".join(p.tobytes() for t in range(n)
-                   for p in x264_source(seed, t, height, width, yuv444))
+                   for p in x264_source(seed, t, height, width, yuv444,
+                                        fields))
     out = os.path.join(tmp, "packets")
     subprocess.run([tool, "encode", str(width), str(height), str(n),
                     str(int(yuv444)), params, out], input=raw, check=True,
@@ -396,12 +491,16 @@ def x264_encode(tool: str, tmp: str, width: int, height: int, n: int,
 
 
 def x264_planes(tool: str, tmp: str, units: list[bytes], width: int,
-                height: int) -> list[dict]:
-    """SHA-256 of libavcodec's Y, U and V planes of each frame it outputs."""
+                height: int) -> tuple[list[dict], list[str]]:
+    """SHA-256 of libavcodec's Y, U and V planes of each frame it outputs,
+    and of each frame as swscale converts it to RGB (the route cv2 takes,
+    done here with the system's libswscale, which converts interlaced
+    frames as it does progressive ones)."""
     import struct
     import subprocess
-    out = os.path.join(tmp, "planes")
-    subprocess.run([tool, "decode", out], check=True, capture_output=True,
+    out, bgr = os.path.join(tmp, "planes"), os.path.join(tmp, "bgr")
+    subprocess.run([tool, "decode", out, bgr], check=True,
+                   capture_output=True,
                    input=b"".join(struct.pack("<i", len(u)) + u
                                   for u in units))
     raw = np.fromfile(out, np.uint8)
@@ -413,7 +512,24 @@ def x264_planes(tool: str, tmp: str, units: list[bytes], width: int,
         y, u = f[:width * height], f[width * height:width * height + cw * ch]
         v = f[width * height + cw * ch:]
         frames.append({"y": sha(y), "u": sha(u), "v": sha(v)})
-    return frames
+    rgb = np.fromfile(bgr, np.uint8).reshape(-1, height, width, 3)[..., ::-1]
+    return frames, [sha(f) for f in rgb]
+
+
+def cv2_frames_elsewhere(path: str) -> list[str]:
+    """SHA-256 of the JAX package's frames of ``path`` read in a process of
+    their own."""
+    import subprocess
+    code = ("import hashlib, json, sys, numpy as np\n"
+            "from auformer.data.video import Video\n"
+            "print(json.dumps([hashlib.sha256(np.ascontiguousarray(f)"
+            ".tobytes()).hexdigest() for f in Video(sys.argv[1], "
+            "write=False).frames()]))")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", code, path], check=True,
+                         capture_output=True, text=True, env=env,
+                         cwd=os.getcwd())
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
 
 def x264_mux(path: str, packets: list[tuple], width: int, height: int
@@ -467,18 +583,35 @@ def write_x264(out: str) -> None:
             entry = {"x264": params, "exercises": what,
                      "count_frames": Video(path, write=False).count_frames(),
                      "timestamps": stamps}
-            # the refused streams keep no frames: the port gives none, and
-            # cv2's of the MBAFF stream are not even the same twice
-            # (swscale refuses to convert them)
-            if not name.startswith(X264_REFUSED):
-                v = Video(path, write=False)
-                entry["frames_sha256"] = [sha(f) for f in v.frames()]
-                entry["read_RGB_sha256"] = {
-                    str(k): sha(img) if (img := v.read_RGB(k)) is not None
-                    else None for k in SEEKS_X264}
-                v.release()
-                entry["planes_sha256"] = x264_planes(
-                    tool, tmp, [u for _, _, u in packets], w, h)
+            if name.startswith(X264_REFUSED):   # the port gives no frames
+                expected[name] = entry
+                print(name, os.path.getsize(path), "bytes")
+                continue
+            planes, converted = x264_planes(
+                tool, tmp, [u for _, _, u in packets], w, h)
+            v = Video(path, write=False)
+            theirs = [sha(f) for f in v.frames()]
+            # cv2's frames are real when they are swscale's conversion of
+            # libavcodec's planes and the same in another process; where
+            # libavcodec flags a frame interlaced, cv2's newer swscale
+            # refuses it and cv2 returns a buffer never written (C14)
+            real = theirs == converted and (
+                field_order(params) is None and "interlaced" not in params
+                or cv2_frames_elsewhere(path) == theirs)
+            if real:
+                seeks = {str(k): sha(img) if (img := v.read_RGB(k))
+                         is not None else None for k in SEEKS_X264}
+            else:
+                seeks = {str(k): converted[k] if k < len(converted) else None
+                         for k in SEEKS_X264}
+            v.release()
+            # the swscale route reproduces cv2 wherever cv2's frames are
+            # real: the progressive streams check it
+            if field_order(params) is None and "interlaced" not in params:
+                assert real, f"{name}: swscale's frames are not cv2's"
+            entry.update(frames_sha256=theirs if real else converted,
+                         read_RGB_sha256=seeks, planes_sha256=planes,
+                         frames_from="cv2" if real else "swscale")
             expected[name] = entry
             print(name, os.path.getsize(path), "bytes")
     with open(os.path.join(out, "expected.json"), "w") as f:

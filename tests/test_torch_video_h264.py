@@ -9,10 +9,15 @@ planes to libavcodec's own h264 decoder's, on the x264 streams of
 tests/data/videos_h264/ (regenerate with ``JAX_PLATFORMS=cpu python
 scripts/make_h264_fixtures.py --x264``, which needs cv2, the JAX package
 and the system's libavcodec with libx264): CAVLC and CABAC, with and without
-scaling lists. Every tool the decoder refuses raises naming ROADMAP.md
-queue A9: on x264 streams (MBAFF, 4:4:4) and on streams whose headers are
-written here, where scaling lists in the SPS or PPS decode. The last part
-holds MPEG-4 part 2's colour description to cv2 (ROADMAP.md C13).
+scaling lists, a fake-interlaced stream (frame_mbs_only_flag 0 without
+MBAFF) whose frames cv2 reads as progressive, and the MBAFF streams, whose
+frames cv2 does not convert (ROADMAP.md C14): theirs are held to swscale's
+conversion of libavcodec's planes, their counts and timestamps to cv2's.
+What only MBAFF has is tested in test_torch_video_h264_mbaff.py. Every tool the decoder refuses raises
+naming ROADMAP.md queue A9: on an x264 stream (4:4:4) and on streams whose
+headers are written here, where scaling lists in the SPS or PPS decode.
+The last part holds MPEG-4 part 2's colour description to cv2 (ROADMAP.md
+C13).
 """
 import hashlib
 import json
@@ -33,7 +38,12 @@ from auformer_torch.ops.colour import yuv_rgb, yuv_rgb_plain
 D = Path(__file__).parent / "data" / "videos_h264"
 EXPECTED = json.loads((D / "expected.json").read_text())
 REFUSED = sorted(n for n in EXPECTED if "planes_sha256" not in EXPECTED[n])
+# the decoded streams; the frames of those cv2 flags interlaced are swscale's
+# (expected.json's frames_from; C14), the others' cv2's
 DECODED = sorted(n for n in EXPECTED if "planes_sha256" in EXPECTED[n])
+INTERLACED = [n for n in DECODED if EXPECTED[n]["frames_from"] == "swscale"]
+FULL_WIDTH = ("1280x720", "1920x1080")   # a few seeks: (0, 13, 23, 35)
+ONE_GOP = "1920x1080"      # one GOP: any seek past 0 decodes it whole
 COLOUR = {"bt709_176x144.mp4": (1, 0), "smpte240m_176x144.mp4": (7, 0),
           "bt2020nc_176x144.mp4": (9, 0), "fcc_176x144.mp4": (4, 0),
           "fullrange_176x144.mp4": (2, 1),
@@ -57,18 +67,28 @@ def _sha(img) -> str | None:
 
 # ---- the x264 streams -------------------------------------------------------
 
+def _size(name: str) -> tuple[int, int]:
+    """(height, width) from a fixture's name, ``..._<w>x<h>.<ext>``."""
+    w, h = name.rsplit("_", 1)[1].split(".")[0].split("x")
+    return int(h), int(w)
+
+
 @pytest.mark.parametrize("name", DECODED)
 def test_frames_and_planes_match_cv2(name):
-    """Video.frames on the CPU gives cv2's frames bit for bit (the JAX
-    package's, run here, and expected.json's), and the decoder's planes are
-    libavcodec's."""
+    """Video.frames on the CPU gives expected.json's frames bit for bit at
+    the stream's cropped size (1920x1080, not 1088 coded rows), and the
+    JAX package's, run here, where they are cv2's; an interlaced stream's
+    are swscale's, woven and not deinterlaced, since cv2 returns a buffer
+    it never wrote (C14). The decoder's planes are libavcodec's."""
     path = str(D / name)
     want = EXPECTED[name]
     got = list(Video(path, write=False).frames(device="cpu"))
     assert [_sha(f) for f in got] == want["frames_sha256"]
-    theirs = list(JaxVideo(path, write=False).frames())
-    assert len(theirs) == len(got)
-    assert all(np.array_equal(a, b) for a, b in zip(got, theirs))
+    assert all(f.shape == (*_size(name), 3) for f in got)
+    if want["frames_from"] == "cv2":
+        theirs = list(JaxVideo(path, write=False).frames())
+        assert len(theirs) == len(got)
+        assert all(np.array_equal(a, b) for a, b in zip(got, theirs))
     planes = [[_sha(p.numpy()) for p in yuv]
               for _, yuv, _ in h264.decode_range(path)]
     assert planes == [[p["y"], p["u"], p["v"]]
@@ -78,20 +98,33 @@ def test_frames_and_planes_match_cv2(name):
 @pytest.mark.parametrize("name", DECODED)
 def test_seeks_count_and_timestamps_match_cv2(name, tmp_path):
     """read_RGB at the first, middle and last frames, past the end and in
-    sequential reads after a seek, count_frames and the timestamps equal
-    the JAX package's on the same file, and expected.json's seeks."""
+    sequential reads after a seek equal the JAX package's on the same file
+    (expected.json's frames where cv2's are not real: C14), and
+    expected.json's seeks; count_frames and the timestamps equal the JAX
+    package's, which reads them from the container whatever it makes of
+    the pixels. The 1920x1080 stream, one GOP, is sought at 0 alone."""
     path = str(D / name)
     want = EXPECTED[name]
     v, jv = Video(path, write=False), JaxVideo(path, write=False)
     n = want["count_frames"]
     assert v.count_frames() == jv.count_frames() == n
     for k, digest in want["read_RGB_sha256"].items():
-        if "1280x720" in name and int(k) not in (0, 13, 23, 35):
+        if any(w in name for w in FULL_WIDTH) and int(k) not in (0, 13, 23,
+                                                                   35):
             continue            # the full-width streams: a few seeks
+        if ONE_GOP in name and int(k):
+            continue
         assert _sha(v.read_RGB(int(k), device="cpu")) == digest, k
-    for k in (n - 1, 0, None, None, n // 2, None, n):
-        ours, theirs = v.read_RGB(k, device="cpu"), jv.read_RGB(k)
-        assert _sha(ours) == _sha(theirs), k
+    frames, pos = want["frames_sha256"], 0
+    for k in () if ONE_GOP in name else (n - 1, 0, None, None, n // 2, None,
+                                         n):
+        idx = pos if k is None else k
+        ours = _sha(v.read_RGB(k, device="cpu"))
+        if want["frames_from"] == "cv2":
+            assert ours == _sha(jv.read_RGB(k)), k
+        else:
+            assert ours == (frames[idx] if idx < n else None), k
+        pos = min(idx + 1, n)
     v.release()
     jv.release()
     ts = Path(ingest.extract_timestamps(path, str(tmp_path / "a.txt")))
@@ -129,9 +162,9 @@ def test_coefficients_are_swscales():
 @pytest.mark.parametrize("name", REFUSED)
 @pytest.mark.parametrize("call", ["read_RGB", "frames", "frame_tensors"])
 def test_refused_streams_raise_naming_a9(name, call, tmp_path):
-    """MBAFF and 4:4:4 (x264 streams) raise NotImplementedError naming A9
-    from each entry point; the count and the timestamps, which need no
-    pixels, are still cv2's."""
+    """4:4:4 (an x264 stream) raises NotImplementedError naming A9 from
+    each entry point; the count and the timestamps, which need no pixels,
+    are still cv2's."""
     path = str(D / name)
     v = Video(path, write=False)
     with pytest.raises(NotImplementedError, match="A9"):
@@ -215,9 +248,10 @@ def _scaling_lists(w, n: int, lists: dict) -> None:
 
 
 def _sps(profile=100, chroma=1, depth=0, bypass=0, scaling=None, poc_type=0,
-         frame_mbs_only=1) -> bytes:
-    """An SPS of a 32x32 picture (log2_max_frame_num 8, POC lsb 8 bits);
-    scaling: the lists of ``_scaling_lists``, None for none."""
+         frame_mbs_only=1, mbaff=0) -> bytes:
+    """An SPS of a 32x32 picture, or of a 32x64 one coded for fields
+    (frame_mbs_only 0; log2_max_frame_num 8, POC lsb 8 bits); scaling: the
+    lists of ``_scaling_lists``, None for none."""
     w = fixtures._Bits()
     w.u(8, profile)
     w.u(16, 40)                       # constraint flags, level_idc
@@ -247,14 +281,14 @@ def _sps(profile=100, chroma=1, depth=0, bypass=0, scaling=None, poc_type=0,
     w.ue(1)                           # 2x2 macroblocks
     w.u(1, frame_mbs_only)
     if not frame_mbs_only:
-        w.u(1, 0)
+        w.u(1, mbaff)                 # mb_adaptive_frame_field_flag
     w.u(1, 1)                         # direct_8x8_inference
     w.u(2, 0)                         # no cropping, no VUI
     return fixtures._nal(3, 7, w.trailing())
 
 
-def _pps(cabac=0, slice_groups=1, redundant=0, scaling=None, t8=0
-         ) -> bytes:
+def _pps(cabac=0, slice_groups=1, redundant=0, scaling=None, t8=0,
+         constrained=0) -> bytes:
     """A PPS; scaling as ``_sps``'s (6 + 2 * t8 lists)."""
     w = fixtures._Bits()
     w.ue(0)
@@ -273,7 +307,7 @@ def _pps(cabac=0, slice_groups=1, redundant=0, scaling=None, t8=0
     w.se(0)
     w.se(0)
     w.u(1, 1)                         # deblocking_filter_control_present
-    w.u(1, 0)
+    w.u(1, constrained)               # constrained_intra_pred_flag
     w.u(1, redundant)
     if scaling is not None:
         w.u(1, t8)                    # transform_8x8_mode_flag
@@ -283,13 +317,19 @@ def _pps(cabac=0, slice_groups=1, redundant=0, scaling=None, t8=0
     return fixtures._nal(3, 8, w.trailing())
 
 
-def _idr(slice_type=7, redundant_pic_cnt=None) -> bytes:
-    """An IDR slice of the 2x2-macroblock picture: I_PCM grey."""
+def _idr(slice_type=7, redundant_pic_cnt=None, field_pic=None) -> bytes:
+    """An IDR slice of the 2x2-macroblock picture: I_PCM grey; field_pic
+    writes field_pic_flag (a stream coded for fields), and for a field
+    bottom_field_flag 0."""
     w = fixtures._Bits()
     w.ue(0)
     w.ue(slice_type)
     w.ue(0)
     w.u(8, 0)                         # frame_num
+    if field_pic is not None:
+        w.u(1, field_pic)
+        if field_pic:
+            w.u(1, 0)
     w.ue(0)                           # idr_pic_id
     w.u(8, 0)                         # pic_order_cnt_lsb
     if redundant_pic_cnt is not None:
@@ -338,6 +378,11 @@ LIST8 = [8 + k // 4 for k in range(64)]
      lambda: (_sps(), _pps(scaling={1: LIST4, 3: None, 7: LIST8}, t8=1),
               _idr())),
     ("field pictures", lambda: (_sps(frame_mbs_only=0), _pps(), _idr())),
+    ("field_pic_flag 1",
+     lambda: (_sps(frame_mbs_only=0), _pps(), _idr(field_pic=1))),
+    ("constrained intra prediction in MBAFF",
+     lambda: (_sps(frame_mbs_only=0, mbaff=1), _pps(constrained=1),
+              _idr(field_pic=0))),
     ("slice groups", lambda: (_sps(), _pps(slice_groups=2), _idr())),
     ("SP and SI", lambda: (_sps(), _pps(), _idr(slice_type=8))),
     ("SP and SI", lambda: (_sps(), _pps(), _idr(slice_type=9))),

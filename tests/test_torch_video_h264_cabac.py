@@ -127,7 +127,8 @@ def test_decoder_counts(name, slices, cabac, pcm, scaled):
     slices with scaling lists: x264 at QP 1 writes no I_PCM macroblock, so
     the CABAC I_PCM path is held below on a stream written here."""
     assert _counts(name) == {"slices": slices, "cabac_slices": cabac,
-                   "pcm_macroblocks": pcm, "scaled_slices": scaled}
+                   "pcm_macroblocks": pcm, "scaled_slices": scaled,
+                   "field_pairs": 0, "frame_pairs": 0}
 
 
 def _raster(zigzag, n):
