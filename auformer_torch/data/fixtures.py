@@ -507,12 +507,26 @@ def h264_gop_order(n_frames: int, gop: int, b_frames: int
     return out
 
 
-def _h264_sps(width: int, height: int, b_frames: int) -> bytes:
+def _h264_sps(width: int, height: int, b_frames: int, chroma: int = 1,
+              bypass: bool = False, colour: tuple | None = None) -> bytes:
+    """The SPS: Baseline (Main with B slices) for 4:2:0, else High 4:4:4
+    Predictive with chroma_format_idc ``chroma`` and
+    qpprime_y_zero_transform_bypass_flag ``bypass``; ``colour`` (matrix,
+    full_range) writes them in the VUI's video_signal_type."""
     w = _Bits()
-    w.u(8, 77 if b_frames else 66)       # profile_idc: Main for B slices
-    w.u(8, 0x40 if b_frames else 0xC0)    # constraint_set flags
+    high = chroma != 1 or bypass
+    w.u(8, 244 if high else 77 if b_frames else 66)   # profile_idc
+    w.u(8, 0 if high else 0x40 if b_frames else 0xC0)  # constraint_set flags
     w.u(8, 40)                            # level_idc 4.0
     w.ue(0)                               # seq_parameter_set_id
+    if high:
+        w.ue(chroma)                      # chroma_format_idc
+        if chroma == 3:
+            w.u(1, 0)                     # separate_colour_plane_flag
+        w.ue(0)                           # bit_depth_luma_minus8
+        w.ue(0)                           # bit_depth_chroma_minus8
+        w.u(1, int(bypass))               # qpprime_y_zero_transform_bypass
+        w.u(1, 0)                         # seq_scaling_matrix_present_flag
     w.ue(4)                               # log2_max_frame_num_minus4
     w.ue(0)                               # pic_order_cnt_type
     w.ue(4)                               # log2_max_pic_order_cnt_lsb_minus4
@@ -524,12 +538,22 @@ def _h264_sps(width: int, height: int, b_frames: int) -> bytes:
     w.u(1, 1)                             # frame_mbs_only_flag
     w.u(1, 1)                             # direct_8x8_inference_flag
     crop = (mbw * 16 - width, mbh * 16 - height)
+    unit = (2 if chroma in (1, 2) else 1, 2 if chroma == 1 else 1)  # CropUnit
     w.u(1, int(any(crop)))
     if any(crop):
-        for c in (0, crop[0] // 2, 0, crop[1] // 2):
+        for c in (0, crop[0] // unit[0], 0, crop[1] // unit[1]):
             w.ue(c)
     w.u(1, 1)                             # vui_parameters_present_flag
-    w.u(5, 0)   # aspect ratio, overscan, signal type, chroma loc, timing
+    w.u(2, 0)                             # aspect ratio, overscan
+    w.u(1, colour is not None)            # video_signal_type_present_flag
+    if colour is not None:
+        w.u(3, 5)                         # video_format: unspecified
+        w.u(1, int(colour[1]))            # video_full_range_flag
+        w.u(1, 1)                         # colour_description_present_flag
+        w.u(8, 2)                         # colour_primaries: unspecified
+        w.u(8, 2)                         # transfer_characteristics
+        w.u(8, int(colour[0]))            # matrix_coefficients
+    w.u(2, 0)                             # chroma loc, timing
     w.u(3, 0)   # nal hrd, vcl hrd, pic_struct_present
     w.u(1, 1)                             # bitstream_restriction_flag
     w.u(1, 1)                             # motion_vectors_over_pic_boundaries
@@ -562,24 +586,37 @@ def _h264_pps() -> bytes:
     return _nal(3, 8, w.trailing())
 
 
-def _mb_pcm(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
-    """(rows, cols, 384) uint8: each macroblock's pcm samples (256 luma,
-    64 Cb, 64 Cr, each in raster order) of planes padded to whole MBs."""
+# a macroblock's chroma samples (MbHeightC, MbWidthC) by chroma_format_idc
+_MB_CHROMA = {0: (0, 0), 1: (8, 8), 2: (16, 8), 3: (16, 16)}
+
+
+def _mb_pcm(y: np.ndarray, u: np.ndarray, v: np.ndarray, chroma: int = 1
+            ) -> np.ndarray:
+    """(rows, cols, n) uint8: each macroblock's pcm samples (256 luma, then
+    Cb and Cr of chroma_format_idc ``chroma``: 64 each for 4:2:0, 128 for
+    4:2:2, 256 for 4:4:4, none for monochrome; each in raster order) of
+    planes padded to whole MBs."""
     mbh, mbw = -(-y.shape[0] // 16), -(-y.shape[1] // 16)
 
-    def blocks(p, n):
-        p = np.pad(p, ((0, mbh * n - p.shape[0]), (0, mbw * n - p.shape[1])),
+    def blocks(p, nh, nw):
+        p = np.pad(p, ((0, mbh * nh - p.shape[0]), (0, mbw * nw - p.shape[1])),
                    mode="edge")
-        return p.reshape(mbh, n, mbw, n).transpose(0, 2, 1, 3).reshape(
-            mbh, mbw, n * n)
+        return p.reshape(mbh, nh, mbw, nw).transpose(0, 2, 1, 3).reshape(
+            mbh, mbw, nh * nw)
 
-    return np.concatenate([blocks(y, 16), blocks(u, 8), blocks(v, 8)], -1)
+    ch, cw = _MB_CHROMA[chroma]
+    planes = [blocks(y, 16, 16)]
+    if chroma:
+        planes += [blocks(u, ch, cw), blocks(v, ch, cw)]
+    return np.concatenate(planes, -1)
 
 
 def _h264_slice(kind: str, frame_num: int, poc: int, idr_id: int,
-                pcm: np.ndarray, coded: np.ndarray) -> bytes:
+                pcm: np.ndarray, coded: np.ndarray, qp: int | None = None
+                ) -> bytes:
     """One slice of a whole picture: ``coded`` (rows, cols) bool marks the
-    I_PCM macroblocks (all of them in an I slice), the rest are skipped."""
+    I_PCM macroblocks (all of them in an I slice), the rest are skipped; at
+    QP 26 without the deblocking filter, or with it at slice QP ``qp``."""
     w = _Bits()
     w.ue(0)                                        # first_mb_in_slice
     w.ue({"P": 5, "B": 6, "I": 7}[kind])           # slice_type
@@ -599,9 +636,12 @@ def _h264_slice(kind: str, frame_num: int, poc: int, idr_id: int,
         w.u(2, 0)     # no_output_of_prior_pics, long_term_reference_flag
     elif kind == "P":
         w.u(1, 0)                                  # adaptive_ref_pic_marking
-    w.se(0)                                        # slice_qp_delta
-    w.ue(1)                                        # disable_deblocking_idc
-    flat = pcm.reshape(-1, 384)
+    w.se(0 if qp is None else qp - 26)             # slice_qp_delta
+    w.ue(1 if qp is None else 0)                   # disable_deblocking_idc
+    if qp is not None:
+        w.se(0)                                    # slice_alpha_c0_offset
+        w.se(0)                                    # slice_beta_offset
+    flat = pcm.reshape(-1, pcm.shape[-1])
     pcm_type = {"I": 25, "P": 30, "B": 48}[kind]
     prev = -1
     for addr in np.flatnonzero(coded.reshape(-1)).tolist():
@@ -618,21 +658,37 @@ def _h264_slice(kind: str, frame_num: int, poc: int, idr_id: int,
 
 def h264_access_units(width: int, height: int, n_frames: int, gop: int = 30,
                       b_frames: int = 0, band: int = 1, seed: int = 0,
-                      source=None):
+                      source=None, chroma: int = 1, bypass: bool = False,
+                      colour: tuple | None = None, qp: int | None = None):
     """Yield ``(display index, kind, NAL units)`` of each picture in decode
     order (``h264_gop_order``): IDR pictures all I_PCM, P pictures P_Skip
     but ``band`` I_PCM macroblock columns that move two columns a frame, B
-    pictures all B_Skip. ``source(t)`` gives frame t's (Y, U, V) planes
-    (default ``h264_source_yuv(seed, t, height, width)``); the NAL units
-    are without start codes, each IDR's led by the SPS and PPS."""
-    if width % 2 or height % 2:
-        raise ValueError(f"4:2:0 needs an even size, not {width}x{height}")
-    source = source or (lambda t: h264_source_yuv(seed, t, height, width))
+    pictures all B_Skip. ``source(t)`` gives frame t's (Y, U, V) planes in
+    chroma_format_idc ``chroma`` (default ``h264_source_yuv(seed, t, height,
+    width)``, 4:2:0, its chroma repeated for 4:2:2 and 4:4:4); ``bypass``,
+    ``colour`` and ``qp`` as ``_h264_sps`` and ``_h264_slice`` take them.
+    The NAL units are without start codes, each IDR's led by the SPS and
+    PPS."""
+    if (chroma == 1 and (width % 2 or height % 2)) or (chroma == 2
+                                                       and width % 2):
+        raise ValueError(f"chroma_format_idc {chroma} does not fit "
+                         f"{width}x{height}")
+
+    def default(t):
+        y, u, v = h264_source_yuv(seed, t, height, width)
+        if chroma in (2, 3):    # 4:2:0's chroma repeated to fit the format
+            u, v = (p.repeat(2, 0)[:height] for p in (u, v))
+        if chroma == 3:
+            u, v = (p.repeat(2, 1)[:, :width] for p in (u, v))
+        return y, u, v
+
+    source = source or default
     mbh, mbw = -(-height // 16), -(-width // 16)
-    sps, pps = _h264_sps(width, height, b_frames), _h264_pps()
+    sps = _h264_sps(width, height, b_frames, chroma, bypass, colour)
+    pps = _h264_pps()
     refs = idr = 0
     for t, kind in h264_gop_order(n_frames, gop, b_frames):
-        pcm = _mb_pcm(*source(t))
+        pcm = _mb_pcm(*source(t), chroma=chroma)
         coded = np.ones((mbh, mbw), bool)
         if kind == "I":
             refs, g0 = 0, t
@@ -640,7 +696,7 @@ def h264_access_units(width: int, height: int, n_frames: int, gop: int = 30,
             coded[:] = False
             if kind == "P":
                 coded[:, [(2 * t + j) % mbw for j in range(band)]] = True
-        rbsp = _h264_slice(kind, refs, 2 * (t - g0), idr, pcm, coded)
+        rbsp = _h264_slice(kind, refs, 2 * (t - g0), idr, pcm, coded, qp)
         nal = _nal({"I": 3, "P": 2, "B": 0}[kind], 5 if kind == "I" else 1,
                    rbsp)
         yield t, kind, ([sps, pps, nal] if kind == "I" else [nal])
@@ -789,14 +845,15 @@ def _frame_rate(fps: float) -> tuple[int, int]:
 
 def write_h264(path: str, width: int, height: int, n_frames: int,
                fps: float = 30.0, gop: int = 30, b_frames: int = 0,
-               band: int = 1, seed: int = 0, source=None
+               band: int = 1, seed: int = 0, source=None, **header
                ) -> list[tuple[int, str]]:
     """Write the stream of ``h264_access_units`` to ``path``: an MP4/MOV
     (``avcC`` with the SPS and PPS, 4-byte NAL lengths, ``stts``, ``stss``,
     and ``ctts`` plus an edit list from the first presentation time where
     there are B pictures) or an AVI (``H264`` chunks in Annex B, the SPS
     and PPS ahead of each IDR, ``idx1`` key flags; no B pictures). Returns
-    (display index, kind) of each sample in decode order."""
+    (display index, kind) of each sample in decode order. ``header``:
+    ``h264_access_units``' chroma, bypass, colour and qp."""
     ext = os.path.splitext(path)[1].lower()
     if ext not in (".mp4", ".mov", ".avi"):
         raise ValueError(f"write_h264 writes .mp4, .mov or .avi, not {ext}")
@@ -805,7 +862,8 @@ def write_h264(path: str, width: int, height: int, n_frames: int,
     delta, scale = _frame_rate(fps)
     order, samples, sync, sps_pps = [], [], [], None
     for t, kind, nals in h264_access_units(width, height, n_frames, gop,
-                                           b_frames, band, seed, source):
+                                           b_frames, band, seed, source,
+                                           **header):
         order.append((t, kind))
         sync.append(kind == "I")
         if ext == ".avi":

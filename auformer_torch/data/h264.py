@@ -5,19 +5,23 @@ cv2's FFMPEG capture decodes H.264 (``avc1`` in MP4, ``H264`` and its
 fourccs in AVI) with ffmpeg's software ``h264`` decoder on the host. The
 port decodes them on the host too, with ``data/native/h264_decode.cpp``,
 built with the C++ compiler into ``.cache/native`` at first use
-(``data/native``): 8-bit 4:2:0 streams of frame pictures with CAVLC or
-CABAC entropy coding (the Baseline, Main and High profiles) and any
-scaling lists, progressive or interlaced (MBAFF frames, as x264's
-``--interlaced`` writes them), whose Y, U and V planes are ffmpeg's bit
-for bit; an interlaced frame comes out as ffmpeg outputs it, its two
-fields woven and not deinterlaced.
-``ops/colour.py``'s ``yuv_rgb``, with the range and the colour matrix the
-stream's VUI names, turns them into cv2's RGB frames. There is no
-fallback: a decoder that does not build, a stream that does not decode and
-a tool the decoder refuses (field pictures, 4:4:4 and the rest:
-``NotImplementedError`` naming ROADMAP.md queue A9) all raise; NVDEC is not
-tried. ``cabac_tables`` and ``Decoder.counts`` / ``scaling_lists`` read
-the decoder's tables and state for tests.
+(``data/native``): 8-bit streams of frame pictures with CAVLC or CABAC
+entropy coding (the Baseline, Main, High, High 4:2:2 and High 4:4:4
+Predictive profiles) and any scaling lists, in every 8-bit chroma format
+(4:2:0, 4:2:2, 4:4:4 and monochrome) and lossless (transform bypass);
+progressive, or for 4:2:0 interlaced too (MBAFF frames, as x264's
+``--interlaced`` writes them); their Y, U and V planes are ffmpeg's bit
+for bit: chroma planes of the stream's chroma size (``planes_shape``),
+a monochrome stream's as ffmpeg puts them out, 4:2:0 planes of 128. An
+interlaced frame comes out as ffmpeg outputs it, its two fields woven and
+not deinterlaced. ``ops/colour.py``'s ``yuv_rgb``, with the range and the
+colour matrix the stream's VUI names, turns them into cv2's RGB frames.
+There is no fallback: a decoder that does not build, a stream that does
+not decode and a tool the decoder refuses (field pictures, bit depths
+above 8 and the rest: ``NotImplementedError`` naming ROADMAP.md queue A9)
+all raise; NVDEC is not tried. ``cabac_tables``, ``cavlc_tables`` and
+``Decoder.counts`` / ``scaling_lists`` read the decoder's tables and
+state for tests.
 
 ``decode_range(path, index, start_key, stop, device)`` feeds the packets
 of ``container.access_units`` from the sync packet ``start_key`` in
@@ -61,6 +65,8 @@ def _library() -> ctypes.CDLL:
     lib.h264_flush.restype = i
     lib.h264_size.argtypes = [ptr, ip, ip, ip, ip]
     lib.h264_size.restype = i
+    lib.h264_chroma.argtypes = [ptr]
+    lib.h264_chroma.restype = i
     lib.h264_receive.argtypes = [ptr, ptr, i, ptr, ptr, i,
                                  ctypes.POINTER(ll)]
     lib.h264_receive.restype = i
@@ -70,7 +76,12 @@ def _library() -> ctypes.CDLL:
     lib.h264_scaling.restype = None
     lib.h264_cabac_tables.argtypes = [ptr] * 5
     lib.h264_cabac_tables.restype = None
+    lib.h264_cabac_init_444.argtypes = [ptr]
+    lib.h264_cabac_init_444.restype = None
+    lib.h264_cavlc_tables.argtypes = [ptr]
+    lib.h264_cavlc_tables.restype = None
     return lib
+
 
 
 def cabac_tables() -> dict:
@@ -82,8 +93,11 @@ def cabac_tables() -> dict:
     ``ctx8x8_field`` (63,), a field macroblock's of significant_coeff_flag
     (its last_significant_coeff_flag takes the frame one's); ``defaults``
     the four default scaling lists in raster order (4x4 intra and inter,
-    8x8 intra and inter)."""
+    8x8 intra and inter); ``init_444`` (4, 564, 2), the (m, n) of ctxIdx
+    460-1023, the Cb and Cr contexts of 4:4:4 streams."""
     import numpy as np
+    init_444 = np.zeros((4, 564, 2), np.int8)
+    _library().h264_cabac_init_444(init_444.ctypes.data)
     out = {"init": np.zeros((4, 460, 2), np.int8),
            "range_lps": np.zeros((64, 4), np.uint8),
            "trans": np.zeros((2, 64), np.uint8),
@@ -93,7 +107,24 @@ def cabac_tables() -> dict:
     d = out.pop("defaults")
     out["defaults"] = (d[:16], d[16:32], d[32:96], d[96:])
     out["ctx8x8"], out["ctx8x8_field"] = out["ctx8x8"][:2], out["ctx8x8"][2]
+    out["init_444"] = init_444
     return out
+
+
+def cavlc_tables() -> dict:
+    """The decoder's CAVLC tables of the chroma formats other than 4:2:0
+    (``h264_cavlc_tables``): ``cbp_gray`` (2, 16) uint8, Table 9-4's
+    coded_block_pattern by codeNum for ChromaArrayType 0 and 3, Intra_4x4 /
+    Intra_8x8 then Inter; ``dc422_token`` (2, 9, 4), the length and code
+    of Table 9-5's nC == -2 coeff_token by TotalCoeff and TrailingOnes
+    (length 0 where there is none); ``dc422_zeros`` (2, 7, 8), of Table
+    9-9 (b)'s total_zeros by TotalCoeff 1-7 and total_zeros."""
+    import numpy as np
+    raw = np.zeros(216, np.uint8)
+    _library().h264_cavlc_tables(raw.ctypes.data)
+    return {"cbp_gray": raw[:32].reshape(2, 16),
+            "dc422_token": raw[32:104].reshape(2, 9, 4),
+            "dc422_zeros": raw[104:].reshape(2, 7, 8)}
 
 
 class Decoder:
@@ -140,6 +171,14 @@ class Decoder:
             raise RuntimeError("H.264 decode: no frame is ready")
         return h.value, w.value, (m.value, r.value)
 
+    def chroma(self) -> int:
+        """The next ready frame's chroma format as ``planes_shape`` takes
+        it."""
+        c = self._lib.h264_chroma(self._h)
+        if not c:
+            raise RuntimeError("H.264 decode: no frame is ready")
+        return c
+
     def receive(self, y: torch.Tensor, u: torch.Tensor,
                 v: torch.Tensor) -> int:
         """Copy the ready frame into host planes (row-contiguous uint8
@@ -163,10 +202,11 @@ class Decoder:
 
     def scaling_lists(self) -> tuple:
         """The last slice's scaling lists in force, raster order: (6, 16)
-        uint8, Intra Y, Cb, Cr and Inter Y, Cb, Cr 4x4, and (2, 64), Intra
-        and Inter Y 8x8."""
+        uint8, Intra Y, Cb, Cr and Inter Y, Cb, Cr 4x4, and (6, 64), Intra
+        Y, Inter Y, Intra Cb, Inter Cb, Intra Cr and Inter Cr 8x8 (the
+        chroma ones used by 4:4:4 streams only)."""
         import numpy as np
-        w4, w8 = np.zeros((6, 16), np.uint8), np.zeros((2, 64), np.uint8)
+        w4, w8 = np.zeros((6, 16), np.uint8), np.zeros((6, 64), np.uint8)
         self._lib.h264_scaling(self._h, w4.ctypes.data, w8.ctypes.data)
         return w4, w8
 
@@ -199,14 +239,15 @@ def decode_range(path: str, index: dict | None = None, start_key: int = 0,
 
     def frame():
         h, w, colour = dec.size()
+        chroma = dec.chroma()
+        ys, cs = planes_shape(h, w, chroma)
         if on_card:
-            st = staging.get((h, w))
+            st = staging.get((h, w, chroma))
             if st is None:
-                st = staging[(h, w)] = Staging(h, w)
+                st = staging[(h, w, chroma)] = Staging(h, w, chroma=chroma)
             k, planes = st.take()
             tag = dec.receive(*planes)
             return tag, (lambda: st.upload(k, device)), colour
-        ys, cs = planes_shape(h, w)
         planes = tuple(torch.empty(s, dtype=torch.uint8) for s in (ys, cs,
                                                                     cs))
         tag = dec.receive(*planes)

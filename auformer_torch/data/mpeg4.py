@@ -152,17 +152,22 @@ class Decoder:
         self.close()
 
 
-def planes_shape(height: int, width: int) -> tuple[tuple, tuple]:
-    """Shapes of a frame's Y and of its U and V planes (4:2:0)."""
-    return (height, width), ((height + 1) // 2, (width + 1) // 2)
+def planes_shape(height: int, width: int, chroma: int = 1
+                 ) -> tuple[tuple, tuple]:
+    """Shapes of a frame's Y and of its U and V planes for the chroma
+    format ``chroma``: 1 4:2:0 (MPEG-4 part 2's; and H.264's monochrome,
+    whose planes are 128), 2 4:2:2, 3 4:4:4."""
+    ch = height if chroma > 1 else (height + 1) // 2
+    cw = width if chroma == 3 else (width + 1) // 2
+    return (height, width), (ch, cw)
 
 
 class Staging:
     """Pinned host planes in turn for the copies to a CUDA device: a set
     is written again only once its last copy has finished."""
 
-    def __init__(self, height: int, width: int, n: int = 3):
-        ys, cs = planes_shape(height, width)
+    def __init__(self, height: int, width: int, n: int = 3, chroma: int = 1):
+        ys, cs = planes_shape(height, width, chroma)
         self.sets = [tuple(torch.empty(s, dtype=torch.uint8, pin_memory=True)
                            for s in (ys, cs, cs)) for _ in range(n)]
         self.events: list = [None] * n

@@ -22,19 +22,20 @@ unless the caller passes ``device="cpu"``, for three codecs in AVI or MP4:
                  to ffmpeg's bit for bit; the frames in ffmpeg's output
                  order, the planes copied to the card for a CUDA device.
   H.264          the port's own software decoder (``data/h264.py``: CAVLC
-                 and CABAC, any scaling lists, progressive, 8-bit 4:2:0)
-                 the same way.
+                 and CABAC, any scaling lists, 8-bit 4:2:0, 4:2:2, 4:4:4
+                 and monochrome, lossless; progressive, and MBAFF for
+                 4:2:0) the same way.
 
 ``ops/colour.py``'s ``yuv_rgb`` converts the planes as cv2's swscale does
 (full range for a JPEG's; for MPEG-4's and H.264's, the range and
 matrix_coefficients that the stream's headers give: the visual object's
 video_signal_type, the SPS's VUI; limited range BT.601 where they give
-none), on the card with its kernel for a CUDA device. NVDEC, the card's
-video decoder, is refused by the container the card runs in
-(``data/nvdec.py``) and is not tried. JPEG
+none; swscale's full-chroma route for 4:4:4 planes), on the card with its
+kernel for a CUDA device. NVDEC, the card's video decoder, is refused by
+the container the card runs in (``data/nvdec.py``) and is not tried. JPEG
 frames that are not 4:2:0 or 4:2:2, and the MPEG-4 and H.264 tools the
-decoders refuse (H.264's field pictures and MBAFF, 4:4:4, high bit depths
-and the rest), raise naming ROADMAP.md queue A9, as do other codecs.
+decoders refuse (H.264's field pictures, bit depths above 8 and the
+rest), raise naming ROADMAP.md queue A9, as do other codecs.
 
 ``read_RGB(k)`` seeks as cv2's ``CAP_PROP_POS_FRAMES`` does for MPEG-4 and
 H.264: from the sync packet at or before the display position 16 frames

@@ -1,24 +1,34 @@
 """YUV -> RGB conversion of decoded video frames (``csrc/yuv_rgb.cu``).
 
 The JAX package reads frames through cv2, whose FFMPEG capture converts
-each decoded frame with swscale's yuv2rgb (nearest chroma, 16-bit fixed
-point) to BGR24 and then to RGB: full-range 4:2:0 or 4:2:2 planes (MJPEG's
-yuvj420p and yuvj422p, and a video stream that says it is full range) as
-they are, a video decoder's limited-range yuv420p planes (MPEG-4 part 2,
-H.264) with luma offset 16 and wider coefficients (``limited=True``); the
-chroma coefficients from the row of swscale's ff_yuv2rgb_coeffs that the
-stream's colour matrix selects (``matrix``: the matrix_coefficients of
-H.264's VUI or of MPEG-4 part 2's colour description; BT.601 where there
-is none: ``coefficients``). ``yuv_rgb_plain`` is
-that arithmetic in PyTorch, bit for bit on every (Y, U, V) input that the
-tests sweep (tests/test_torch_video_decode.py,
-tests/test_torch_video_mpeg4.py, tests/test_torch_video_h264.py);
-``yuv_rgb`` takes it for CPU planes and launches the CUDA kernel for CUDA
-ones.
+each decoded frame with swscale to BGR24 and then to RGB: full-range
+planes (MJPEG's yuvj420p and yuvj422p, and a video stream that says it is
+full range) as they are, a video decoder's limited-range planes (MPEG-4
+part 2, H.264) with luma offset 16 and wider coefficients
+(``limited=True``); the chroma coefficients from the row of swscale's
+ff_yuv2rgb_coeffs that the stream's colour matrix selects (``matrix``: the
+matrix_coefficients of H.264's VUI or of MPEG-4 part 2's colour
+description; BT.601 where there is none: ``coefficients``). swscale takes
+one of two routes by the chroma layout:
 
-The planes: ``y`` (H, W); ``u`` and ``v`` (ceil(H / 2) or H, ceil(W / 2)),
-each a 2-D uint8 view whose rows may be pitched but whose columns are
-contiguous; ``u`` and ``v`` share their strides.
+  4:2:0, 4:2:2   its unscaled yuv2rgb converter: nearest chroma, 16-bit
+                 fixed point (a monochrome H.264 stream's frames come as
+                 4:2:0 planes whose chroma is 128, and go this way too);
+  4:4:4          chroma that is not subsampled makes swscale interpolate
+                 chroma in full (SWS_FULL_CHR_H_INT) and leave the unscaled
+                 converter for its scaler at scale 1 and yuv2rgb_write_full:
+                 30-bit fixed point with rounding, whose 32-bit sums wrap
+                 before the clip (``full_chroma``).
+
+``yuv_rgb_plain`` is that arithmetic in PyTorch, bit for bit on every (Y,
+U, V) input that the tests sweep (tests/test_torch_video_decode.py,
+tests/test_torch_video_mpeg4.py, tests/test_torch_video_h264.py,
+tests/test_torch_video_h264_chroma.py); ``yuv_rgb`` takes it for CPU planes
+and launches the CUDA kernel for CUDA ones.
+
+The planes: ``y`` (H, W); ``u`` and ``v`` (ceil(H / 2) or H, ceil(W / 2) or
+W: 4:2:0, 4:2:2 or 4:4:4), each a 2-D uint8 view whose rows may be pitched
+but whose columns are contiguous; ``u`` and ``v`` share their strides.
 """
 from __future__ import annotations
 
@@ -60,9 +70,11 @@ def coefficients(matrix: int = 2, limited: bool = True
     return tuple((c * 8192 + 32768) >> 16 for c in row)
 
 
-def _check_planes(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> int:
-    """The chroma's vertical shift (1 for 4:2:0, 0 for 4:2:2); raises on
-    planes that do not fit each other."""
+def _check_planes(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor
+                  ) -> tuple[int, int]:
+    """The chroma's vertical and horizontal shifts ((1, 1) for 4:2:0, (0,
+    1) for 4:2:2, (0, 0) for 4:4:4); raises on planes that do not fit each
+    other."""
     for p in (y, u, v):
         if p.dtype != torch.uint8 or p.dim() != 2:
             raise ValueError(f"yuv_rgb: 2-D uint8 planes, not {p.dtype} "
@@ -76,27 +88,50 @@ def _check_planes(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> int:
     if u.shape != v.shape or u.stride() != v.stride():
         raise ValueError("yuv_rgb: U and V must share their shape and "
                          "strides")
-    if u.shape == ((h + 1) // 2, (w + 1) // 2):
-        return 1
-    if u.shape == (h, (w + 1) // 2):
-        return 0
-    raise ValueError(f"yuv_rgb: chroma {tuple(u.shape)} is neither 4:2:0 "
-                     f"nor 4:2:2 of a {h}x{w} frame")
+    for shifts in ((1, 1), (0, 1), (0, 0)):
+        if u.shape == (-(-h >> shifts[0]), -(-w >> shifts[1])):
+            return shifts
+    raise ValueError(f"yuv_rgb: chroma {tuple(u.shape)} is not 4:2:0, "
+                     f"4:2:2 or 4:4:4 of a {h}x{w} frame")
+
+
+def full_chroma(y: torch.Tensor, cu: torch.Tensor, cv: torch.Tensor,
+                limited: bool, crv: int, cgu: int, cgv: int, cbu: int
+                ) -> torch.Tensor:
+    """swscale's yuv2rgb_write_full on samples that its scaler carried at
+    scale 1 (Y << 9, (U - 128) << 9): the luma coefficient and offset of
+    ff_yuv2rgb_c_init_tables (9539 and 16 << 9 limited, 8192 and 0 full),
+    the rounding 1 << 21, each sum as its 32 bits hold it (the C code adds
+    in unsigned arithmetic, and a wrapped sum clips to 0), >> 22."""
+    cy, oy = (LIMITED_CY, 16 << 9) if limited else (8192, 0)
+    yt = (y.to(torch.int64) * 512 - oy) * cy + (1 << 21)
+    u9 = (cu.to(torch.int64) - 128) * 512
+    v9 = (cv.to(torch.int64) - 128) * 512
+
+    def out(x):
+        x = ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+        return (x >> 22).clamp_(0, 255)
+
+    return torch.stack([out(yt + v9 * crv), out(yt + v9 * cgv + u9 * cgu),
+                        out(yt + u9 * cbu)], -1).to(torch.uint8)
 
 
 def yuv_rgb_plain(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                   limited: bool = False, matrix: int = 2) -> torch.Tensor:
     """(H, W, 3) uint8 RGB of the planes, as cv2 converts them: full range
     (a JPEG's), or limited range with ``limited`` and the colour matrix
-    ``matrix`` (module docstring)."""
-    shift = _check_planes(y, u, v)
+    ``matrix``, by the route of the planes' chroma layout (module
+    docstring)."""
+    v_shift, h_shift = _check_planes(y, u, v)
     h, w = y.shape
-    rows = torch.arange(h, device=y.device) >> shift
-    cols = torch.arange(w, device=y.device) >> 1
+    crv, cgu, cgv, cbu = coefficients(matrix, limited)
+    if not h_shift:
+        return full_chroma(y, u, v, limited, crv, cgu, cgv, cbu)
+    rows = torch.arange(h, device=y.device) >> v_shift
+    cols = torch.arange(w, device=y.device) >> h_shift
     cu = u.to(torch.int32)[rows][:, cols] * 8 - 1024
     cv = v.to(torch.int32)[rows][:, cols] * 8 - 1024
     yt = y.to(torch.int32)
-    crv, cgu, cgv, cbu = coefficients(matrix, limited)
     if limited:
         yt = ((yt * 8 - 128) * LIMITED_CY) >> 16
     r = yt + ((cv * crv) >> 16)
@@ -110,7 +145,7 @@ def _library() -> ctypes.CDLL:
     lib = library("yuv_rgb")
     ptr, i = ctypes.c_void_p, ctypes.c_int
     lib.yuv_rgb.argtypes = [ptr, i, ptr, ptr, i, i, i, i, i, i, i, i, i,
-                            ptr, ptr]
+                            i, ptr, ptr]
     lib.yuv_rgb.restype = ctypes.c_int
     return lib
 
@@ -121,7 +156,7 @@ def yuv_rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     ``limited`` range with the colour ``matrix``: ``yuv_rgb_plain`` for CPU
     planes, the kernel on the current stream for CUDA ones (or an error).
     ``yuv_rgb.launches`` counts kernel launches."""
-    shift = _check_planes(y, u, v)
+    v_shift, h_shift = _check_planes(y, u, v)
     if all(p.device.type == "cpu" for p in (y, u, v)):
         return yuv_rgb_plain(y, u, v, limited, matrix)
     if not (y.device.type == "cuda" and u.device == y.device
@@ -134,8 +169,8 @@ def yuv_rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     crv, cgu, cgv, cbu = coefficients(matrix, limited)
     with torch.cuda.device(y.device):
         err = _library().yuv_rgb(y.data_ptr(), y.stride(0), u.data_ptr(),
-                                 v.data_ptr(), u.stride(0), shift, h, w,
-                                 int(limited), crv, cgu, cgv, cbu,
+                                 v.data_ptr(), u.stride(0), v_shift, h_shift,
+                                 h, w, int(limited), crv, cgu, cgv, cbu,
                                  out.data_ptr(), stream)
     check(err, "yuv_rgb kernel")
     yuv_rgb.launches += 1

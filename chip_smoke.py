@@ -161,9 +161,11 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            profile CAVLC at full width, whose host decoder ms a frame one
            decode gives) through frame_tensors() on the card against the
            SHA-256s of expected.json's frames (cv2's; swscale's for the
-           MBAFF streams, whose frames cv2 does not convert, C14), its
-           seeks, count and timestamps, and the refused one (4:4:4)
-           raising naming A9; ipb_cabac_1280x720.mp4 (24 frames, x264's
+           MBAFF streams, whose frames cv2 does not convert, C14; 4:4:4,
+           4:2:2, monochrome and lossless ones among them), its seeks,
+           count and timestamps, and the refused one (High 10, a bit
+           depth above 8) raising naming A9; ipb_cabac_1280x720.mp4 (24
+           frames, x264's
            High profile defaults: CABAC, the 8x8 transform, B-pyramids)
            through Video.frames() on the card, the main path: 24 yuv_rgb
            launches and none of the other kernels, each frame cv2's, then
@@ -171,10 +173,16 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            frame over as many; ipb_mbaff_1920x1080.mp4 (12 MBAFF frames,
            1080i as AVCHD writes it) the same way (``mbaff_stream``: 12
            yuv_rgb launches, its own path ``decode_h264_mbaff``, frames
-           swscale's, H264_MBAFF_PASSES passes); the kernel at 1280x720
-           for each colour matrix and range cv2 converts by, and at
-           1920x1080 on the 1080i stream's planes, against its plain
-           version, its device ms beside its bound
+           swscale's, H264_MBAFF_PASSES passes); ipb_yuv444_1280x720.mp4
+           (24 4:4:4 frames, x264's High 4:4:4 defaults, crf 26: this
+           slice's main path, ``yuv444_stream``, 24 yuv_rgb launches a
+           pass, H264_444_PASSES passes) the same way; the kernel at
+           1280x720 for each colour matrix and range cv2 converts by, at
+           1920x1080 on the 1080i stream's planes, and at 1280x720 on the
+           4:4:4 stream's planes in each chroma layout (CHROMA_CASES:
+           4:4:4 limited and full range BT.709, swscale's full-chroma
+           route; 4:2:2; monochrome), against its plain version, its
+           device ms beside its bound
   quickstart
            ``python -m auformer_torch.quickstart`` (its ``main``, no
            device argument), the port's examples/quickstart.py: its
@@ -268,9 +276,11 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            K = 4 with the collectives captured against eager, the cost
            of the global batch's random draws at 8 ranks of 8 rows, then
            ``train.main`` at B=64 in bf16 with --device_augment for an
-           epoch (the data-parallel main path: attention 11 per step and
-           per eval step, 3 backward calls per step; clips/s beside the
-           train phase's epochs without a process group), and the train
+           epoch of a split of its own (DP_TRAIN_FRAMES: train videos of
+           300 frames, the train phase's 600-frame val video; the
+           data-parallel main path: attention 11 per step and per eval
+           step, 3 backward calls per step; clips/s beside the train
+           phase's epochs without a process group), and the train
            phase's step on ready batches (bf16, B=64) with and without
            the process group in turns; (b) a gloo world
            of two processes sharing the card (``parallel/multiproc.py``),
@@ -513,6 +523,10 @@ DP_OVERHEAD_ROUNDS, DP_OVERHEAD_STEPS = 4, 2
 # tests/test_parallel.py's tolerances: loss, gradients (rtol, atol), stats
 DP_LOSS_REL, DP_GRAD_TOL, DP_STATS_ATOL = 1e-5, (5e-3, 5e-5), 1e-4
 DP_TIMEOUT_S = 600
+# the NCCL world's epoch: a split of its own, the train videos cut to 300
+# frames (4 steps of 64 at downsample_rate 2, not 17), the same 600-frame
+# val video (one eval batch of 256)
+DP_TRAIN_FRAMES = (300, 300, 600, 100)
 PIL_DIGEST = "ab03ee6ec397065e602c19f69374b3fa813e9743dc9fbcaedd7e47bdac851dd9"
 # the ingest phase: the PNG-aligned split's frames; a decoded frame of the
 # store against its PNG source (JPEG q95, 4:2:0 chroma of the noisy
@@ -551,6 +565,14 @@ H264_MBAFF_STREAM = "ipb_mbaff_1920x1080.mp4"
 H264_CAVLC_STREAM = "ipb_1280x720.mp4"
 H264_PASSES = 3
 H264_MBAFF_PASSES = 2
+# 4:4:4 at full width (x264's High 4:4:4 defaults): this slice's main path;
+# the kernel's cases of the other chroma layouts at 1280x720, made from its
+# planes: 4:4:4 limited BT.601 (its own), 4:4:4 full range BT.709, 4:2:2
+# limited (every other chroma column) and monochrome (4:2:0 chroma of 128)
+H264_444_STREAM = "ipb_yuv444_1280x720.mp4"
+H264_444_PASSES = 2
+CHROMA_CASES = ("yuv444_limited", "yuv444_full_bt709", "yuv422_limited",
+                "gray")
 H264_FULL_WIDTH = ("1280x720", "1920x1080")
 H264_WIDE_SEEKS = ("0", "13", "23", "35")
 # (matrix_coefficients, full range) of the kernel's cases: BT.601, BT.709,
@@ -2204,10 +2226,10 @@ def decode_source(t: int) -> np.ndarray:
 
 def decode_kernel_case(torch, dev, planes: list, limited: bool = False,
                        matrix: int = 2) -> dict:
-    """yuv_rgb against its plain version on the card, on a route's 4:2:0
-    planes at the main path's size (MJPEG's full range, MPEG-4's and H.264's
-    ``limited`` range, H.264's colour ``matrix``: the main path's); times
-    and the bound."""
+    """yuv_rgb against its plain version on the card, on a route's planes
+    at the main path's size (4:2:0, 4:2:2 or 4:4:4; MJPEG's full range,
+    MPEG-4's and H.264's ``limited`` range, H.264's colour ``matrix``: the
+    main path's); times and the bound."""
     from auformer_torch.ops import colour
     y, u, v = planes
     got = colour.yuv_rgb(y, u, v, limited, matrix)
@@ -2224,8 +2246,8 @@ def decode_kernel_case(torch, dev, planes: list, limited: bool = False,
         y, u, v, limited, matrix), 20)
     nbytes = y.numel() + u.numel() + v.numel() + 3 * y.numel()
     bound_ms, bound_by = bound(nbytes, 0.0)
-    return {"shape": [h, w], "limited": limited, "matrix": matrix,
-            "max_abs_err": err,
+    return {"shape": [h, w], "chroma_shape": list(u.shape),
+            "limited": limited, "matrix": matrix, "max_abs_err": err,
             "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
             "library_ms": None}
@@ -2384,11 +2406,13 @@ def phase_decode_h264(torch, dev, work: Path) -> tuple[dict, dict, dict]:
     before and read just after, each frame cv2's, then timed again, as is
     the host decoder alone, H264_PASSES times in all; the 1080i MBAFF
     stream the same way (its planes libavcodec's, its frames swscale's,
-    H264_MBAFF_PASSES passes); the kernel at 1280x720 on the CABAC stream's
-    planes for each of H264_COLOURS, and at 1920x1080 on the 1080i
-    stream's planes with its colour (``mbaff_1920x1080``). Returns (the
-    launches of the main path and of the 1080i stream's, the fixtures and
-    the streams, the kernel's numbers by case)."""
+    H264_MBAFF_PASSES passes); the 4:4:4 stream, this slice's main path,
+    the same way (H264_444_PASSES passes); the kernel at 1280x720 on the
+    CABAC stream's planes for each of H264_COLOURS, at 1920x1080 on the
+    1080i stream's planes with its colour (``mbaff_1920x1080``), and at
+    1280x720 on the 4:4:4 stream's planes for each of CHROMA_CASES.
+    Returns (the launches of the CABAC, the 1080i and the 4:4:4 streams'
+    paths, the fixtures and the streams, the kernel's numbers by case)."""
     import hashlib
 
     from auformer_torch.data import h264, ingest
@@ -2410,8 +2434,8 @@ def phase_decode_h264(torch, dev, work: Path) -> tuple[dict, dict, dict]:
                 refused[name] = "A9" in str(e)
                 continue
             fail(f"{name}: a stream the decoder refuses gave a frame")
-        if name in (H264_STREAM, H264_MBAFF_STREAM):
-            continue                      # the main path's, below
+        if name in (H264_STREAM, H264_MBAFF_STREAM, H264_444_STREAM):
+            continue                      # the main paths', below
         source = want["frames_from"]      # "cv2", or "swscale" (C14)
         got = [sha(t.cpu().numpy()) for t in video.frame_tensors(dev)]
         if got != want["frames_sha256"]:
@@ -2440,7 +2464,7 @@ def phase_decode_h264(torch, dev, work: Path) -> tuple[dict, dict, dict]:
         checked += len(seeks)
     if not refused or not all(refused.values()):
         fail(f"the refused H.264 streams do not name A9: {refused}")
-    main = (H264_STREAM, H264_MBAFF_STREAM)
+    main = (H264_STREAM, H264_MBAFF_STREAM, H264_444_STREAM)
     fixtures = {"files": len(expected) - len(refused) - len(main),
                 "cabac_files": sorted(
                     n for n, w in expected.items() if "planes_sha256" in w
@@ -2448,6 +2472,10 @@ def phase_decode_h264(torch, dev, work: Path) -> tuple[dict, dict, dict]:
                 "mbaff_files": sorted(
                     n for n, w in expected.items() if "planes_sha256" in w
                     and w["frames_from"] == "swscale" and n not in main),
+                "chroma_files": sorted(
+                    n for n in expected if n.startswith(("yuv4", "gray_",
+                                                         "lossless_"))
+                    and n not in main),
                 "frames_equal_cv2": frames,
                 "frames_equal_swscale": swscale_frames,
                 "seeks_equal_expected": checked,
@@ -2467,8 +2495,22 @@ def phase_decode_h264(torch, dev, work: Path) -> tuple[dict, dict, dict]:
     kernels["mbaff_1920x1080"] = decode_kernel_case(   # its path's shape
         torch, dev, [p.to(dev) for p in first], not full, m)
     mbaff["colour_ms_per_frame"] = kernels["mbaff_1920x1080"]["ms"]
-    return (launches, mbaff_launches), {"fixtures": fixtures, "stream": stream,
-                                        "mbaff_stream": mbaff}, kernels
+    # this slice's main path: 4:4:4 at full width, then the chroma layouts
+    yuv444_launches, yuv444, (first, _) = h264_stream(
+        torch, dev, expected, H264_444_STREAM, H264_444_PASSES)
+    y, u, v = [p.to(dev) for p in first]
+    grey = torch.full(((y.shape[0] + 1) // 2, (y.shape[1] + 1) // 2), 128,
+                      dtype=torch.uint8, device=dev)
+    for name, planes, limited, matrix in zip(CHROMA_CASES, (
+            (y, u, v), (y, u, v), (y, u[:, ::2].contiguous(),
+                                   v[:, ::2].contiguous()),
+            (y, grey, grey.clone())), (True, False, True, True), (2, 1, 2, 2)):
+        kernels[name] = decode_kernel_case(torch, dev, list(planes), limited,
+                                           matrix)
+    yuv444["colour_ms_per_frame"] = kernels["yuv444_limited"]["ms"]
+    return (launches, mbaff_launches, yuv444_launches), {
+        "fixtures": fixtures, "stream": stream, "mbaff_stream": mbaff,
+        "yuv444_stream": yuv444}, kernels
 
 
 def h264_stream(torch, dev, expected: dict, name: str,
@@ -2670,7 +2712,11 @@ def phase_decode(torch, dev) -> tuple[dict, dict, dict]:
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernel = dict(kernel, limited_range={key: limited[key] for key in keys},
                   matrices={name: {key: c[key] for key in keys}
-                            for name, c in matrices.items()})
+                            for name, c in matrices.items()
+                            if name not in CHROMA_CASES},
+                  chroma_formats={name: {key: matrices[name][key] for key in
+                                         keys + ("chroma_shape",)}
+                                  for name in CHROMA_CASES})
     kernel["max_abs_err"] = max([kernel["max_abs_err"], limited["max_abs_err"]]
                                 + [c["max_abs_err"] for c in matrices.values()])
     return launches, mpeg4_launches, h264_launches, kernel
@@ -4597,8 +4643,8 @@ def dp_worker(out_path: str, work: str) -> int:
     mesh against the step without one, K = DP_GRAPH_K with the collectives
     captured against eager, the collectives per step, the draws' cost, then
     ``train.main`` at B=64 in bf16 with --device_augment for an epoch of
-    the train split (the data-parallel main path, its counts set to 0 just
-    before it). Writes its numbers to ``out_path``; any failed check exits
+    the split under ``work`` (DP_TRAIN_FRAMES; the data-parallel main path,
+    its counts set to 0 just before it). Writes its numbers to ``out_path``; any failed check exits
     non-zero."""
     import torch
     sys.path.insert(0, str(ROOT))
@@ -4720,13 +4766,15 @@ def dp_worker(out_path: str, work: str) -> int:
 def phase_dp(torch, dev, work: Path, train_clips_per_s: list) -> dict:
     """The data-parallel sub-phase (its own line) on the one card: (a) an
     NCCL world of one in a process of ``torch.distributed.run``
-    (``dp_worker``); (b) a gloo world of two processes sharing the card
+    (``dp_worker``), its epoch on a split written here (DP_TRAIN_FRAMES);
+    (b) a gloo world of two processes sharing the card
     (``parallel/multiproc.py``, fp32, global B=DP_GLOO_BATCH), avformer and
     vformer, each rank's step and gathered eval rows against the world-1
     step on the global batch here, and the step ms (a test rig: gloo goes
     through the host and the two processes share one card); (c) in the
     same world, run_inference_sweep over two synthetic videos, one per
     rank, against world 1 here (rank 0 alone writes the files)."""
+    from auformer_torch.data.fixtures import generate_synthetic_dataset
     from auformer_torch.infer import run_inference_sweep
     from auformer_torch.nn import build_model
     from auformer_torch.parallel import multiproc as mp
@@ -4735,17 +4783,26 @@ def phase_dp(torch, dev, work: Path, train_clips_per_s: list) -> dict:
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
     t0 = time.perf_counter()
+    split = out / "split"       # the NCCL epoch's: DP_TRAIN_FRAMES
+    generate_synthetic_dataset(str(split / "root"), str(split / "labels"),
+                               n_videos=len(DP_TRAIN_FRAMES),
+                               frames_per_video=DP_TRAIN_FRAMES,
+                               image_size=IMAGE, seed=SEED, with_masks=False,
+                               splits=["train", "train", "val", "test"])
+    split_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
          "1", "--master_addr", "127.0.0.1", "--master_port",
          str(mp.free_port()), str(ROOT / "chip_smoke.py"), "dp_worker",
-         str(out / "nccl.json"), str(work)],
+         str(out / "nccl.json"), str(split)],
         cwd=ROOT, capture_output=True, text=True, timeout=DP_TIMEOUT_S)
     if proc.returncode != 0:
         fail(f"dp: the NCCL world of one exited with {proc.returncode}:\n"
              + (proc.stdout + proc.stderr)[-4000:])
     nccl = json.loads((out / "nccl.json").read_text())
     nccl["process_s"] = time.perf_counter() - t0
+    nccl["split"] = {"videos": list(DP_TRAIN_FRAMES), "write_s": split_s}
     nccl["main"]["clips_per_s_beside"] = {
         "train_phase_epochs_no_process_group": train_clips_per_s}
 
@@ -5073,8 +5130,8 @@ def main() -> int:
         / "pretrain" / f"random_seed{SEED}.pth")
     by_path["orbax"] = phase_orbax(torch, dev, split)
     (by_path["decode"], by_path["decode_mpeg4"],
-     (by_path["decode_h264"], by_path["decode_h264_mbaff"]),
-     yuv) = phase_decode(torch, dev)
+     (by_path["decode_h264"], by_path["decode_h264_mbaff"],
+      by_path["decode_h264_444"]), yuv) = phase_decode(torch, dev)
     shutil.rmtree(split["work"], ignore_errors=True)  # the split, the .pth
     by_path["quickstart"], quickstart_grads = phase_quickstart(torch, dev)
     paths, grad_cases, attention_in_step = phase_train(torch, dev)
@@ -5184,10 +5241,12 @@ def main() -> int:
          "launches": launches("yuv_rgb"),
          "launches_by_path": {p: by_path[p]["yuv_rgb"]
                               for p in ("decode", "decode_mpeg4",
-                                        "decode_h264", "decode_h264_mbaff")},
+                                        "decode_h264", "decode_h264_mbaff",
+                                        "decode_h264_444")},
          **{key: yuv[key] for key in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms",
-                                      "limited_range", "matrices")}}]}),
+                                      "limited_range", "matrices",
+                                      "chroma_formats")}}]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

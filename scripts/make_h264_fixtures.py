@@ -33,7 +33,9 @@ DCT is libjpeg's or nvJPEG's, not ffmpeg's).
 tests/data/videos_h264/ (x264 through libavcodec, 30 fps, of
 ``x264_source``'s frames: a textured background that pans by fractions of
 a sample and three textured discs that move each their own way, so that
-the motion vectors vary; each stream muxed by auformer_torch.data.fixtures,
+the motion vectors vary, in the pixel format the file's name selects
+(``pix_fmt_of``: yuv420p, or yuv444p, yuv422p, gray and yuv420p10le); each
+stream muxed by auformer_torch.data.fixtures,
 in MP4 with avcC, stss, and ctts plus an edit list where there are B
 frames, or in AVI). ``X264_STREAMS`` lists each file's size, frame count,
 x264 options and what it exercises; expected.json repeats the options and
@@ -47,9 +49,12 @@ they are real (``frames_from`` "cv2": the same in another process and
 equal to swscale's conversion of libavcodec's planes); cv2 flags MBAFF
 frames interlaced and returns a buffer it never wrote (ROADMAP.md C14), so
 for those streams they are the system's libswscale 6.7 conversion of
-libavcodec's frames, with cv2's flags (``frames_from`` "swscale"), a route the script first checks against every progressive
-stream's cv2 frames bit for bit. x264 drops weightp on interlaced
-streams.
+libavcodec's frames, with cv2's flags (``frames_from`` "swscale"), a
+route the script first checks against every progressive stream's cv2
+frames bit for bit: libswscale 6.7 and cv2's 9.5 agree on the 4:4:4,
+4:2:2 and monochrome streams too (libavcodec puts monochrome out as
+yuv420p with chroma 128). x264 drops weightp on interlaced streams. The
+refused High 10 stream keeps only cv2's count and timestamps.
 """
 from __future__ import annotations
 
@@ -178,9 +183,8 @@ X264_STREAMS = [
      "field scans, B pictures"),
     ("cqm_176x144.mp4", 176, 144, 3, "cabac=0:cqm=jvt",
      "CAVLC with the standard's default scaling lists (cqm=jvt)"),
-    # refused by the port: NotImplementedError naming A9
     ("yuv444_176x144.mp4", 176, 144, 3, "cabac=0",
-     "chroma_format_idc 3 (4:4:4)"),
+     "chroma_format_idc 3 (4:4:4), CAVLC"),
     # CABAC and scaling matrices
     ("ip_cabac_176x144.mp4", 176, 144, 24,
      "bframes=0:ref=1:8x8dct=0:keyint=12",
@@ -245,8 +249,54 @@ X264_STREAMS = [
     ("ipb_mbaff_1920x1080.mp4", 1920, 1080, 12, "interlaced=1:crf=26",
      "MBAFF at AVCHD's 1920x1080 (CropUnitY 4: 1088 rows cropped by 8), "
      "x264's High profile defaults at an encoder's rate (crf 26)"),
+    # the other chroma formats (pix_fmt_of: from the name) and lossless
+    # coding; yuv444_176x144.mp4 above decodes too
+    ("yuv444_cabac_176x144.mp4", 176, 144, 24,
+     "bframes=3:b-pyramid=normal:ref=3:weightp=2:8x8dct=1:analyse=all:"
+     "keyint=12",
+     "4:4:4 CABAC (High 4:4:4 Predictive): ctxIdx 460-1023, Cb and Cr "
+     "coded as luma (8x8 and Intra_16x16 blocks, luma intra modes, 6-tap "
+     "interpolation, weights, the luma deblocking filter)"),
+    ("yuv444_cavlc_176x144.mp4", 176, 144, 24,
+     "cabac=0:bframes=3:ref=3:8x8dct=1:analyse=all:chroma-qp-offset=2:"
+     "keyint=12",
+     "4:4:4 CAVLC: nC from each plane's own neighbours, the chroma QP "
+     "offsets"),
+    ("yuv444_cqm_cabac_176x144.mp4", 176, 144, 12,
+     "cqm=jvt:8x8dct=1:bframes=2:keyint=12",
+     "4:4:4 with scaling lists: 12 in the SPS, the Cb and Cr 8x8 lists' "
+     "fall-back"),
+    ("yuv444_fullrange_bt709_176x144.mp4", 176, 144, 3,
+     "fullrange=on:colormatrix=bt709",
+     "4:4:4 at full range with BT.709: swscale's full-chroma route"),
+    ("yuv422_cabac_176x144.mp4", 176, 144, 24,
+     "bframes=3:b-pyramid=normal:ref=3:8x8dct=1:analyse=all:keyint=12",
+     "4:2:2 CABAC (High 4:2:2): the 2x4 chroma DC, its 8-coefficient "
+     "contexts, 8x16 chroma intra prediction, vertical chroma vectors in "
+     "luma units, the 4:2:2 deblocking edges"),
+    ("yuv422_cavlc_176x144.mp4", 176, 144, 24,
+     "cabac=0:bframes=2:8x8dct=1:cqm=jvt:keyint=12",
+     "4:2:2 CAVLC: the nC = -2 chroma DC tables, its dequantisation with "
+     "scaling lists"),
+    ("gray_176x144.mp4", 176, 144, 12, "bframes=2:keyint=12",
+     "chroma_format_idc 0 (monochrome): no chroma syntax; libavcodec "
+     "outputs 4:2:0 planes whose chroma is 128"),
+    ("lossless_cavlc_176x144.mp4", 176, 144, 12,
+     "cabac=0:qp=0:bframes=2:keyint=12",
+     "transform bypass (qpprime_y_zero_transform_bypass_flag, QP 0) with "
+     "CAVLC, 4:2:0"),
+    ("lossless_yuv444_176x144.mp4", 176, 144, 12,
+     "qp=0:bframes=2:keyint=12",
+     "transform bypass with CABAC at 4:4:4: -crf 0 from an RGB source"),
+    ("ipb_yuv444_1280x720.mp4", 1280, 720, 24,
+     "bframes=3:b-pyramid=normal:ref=3:8x8dct=1:crf=26",
+     "4:4:4 at full width: x264's High 4:4:4 defaults at an encoder's "
+     "rate (crf 26)"),
+    # refused by the port: NotImplementedError naming A9
+    ("high10_176x144.mp4", 176, 144, 3, "cabac=0",
+     "10-bit 4:2:0 (High 10): a bit depth above 8"),
 ]
-X264_REFUSED = ("yuv444_",)
+X264_REFUSED = ("high10_",)
 
 X264_TOOL = r"""
 #include <stdint.h>
@@ -257,10 +307,12 @@ X264_TOOL = r"""
 #include <libavutil/frame.h>
 #include <libavutil/mem.h>
 #include <libavutil/opt.h>
+#include <libavutil/pixdesc.h>
 #include <libswscale/swscale.h>
 
-/* encode W H N CHROMA444 PARAMS OUT: raw planar frames on stdin; each
-   packet to OUT as int64 pts, int64 dts, int32 key, int32 size, bytes */
+/* encode W H N PIX_FMT PARAMS OUT: raw planar frames of the pixel format
+   (yuv420p, yuv422p, yuv444p, gray, yuv420p10le) on stdin; each packet to
+   OUT as int64 pts, int64 dts, int32 key, int32 size, bytes */
 static int put(AVCodecContext *c, AVPacket *p, FILE *out) {
   int rc;
   while ((rc = avcodec_receive_packet(c, p)) == 0) {
@@ -274,8 +326,8 @@ static int put(AVCodecContext *c, AVPacket *p, FILE *out) {
   return rc == AVERROR(EAGAIN) || rc == AVERROR_EOF ? 0 : rc;
 }
 
-static int encode(int w, int h, int n, int yuv444, const char *params,
-                  const char *path) {
+static int encode(int w, int h, int n, const char *pix_fmt,
+                  const char *params, const char *path) {
   const AVCodec *codec = avcodec_find_encoder_by_name("libx264");
   if (!codec) return 10;
   AVCodecContext *c = avcodec_alloc_context3(codec);
@@ -283,7 +335,8 @@ static int encode(int w, int h, int n, int yuv444, const char *params,
   c->height = h;
   c->time_base = (AVRational){1, 30};
   c->framerate = (AVRational){30, 1};
-  c->pix_fmt = yuv444 ? AV_PIX_FMT_YUV444P : AV_PIX_FMT_YUV420P;
+  c->pix_fmt = av_get_pix_fmt(pix_fmt);
+  if (c->pix_fmt == AV_PIX_FMT_NONE) return 15;
   c->thread_count = 1;
   av_opt_set(c->priv_data, "preset", "medium", 0);
   av_opt_set(c->priv_data, "x264-params", params, 0);
@@ -295,16 +348,19 @@ static int encode(int w, int h, int n, int yuv444, const char *params,
   f->height = h;
   av_frame_get_buffer(f, 0);
   AVPacket *p = av_packet_alloc();
-  int cw = yuv444 ? w : (w + 1) / 2, ch = yuv444 ? h : (h + 1) / 2;
+  const AVPixFmtDescriptor *d = av_pix_fmt_desc_get(c->pix_fmt);
+  int planes = av_pix_fmt_count_planes(c->pix_fmt);
+  int bytes = d->comp[0].depth > 8 ? 2 : 1;
+  int cw = -((-w) >> d->log2_chroma_w), ch = -((-h) >> d->log2_chroma_h);
   /* libavcodec hands x264 each frame's field order: top field first
      unless the stream asks for bff */
   int interlaced = strstr(params, "interlaced=1") || strstr(params, "bff=1");
   for (int t = 0; t < n; ++t) {
     av_frame_make_writable(f);
     if (interlaced) f->top_field_first = !strstr(params, "bff=1");
-    for (int k = 0; k < 3; ++k)
+    for (int k = 0; k < planes; ++k)
       for (int r = 0; r < (k ? ch : h); ++r)
-        if (fread(f->data[k] + r * f->linesize[k], 1, k ? cw : w, stdin) !=
+        if (fread(f->data[k] + r * f->linesize[k], bytes, k ? cw : w, stdin) !=
             (size_t)(k ? cw : w))
           return 12;
     f->pts = t;
@@ -366,11 +422,13 @@ static int decode(const char *path, const char *bgr_path) {
       end = 1;
     }
     while (avcodec_receive_frame(c, f) == 0) {
-      if (f->format != AV_PIX_FMT_YUV420P && f->format != AV_PIX_FMT_YUVJ420P)
+      const AVPixFmtDescriptor *d = av_pix_fmt_desc_get(f->format);
+      if (d->comp[0].depth != 8 || (d->flags & AV_PIX_FMT_FLAG_RGB))
         return 23;
-      for (int k = 0; k < 3; ++k) {
-        int pw = k ? (f->width + 1) / 2 : f->width;
-        int ph = k ? (f->height + 1) / 2 : f->height;
+      fprintf(stderr, "format %s\n", d->name); /* x264_planes reads it */
+      for (int k = 0; k < av_pix_fmt_count_planes(f->format); ++k) {
+        int pw = k ? -((-f->width) >> d->log2_chroma_w) : f->width;
+        int ph = k ? -((-f->height) >> d->log2_chroma_h) : f->height;
         for (int r = 0; r < ph; ++r)
           fwrite(f->data[k] + r * f->linesize[k], 1, pw, out);
       }
@@ -385,7 +443,7 @@ static int decode(const char *path, const char *bgr_path) {
 
 int main(int argc, char **argv) {
   if (argc == 8 && !strcmp(argv[1], "encode"))
-    return encode(atoi(argv[2]), atoi(argv[3]), atoi(argv[4]), atoi(argv[5]),
+    return encode(atoi(argv[2]), atoi(argv[3]), atoi(argv[4]), argv[5],
                   argv[6], argv[7]);
   if ((argc == 3 || argc == 4) && !strcmp(argv[1], "decode"))
     return decode(argv[2], argc == 4 ? argv[3] : NULL);
@@ -417,9 +475,12 @@ def _sample(tex: np.ndarray, x: np.ndarray, y: np.ndarray) -> np.ndarray:
             + fy * ((1 - fx) * tex[y1, x0] + fx * tex[y1, x1]))
 
 
-def x264_source(seed: int, t: int, height: int, width: int, yuv444=False,
-                fields: str | None = None, speed: float = 1) -> list[np.ndarray]:
-    """Frame t's Y, U and V planes (4:2:0, or 4:4:4): a texture that pans
+def x264_source(seed: int, t: int, height: int, width: int,
+                pix_fmt: str = "yuv420p", fields: str | None = None,
+                speed: float = 1) -> list[np.ndarray]:
+    """Frame t's planes in the pixel format ``pix_fmt`` (``PIX_FMTS``: Y,
+    U and V; Y alone for "gray"; 10-bit samples, four times the 8-bit ones,
+    for "yuv420p10le"): a texture that pans
     1.3 samples right and 0.7 down a frame, three textured discs that move
     each their own way (``speed`` times as fast), a little noise, smooth
     moving chroma. With ``fields`` ("tff" or "bff") the frame is
@@ -428,8 +489,9 @@ def x264_source(seed: int, t: int, height: int, width: int, yuv444=False,
     ``FIELD_SPEED`` times as fast, so that x264 codes the pairs they cross
     as fields and the slowly panning background as frames."""
     if fields is not None:
-        first = x264_source(seed, t, height, width, yuv444, speed=FIELD_SPEED)
-        second = x264_source(seed, t + 0.5, height, width, yuv444,
+        first = x264_source(seed, t, height, width, pix_fmt,
+                            speed=FIELD_SPEED)
+        second = x264_source(seed, t + 0.5, height, width, pix_fmt,
                              speed=FIELD_SPEED)
         odd_first = fields == "bff"
         for a, b in zip(first, second):
@@ -449,10 +511,31 @@ def x264_source(seed: int, t: int, height: int, width: int, yuv444=False,
                      y)
     noise = [seed, t] if t == int(t) else [seed, int(t), 1]
     y += np.random.RandomState(noise).standard_normal(y.shape) * 2
-    cyy, cxx = (yy, xx) if yuv444 else (yy[::2, ::2], xx[::2, ::2])
+    sy, sx = PIX_FMTS[pix_fmt]
+    cyy, cxx = yy[::sy, ::sx], xx[::sy, ::sx]
     u = 128 + 60 * np.sin((cxx + t) / width * 6.3) * np.cos(cyy / height * 3)
     v = 128 + 60 * np.cos((cyy - t) / height * 6.3)
-    return [np.clip(np.rint(p), 0, 255).astype(np.uint8) for p in (y, u, v)]
+    planes = [np.clip(np.rint(p), 0, 255).astype(np.uint8) for p in (y, u, v)]
+    if pix_fmt == "gray":
+        return planes[:1]
+    if pix_fmt == "yuv420p10le":
+        return [p.astype("<u2") * 4 for p in planes]
+    return planes
+
+
+# the chroma subsampling (rows, columns) of each pixel format x264 writes
+# here; gray's has no chroma planes
+PIX_FMTS = {"yuv420p": (2, 2), "yuv422p": (1, 2), "yuv444p": (1, 1),
+            "gray": (1, 1), "yuv420p10le": (2, 2)}
+
+
+def pix_fmt_of(name: str) -> str:
+    """The pixel format of X264_STREAMS' file ``name``."""
+    for tag, fmt in (("yuv444", "yuv444p"), ("yuv422", "yuv422p"),
+                     ("gray", "gray"), ("high10", "yuv420p10le")):
+        if tag in name:
+            return fmt
+    return "yuv420p"
 
 
 FIELD_SPEED = 6
@@ -469,17 +552,18 @@ def field_order(params: str) -> str | None:
 
 
 def x264_encode(tool: str, tmp: str, width: int, height: int, n: int,
-                params: str, seed: int, yuv444=False) -> list[tuple]:
+                params: str, seed: int, pix_fmt: str = "yuv420p"
+                ) -> list[tuple]:
     """(pts, key, Annex B bytes) of each packet in decode order."""
     import struct
     import subprocess
     fields = field_order(params)
     raw = b"".join(p.tobytes() for t in range(n)
-                   for p in x264_source(seed, t, height, width, yuv444,
+                   for p in x264_source(seed, t, height, width, pix_fmt,
                                         fields))
     out = os.path.join(tmp, "packets")
     subprocess.run([tool, "encode", str(width), str(height), str(n),
-                    str(int(yuv444)), params, out], input=raw, check=True,
+                    pix_fmt, params, out], input=raw, check=True,
                    capture_output=True)
     data, off, packets = open(out, "rb").read(), 0, []
     while off < len(data):
@@ -492,26 +576,31 @@ def x264_encode(tool: str, tmp: str, width: int, height: int, n: int,
 
 def x264_planes(tool: str, tmp: str, units: list[bytes], width: int,
                 height: int) -> tuple[list[dict], list[str]]:
-    """SHA-256 of libavcodec's Y, U and V planes of each frame it outputs,
-    and of each frame as swscale converts it to RGB (the route cv2 takes,
-    done here with the system's libswscale, which converts interlaced
-    frames as it does progressive ones)."""
+    """SHA-256 of libavcodec's planes of each frame it outputs (Y, U and V;
+    Y alone for a gray frame), and of each frame as swscale converts it to
+    RGB (the route cv2 takes, done here with the system's libswscale, which
+    converts interlaced frames as it does progressive ones)."""
     import struct
     import subprocess
     out, bgr = os.path.join(tmp, "planes"), os.path.join(tmp, "bgr")
-    subprocess.run([tool, "decode", out, bgr], check=True,
-                   capture_output=True,
-                   input=b"".join(struct.pack("<i", len(u)) + u
-                                  for u in units))
+    run = subprocess.run([tool, "decode", out, bgr], check=True,
+                         capture_output=True,
+                         input=b"".join(struct.pack("<i", len(u)) + u
+                                        for u in units))
+    formats = [line.split()[1] for line in run.stderr.decode().splitlines()
+               if line.startswith("format ")]
     raw = np.fromfile(out, np.uint8)
-    cw, ch = (width + 1) // 2, (height + 1) // 2
-    size = width * height + 2 * cw * ch
-    frames = []
-    for k in range(len(raw) // size):
-        f = raw[k * size:(k + 1) * size]
-        y, u = f[:width * height], f[width * height:width * height + cw * ch]
-        v = f[width * height + cw * ch:]
-        frames.append({"y": sha(y), "u": sha(u), "v": sha(v)})
+    frames, off = [], 0
+    for fmt in formats:
+        sy, sx = PIX_FMTS[fmt.replace("yuvj", "yuv")]
+        cw, ch = -(-width // sx), -(-height // sy)
+        sizes = [width * height] + ([] if fmt == "gray" else [cw * ch] * 2)
+        entry = {}
+        for key, size in zip("yuv", sizes):
+            entry[key] = sha(raw[off:off + size])
+            off += size
+        frames.append(entry)
+    assert off == raw.size, "libavcodec's planes do not add up"
     rgb = np.fromfile(bgr, np.uint8).reshape(-1, height, width, 3)[..., ::-1]
     return frames, [sha(f) for f in rgb]
 
@@ -572,9 +661,9 @@ def write_x264(out: str) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         tool = build_x264_tool(tmp)
         for seed, (name, w, h, n, params, what) in enumerate(X264_STREAMS):
-            yuv444 = name.startswith("yuv444_")
+            pix_fmt = pix_fmt_of(name)
             packets = x264_encode(tool, tmp, w, h, n, params, seed + 1,
-                                  yuv444)
+                                  pix_fmt)
             path = os.path.join(out, name)
             x264_mux(path, packets, w, h)
             ts = ingest.extract_timestamps(path, os.path.join(tmp, "ts.txt"))

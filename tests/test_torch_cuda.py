@@ -1127,6 +1127,36 @@ def test_yuv_rgb_matrix_kernel_matches_plain(cuda_device, matrix, limited):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("matrix,limited", [(2, True), (1, True),
+                                            (2, False), (1, False)])
+def test_yuv_rgb_444_kernel_matches_plain(cuda_device, matrix, limited):
+    """The kernel's 4:4:4 route (swscale's full-chroma arithmetic, its
+    32-bit sums wrapping) equals its plain version bit for bit on pitched
+    4:4:4 planes holding every (U, V) pair, under random luma and a row of
+    luma 255."""
+    from auformer_torch.ops import colour
+    h, w = 256, 259
+    rs = np.random.RandomState(matrix + 10 * limited)
+    luma = rs.randint(0, 256, (h, w + 32)).astype(np.uint8)
+    luma[-1] = 255
+    cols = np.arange(w) % 256
+    chroma = np.zeros((h, 2 * w + 64), np.uint8)
+    chroma[:, :w] = cols[None, :]
+    chroma[:, w + 32:2 * w + 32] = np.arange(h)[:, None]
+
+    def planes(luma, chroma):
+        return luma[:, :w], chroma[:, :w], chroma[:, w + 32:2 * w + 32]
+
+    luma, chroma = torch.from_numpy(luma), torch.from_numpy(chroma)
+    want = colour.yuv_rgb_plain(*planes(luma, chroma), limited, matrix)
+    before = colour.yuv_rgb.launches
+    got = colour.yuv_rgb(*planes(luma.to(cuda_device),
+                                 chroma.to(cuda_device)), limited, matrix)
+    torch.cuda.synchronize()
+    assert colour.yuv_rgb.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
 def test_h264_frames_on_the_card(cuda_device):
     """Video.frame_tensors on the card for every H.264 fixture the decoder
     takes: the port's decoder on the host, the planes copied to the card,

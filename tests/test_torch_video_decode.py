@@ -266,8 +266,8 @@ def test_full_range_conversion_equals_cv2(tmp_path, subsampling):
 
 def test_yuv_rgb_takes_pitched_planes_and_refuses_others():
     """Planes with pitched rows convert as contiguous ones; chroma that is
-    not planar (NV12's interleaved pairs as strided views) or not 4:2:0 /
-    4:2:2 of the luma raises."""
+    not planar (NV12's interleaved pairs as strided views) or not 4:2:0,
+    4:2:2 or 4:4:4 of the luma raises."""
     rs = np.random.RandomState(0)
     y = torch.from_numpy(rs.randint(0, 256, (30, 64)).astype(np.uint8))
     uv = torch.from_numpy(rs.randint(0, 256, (15, 48)).astype(np.uint8))
@@ -276,7 +276,7 @@ def test_yuv_rgb_takes_pitched_planes_and_refuses_others():
                        yuv_rgb(*[p.contiguous() for p in planes]))
     with pytest.raises(ValueError, match="columns must be contiguous"):
         yuv_rgb(y[:, :42], uv[:, 0:42:2], uv[:, 1:42:2])
-    with pytest.raises(ValueError, match="neither 4:2:0 nor 4:2:2"):
+    with pytest.raises(ValueError, match="not 4:2:0, 4:2:2 or 4:4:4"):
         yuv_rgb(y[:, :42], uv[:, :5], uv[:, 24:29])
 
 

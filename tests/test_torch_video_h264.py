@@ -14,8 +14,10 @@ MBAFF) whose frames cv2 reads as progressive, and the MBAFF streams, whose
 frames cv2 does not convert (ROADMAP.md C14): theirs are held to swscale's
 conversion of libavcodec's planes, their counts and timestamps to cv2's.
 What only MBAFF has is tested in test_torch_video_h264_mbaff.py. Every tool the decoder refuses raises
-naming ROADMAP.md queue A9: on an x264 stream (4:4:4) and on streams whose
-headers are written here, where scaling lists in the SPS or PPS decode.
+naming ROADMAP.md queue A9: on an x264 stream (High 10) and on streams
+whose headers are written here, where scaling lists in the SPS or PPS,
+monochrome, 4:2:2 and the transform bypass flag decode (the other chroma
+formats and lossless coding: test_torch_video_h264_chroma.py).
 The last part holds MPEG-4 part 2's colour description to cv2 (ROADMAP.md
 C13).
 """
@@ -162,9 +164,10 @@ def test_coefficients_are_swscales():
 @pytest.mark.parametrize("name", REFUSED)
 @pytest.mark.parametrize("call", ["read_RGB", "frames", "frame_tensors"])
 def test_refused_streams_raise_naming_a9(name, call, tmp_path):
-    """4:4:4 (an x264 stream) raises NotImplementedError naming A9 from
-    each entry point; the count and the timestamps, which need no pixels,
-    are still cv2's."""
+    """A bit depth above 8 (an x264 High 10 stream, high10_176x144.mp4,
+    the one x264 stream the decoder refuses) raises NotImplementedError
+    naming A9 from each entry point; the count and the timestamps, which
+    need no pixels, are still cv2's."""
     path = str(D / name)
     v = Video(path, write=False)
     with pytest.raises(NotImplementedError, match="A9"):
@@ -248,24 +251,25 @@ def _scaling_lists(w, n: int, lists: dict) -> None:
 
 
 def _sps(profile=100, chroma=1, depth=0, bypass=0, scaling=None, poc_type=0,
-         frame_mbs_only=1, mbaff=0) -> bytes:
+         frame_mbs_only=1, mbaff=0, separate=0) -> bytes:
     """An SPS of a 32x32 picture, or of a 32x64 one coded for fields
     (frame_mbs_only 0; log2_max_frame_num 8, POC lsb 8 bits); scaling: the
-    lists of ``_scaling_lists``, None for none."""
+    lists of ``_scaling_lists`` (8, or 12 for 4:4:4), None for none;
+    separate: separate_colour_plane_flag of a 4:4:4 one."""
     w = fixtures._Bits()
     w.u(8, profile)
     w.u(16, 40)                       # constraint flags, level_idc
     w.ue(0)
-    if profile == 100:
+    if profile in (100, 110, 122, 244):
         w.ue(chroma)
         if chroma == 3:
-            w.u(1, 0)
+            w.u(1, separate)
         w.ue(depth)
         w.ue(depth)
         w.u(1, bypass)
         w.u(1, int(scaling is not None))
         if scaling is not None:
-            _scaling_lists(w, 8, scaling)
+            _scaling_lists(w, 12 if chroma == 3 else 8, scaling)
     w.ue(4)                           # log2_max_frame_num_minus4
     w.ue(poc_type)
     if poc_type == 0:
@@ -317,10 +321,12 @@ def _pps(cabac=0, slice_groups=1, redundant=0, scaling=None, t8=0,
     return fixtures._nal(3, 8, w.trailing())
 
 
-def _idr(slice_type=7, redundant_pic_cnt=None, field_pic=None) -> bytes:
-    """An IDR slice of the 2x2-macroblock picture: I_PCM grey; field_pic
-    writes field_pic_flag (a stream coded for fields), and for a field
-    bottom_field_flag 0."""
+def _idr(slice_type=7, redundant_pic_cnt=None, field_pic=None, pcm=384
+         ) -> bytes:
+    """An IDR slice of the 2x2-macroblock picture: I_PCM grey, ``pcm``
+    samples a macroblock (384 for 4:2:0, 256 monochrome, 512 4:2:2, 768
+    4:4:4); field_pic writes field_pic_flag (a stream coded for fields),
+    and for a field bottom_field_flag 0."""
     w = fixtures._Bits()
     w.ue(0)
     w.ue(slice_type)
@@ -340,7 +346,7 @@ def _idr(slice_type=7, redundant_pic_cnt=None, field_pic=None) -> bytes:
     for _ in range(4):
         w.ue(25)                      # I_PCM
         w.align()
-        w.raw(bytes([128]) * 384)
+        w.raw(bytes([128]) * pcm)
     return fixtures._nal(3, 5, w.trailing())
 
 
@@ -368,6 +374,9 @@ def _frames(*nals: bytes) -> list[list[bytes]]:
 
 
 LIST4 = [6 + 2 * k for k in range(16)]          # neither flat nor a default
+# tools the decoder refused once, whose header-written streams now decode
+DECODED_HEADERS = ("chroma_format_idc 0", "chroma_format_idc 2",
+                   "qpprime_y_zero_transform_bypass")
 LIST8 = [8 + k // 4 for k in range(64)]
 
 
@@ -386,24 +395,39 @@ LIST8 = [8 + k // 4 for k in range(64)]
     ("slice groups", lambda: (_sps(), _pps(slice_groups=2), _idr())),
     ("SP and SI", lambda: (_sps(), _pps(), _idr(slice_type=8))),
     ("SP and SI", lambda: (_sps(), _pps(), _idr(slice_type=9))),
-    ("chroma_format_idc 0", lambda: (_sps(chroma=0), _pps(), _idr())),
-    ("chroma_format_idc 2", lambda: (_sps(chroma=2), _pps(), _idr())),
+    ("chroma_format_idc 0", lambda: (_sps(chroma=0), _pps(), _idr(pcm=256))),
+    ("chroma_format_idc 2", lambda: (_sps(chroma=2), _pps(), _idr(pcm=512))),
     ("bit depth", lambda: (_sps(depth=2), _pps(), _idr())),
     ("qpprime_y_zero_transform_bypass",
      lambda: (_sps(bypass=1), _pps(), _idr())),
+    ("separate_colour_plane_flag 1",
+     lambda: (_sps(profile=244, chroma=3, separate=1), _pps(), _idr(pcm=768))),
+    ("chroma_format_idc 2 in a stream coded for fields",
+     lambda: (_sps(chroma=2, frame_mbs_only=0), _pps(),
+              _idr(field_pic=0, pcm=512))),
     ("redundant pictures",
      lambda: (_sps(), _pps(redundant=1), _idr(redundant_pic_cnt=1))),
     ("order count type 1", lambda: (_sps(poc_type=1), _pps(), _idr())),
     ("data partitioning", lambda: (_sps(), _pps(), b"\x02\x80")),
 ], ids=lambda x: x if isinstance(x, str) else "")
-def test_refused_headers_raise_naming_a9(what, nals):
+def test_refused_headers_raise_naming_a9(what, nals, tmp_path):
     """Each tool the decoder does not decode raises NotImplementedError
     naming A9 and the tool, on a stream whose headers ask for it; the same
     stream without it decodes. Scaling lists in the SPS or the PPS, which
     the decoder now decodes, give the list-free stream's frame (I_PCM
-    samples are not scaled)."""
+    samples are not scaled); so do monochrome, 4:2:2 and the bypass flag,
+    now decoded too: their grey frame is cv2's (an AVI of the one IDR)."""
     if what == "scaling matrices":
         assert _frames(*nals()) == _frames(_sps(), _pps(), _idr())
+    elif what in DECODED_HEADERS:
+        path = str(tmp_path / "one.avi")
+        unit = b"".join(b"\x00\x00\x00\x01" + x for x in nals())
+        with open(path, "wb") as f:
+            f.write(fixtures._avi([unit], [True], b"H264", 1, 30, 32, 32))
+        ours = list(Video(path, write=False).frames(device="cpu"))
+        theirs = list(JaxVideo(path, write=False).frames())
+        assert len(ours) == len(theirs) == 1
+        assert np.array_equal(ours[0], theirs[0])
     else:
         with pytest.raises(NotImplementedError, match=f"(?s){what}.*A9"):
             _decode(*nals())
