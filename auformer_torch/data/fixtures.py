@@ -508,13 +508,19 @@ def h264_gop_order(n_frames: int, gop: int, b_frames: int
 
 
 def _h264_sps(width: int, height: int, b_frames: int, chroma: int = 1,
-              bypass: bool = False, colour: tuple | None = None) -> bytes:
-    """The SPS: Baseline (Main with B slices) for 4:2:0, else High 4:4:4
-    Predictive with chroma_format_idc ``chroma`` and
-    qpprime_y_zero_transform_bypass_flag ``bypass``; ``colour`` (matrix,
-    full_range) writes them in the VUI's video_signal_type."""
+              bypass: bool = False, colour: tuple | None = None,
+              depth: int | tuple = 8, chroma_loc: int | None = None
+              ) -> bytes:
+    """The SPS: Baseline (Main with B slices) for 8-bit 4:2:0, else High
+    4:4:4 Predictive with chroma_format_idc ``chroma``,
+    qpprime_y_zero_transform_bypass_flag ``bypass`` and the bit depth
+    ``depth`` (luma and chroma, or a (luma, chroma) pair); ``colour``
+    (matrix, full_range) writes them in the VUI's video_signal_type,
+    ``chroma_loc`` the VUI's chroma_sample_loc_type (both fields)."""
     w = _Bits()
-    high = chroma != 1 or bypass
+    luma_depth, chroma_depth = depth if isinstance(depth, tuple) else (
+        depth, depth)
+    high = chroma != 1 or bypass or (luma_depth, chroma_depth) != (8, 8)
     w.u(8, 244 if high else 77 if b_frames else 66)   # profile_idc
     w.u(8, 0 if high else 0x40 if b_frames else 0xC0)  # constraint_set flags
     w.u(8, 40)                            # level_idc 4.0
@@ -523,8 +529,8 @@ def _h264_sps(width: int, height: int, b_frames: int, chroma: int = 1,
         w.ue(chroma)                      # chroma_format_idc
         if chroma == 3:
             w.u(1, 0)                     # separate_colour_plane_flag
-        w.ue(0)                           # bit_depth_luma_minus8
-        w.ue(0)                           # bit_depth_chroma_minus8
+        w.ue(luma_depth - 8)              # bit_depth_luma_minus8
+        w.ue(chroma_depth - 8)            # bit_depth_chroma_minus8
         w.u(1, int(bypass))               # qpprime_y_zero_transform_bypass
         w.u(1, 0)                         # seq_scaling_matrix_present_flag
     w.ue(4)                               # log2_max_frame_num_minus4
@@ -553,7 +559,11 @@ def _h264_sps(width: int, height: int, b_frames: int, chroma: int = 1,
         w.u(8, 2)                         # colour_primaries: unspecified
         w.u(8, 2)                         # transfer_characteristics
         w.u(8, int(colour[0]))            # matrix_coefficients
-    w.u(2, 0)                             # chroma loc, timing
+    w.u(1, chroma_loc is not None)        # chroma_loc_info_present_flag
+    if chroma_loc is not None:
+        w.ue(chroma_loc)
+        w.ue(chroma_loc)
+    w.u(1, 0)                             # timing
     w.u(3, 0)   # nal hrd, vcl hrd, pic_struct_present
     w.u(1, 1)                             # bitstream_restriction_flag
     w.u(1, 1)                             # motion_vectors_over_pic_boundaries
@@ -592,8 +602,9 @@ _MB_CHROMA = {0: (0, 0), 1: (8, 8), 2: (16, 8), 3: (16, 16)}
 
 def _mb_pcm(y: np.ndarray, u: np.ndarray, v: np.ndarray, chroma: int = 1
             ) -> np.ndarray:
-    """(rows, cols, n) uint8: each macroblock's pcm samples (256 luma, then
-    Cb and Cr of chroma_format_idc ``chroma``: 64 each for 4:2:0, 128 for
+    """(rows, cols, n) of the planes' type (uint8, or uint16 for samples
+    deeper than 8 bits): each macroblock's pcm samples (256 luma, then Cb
+    and Cr of chroma_format_idc ``chroma``: 64 each for 4:2:0, 128 for
     4:2:2, 256 for 4:4:4, none for monochrome; each in raster order) of
     planes padded to whole MBs."""
     mbh, mbw = -(-y.shape[0] // 16), -(-y.shape[1] // 16)
@@ -611,12 +622,23 @@ def _mb_pcm(y: np.ndarray, u: np.ndarray, v: np.ndarray, chroma: int = 1
     return np.concatenate(planes, -1)
 
 
+def _pcm_bytes(samples: np.ndarray, depth: int) -> bytes:
+    """pcm_sample_luma and pcm_sample_chroma: each sample in ``depth``
+    bits, MSB first (a whole number of bytes for a macroblock)."""
+    if depth == 8:
+        return samples.astype(np.uint8).tobytes()
+    bits = (samples.astype(np.uint16)[:, None] >> np.arange(depth - 1, -1,
+                                                            -1)) & 1
+    return np.packbits(bits.astype(np.uint8).reshape(-1)).tobytes()
+
+
 def _h264_slice(kind: str, frame_num: int, poc: int, idr_id: int,
-                pcm: np.ndarray, coded: np.ndarray, qp: int | None = None
-                ) -> bytes:
+                pcm: np.ndarray, coded: np.ndarray, qp: int | None = None,
+                depth: int = 8) -> bytes:
     """One slice of a whole picture: ``coded`` (rows, cols) bool marks the
-    I_PCM macroblocks (all of them in an I slice), the rest are skipped; at
-    QP 26 without the deblocking filter, or with it at slice QP ``qp``."""
+    I_PCM macroblocks (all of them in an I slice; samples of ``depth``
+    bits), the rest are skipped; at QP 26 without the deblocking filter,
+    or with it at slice QP ``qp``."""
     w = _Bits()
     w.ue(0)                                        # first_mb_in_slice
     w.ue({"P": 5, "B": 6, "I": 7}[kind])           # slice_type
@@ -649,7 +671,7 @@ def _h264_slice(kind: str, frame_num: int, poc: int, idr_id: int,
             w.ue(addr - prev - 1)                  # mb_skip_run
         w.ue(pcm_type)                             # mb_type I_PCM
         w.align()                                  # pcm_alignment_zero_bit
-        w.raw(flat[addr].tobytes())
+        w.raw(_pcm_bytes(flat[addr], depth))
         prev = addr
     if kind != "I" and prev < coded.size - 1:
         w.ue(coded.size - 1 - prev)                # the trailing skip run
@@ -659,20 +681,25 @@ def _h264_slice(kind: str, frame_num: int, poc: int, idr_id: int,
 def h264_access_units(width: int, height: int, n_frames: int, gop: int = 30,
                       b_frames: int = 0, band: int = 1, seed: int = 0,
                       source=None, chroma: int = 1, bypass: bool = False,
-                      colour: tuple | None = None, qp: int | None = None):
+                      colour: tuple | None = None, qp: int | None = None,
+                      depth: int | tuple = 8, chroma_loc: int | None = None):
     """Yield ``(display index, kind, NAL units)`` of each picture in decode
     order (``h264_gop_order``): IDR pictures all I_PCM, P pictures P_Skip
     but ``band`` I_PCM macroblock columns that move two columns a frame, B
     pictures all B_Skip. ``source(t)`` gives frame t's (Y, U, V) planes in
     chroma_format_idc ``chroma`` (default ``h264_source_yuv(seed, t, height,
-    width)``, 4:2:0, its chroma repeated for 4:2:2 and 4:4:4); ``bypass``,
-    ``colour`` and ``qp`` as ``_h264_sps`` and ``_h264_slice`` take them.
-    The NAL units are without start codes, each IDR's led by the SPS and
-    PPS."""
+    width)``, 4:2:0, its chroma repeated for 4:2:2 and 4:4:4, shifted up
+    to the luma's ``depth``); ``bypass``, ``colour``, ``qp``, ``depth``
+    (the bit depth, or a (luma, chroma) pair; the samples are written at
+    the luma's) and ``chroma_loc`` as ``_h264_sps`` and ``_h264_slice``
+    take them. The NAL
+    units are without start codes, each IDR's led by the SPS and PPS."""
     if (chroma == 1 and (width % 2 or height % 2)) or (chroma == 2
                                                        and width % 2):
         raise ValueError(f"chroma_format_idc {chroma} does not fit "
                          f"{width}x{height}")
+
+    bits = depth[0] if isinstance(depth, tuple) else depth
 
     def default(t):
         y, u, v = h264_source_yuv(seed, t, height, width)
@@ -680,11 +707,14 @@ def h264_access_units(width: int, height: int, n_frames: int, gop: int = 30,
             u, v = (p.repeat(2, 0)[:height] for p in (u, v))
         if chroma == 3:
             u, v = (p.repeat(2, 1)[:, :width] for p in (u, v))
+        if bits > 8:
+            y, u, v = (p.astype(np.uint16) << (bits - 8) for p in (y, u, v))
         return y, u, v
 
     source = source or default
     mbh, mbw = -(-height // 16), -(-width // 16)
-    sps = _h264_sps(width, height, b_frames, chroma, bypass, colour)
+    sps = _h264_sps(width, height, b_frames, chroma, bypass, colour, depth,
+                    chroma_loc)
     pps = _h264_pps()
     refs = idr = 0
     for t, kind in h264_gop_order(n_frames, gop, b_frames):
@@ -696,7 +726,8 @@ def h264_access_units(width: int, height: int, n_frames: int, gop: int = 30,
             coded[:] = False
             if kind == "P":
                 coded[:, [(2 * t + j) % mbw for j in range(band)]] = True
-        rbsp = _h264_slice(kind, refs, 2 * (t - g0), idr, pcm, coded, qp)
+        rbsp = _h264_slice(kind, refs, 2 * (t - g0), idr, pcm, coded, qp,
+                           bits)
         nal = _nal({"I": 3, "P": 2, "B": 0}[kind], 5 if kind == "I" else 1,
                    rbsp)
         yield t, kind, ([sps, pps, nal] if kind == "I" else [nal])
@@ -853,7 +884,8 @@ def write_h264(path: str, width: int, height: int, n_frames: int,
     there are B pictures) or an AVI (``H264`` chunks in Annex B, the SPS
     and PPS ahead of each IDR, ``idx1`` key flags; no B pictures). Returns
     (display index, kind) of each sample in decode order. ``header``:
-    ``h264_access_units``' chroma, bypass, colour and qp."""
+    ``h264_access_units``' chroma, bypass, colour, qp, depth and
+    chroma_loc."""
     ext = os.path.splitext(path)[1].lower()
     if ext not in (".mp4", ".mov", ".avi"):
         raise ValueError(f"write_h264 writes .mp4, .mov or .avi, not {ext}")

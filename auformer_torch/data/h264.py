@@ -5,21 +5,26 @@ cv2's FFMPEG capture decodes H.264 (``avc1`` in MP4, ``H264`` and its
 fourccs in AVI) with ffmpeg's software ``h264`` decoder on the host. The
 port decodes them on the host too, with ``data/native/h264_decode.cpp``,
 built with the C++ compiler into ``.cache/native`` at first use
-(``data/native``): 8-bit streams of frame pictures with CAVLC or CABAC
-entropy coding (the Baseline, Main, High, High 4:2:2 and High 4:4:4
-Predictive profiles) and any scaling lists, in every 8-bit chroma format
-(4:2:0, 4:2:2, 4:4:4 and monochrome) and lossless (transform bypass);
-progressive, or for 4:2:0 interlaced too (MBAFF frames, as x264's
-``--interlaced`` writes them); their Y, U and V planes are ffmpeg's bit
-for bit: chroma planes of the stream's chroma size (``planes_shape``),
-a monochrome stream's as ffmpeg puts them out, 4:2:0 planes of 128. An
-interlaced frame comes out as ffmpeg outputs it, its two fields woven and
-not deinterlaced. ``ops/colour.py``'s ``yuv_rgb``, with the range and the
-colour matrix the stream's VUI names, turns them into cv2's RGB frames.
-There is no fallback: a decoder that does not build, a stream that does
-not decode and a tool the decoder refuses (field pictures, bit depths
-above 8 and the rest: ``NotImplementedError`` naming ROADMAP.md queue A9)
-all raise; NVDEC is not tried. ``cabac_tables``, ``cavlc_tables`` and
+(``data/native``): streams of frame pictures with CAVLC or CABAC
+entropy coding (the Baseline, Main, High, High 10, High 4:2:2 and High
+4:4:4 Predictive profiles) and any scaling lists, in every chroma format
+(4:2:0, 4:2:2, 4:4:4 and monochrome) at 8 bits and at the deeper ones
+libavcodec decodes (9, 10, 12 and 14 bits, luma and chroma alike), and
+lossless (transform bypass); progressive, or for 4:2:0 interlaced too
+(MBAFF frames, as x264's ``--interlaced`` writes them); their Y, U and V
+planes are ffmpeg's bit for bit: chroma planes of the stream's chroma size
+(``planes_shape``), a monochrome stream's as ffmpeg puts them out, 4:2:0
+planes of 1 << (bit depth - 1); uint8 planes for 8-bit streams, int16 ones
+holding the samples as they are for deeper ones (no shift to 8 bits: that
+belongs to the colour conversion, as in swscale). An interlaced frame
+comes out as ffmpeg outputs it, its two fields woven and not
+deinterlaced. ``ops/colour.py``'s ``yuv_rgb``, with the range, the colour
+matrix the stream's VUI names and the bit depth (``Colour``), turns them
+into cv2's RGB frames. There is no fallback: a decoder that does not
+build, a stream that does not decode and a tool the decoder refuses (field
+pictures, 11 and 13 bits, luma and chroma depths apart and the rest:
+``NotImplementedError`` naming ROADMAP.md queue A9) all raise; NVDEC is
+not tried. ``cabac_tables``, ``cavlc_tables`` and
 ``Decoder.counts`` / ``scaling_lists`` read the decoder's tables and
 state for tests.
 
@@ -29,12 +34,13 @@ decode order and yields ``(k, (y, u, v), colour)`` for each frame the
 decoder outputs, in ffmpeg's output order (picture order count order,
 ``bitstream.h264_output_order``), that comes from a packet the container
 keeps: an edit list's leading samples are decoded as references and
-dropped, as ffmpeg drops them. ``colour`` is (matrix_coefficients,
-video_full_range_flag) of the SPS's VUI ((2, 0) where it gives none): the
-arguments of ``yuv_rgb``'s ``matrix`` and, negated, ``limited``. The
-planes land in host
-tensors; for a CUDA device in pinned ones, copied to the card on the
-current stream.
+dropped, as ffmpeg drops them. ``colour`` is a ``Colour``:
+(matrix_coefficients, video_full_range_flag) of the SPS's VUI ((2, 0)
+where it gives none), the arguments of ``yuv_rgb``'s ``matrix`` and,
+negated, ``limited``, with the samples' ``bit_depth`` and the chroma
+siting, ``chroma_loc``, beside. The planes
+land in host tensors; for a CUDA device in pinned ones, copied to the
+card on the current stream.
 """
 from __future__ import annotations
 
@@ -67,6 +73,10 @@ def _library() -> ctypes.CDLL:
     lib.h264_size.restype = i
     lib.h264_chroma.argtypes = [ptr]
     lib.h264_chroma.restype = i
+    lib.h264_depth.argtypes = [ptr]
+    lib.h264_depth.restype = i
+    lib.h264_chroma_loc.argtypes = [ptr]
+    lib.h264_chroma_loc.restype = i
     lib.h264_receive.argtypes = [ptr, ptr, i, ptr, ptr, i,
                                  ctypes.POINTER(ll)]
     lib.h264_receive.restype = i
@@ -82,6 +92,20 @@ def _library() -> ctypes.CDLL:
     lib.h264_cavlc_tables.restype = None
     return lib
 
+
+class Colour(tuple):
+    """A frame's (matrix_coefficients, video_full_range_flag), the pair
+    that ``yuv_rgb`` takes as ``matrix`` and ``not limited``, with its
+    samples' ``bit_depth`` (8 to 14) and its ``chroma_loc`` (the chroma
+    siting as libavcodec reports it: ``Decoder.chroma_loc``) as
+    attributes, which ``yuv_rgb`` takes too: it equals the pair, so that
+    a caller that reads two values reads them as before."""
+
+    def __new__(cls, matrix: int, full_range: int, bit_depth: int = 8,
+                chroma_loc: int = 1):
+        out = super().__new__(cls, (matrix, full_range))
+        out.bit_depth, out.chroma_loc = bit_depth, chroma_loc
+        return out
 
 
 def cabac_tables() -> dict:
@@ -171,6 +195,23 @@ class Decoder:
             raise RuntimeError("H.264 decode: no frame is ready")
         return h.value, w.value, (m.value, r.value)
 
+    def depth(self) -> int:
+        """The next ready frame's bit depth: 8, or 9, 10, 12 or 14."""
+        d = self._lib.h264_depth(self._h)
+        if not d:
+            raise RuntimeError("H.264 decode: no frame is ready")
+        return d
+
+    def chroma_loc(self) -> int:
+        """The next ready frame's chroma siting as libavcodec reports it
+        (AVChromaLocation): 0 unspecified (an SPS without a VUI), 1 left
+        (a VUI without chroma_loc_info), else 1 +
+        chroma_sample_loc_type_top_field."""
+        loc = self._lib.h264_chroma_loc(self._h)
+        if loc < 0:
+            raise RuntimeError("H.264 decode: no frame is ready")
+        return loc
+
     def chroma(self) -> int:
         """The next ready frame's chroma format as ``planes_shape`` takes
         it."""
@@ -181,8 +222,9 @@ class Decoder:
 
     def receive(self, y: torch.Tensor, u: torch.Tensor,
                 v: torch.Tensor) -> int:
-        """Copy the ready frame into host planes (row-contiguous uint8
-        tensors of ``planes_shape``); returns the tag of its unit."""
+        """Copy the ready frame into host planes (row-contiguous tensors of
+        ``planes_shape``, uint8 at 8 bits, int16 deeper); returns the tag
+        of its unit."""
         tag = ctypes.c_longlong()
         if self._lib.h264_receive(self._h, y.data_ptr(), y.stride(0),
                                   u.data_ptr(), v.data_ptr(), u.stride(0),
@@ -238,18 +280,21 @@ def decode_range(path: str, index: dict | None = None, start_key: int = 0,
     shown = 0
 
     def frame():
-        h, w, colour = dec.size()
-        chroma = dec.chroma()
+        h, w, (matrix, full) = dec.size()
+        chroma, depth = dec.chroma(), dec.depth()
+        # int16 holds the deeper samples (at most 14 bits) as they are
+        colour = Colour(matrix, full, depth, dec.chroma_loc())
+        dtype = torch.uint8 if depth == 8 else torch.int16
         ys, cs = planes_shape(h, w, chroma)
         if on_card:
-            st = staging.get((h, w, chroma))
+            st = staging.get((h, w, chroma, dtype))
             if st is None:
-                st = staging[(h, w, chroma)] = Staging(h, w, chroma=chroma)
+                st = staging[(h, w, chroma, dtype)] = Staging(
+                    h, w, chroma=chroma, dtype=dtype)
             k, planes = st.take()
             tag = dec.receive(*planes)
             return tag, (lambda: st.upload(k, device)), colour
-        planes = tuple(torch.empty(s, dtype=torch.uint8) for s in (ys, cs,
-                                                                    cs))
+        planes = tuple(torch.empty(s, dtype=dtype) for s in (ys, cs, cs))
         tag = dec.receive(*planes)
         return tag, (lambda: planes), colour
 

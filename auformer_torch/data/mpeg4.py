@@ -164,11 +164,13 @@ def planes_shape(height: int, width: int, chroma: int = 1
 
 class Staging:
     """Pinned host planes in turn for the copies to a CUDA device: a set
-    is written again only once its last copy has finished."""
+    is written again only once its last copy has finished. ``dtype``: the
+    samples' tensor type (uint8, or int16 for H.264's deeper samples)."""
 
-    def __init__(self, height: int, width: int, n: int = 3, chroma: int = 1):
+    def __init__(self, height: int, width: int, n: int = 3, chroma: int = 1,
+                 dtype: torch.dtype = torch.uint8):
         ys, cs = planes_shape(height, width, chroma)
-        self.sets = [tuple(torch.empty(s, dtype=torch.uint8, pin_memory=True)
+        self.sets = [tuple(torch.empty(s, dtype=dtype, pin_memory=True)
                            for s in (ys, cs, cs)) for _ in range(n)]
         self.events: list = [None] * n
         self.at = 0

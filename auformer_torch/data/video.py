@@ -22,20 +22,23 @@ unless the caller passes ``device="cpu"``, for three codecs in AVI or MP4:
                  to ffmpeg's bit for bit; the frames in ffmpeg's output
                  order, the planes copied to the card for a CUDA device.
   H.264          the port's own software decoder (``data/h264.py``: CAVLC
-                 and CABAC, any scaling lists, 8-bit 4:2:0, 4:2:2, 4:4:4
-                 and monochrome, lossless; progressive, and MBAFF for
-                 4:2:0) the same way.
+                 and CABAC, any scaling lists, 4:2:0, 4:2:2, 4:4:4 and
+                 monochrome at 8 bits and at 9, 10, 12 and 14 (High 10,
+                 High 4:2:2, High 4:4:4: int16 planes), lossless;
+                 progressive, and MBAFF for 4:2:0) the same way.
 
 ``ops/colour.py``'s ``yuv_rgb`` converts the planes as cv2's swscale does
 (full range for a JPEG's; for MPEG-4's and H.264's, the range and
 matrix_coefficients that the stream's headers give: the visual object's
 video_signal_type, the SPS's VUI; limited range BT.601 where they give
-none; swscale's full-chroma route for 4:4:4 planes), on the card with its
-kernel for a CUDA device. NVDEC, the card's video decoder, is refused by
-the container the card runs in (``data/nvdec.py``) and is not tried. JPEG
-frames that are not 4:2:0 or 4:2:2, and the MPEG-4 and H.264 tools the
-decoders refuse (H.264's field pictures, bit depths above 8 and the
-rest), raise naming ROADMAP.md queue A9, as do other codecs.
+none; swscale's full-chroma route for 4:4:4 planes, and its scaler's
+route for H.264 planes deeper than 8 bits, with the bit depth the SPS
+gives), on the card with its kernel for a CUDA device, from every entry
+point. NVDEC, the card's video decoder, is refused by the container the
+card runs in (``data/nvdec.py``) and is not tried. JPEG frames that are
+not 4:2:0 or 4:2:2, and the MPEG-4 and H.264 tools the decoders refuse
+(H.264's field pictures, bit depths of 11 and 13 and the rest), raise
+naming ROADMAP.md queue A9, as do other codecs.
 
 ``read_RGB(k)`` seeks as cv2's ``CAP_PROP_POS_FRAMES`` does for MPEG-4 and
 H.264: from the sync packet at or before the display position 16 frames
@@ -235,10 +238,14 @@ _SOFTWARE = {"mpeg4": mpeg4.decode_range, "h264": h264.decode_range}
 
 def _rgb(frame) -> torch.Tensor:
     """The RGB frame of a host decoder's ``(k, planes, colour)``, converted
-    with the stream's colour matrix and range."""
+    with the stream's colour matrix and range, and its samples' bit depth
+    and chroma siting (an H.264 ``Colour``'s; MPEG-4 part 2's are 8-bit)."""
     from ..ops.colour import yuv_rgb
-    _, (y, u, v), (matrix, full_range) = frame
-    return yuv_rgb(y, u, v, limited=not full_range, matrix=matrix)
+    _, (y, u, v), colour = frame
+    matrix, full_range = colour
+    return yuv_rgb(y, u, v, limited=not full_range, matrix=matrix,
+                   bit_depth=getattr(colour, "bit_depth", 8),
+                   chroma_loc=getattr(colour, "chroma_loc", 1))
 
 
 def _planes_rgb(planes) -> Iterator[torch.Tensor]:

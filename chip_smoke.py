@@ -162,10 +162,11 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            decode gives) through frame_tensors() on the card against the
            SHA-256s of expected.json's frames (cv2's; swscale's for the
            MBAFF streams, whose frames cv2 does not convert, C14; 4:4:4,
-           4:2:2, monochrome and lossless ones among them), its seeks,
-           count and timestamps, and the refused one (High 10, a bit
-           depth above 8) raising naming A9; ipb_cabac_1280x720.mp4 (24
-           frames, x264's
+           4:2:2, monochrome and lossless ones among them, and the 10-bit
+           ones: High 10, 4:2:2 and 4:4:4, the MBAFF one's frames the
+           plain conversion of libavcodec's planes), its seeks, count and
+           timestamps, and the refused one (4:2:2 coded for fields)
+           raising naming A9; ipb_cabac_1280x720.mp4 (24 frames, x264's
            High profile defaults: CABAC, the 8x8 transform, B-pyramids)
            through Video.frames() on the card, the main path: 24 yuv_rgb
            launches and none of the other kernels, each frame cv2's, then
@@ -176,13 +177,19 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            swscale's, H264_MBAFF_PASSES passes); ipb_yuv444_1280x720.mp4
            (24 4:4:4 frames, x264's High 4:4:4 defaults, crf 26: this
            slice's main path, ``yuv444_stream``, 24 yuv_rgb launches a
-           pass, H264_444_PASSES passes) the same way; the kernel at
-           1280x720 for each colour matrix and range cv2 converts by, at
-           1920x1080 on the 1080i stream's planes, and at 1280x720 on the
-           4:4:4 stream's planes in each chroma layout (CHROMA_CASES:
-           4:4:4 limited and full range BT.709, swscale's full-chroma
-           route; 4:2:2; monochrome), against its plain version, its
-           device ms beside its bound
+           pass, H264_444_PASSES passes) the same way;
+           ipb_high10_1280x720.mp4 (24 10-bit frames, x264's High 10
+           defaults, crf 26: this slice's main path, ``high10_stream``,
+           its planes 16-bit, 24 yuv_rgb launches a pass on the kernel's
+           high-depth route, H264_DEEP_PASSES passes) the same way; the
+           kernel at 1280x720 for each colour matrix and range cv2
+           converts by, at 1920x1080 on the 1080i stream's planes, at
+           1280x720 on the 4:4:4 stream's planes in each chroma layout
+           (CHROMA_CASES: 4:4:4 limited and full range BT.709, swscale's
+           full-chroma route; 4:2:2; monochrome), and at 1280x720 on the
+           High 10 stream's planes in each chroma layout at 10 bits
+           (DEEP_CASES: swscale's scaler route), against its plain
+           version, its device ms beside its bound
   quickstart
            ``python -m auformer_torch.quickstart`` (its ``main``, no
            device argument), the port's examples/quickstart.py: its
@@ -304,7 +311,9 @@ site; ``quickstart``: per forward and per site of the quickstart's
 vformer, and its gradient check); ``launches`` counts the slice's, the
 sweep's, the dataset's, the packed, the zoo, the ingest and orbax phases'
 test_aff2 runs (orbax: the run from best/), the decode phase's frames()
-(yuv_rgb; the 1080i stream's under ``decode_h264_mbaff``), the
+(yuv_rgb; the 1080i stream's under ``decode_h264_mbaff``, the 4:4:4
+stream's under ``decode_h264_444``, the High 10 one's under
+``decode_h264_high10``), the
 quickstart's run, the train phase's,
 the feed's, the host_aug's and the graph's main path runs
 (``launches_by_path``; ``zoo`` sums the zoo phase's bf16 main path runs;
@@ -554,7 +563,7 @@ MPEG4_FIXTURES = ROOT / "tests" / "data" / "videos_mpeg4"
 MPEG4_FRAMES = 12
 MPEG4_GOP, MPEG4_B_FRAMES, MPEG4_QSCALE = 12, 2, 8
 MPEG4_SEEKS = (0, 5, 11)
-MPEG4_PASSES = 5                  # timed passes of frames() and the decoder
+MPEG4_PASSES = 2                  # timed passes of frames() and the decoder
 MPEG4_CV2_STREAMS = ("mp4v_176.mp4", "xvid_176.avi")
 # H.264: x264's streams (tests/data/videos_h264), the full-width CABAC one
 # the main path, with the full-width MBAFF (1080i) one beside it; the
@@ -563,16 +572,23 @@ H264_FIXTURES = ROOT / "tests" / "data" / "videos_h264"
 H264_STREAM = "ipb_cabac_1280x720.mp4"
 H264_MBAFF_STREAM = "ipb_mbaff_1920x1080.mp4"
 H264_CAVLC_STREAM = "ipb_1280x720.mp4"
-H264_PASSES = 3
-H264_MBAFF_PASSES = 2
+H264_PASSES = 2
+H264_MBAFF_PASSES = 1
 # 4:4:4 at full width (x264's High 4:4:4 defaults): this slice's main path;
 # the kernel's cases of the other chroma layouts at 1280x720, made from its
 # planes: 4:4:4 limited BT.601 (its own), 4:4:4 full range BT.709, 4:2:2
 # limited (every other chroma column) and monochrome (4:2:0 chroma of 128)
 H264_444_STREAM = "ipb_yuv444_1280x720.mp4"
-H264_444_PASSES = 2
+H264_444_PASSES = 1
 CHROMA_CASES = ("yuv444_limited", "yuv444_full_bt709", "yuv422_limited",
                 "gray")
+# bit depths above 8: x264's High 10 defaults at full width, this slice's
+# main path, and the kernel's high-depth route at 1280x720 in the three
+# chroma layouts, made from its 10-bit planes (4:2:2 its chroma rows
+# twice, 4:4:4 its chroma samples twice each way)
+H264_DEEP_STREAM = "ipb_high10_1280x720.mp4"
+H264_DEEP_PASSES = 2
+DEEP_CASES = ("yuv420_10bit", "yuv422_10bit", "yuv444_10bit")
 H264_FULL_WIDTH = ("1280x720", "1920x1080")
 H264_WIDE_SEEKS = ("0", "13", "23", "35")
 # (matrix_coefficients, full range) of the kernel's cases: BT.601, BT.709,
@@ -2225,29 +2241,34 @@ def decode_source(t: int) -> np.ndarray:
 
 
 def decode_kernel_case(torch, dev, planes: list, limited: bool = False,
-                       matrix: int = 2) -> dict:
+                       matrix: int = 2, bit_depth: int = 8,
+                       chroma_loc: int = 1) -> dict:
     """yuv_rgb against its plain version on the card, on a route's planes
     at the main path's size (4:2:0, 4:2:2 or 4:4:4; MJPEG's full range,
-    MPEG-4's and H.264's ``limited`` range, H.264's colour ``matrix``: the
-    main path's); times and the bound."""
+    MPEG-4's and H.264's ``limited`` range, H.264's colour ``matrix``,
+    ``bit_depth`` and ``chroma_loc``: the main path's); times and the bound
+    (each plane read once, at its sample size, 3 B a pixel written)."""
     from auformer_torch.ops import colour
     y, u, v = planes
-    got = colour.yuv_rgb(y, u, v, limited, matrix)
-    want = colour.yuv_rgb_plain(y, u, v, limited, matrix)
+    args = (limited, matrix, bit_depth, chroma_loc)
+    got = colour.yuv_rgb(y, u, v, *args)
+    want = colour.yuv_rgb_plain(y, u, v, *args)
     torch.cuda.synchronize()
     h, w = y.shape
     err = (got.int() - want.int()).abs().max().item()
     if err:
-        fail(f"yuv_rgb kernel (limited {limited}, matrix {matrix}) differs "
-             f"from its plain version by {err}")
-    ms, event_ms = timed(torch, lambda: colour.yuv_rgb(y, u, v, limited,
-                                                       matrix), 200)
-    plain_ms, _ = timed(torch, lambda: colour.yuv_rgb_plain(
-        y, u, v, limited, matrix), 20)
-    nbytes = y.numel() + u.numel() + v.numel() + 3 * y.numel()
+        fail(f"yuv_rgb kernel (limited {limited}, matrix {matrix}, "
+             f"{bit_depth} bits) differs from its plain version by {err}")
+    ms, event_ms = timed(torch, lambda: colour.yuv_rgb(y, u, v, *args),
+                         200)
+    plain_ms, _ = timed(torch, lambda: colour.yuv_rgb_plain(y, u, v, *args),
+                        20)
+    nbytes = sum(p.numel() * p.element_size() for p in (y, u, v)) \
+        + 3 * y.numel()
     bound_ms, bound_by = bound(nbytes, 0.0)
     return {"shape": [h, w], "chroma_shape": list(u.shape),
-            "limited": limited, "matrix": matrix, "max_abs_err": err,
+            "limited": limited, "matrix": matrix, "bit_depth": bit_depth,
+            "max_abs_err": err,
             "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
             "library_ms": None}
@@ -2407,12 +2428,15 @@ def phase_decode_h264(torch, dev, work: Path) -> tuple[dict, dict, dict]:
     the host decoder alone, H264_PASSES times in all; the 1080i MBAFF
     stream the same way (its planes libavcodec's, its frames swscale's,
     H264_MBAFF_PASSES passes); the 4:4:4 stream, this slice's main path,
-    the same way (H264_444_PASSES passes); the kernel at 1280x720 on the
-    CABAC stream's planes for each of H264_COLOURS, at 1920x1080 on the
-    1080i stream's planes with its colour (``mbaff_1920x1080``), and at
-    1280x720 on the 4:4:4 stream's planes for each of CHROMA_CASES.
-    Returns (the launches of the CABAC, the 1080i and the 4:4:4 streams'
-    paths, the fixtures and the streams, the kernel's numbers by case)."""
+    the same way (H264_444_PASSES passes); the High 10 stream, this
+    slice's main path, the same way (H264_DEEP_PASSES passes, its planes
+    16-bit); the kernel at 1280x720 on the CABAC stream's planes for each
+    of H264_COLOURS, at 1920x1080 on the 1080i stream's planes with its
+    colour (``mbaff_1920x1080``), at 1280x720 on the 4:4:4 stream's
+    planes for each of CHROMA_CASES, and at 1280x720 on the High 10
+    stream's planes for each of DEEP_CASES. Returns (the launches of the
+    CABAC, the 1080i, the 4:4:4 and the High 10 streams' paths, the
+    fixtures and the streams, the kernel's numbers by case)."""
     import hashlib
 
     from auformer_torch.data import h264, ingest
@@ -2424,6 +2448,9 @@ def phase_decode_h264(torch, dev, work: Path) -> tuple[dict, dict, dict]:
     expected = json.loads((H264_FIXTURES / "expected.json").read_text())
     t0 = time.perf_counter()
     frames, swscale_frames, checked, refused, cavlc_ms = 0, 0, 0, {}, None
+    plain_frames = 0
+    main = (H264_STREAM, H264_MBAFF_STREAM, H264_444_STREAM,
+            H264_DEEP_STREAM)
     for name, want in expected.items():
         path = str(H264_FIXTURES / name)
         video = Video(path, write=False)
@@ -2434,9 +2461,11 @@ def phase_decode_h264(torch, dev, work: Path) -> tuple[dict, dict, dict]:
                 refused[name] = "A9" in str(e)
                 continue
             fail(f"{name}: a stream the decoder refuses gave a frame")
-        if name in (H264_STREAM, H264_MBAFF_STREAM, H264_444_STREAM):
+        if name in main:
             continue                      # the main paths', below
-        source = want["frames_from"]      # "cv2", or "swscale" (C14)
+        # "cv2"; "swscale" or, deeper than 8 bits, "plain" (yuv_rgb_plain
+        # of libavcodec's planes) where cv2 does not convert (C14)
+        source = want["frames_from"]
         got = [sha(t.cpu().numpy()) for t in video.frame_tensors(dev)]
         if got != want["frames_sha256"]:
             bad = [k for k, (a, b) in enumerate(zip(got, want[
@@ -2461,10 +2490,10 @@ def phase_decode_h264(torch, dev, work: Path) -> tuple[dict, dict, dict]:
             cavlc_ms = 1000 * (time.perf_counter() - t1) / n
         frames += len(got) if source == "cv2" else 0
         swscale_frames += len(got) if source == "swscale" else 0
+        plain_frames += len(got) if source == "plain" else 0
         checked += len(seeks)
     if not refused or not all(refused.values()):
         fail(f"the refused H.264 streams do not name A9: {refused}")
-    main = (H264_STREAM, H264_MBAFF_STREAM, H264_444_STREAM)
     fixtures = {"files": len(expected) - len(refused) - len(main),
                 "cabac_files": sorted(
                     n for n, w in expected.items() if "planes_sha256" in w
@@ -2476,8 +2505,12 @@ def phase_decode_h264(torch, dev, work: Path) -> tuple[dict, dict, dict]:
                     n for n in expected if n.startswith(("yuv4", "gray_",
                                                          "lossless_"))
                     and n not in main),
+                "deep_files": sorted(
+                    n for n in expected if ("high10" in n or "_10_" in n)
+                    and "planes_sha256" in expected[n] and n not in main),
                 "frames_equal_cv2": frames,
                 "frames_equal_swscale": swscale_frames,
+                "frames_equal_plain": plain_frames,
                 "seeks_equal_expected": checked,
                 "refused_naming_a9": sorted(refused),
                 "cavlc_1280x720_host_decode_ms_per_frame": cavlc_ms,
@@ -2508,9 +2541,22 @@ def phase_decode_h264(torch, dev, work: Path) -> tuple[dict, dict, dict]:
         kernels[name] = decode_kernel_case(torch, dev, list(planes), limited,
                                            matrix)
     yuv444["colour_ms_per_frame"] = kernels["yuv444_limited"]["ms"]
-    return (launches, mbaff_launches, yuv444_launches), {
+    # this slice's main path: High 10 at full width, then the kernel's
+    # high-depth route in the three chroma layouts
+    deep_launches, deep, (first, col) = h264_stream(
+        torch, dev, expected, H264_DEEP_STREAM, H264_DEEP_PASSES)
+    y, u, v = [p.to(dev) for p in first]
+    for name, planes in zip(DEEP_CASES, (
+            (y, u, v), (y, *(p.repeat_interleave(2, 0) for p in (u, v))),
+            (y, *(p.repeat_interleave(2, 0).repeat_interleave(2, 1)
+                  for p in (u, v))))):
+        kernels[name] = decode_kernel_case(
+            torch, dev, list(planes), not col[1], col[0], col.bit_depth,
+            col.chroma_loc)
+    deep["colour_ms_per_frame"] = kernels["yuv420_10bit"]["ms"]
+    return (launches, mbaff_launches, yuv444_launches, deep_launches), {
         "fixtures": fixtures, "stream": stream, "mbaff_stream": mbaff,
-        "yuv444_stream": yuv444}, kernels
+        "yuv444_stream": yuv444, "high10_stream": deep}, kernels
 
 
 def h264_stream(torch, dev, expected: dict, name: str,
@@ -2522,7 +2568,8 @@ def h264_stream(torch, dev, expected: dict, name: str,
     size, ``passes`` passes of each timed; read_RGB at the first, middle
     and last frame (the first only for MBAFF's one-GOP 1080i stream, whose
     later seeks decode it whole). Returns (the launches, the stream's
-    numbers, the first frame's host planes and its (matrix, full range))."""
+    numbers, the first frame's host planes and its colour: (matrix, full
+    range), with its bit depth and chroma siting, h264.Colour)."""
     import hashlib
 
     from auformer_torch.data import container, h264
@@ -2713,10 +2760,14 @@ def phase_decode(torch, dev) -> tuple[dict, dict, dict]:
     kernel = dict(kernel, limited_range={key: limited[key] for key in keys},
                   matrices={name: {key: c[key] for key in keys}
                             for name, c in matrices.items()
-                            if name not in CHROMA_CASES},
+                            if name not in CHROMA_CASES + DEEP_CASES},
                   chroma_formats={name: {key: matrices[name][key] for key in
                                          keys + ("chroma_shape",)}
-                                  for name in CHROMA_CASES})
+                                  for name in CHROMA_CASES},
+                  bit_depths={name: {key: matrices[name][key] for key in
+                                     keys + ("chroma_shape", "bit_depth",
+                                             "bytes")}
+                              for name in DEEP_CASES})
     kernel["max_abs_err"] = max([kernel["max_abs_err"], limited["max_abs_err"]]
                                 + [c["max_abs_err"] for c in matrices.values()])
     return launches, mpeg4_launches, h264_launches, kernel
@@ -5131,7 +5182,8 @@ def main() -> int:
     by_path["orbax"] = phase_orbax(torch, dev, split)
     (by_path["decode"], by_path["decode_mpeg4"],
      (by_path["decode_h264"], by_path["decode_h264_mbaff"],
-      by_path["decode_h264_444"]), yuv) = phase_decode(torch, dev)
+      by_path["decode_h264_444"], by_path["decode_h264_high10"]),
+     yuv) = phase_decode(torch, dev)
     shutil.rmtree(split["work"], ignore_errors=True)  # the split, the .pth
     by_path["quickstart"], quickstart_grads = phase_quickstart(torch, dev)
     paths, grad_cases, attention_in_step = phase_train(torch, dev)
@@ -5242,11 +5294,12 @@ def main() -> int:
          "launches_by_path": {p: by_path[p]["yuv_rgb"]
                               for p in ("decode", "decode_mpeg4",
                                         "decode_h264", "decode_h264_mbaff",
-                                        "decode_h264_444")},
+                                        "decode_h264_444",
+                                        "decode_h264_high10")},
          **{key: yuv[key] for key in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms",
                                       "limited_range", "matrices",
-                                      "chroma_formats")}}]}),
+                                      "chroma_formats", "bit_depths")}}]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

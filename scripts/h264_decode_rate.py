@@ -5,14 +5,19 @@ Each root's decoder (``data/native/h264_decode.cpp``) is built with the
 C++ compiler by that root's own ``auformer_torch.data.native.build`` in a
 process of its own, then every library is loaded here and driven through
 its C interface (``h264_open``, ``h264_send``, ``h264_size``,
-``h264_receive``, ``h264_flush``) on the access units of each stream of
-tests/data/videos_h264, read into memory first. One pass decodes a whole
+``h264_chroma``, ``h264_depth`` where the library has it, ``h264_receive``,
+``h264_flush``) on the access units of each stream of tests/data/videos_h264,
+read into memory first: the planes of the stream's chroma format, 16-bit
+for a stream deeper than 8 bits (ipb_high10_1280x720.mp4, which a root
+from before bit depths above 8 refuses: time it on the roots that decode
+it). One pass decodes a whole
 stream; each round times one pass of every root on every stream, the
 roots' order rotated from round to round, so that a drift in the host's
 speed falls on every root alike. The first round only warms up. Every
 root's planes must be the first root's, bit for bit.
 
     python scripts/h264_decode_rate.py --roots ../parent . --rounds 12
+    python scripts/h264_decode_rate.py --streams ipb_high10_1280x720.mp4
 
 Prints one JSON line per root and stream (milliseconds a frame of every
 timed pass on the wall clock and in the thread's CPU time, which leaves
@@ -58,6 +63,9 @@ def load(path: str) -> ctypes.CDLL:
                               ctypes.c_char_p, i]
     lib.h264_flush.argtypes = [ptr, ip, ctypes.c_char_p, i]
     lib.h264_size.argtypes = [ptr, ip, ip, ip, ip]
+    lib.h264_chroma.argtypes, lib.h264_chroma.restype = [ptr], i
+    if hasattr(lib, "h264_depth"):
+        lib.h264_depth.argtypes, lib.h264_depth.restype = [ptr], i
     lib.h264_receive.argtypes = [ptr, ptr, i, ptr, ptr, i,
                                  ctypes.POINTER(ll)]
     return lib
@@ -79,11 +87,15 @@ def decode(lib: ctypes.CDLL, units: list[tuple[int, bytes]],
         for _ in range(ready.value):
             lib.h264_size(h, ctypes.byref(w), ctypes.byref(ht),
                           ctypes.byref(m), ctypes.byref(r))
-            y = np.empty((ht.value, w.value), np.uint8)
-            u, v = (np.empty(((ht.value + 1) // 2, (w.value + 1) // 2),
-                             np.uint8) for _ in range(2))
-            lib.h264_receive(h, y.ctypes.data, y.strides[0], u.ctypes.data,
-                             v.ctypes.data, u.strides[0], ctypes.byref(tag))
+            chroma = lib.h264_chroma(h)
+            deep = hasattr(lib, "h264_depth") and lib.h264_depth(h) > 8
+            dtype = np.uint16 if deep else np.uint8
+            cw = w.value if chroma == 3 else (w.value + 1) // 2
+            ch = ht.value if chroma > 1 else (ht.value + 1) // 2
+            y = np.empty((ht.value, w.value), dtype)
+            u, v = (np.empty((ch, cw), dtype) for _ in range(2))
+            lib.h264_receive(h, y.ctypes.data, y.shape[1], u.ctypes.data,
+                             v.ctypes.data, cw, ctypes.byref(tag))
             frames += 1
             if sha:
                 for p in (y, u, v):

@@ -34,7 +34,9 @@ tests/data/videos_h264/ (x264 through libavcodec, 30 fps, of
 ``x264_source``'s frames: a textured background that pans by fractions of
 a sample and three textured discs that move each their own way, so that
 the motion vectors vary, in the pixel format the file's name selects
-(``pix_fmt_of``: yuv420p, or yuv444p, yuv422p, gray and yuv420p10le); each
+(``pix_fmt_of``: yuv420p, or yuv444p, yuv422p, gray, and yuv420p10le,
+yuv422p10le and yuv444p10le, whose samples are four times the 8-bit ones);
+each
 stream muxed by auformer_torch.data.fixtures,
 in MP4 with avcC, stss, and ctts plus an edit list where there are B
 frames, or in AVI). ``X264_STREAMS`` lists each file's size, frame count,
@@ -43,18 +45,23 @@ the account beside cv2's numbers: the JAX package's ``count_frames()`` and
 its timestamps text; for the streams the port decodes, also the SHA-256 of
 each RGB frame and of ``read_RGB(k)`` at ``SEEKS_X264`` (null past the last
 frame), and the SHA-256 of each frame's Y, U and V planes from libavcodec's
-own ``h264`` decoder (``planes_sha256``), so that a mismatch can be placed
-in the decoder or in the colour conversion. The frames are cv2's where
-they are real (``frames_from`` "cv2": the same in another process and
-equal to swscale's conversion of libavcodec's planes); cv2 flags MBAFF
+own ``h264`` decoder (``planes_sha256``; samples deeper than 8 bits as
+16-bit little-endian words), so that a mismatch can be placed in the
+decoder or in the colour conversion. The frames are cv2's where they are
+real (``frames_from`` "cv2": the same in another process and equal to
+swscale's conversion of libavcodec's planes; deeper than 8 bits, to
+auformer_torch's ``yuv_rgb_plain`` of them, since the system's libswscale
+6.7 converts those by another route than cv2's 9.5); cv2 flags MBAFF
 frames interlaced and returns a buffer it never wrote (ROADMAP.md C14), so
 for those streams they are the system's libswscale 6.7 conversion of
 libavcodec's frames, with cv2's flags (``frames_from`` "swscale"), a
 route the script first checks against every progressive stream's cv2
 frames bit for bit: libswscale 6.7 and cv2's 9.5 agree on the 4:4:4,
 4:2:2 and monochrome streams too (libavcodec puts monochrome out as
-yuv420p with chroma 128). x264 drops weightp on interlaced streams. The
-refused High 10 stream keeps only cv2's count and timestamps.
+yuv420p with chroma 128). An MBAFF stream deeper than 8 bits has
+``yuv_rgb_plain``'s frames of libavcodec's planes (``frames_from``
+"plain"). x264 drops weightp on interlaced streams. The refused stream
+(4:2:2 coded for fields) keeps only cv2's count and timestamps.
 """
 from __future__ import annotations
 
@@ -292,11 +299,49 @@ X264_STREAMS = [
      "bframes=3:b-pyramid=normal:ref=3:8x8dct=1:crf=26",
      "4:4:4 at full width: x264's High 4:4:4 defaults at an encoder's "
      "rate (crf 26)"),
-    # refused by the port: NotImplementedError naming A9
     ("high10_176x144.mp4", 176, 144, 3, "cabac=0",
-     "10-bit 4:2:0 (High 10): a bit depth above 8"),
+     "10-bit 4:2:0 (High 10) CAVLC: 16-bit samples, swscale's high-depth "
+     "route in cv2"),
+    # bit depths above 8 (pix_fmt_of: yuv420p10le, yuv422p10le,
+    # yuv444p10le)
+    ("high10_cabac_176x144.mp4", 176, 144, 24,
+     "bframes=3:b-pyramid=normal:ref=3:weightp=2:8x8dct=1:keyint=12",
+     "High 10 CABAC: B-pyramids, explicit weighted P prediction with "
+     "offsets scaled to 10 bits, the 8x8 transform, the deblocking "
+     "filter's thresholds scaled to 10 bits"),
+    ("high10_cqm_cabac_176x144.mp4", 176, 144, 12,
+     "cqm=jvt:8x8dct=1:bframes=2:keyint=12",
+     "High 10 with the default scaling lists"),
+    ("high10_qp_low_176x144.mp4", 176, 144, 12,
+     "qp=4:bframes=2:8x8dct=1:analyse=all:keyint=12",
+     "High 10 at x264's QP 4 (QP'Y 4): a negative slice QPY, QpBdOffset "
+     "in every QP, mb_qp_delta's wider range"),
+    ("high10_lossless_176x144.mp4", 176, 144, 12, "qp=0:bframes=2:keyint=12",
+     "10-bit transform bypass (QP'Y 0, QPY -12)"),
+    ("high422_10_cabac_176x144.mp4", 176, 144, 24,
+     "bframes=3:b-pyramid=normal:ref=3:8x8dct=1:analyse=all:keyint=12",
+     "High 4:2:2 at 10 bits: swscale's high-depth route without vertical "
+     "chroma interpolation"),
+    ("high444_10_cabac_176x144.mp4", 176, 144, 24,
+     "bframes=3:b-pyramid=normal:ref=3:weightp=2:8x8dct=1:analyse=all:"
+     "keyint=12",
+     "High 4:4:4 Predictive at 10 bits: the full-chroma route from 15-bit "
+     "samples"),
+    ("mbaff_high10_cabac_176x144.mp4", 176, 144, 24,
+     "interlaced=1:bframes=3:b-pyramid=normal:ref=3:8x8dct=1:keyint=12",
+     "MBAFF at 10 bits: held to libavcodec's planes and to yuv_rgb_plain "
+     "of them (frames_from \"plain\": cv2 does not convert MBAFF frames, "
+     "C14, and libswscale 6.7's 10-bit route is not cv2's)"),
+    ("ipb_high10_1280x720.mp4", 1280, 720, 24,
+     "bframes=3:b-pyramid=normal:ref=3:8x8dct=1:crf=26",
+     "x264's High 10 defaults at full width, at an encoder's rate (crf "
+     "26): a 10-bit capture re-encoded"),
+    # refused by the port: NotImplementedError naming A9
+    ("mbaff_yuv422_176x144.mp4", 176, 144, 6, "interlaced=1",
+     "4:2:2 coded for fields (interlaced, chroma_format_idc 2 with "
+     "frame_mbs_only_flag 0)"),
 ]
-X264_REFUSED = ("high10_",)
+X264_REFUSED = ("mbaff_yuv422_",)
 
 X264_TOOL = r"""
 #include <stdint.h>
@@ -311,8 +356,8 @@ X264_TOOL = r"""
 #include <libswscale/swscale.h>
 
 /* encode W H N PIX_FMT PARAMS OUT: raw planar frames of the pixel format
-   (yuv420p, yuv422p, yuv444p, gray, yuv420p10le) on stdin; each packet to
-   OUT as int64 pts, int64 dts, int32 key, int32 size, bytes */
+   (yuv420p, yuv422p, yuv444p, gray and the 10le ones) on stdin; each
+   packet to OUT as int64 pts, int64 dts, int32 key, int32 size, bytes */
 static int put(AVCodecContext *c, AVPacket *p, FILE *out) {
   int rc;
   while ((rc = avcodec_receive_packet(c, p)) == 0) {
@@ -423,14 +468,16 @@ static int decode(const char *path, const char *bgr_path) {
     }
     while (avcodec_receive_frame(c, f) == 0) {
       const AVPixFmtDescriptor *d = av_pix_fmt_desc_get(f->format);
-      if (d->comp[0].depth != 8 || (d->flags & AV_PIX_FMT_FLAG_RGB))
-        return 23;
+      if (d->flags & AV_PIX_FMT_FLAG_RGB) return 23;
       fprintf(stderr, "format %s\n", d->name); /* x264_planes reads it */
+      /* samples deeper than 8 bits as libavcodec holds them: 16-bit
+         little endian */
+      int bytes = d->comp[0].depth > 8 ? 2 : 1;
       for (int k = 0; k < av_pix_fmt_count_planes(f->format); ++k) {
         int pw = k ? -((-f->width) >> d->log2_chroma_w) : f->width;
         int ph = k ? -((-f->height) >> d->log2_chroma_h) : f->height;
         for (int r = 0; r < ph; ++r)
-          fwrite(f->data[k] + r * f->linesize[k], 1, pw, out);
+          fwrite(f->data[k] + r * f->linesize[k], bytes, pw, out);
       }
       if (rgb && bgr(f, rgb)) return 24;
       av_frame_unref(f);
@@ -518,7 +565,7 @@ def x264_source(seed: int, t: int, height: int, width: int,
     planes = [np.clip(np.rint(p), 0, 255).astype(np.uint8) for p in (y, u, v)]
     if pix_fmt == "gray":
         return planes[:1]
-    if pix_fmt == "yuv420p10le":
+    if pix_fmt.endswith("10le"):
         return [p.astype("<u2") * 4 for p in planes]
     return planes
 
@@ -526,13 +573,18 @@ def x264_source(seed: int, t: int, height: int, width: int,
 # the chroma subsampling (rows, columns) of each pixel format x264 writes
 # here; gray's has no chroma planes
 PIX_FMTS = {"yuv420p": (2, 2), "yuv422p": (1, 2), "yuv444p": (1, 1),
-            "gray": (1, 1), "yuv420p10le": (2, 2)}
+            "gray": (1, 1), "yuv420p10le": (2, 2), "yuv422p10le": (1, 2),
+            "yuv444p10le": (1, 1)}
 
 
 def pix_fmt_of(name: str) -> str:
-    """The pixel format of X264_STREAMS' file ``name``."""
-    for tag, fmt in (("yuv444", "yuv444p"), ("yuv422", "yuv422p"),
-                     ("gray", "gray"), ("high10", "yuv420p10le")):
+    """The pixel format of X264_STREAMS' file ``name``: 10-bit for the
+    High 10, High 4:2:2 10 and High 4:4:4 10 streams (``high10``,
+    ``high422_10``, ``high444_10``)."""
+    for tag, fmt in (("high422_10", "yuv422p10le"),
+                     ("high444_10", "yuv444p10le"),
+                     ("high10", "yuv420p10le"), ("yuv444", "yuv444p"),
+                     ("yuv422", "yuv422p"), ("gray", "gray")):
         if tag in name:
             return fmt
     return "yuv420p"
@@ -575,11 +627,13 @@ def x264_encode(tool: str, tmp: str, width: int, height: int, n: int,
 
 
 def x264_planes(tool: str, tmp: str, units: list[bytes], width: int,
-                height: int) -> tuple[list[dict], list[str]]:
+                height: int) -> tuple[list[dict], list[str], list[tuple]]:
     """SHA-256 of libavcodec's planes of each frame it outputs (Y, U and V;
-    Y alone for a gray frame), and of each frame as swscale converts it to
-    RGB (the route cv2 takes, done here with the system's libswscale, which
-    converts interlaced frames as it does progressive ones)."""
+    Y alone for a gray frame; 16-bit little-endian samples for a format
+    deeper than 8 bits), of each frame as swscale converts it to RGB (the
+    route cv2 takes at 8 bits, done here with the system's libswscale,
+    which converts interlaced frames as it does progressive ones), and the
+    planes themselves of the frames deeper than 8 bits (int16 arrays)."""
     import struct
     import subprocess
     out, bgr = os.path.join(tmp, "planes"), os.path.join(tmp, "bgr")
@@ -590,19 +644,25 @@ def x264_planes(tool: str, tmp: str, units: list[bytes], width: int,
     formats = [line.split()[1] for line in run.stderr.decode().splitlines()
                if line.startswith("format ")]
     raw = np.fromfile(out, np.uint8)
-    frames, off = [], 0
+    frames, deep, off = [], [], 0
     for fmt in formats:
         sy, sx = PIX_FMTS[fmt.replace("yuvj", "yuv")]
         cw, ch = -(-width // sx), -(-height // sy)
-        sizes = [width * height] + ([] if fmt == "gray" else [cw * ch] * 2)
-        entry = {}
-        for key, size in zip("yuv", sizes):
-            entry[key] = sha(raw[off:off + size])
-            off += size
+        shapes = [(height, width)] + ([] if fmt == "gray" else [(ch, cw)] * 2)
+        size = 2 if fmt.endswith("10le") else 1
+        entry, arrays = {}, []
+        for key, shape in zip("yuv", shapes):
+            n = size * shape[0] * shape[1]
+            entry[key] = sha(raw[off:off + n])
+            arrays.append(raw[off:off + n].view("<i2").reshape(shape)
+                          if size == 2 else None)
+            off += n
         frames.append(entry)
+        if size == 2:
+            deep.append(tuple(arrays))
     assert off == raw.size, "libavcodec's planes do not add up"
     rgb = np.fromfile(bgr, np.uint8).reshape(-1, height, width, 3)[..., ::-1]
-    return frames, [sha(f) for f in rgb]
+    return frames, [sha(f) for f in rgb], deep
 
 
 def cv2_frames_elsewhere(path: str) -> list[str]:
@@ -654,8 +714,10 @@ def x264_mux(path: str, packets: list[tuple], width: int, height: int
 
 def write_x264(out: str) -> None:
     """tests/data/videos_h264/ (module docstring)."""
+    import torch
     from auformer.data import ingest
     from auformer.data.video import Video
+    from auformer_torch.ops.colour import yuv_rgb_plain
     os.makedirs(out, exist_ok=True)
     expected = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -676,31 +738,49 @@ def write_x264(out: str) -> None:
                 expected[name] = entry
                 print(name, os.path.getsize(path), "bytes")
                 continue
-            planes, converted = x264_planes(
+            planes, converted, deep = x264_planes(
                 tool, tmp, [u for _, _, u in packets], w, h)
             v = Video(path, write=False)
             theirs = [sha(f) for f in v.frames()]
-            # cv2's frames are real when they are swscale's conversion of
-            # libavcodec's planes and the same in another process; where
-            # libavcodec flags a frame interlaced, cv2's newer swscale
-            # refuses it and cv2 returns a buffer never written (C14)
-            real = theirs == converted and (
-                field_order(params) is None and "interlaced" not in params
-                or cv2_frames_elsewhere(path) == theirs)
+            progressive = (field_order(params) is None
+                           and "interlaced" not in params)
+            if deep:
+                # libswscale 6.7's high-depth route is not cv2's 9.5: the
+                # frames are cv2's where they are real, else yuv_rgb_plain
+                # of libavcodec's planes (the VUI gives no colour here),
+                # which must give cv2's on every progressive stream
+                assert not any(o in params for o in ("colormatrix",
+                                                     "fullrange"))
+                source, reference = "plain", [sha(yuv_rgb_plain(
+                    *(torch.from_numpy(p) for p in yuv), limited=True,
+                    bit_depth=10).numpy()) for yuv in deep]
+                real = progressive and cv2_frames_elsewhere(path) == theirs
+                if progressive:
+                    assert real and reference == theirs, \
+                        f"{name}: yuv_rgb_plain's frames are not cv2's"
+            else:
+                # cv2's frames are real when they are swscale's conversion
+                # of libavcodec's planes and the same in another process;
+                # where libavcodec flags a frame interlaced, cv2's newer
+                # swscale refuses it and cv2 returns a buffer never
+                # written (C14)
+                source, reference = "swscale", converted
+                real = theirs == converted and (
+                    progressive or cv2_frames_elsewhere(path) == theirs)
+                # the swscale route reproduces cv2 wherever cv2's frames
+                # are real: the progressive streams check it
+                if progressive:
+                    assert real, f"{name}: swscale's frames are not cv2's"
             if real:
                 seeks = {str(k): sha(img) if (img := v.read_RGB(k))
                          is not None else None for k in SEEKS_X264}
             else:
-                seeks = {str(k): converted[k] if k < len(converted) else None
+                seeks = {str(k): reference[k] if k < len(reference) else None
                          for k in SEEKS_X264}
             v.release()
-            # the swscale route reproduces cv2 wherever cv2's frames are
-            # real: the progressive streams check it
-            if field_order(params) is None and "interlaced" not in params:
-                assert real, f"{name}: swscale's frames are not cv2's"
-            entry.update(frames_sha256=theirs if real else converted,
+            entry.update(frames_sha256=theirs if real else reference,
                          read_RGB_sha256=seeks, planes_sha256=planes,
-                         frames_from="cv2" if real else "swscale")
+                         frames_from="cv2" if real else source)
             expected[name] = entry
             print(name, os.path.getsize(path), "bytes")
     with open(os.path.join(out, "expected.json"), "w") as f:

@@ -1157,6 +1157,64 @@ def test_yuv_rgb_444_kernel_matches_plain(cuda_device, matrix, limited):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("depth", [10, 9, 12, 14])
+@pytest.mark.parametrize("layout", [(1, 1), (0, 1), (0, 0)],
+                         ids=["420", "422", "444"])
+@pytest.mark.parametrize("matrix,limited", [(2, True), (1, True),
+                                            (2, False), (9, False)])
+def test_yuv_rgb_deep_kernel_matches_plain(cuda_device, depth, layout,
+                                           matrix, limited):
+    """The kernel's high-depth route (swscale's scaler: the bicubic chroma
+    taps across and down, the packed outputs of the rows above the last
+    two and of the last two) equals its plain version bit for bit on
+    pitched int16 planes of random samples, both ends among them, at
+    1280x720 and at a small odd-rowed frame."""
+    from auformer_torch.ops import colour
+    v_shift, h_shift = layout
+    rs = np.random.RandomState(depth + matrix)
+    for h, w in ((720, 1280), (37, 40)):
+        ch, cw = -(-h >> v_shift), -(-w >> h_shift)
+        top = (1 << depth) - 1
+        luma = rs.randint(0, top + 1, (h, w + 16)).astype(np.int16)
+        luma[0, :8] = top
+        chroma = rs.randint(0, top + 1, (ch, 2 * cw + 32)).astype(np.int16)
+        chroma[-1, :8] = 0
+
+        def planes(luma, chroma):
+            return luma[:, :w], chroma[:, :cw], chroma[:, cw + 16:2 * cw + 16]
+
+        luma, chroma = torch.from_numpy(luma), torch.from_numpy(chroma)
+        want = colour.yuv_rgb_plain(*planes(luma, chroma), limited, matrix,
+                                    depth)
+        before = colour.yuv_rgb.launches
+        got = colour.yuv_rgb(*planes(luma.to(cuda_device),
+                                     chroma.to(cuda_device)), limited,
+                             matrix, depth)
+        torch.cuda.synchronize()
+        assert colour.yuv_rgb.launches == before + 1
+        assert torch.equal(got.cpu(), want), (h, w)
+
+
+@pytest.mark.parametrize("chroma_loc", range(7))
+@pytest.mark.parametrize("layout", [(1, 1), (0, 1)], ids=["420", "422"])
+def test_yuv_rgb_deep_kernel_sitings(cuda_device, chroma_loc, layout):
+    """The high-depth route's filters for each chroma siting (unspecified,
+    then the six of AVChromaLocation): the kernel equals its plain version
+    on 10-bit 1280x720 planes."""
+    from auformer_torch.ops import colour
+    v_shift, _ = layout
+    rs = np.random.RandomState(chroma_loc)
+    h, w = 720, 1280
+    c = (h >> v_shift, w // 2)
+    planes = [torch.from_numpy(rs.randint(0, 1024, s).astype(np.int16))
+              for s in ((h, w), c, c)]
+    want = colour.yuv_rgb_plain(*planes, True, 2, 10, chroma_loc)
+    got = colour.yuv_rgb(*[p.to(cuda_device) for p in planes], True, 2, 10,
+                         chroma_loc)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
 def test_h264_frames_on_the_card(cuda_device):
     """Video.frame_tensors on the card for every H.264 fixture the decoder
     takes: the port's decoder on the host, the planes copied to the card,

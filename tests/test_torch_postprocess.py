@@ -169,7 +169,7 @@ def _png_tree(tmp_path):
 
 
 H264 = os.path.join(os.path.dirname(VIDEOS), "videos_h264",
-                    "high10_176x144.mp4")
+                    "mbaff_yuv422_176x144.mp4")
 
 
 @pytest.mark.parametrize("call", [
@@ -182,10 +182,11 @@ H264 = os.path.join(os.path.dirname(VIDEOS), "videos_h264",
     lambda t: next(Video(H264, write=False).frames(device="cpu")),
 ], ids=["read_RGB", "extract_timestamps", "probe_video_meta", "frames"])
 def test_decoder_paths_raise_naming_a9(tmp_path, call):
-    """What still needs a decoder tool the port does not have (H.264 at a
-    bit depth above 8: NVDEC is refused by the card's container, and the
-    port's own software decoder reads 8-bit streams only) or a container
-    the port does not read (Matroska, fragmented MP4) raises naming A9."""
+    """What still needs a decoder tool the port does not have (H.264 4:2:2
+    coded for fields: NVDEC is refused by the card's container, and the
+    port's own software decoder reads 4:2:0 alone in streams coded for
+    fields) or a container the port does not read (Matroska, fragmented
+    MP4) raises naming A9."""
     with pytest.raises(NotImplementedError, match="A9"):
         call(tmp_path)
 

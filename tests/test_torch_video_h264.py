@@ -13,11 +13,13 @@ scaling lists, a fake-interlaced stream (frame_mbs_only_flag 0 without
 MBAFF) whose frames cv2 reads as progressive, and the MBAFF streams, whose
 frames cv2 does not convert (ROADMAP.md C14): theirs are held to swscale's
 conversion of libavcodec's planes, their counts and timestamps to cv2's.
-What only MBAFF has is tested in test_torch_video_h264_mbaff.py. Every tool the decoder refuses raises
-naming ROADMAP.md queue A9: on an x264 stream (High 10) and on streams
-whose headers are written here, where scaling lists in the SPS or PPS,
-monochrome, 4:2:2 and the transform bypass flag decode (the other chroma
-formats and lossless coding: test_torch_video_h264_chroma.py).
+What only MBAFF has is tested in test_torch_video_h264_mbaff.py, what only
+bit depths above 8 have (the 10-bit streams are among those held here) in
+test_torch_video_h264_depth.py. Every tool the decoder refuses raises
+naming ROADMAP.md queue A9: on an x264 stream (4:2:2 coded for fields) and
+on streams whose headers are written here, where scaling lists in the SPS
+or PPS, monochrome, 4:2:2 and the transform bypass flag decode (the other
+chroma formats and lossless coding: test_torch_video_h264_chroma.py).
 The last part holds MPEG-4 part 2's colour description to cv2 (ROADMAP.md
 C13).
 """
@@ -164,10 +166,10 @@ def test_coefficients_are_swscales():
 @pytest.mark.parametrize("name", REFUSED)
 @pytest.mark.parametrize("call", ["read_RGB", "frames", "frame_tensors"])
 def test_refused_streams_raise_naming_a9(name, call, tmp_path):
-    """A bit depth above 8 (an x264 High 10 stream, high10_176x144.mp4,
-    the one x264 stream the decoder refuses) raises NotImplementedError
-    naming A9 from each entry point; the count and the timestamps, which
-    need no pixels, are still cv2's."""
+    """4:2:2 coded for fields (an x264 --interlaced 4:2:2 stream,
+    mbaff_yuv422_176x144.mp4, the one x264 stream the decoder refuses)
+    raises NotImplementedError naming A9 from each entry point; the count
+    and the timestamps, which need no pixels, are still cv2's."""
     path = str(D / name)
     v = Video(path, write=False)
     with pytest.raises(NotImplementedError, match="A9"):
@@ -397,7 +399,7 @@ LIST8 = [8 + k // 4 for k in range(64)]
     ("SP and SI", lambda: (_sps(), _pps(), _idr(slice_type=9))),
     ("chroma_format_idc 0", lambda: (_sps(chroma=0), _pps(), _idr(pcm=256))),
     ("chroma_format_idc 2", lambda: (_sps(chroma=2), _pps(), _idr(pcm=512))),
-    ("bit depth", lambda: (_sps(depth=2), _pps(), _idr())),
+    ("bit depth of 11", lambda: (_sps(depth=3), _pps(), _idr())),
     ("qpprime_y_zero_transform_bypass",
      lambda: (_sps(bypass=1), _pps(), _idr())),
     ("separate_colour_plane_flag 1",

@@ -393,13 +393,13 @@ def test_packed_count_and_timestamps_equal_jax(tmp_path, signature, n_vops):
 
 
 def test_h264_still_raises_and_mpeg4_needs_no_nvdec(monkeypatch):
-    """H.264 frames the port's decoder refuses (High 10: a bit depth above
-    8) still raise naming A9; H.264 and MPEG-4 frames decode without the
+    """H.264 frames the port's decoder refuses (4:2:2 coded for fields)
+    still raise naming A9; H.264 and MPEG-4 frames decode without the
     NVDEC probe (it is never asked) and the GPU default still raises
     without a GPU."""
     from auformer_torch.data import nvdec
     monkeypatch.setattr(nvdec, "caps", lambda *a: pytest.fail("NVDEC"))
-    v = Video(str(D.parent / "videos_h264" / "high10_176x144.mp4"),
+    v = Video(str(D.parent / "videos_h264" / "mbaff_yuv422_176x144.mp4"),
               write=False)
     with pytest.raises(NotImplementedError, match="A9"):
         v.read_RGB(0, device="cpu")
