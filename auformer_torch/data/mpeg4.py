@@ -7,10 +7,16 @@ host. The port decodes them on the host too, with
 ``data/native/mpeg4_decode.cpp``, built with the C++ compiler into
 ``.cache/native`` at first use (``data/native``): its Y, U and V planes
 are ffmpeg's bit for bit, and ``ops/colour.py``'s limited-range
-``yuv_rgb`` turns them into cv2's RGB frames. There is no fallback: a
+``yuv_rgb`` turns them into cv2's RGB frames. That holds for the streams
+XviD writes too (its signature "XviD..." in the user data): ffmpeg, and
+the decoder, take XviD's inverse DCT for them (``inverse_dct``), and
+read their packed B-VOPs and quarter-pel vectors. There is no fallback: a
 decoder that does not build, a stream that does not decode and a tool the
-decoder refuses (``NotImplementedError`` naming ROADMAP.md queue A9) all
-raise.
+decoder refuses (``NotImplementedError`` naming ROADMAP.md queue A9:
+interlacing, GMC and sprites, data partitioning, the short video header,
+and the streams ffmpeg decodes with an encoder's bug workarounds, such as
+XviD builds of 32 and below, a bare XVID fourcc, DivX 4 and quarter-pel
+DivX) all raise.
 
 ``decode_range(path, index, start_key, stop, device)`` feeds the packets
 of ``container.access_units`` from the sync packet ``start_key`` in
@@ -32,9 +38,10 @@ counts) and the timestamps (``container``) follow the rule the frames
 follow. No frame for a VOP of vop_coded 0 or a B-VOP ffmpeg drops, and
 the last frame once more where a low-delay stream ends with a VOP of
 vop_coded 0. It refuses only what leaves the VOP headers unread (the
-short video header, scalable layers), none of the pixel tools, and reads
-a packed bitstream (two VOPs in one AVI chunk) as ffmpeg does, though the
-full decode refuses its frames.
+short video header, scalable layers), none of the pixel tools. Both read
+a packed bitstream (two VOPs in one AVI chunk) as ffmpeg does, and skip
+the one-byte chunks XviD's and DivX's codecs store for a frame they hold
+back.
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ import ctypes
 import functools
 from typing import Iterator
 
+import numpy as np
 import torch
 
 from . import container
@@ -71,7 +79,19 @@ def _library() -> ctypes.CDLL:
     lib.m4v_low_delay.restype = i
     lib.m4v_colour.argtypes = [ptr, ip, ip]
     lib.m4v_colour.restype = None
+    lib.m4v_idct.argtypes = [i, ptr, ptr]
+    lib.m4v_idct.restype = None
     return lib
+
+
+def inverse_dct(coefs, xvid: bool):
+    """The decoder's inverse DCT of an 8x8 block of int16 coefficients in
+    raster order (a numpy array), before clipping: XviD's, which it uses
+    for a stream with XviD's signature, or ffmpeg's simple one."""
+    block = np.ascontiguousarray(coefs, dtype=np.int16).reshape(64)
+    out = np.empty(64, np.int32)
+    _library().m4v_idct(int(xvid), block.ctypes.data, out.ctypes.data)
+    return out.reshape(8, 8)
 
 
 class Decoder:
@@ -241,6 +261,16 @@ def decode_range(path: str, index: dict | None = None, start_key: int = 0,
         dec.close()
 
 
+def _returned(dec: Decoder, units) -> Iterator[tuple[int, int, int | None]]:
+    """The frames ``dec`` (a headers-only decoder) returns for ``units`` as
+    ``output_frames`` lists them, each as soon as it is returned."""
+    for k, unit in enumerate(units):
+        if dec.send(unit, k):
+            yield dec.receive_tag() + (k,)
+    if dec.flush():
+        yield dec.receive_tag() + (None,)
+
+
 def output_frames(units) -> tuple[list[tuple[int, int, int | None]], bool]:
     """The frames the decoder returns for ``units`` (MPEG-4 part 2 access
     units in decode order), in the order it returns them (module
@@ -250,14 +280,21 @@ def output_frames(units) -> tuple[list[tuple[int, int, int | None]], bool]:
     a VOP of vop_coded 0, position of the unit whose decoding returned it
     or None at the end of the stream)."""
     dec = Decoder(headers_only=True)
-    out: list[tuple[int, int, int | None]] = []
     try:
-        for k, unit in enumerate(units):
-            if dec.send(unit, k):
-                out.append(dec.receive_tag() + (k,))
-        if dec.flush():
-            out.append(dec.receive_tag() + (None,))
-        return out, dec.low_delay()
+        return list(_returned(dec, units)), dec.low_delay()
+    finally:
+        dec.close()
+
+
+def first_returned(units) -> tuple[int | None, bool]:
+    """(the position in ``units`` of the unit whose decoding returns the
+    first frame, or None where only the end of the stream returns one;
+    whether the stream is low delay so far), reading ``units`` only as far
+    as that unit (``output_frames``)."""
+    dec = Decoder(headers_only=True)
+    try:
+        first = next(_returned(dec, units), None)
+        return (None if first is None else first[2]), dec.low_delay()
     finally:
         dec.close()
 

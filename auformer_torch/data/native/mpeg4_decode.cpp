@@ -2,8 +2,9 @@
 // frames that the JAX package reads through cv2, whose FFMPEG capture
 // decodes them with ffmpeg's "mpeg4" decoder. The target is that decoder's
 // output bit for bit, so where the standard leaves room (the inverse DCT,
-// the handling of the frame edge, the rounding of each half-pel average,
-// which frames a skipped VOP yields) this file does what ffmpeg does.
+// the handling of the frame edge, the rounding of each half- and
+// quarter-pel average, which frames a skipped VOP yields) this file does
+// what ffmpeg does.
 //
 // Decoded: the Simple and Advanced Simple profiles' rectangular, progressive,
 // 8-bit 4:2:0 tools. I-, P- and B-VOPs; MCBPC, CBPY, DQUANT; intra DC by
@@ -11,22 +12,30 @@
 // and inter TCOEF VLCs with the three escapes; AC/DC prediction with the
 // zigzag and alternate scans; H.263 and MPEG quantisation with default or
 // loaded matrices (MPEG's inter mismatch control); ffmpeg's simple inverse
-// DCT; 1MV and 4MV with the median predictor, f_code ranges, unrestricted
+// DCT, or for a stream that carries XviD's signature XviD's (ffmpeg's x86
+// ff_xvid_idct_sse2, whose 16-bit saturating sums this file reproduces);
+// 1MV and 4MV with the median predictor, f_code ranges, unrestricted
 // MVs over the edge of the macroblock-aligned picture, half-pel luma and
-// chroma prediction with vop_rounding_type; B-VOPs' direct (with TRB/TRD
-// from the time codes), interpolated, backward and forward macroblocks,
-// DBQUANT, and the macroblocks skipped where the co-located one was not
-// coded; video packets after resync markers, header extension included;
-// VOPs with vop_coded 0, which yield no frame.
+// chroma prediction with vop_rounding_type; quarter-pel luma prediction
+// (the 8-tap filter mirrored at the block's edge, 16x16 and 8x8) with
+// ffmpeg's chroma vectors; B-VOPs' direct (with TRB/TRD from the time
+// codes; 8x8 prediction in a quarter-pel stream), interpolated, backward
+// and forward macroblocks, DBQUANT, and the macroblocks skipped where the
+// co-located one was not coded; video packets after resync markers, header
+// extension included; VOPs with vop_coded 0, which yield no frame; packed
+// bitstreams (below); the one-byte units XviD's and DivX's codecs store for
+// a frame they hold back, which ffmpeg skips where the stream is signed.
 //
 // Refused, with an error that names ROADMAP.md queue A9 (err code 2):
-// interlaced VOLs, quarter-pel, sprites and GMC (S-VOPs), data partitioning
-// and reversible VLCs, the short video header (H.263), shapes other than
+// interlaced VOLs, sprites and GMC (S-VOPs), data partitioning and
+// reversible VLCs, the short video header (H.263), shapes other than
 // rectangular, not_8_bit, newpred, scalability, reduced resolution, the
-// complexity estimation header, a packed bitstream (two VOPs in one unit),
-// and streams for which ffmpeg applies an encoder's bug workarounds or
-// XviD's inverse DCT (user data of DivX, XviD, old libavcodec builds, or an
-// XviD fourcc without a libavcodec signature).
+// complexity estimation header, and the streams for which ffmpeg applies
+// an encoder's bug workarounds: XviD builds of 32 and below, and a bare
+// XVID, XVIX, RMP4, ZMP4 or SIPP fourcc without a signature, which ffmpeg
+// takes for XviD build 0; DivX before 5, DivX 5.01 build 20020416 and
+// quarter-pel DivX streams (without XviD's signature beside DivX's: with
+// it ffmpeg drops DivX's); old libavcodec builds; the XVIX and UMP4 tags.
 //
 // A decoder opened with headers_only reads each VOP only as far as
 // vop_coded and decodes no macroblock: it gives the frames ffmpeg's decoder
@@ -34,7 +43,7 @@
 // output_frames: the frame count and the timestamps), by the same rule as
 // the full decode. Of the tools above it refuses only the short video
 // header and the Studio and scalable layers, whose VOP headers it does not
-// read, and it reads a packed bitstream as ffmpeg does: with
+// read. Both read a packed bitstream as ffmpeg does: with
 // DivX's packed flag (user data "DivX...p") the second VOP of a unit, if
 // it is an I- or B-VOP, is kept and decoded in place of the next unit; a
 // unit of at most 19 bytes (a DivX N-VOP) takes it without the flag; any
@@ -54,6 +63,7 @@
 //                     long long* props);
 //   int   m4v_low_delay(void* h);
 //   void  m4v_colour(void* h, int* matrix, int* full_range);
+//   void  m4v_idct(int xvid, const int16_t* coefs, int* out);
 // m4v_send decodes one access unit (any VOS, VO, VOL, GOV and user data
 // headers, then one VOP) and sets *ready to the number of frames now ready
 // for output (0 or 1), in the order ffmpeg outputs them: a B-VOP at once,
@@ -69,8 +79,10 @@
 // skipped_last_frame). m4v_colour gives the matrix_coefficients (2 where
 // none was sent) and the video_range of the last visual object header's
 // video_signal_type. m4v_low_delay says whether the stream returns each
-// VOP at once. Calls return 0, or 1 for a malformed stream and 2 for a
-// refused tool, with the message in err.
+// VOP at once. m4v_idct gives the inverse DCT of 64 coefficients in raster
+// order, XviD's or the simple one, before clipping. Calls return 0, or 1
+// for a malformed stream and 2 for a refused tool, with the message in
+// err.
 
 #include <algorithm>
 #include <cstdint>
@@ -430,23 +442,118 @@ void idct_col(const int16_t* col, int out[8]) {
   out[7] = (int)(a0 - b0) >> COL_SHIFT;
 }
 
-void idct_put(int16_t* block, uint8_t* dst, int stride) {
+void simple_idct(int16_t* block, int out[64]) {  // out[8 * row + col]
   for (int i = 0; i < 8; ++i) idct_row(block + 8 * i);
-  int out[8];
+  int col[8];
   for (int i = 0; i < 8; ++i) {
-    idct_col(block + i, out);
-    for (int k = 0; k < 8; ++k) dst[k * stride + i] = clip8(out[k]);
+    idct_col(block + i, col);
+    for (int k = 0; k < 8; ++k) out[8 * k + i] = col[k];
   }
 }
 
-void idct_add(int16_t* block, uint8_t* dst, int stride) {
-  for (int i = 0; i < 8; ++i) idct_row(block + 8 * i);
-  int out[8];
+// ---- XviD's inverse DCT (ffmpeg's xvididct.c, x86/xvididct.asm) ---------
+//
+// ffmpeg decodes a stream that carries XviD's signature with it. On x86
+// (cv2's build) that is ff_xvid_idct_sse2: the rows by 32-bit multiply-adds
+// with a rounder per row, packed to 16 bits with saturation; the columns
+// in 16-bit lanes, each sum and difference saturating (paddsw, psubsw) and
+// each product the high half of a 16x16-bit one (pmulhw, tan3 as tan3 - 1
+// plus the input). It equals ff_xvid_idct (the C version) wherever no
+// sum passes 16 bits, and differs where one does; both were held against
+// libavcodec's own on random blocks through its AVDCT interface.
+
+const int kXvidTab[4][7] = {{22725, 21407, 19266, 16384, 12873, 8867, 4520},
+                            {31521, 29692, 26722, 22725, 17855, 12299, 6270},
+                            {29692, 27969, 25172, 21407, 16819, 11585, 5906},
+                            {26722, 25172, 22654, 19266, 15137, 10426, 5315}};
+// the table and rounder of each row (rows 0 and 4 share a table, as do
+// 1 and 7, 2 and 6, 3 and 5)
+const int kXvidRowTab[8] = {0, 1, 2, 3, 0, 3, 2, 1};
+const int kXvidRounder[8] = {65536, 3597, 2260, 1203, 0, 120, 512, 512};
+
+inline int16_t sat16(int v) {
+  return (int16_t)(v > 32767 ? 32767 : v < -32768 ? -32768 : v);
+}
+inline int16_t adds(int16_t a, int16_t b) { return sat16(a + b); }
+inline int16_t subs(int16_t a, int16_t b) { return sat16(a - b); }
+inline int16_t mulhi(int16_t a, int16_t b) { return (int16_t)((a * b) >> 16); }
+
+void xvid_idct_row(int16_t* in, int row) {
+  const int* t = kXvidTab[kXvidRowTab[row]];
+  const uint32_t c1 = t[0], c2 = t[1], c3 = t[2], c4 = t[3], c5 = t[4],
+                 c6 = t[5], c7 = t[6];
+  const uint32_t x0 = in[0], x1 = in[1], x2 = in[2], x3 = in[3], x4 = in[4],
+                 x5 = in[5], x6 = in[6], x7 = in[7];
+  const uint32_t rnd = kXvidRounder[row];
+  uint32_t a0 = c4 * x0 + c2 * x2 + c4 * x4 + c6 * x6 + rnd;
+  uint32_t a1 = c4 * x0 + c6 * x2 - c4 * x4 - c2 * x6 + rnd;
+  uint32_t a2 = c4 * x0 - c6 * x2 - c4 * x4 + c2 * x6 + rnd;
+  uint32_t a3 = c4 * x0 - c2 * x2 + c4 * x4 - c6 * x6 + rnd;
+  uint32_t b0 = c1 * x1 + c3 * x3 + c5 * x5 + c7 * x7;
+  uint32_t b1 = c3 * x1 - c7 * x3 - c1 * x5 - c5 * x7;
+  uint32_t b2 = c5 * x1 - c1 * x3 + c7 * x5 + c3 * x7;
+  uint32_t b3 = c7 * x1 - c5 * x3 + c3 * x5 - c1 * x7;
+  in[0] = sat16((int32_t)(a0 + b0) >> 11);
+  in[1] = sat16((int32_t)(a1 + b1) >> 11);
+  in[2] = sat16((int32_t)(a2 + b2) >> 11);
+  in[3] = sat16((int32_t)(a3 + b3) >> 11);
+  in[4] = sat16((int32_t)(a3 - b3) >> 11);
+  in[5] = sat16((int32_t)(a2 - b2) >> 11);
+  in[6] = sat16((int32_t)(a1 - b1) >> 11);
+  in[7] = sat16((int32_t)(a0 - b0) >> 11);
+}
+
+void xvid_idct_col(const int16_t* in, int out[8]) {  // out[k]: row k
+  const int16_t x0 = in[0], x1 = in[8], x2 = in[16], x3 = in[24],
+                x4 = in[32], x5 = in[40], x6 = in[48], x7 = in[56];
+  const int16_t tan1 = 0x32EC, tan2 = 0x6A0A, tan3m1 = (int16_t)0xAB0E,
+                sqrt2 = 0x5A82;
+  int16_t tm35 = subs(adds(mulhi(x3, tan3m1), x3), x5);
+  int16_t tp35 = adds(adds(mulhi(x5, tan3m1), x5), x3);
+  int16_t tp17 = adds(mulhi(x7, tan1), x1);
+  int16_t tm17 = subs(mulhi(x1, tan1), x7);
+  int16_t t1 = subs(tp17, tp35), b3 = subs(tm17, tm35);
+  int16_t b0 = adds(tp35, tp17), t2 = adds(tm35, tm17);
+  int16_t d = mulhi(subs(t1, t2), sqrt2), e = mulhi(adds(t2, t1), sqrt2);
+  int16_t b1 = adds(e, e), b2 = adds(d, d);
+  int16_t tp26 = adds(mulhi(x6, tan2), x2), tm26 = subs(mulhi(x2, tan2), x6);
+  int16_t tm04 = subs(x0, x4), tp04 = adds(x4, x0);
+  int16_t a0 = adds(tp26, tp04), a3 = subs(tp04, tp26);
+  int16_t a1 = adds(tm04, tm26), a2 = subs(tm04, tm26);
+  out[0] = adds(b0, a0) >> 6;
+  out[7] = subs(a0, b0) >> 6;
+  out[1] = adds(b1, a1) >> 6;
+  out[6] = subs(a1, b1) >> 6;
+  out[2] = adds(b2, a2) >> 6;
+  out[5] = subs(a2, b2) >> 6;
+  out[3] = adds(b3, a3) >> 6;
+  out[4] = subs(a3, b3) >> 6;
+}
+
+void xvid_idct(int16_t* block, int out[64]) {
+  for (int i = 0; i < 8; ++i) xvid_idct_row(block + 8 * i, i);
+  int col[8];
   for (int i = 0; i < 8; ++i) {
-    idct_col(block + i, out);
-    for (int k = 0; k < 8; ++k)
-      dst[k * stride + i] = clip8(dst[k * stride + i] + out[k]);
+    xvid_idct_col(block + i, col);
+    for (int k = 0; k < 8; ++k) out[8 * k + i] = col[k];
   }
+}
+
+// idct_put and idct_add of the stream's inverse DCT (put_pixels_clamped,
+// add_pixels_clamped)
+void idct_put(int16_t* block, uint8_t* dst, int stride, bool xvid) {
+  int out[64];
+  (xvid ? xvid_idct : simple_idct)(block, out);
+  for (int k = 0; k < 8; ++k)
+    for (int i = 0; i < 8; ++i) dst[k * stride + i] = clip8(out[8 * k + i]);
+}
+
+void idct_add(int16_t* block, uint8_t* dst, int stride, bool xvid) {
+  int out[64];
+  (xvid ? xvid_idct : simple_idct)(block, out);
+  for (int k = 0; k < 8; ++k)
+    for (int i = 0; i < 8; ++i)
+      dst[k * stride + i] = clip8(dst[k * stride + i] + out[8 * k + i]);
 }
 
 // ---- pictures ------------------------------------------------------------
@@ -468,7 +575,7 @@ struct Vol {
   bool control = false, low_delay = false;
   int resolution = 1, time_bits = 1;
   int width = 0, height = 0;
-  bool mpeg_quant = false;
+  bool mpeg_quant = false, quarter_sample = false;
   uint8_t intra_matrix[64], inter_matrix[64];  // raster order
   bool resync_disable = true;
 };
@@ -505,12 +612,13 @@ class Decoder {
   bool headers_only_;
   int matrix_ = 2, full_range_ = 0;
   bool divx_packed_ = false;      // user data "DivX...p"
-  std::vector<uint8_t> pending_;  // a packed unit's second VOP (headers_only)
+  std::vector<uint8_t> pending_;  // a packed unit's second VOP
   size_t vop_at_ = 0;             // start code of the unit's VOP
   Vol vol_;
   int mb_w_ = 0, mb_h_ = 0, mb_num_ = 0, b8_stride_ = 0, mb_stride_ = 0;
-  int lavc_build_ = -1, xvid_build_ = -1, divx_version_ = -1;
-  bool workarounds_checked_ = false;
+  int lavc_build_ = -1, xvid_build_ = -1, divx_version_ = -1,
+      divx_build_ = -1;
+  bool xvid_idct_ = false;  // XviD's inverse DCT in place of the simple one
   bool picture_seen_ = false;
   // frame store: refs_[0] last, refs_[1] next (ffmpeg's last_picture and
   // next_picture), plus the B-VOP picture
@@ -585,6 +693,9 @@ class Decoder {
   void clean_intra_entries();
   void reconstruct(bool intra);
   void motion(int dir, Op op);
+  void chroma_4mv(Picture* ref, int sum_x, int sum_y, Op op);
+  void qpel_block(uint8_t* dst, int stride, const uint8_t* ref, int rstride,
+                  int ew, int eh, int sx, int sy, int n, int dxy, Op op);
   void mc_block(uint8_t* dst, int stride, const uint8_t* ref, int rstride,
                 int ew, int eh, int sx, int sy, int w, int h, int dxy, Op op);
   void update_motion_val(bool intra, bool skipped);
@@ -601,6 +712,7 @@ void Decoder::user_data(const uint8_t* p, size_t n) {
   if (e < 2) e = std::sscanf(s.c_str(), "DivX%db%d%c", &ver, &build, &last);
   if (e >= 2) {
     divx_version_ = ver;
+    divx_build_ = build;
     divx_packed_ = e == 3 && last == 'p';
   }
   if (std::sscanf(s.c_str(), "FFmpe%*[^b]b%d", &build) == 1 ||
@@ -618,28 +730,39 @@ void Decoder::user_data(const uint8_t* p, size_t n) {
 }
 
 void Decoder::check_workarounds() {
-  // ff_mpeg4_workaround_bugs: ffmpeg keys encoder bug workarounds and the
-  // XviD inverse DCT off these signatures; none of them is reproduced here
+  // ff_mpeg4_workaround_bugs, which ffmpeg runs before each VOP: it keys
+  // encoder bug workarounds and XviD's inverse DCT off these signatures.
+  // The inverse DCT is reproduced; a stream that any workaround acts on is
+  // refused.
   if (xvid_build_ == -1 && divx_version_ == -1 && lavc_build_ == -1) {
     static const char* xvid_tags[] = {"XVID", "XVIX", "RMP4", "ZMP4", "SIPP"};
     for (const char* t : xvid_tags)
       if (strncasecmp(fourcc_.c_str(), t, 4) == 0 && fourcc_.size() == 4)
         refuse("an MPEG-4 stream tagged " + fourcc_ +
-               " without a libavcodec signature (ffmpeg decodes it with "
-               "XviD's inverse DCT)");
+               " without an encoder's signature (ffmpeg takes it for XviD "
+               "build 0 and applies that build's bug workarounds)");
     if (strncasecmp(fourcc_.c_str(), "DIVX", 4) == 0 && vol_.vo_type == 0 &&
         !vol_.control)
       refuse("a DIVX-tagged stream that ffmpeg decodes as DivX 4");
   }
+  if (xvid_build_ >= 0 && divx_version_ >= 0)
+    divx_version_ = divx_build_ = -1;  // XviD's own DivX signature
   if (strncasecmp(fourcc_.c_str(), "XVIX", 4) == 0 ||
       strncasecmp(fourcc_.c_str(), "UMP4", 4) == 0)
     refuse("an MPEG-4 stream tagged " + fourcc_);
-  if (xvid_build_ >= 0)
-    refuse("an XviD-written MPEG-4 stream (ffmpeg decodes it with XviD's "
-           "inverse DCT)");
-  if (divx_version_ >= 0)
-    refuse("a DivX-written MPEG-4 stream (decoded with ffmpeg's DivX bug "
-           "workarounds)");
+  if (xvid_build_ >= 0 && xvid_build_ <= 32)
+    refuse("an MPEG-4 stream of XviD build " + std::to_string(xvid_build_) +
+           " (ffmpeg applies its DC clipping, edge and quarter-pel chroma "
+           "bug workarounds to builds of 32 and below)");
+  // DivX: FF_BUG_DIRECT_BLOCKSIZE and FF_BUG_QPEL_CHROMA(2) act on
+  // quarter-pel streams, FF_BUG_EDGE on DivX 4, the padding bug on one
+  // build; FF_BUG_HPEL_CHROMA only on interlaced ones, refused above
+  if (divx_version_ >= 0 &&
+      (divx_version_ < 500 || vol_.quarter_sample ||
+       (divx_version_ == 501 && divx_build_ == 20020416)))
+    refuse("a DivX-written MPEG-4 stream that ffmpeg decodes with bug "
+           "workarounds (DivX before 5, quarter-pel, or 5.01 build "
+           "20020416)");
   if (lavc_build_ >= 0) {
     unsigned b = (unsigned)lavc_build_;
     bool iedge = (b & 0xFF) >= 100 && b > 3621476 && b < 3752552 &&
@@ -648,7 +771,7 @@ void Decoder::check_workarounds() {
       refuse("an MPEG-4 stream of a libavcodec build that ffmpeg decodes with "
              "bug workarounds");
   }
-  workarounds_checked_ = true;
+  xvid_idct_ = xvid_build_ >= 0;  // idct_algo auto becomes FF_IDCT_XVID
 }
 
 void Decoder::vol_header(Bits& b) {
@@ -722,7 +845,7 @@ void Decoder::vol_header(Bits& b) {
       for (; i < 64; ++i) m[kZigzag[i]] = (uint8_t)last;
     }
   }
-  if (v.ver_id != 1 && b.get1()) refuse("quarter-pel motion compensation");
+  v.quarter_sample = v.ver_id != 1 && b.get1();
   if (!b.get1()) refuse("the complexity estimation header");
   v.resync_disable = b.get1();
   if (b.get1()) refuse("data partitioning and reversible VLCs");
@@ -770,10 +893,6 @@ int Decoder::send(const uint8_t* data, size_t n, long long tag) {
   out_ = nullptr;
   out_last_props_ = decoded_ = false;
   last_tag_ = tag;
-  if (!headers_only_) {
-    parse_headers(data, n, tag);
-    return out_ ? 1 : 0;
-  }
   // a packed bitstream as ffmpeg reads it (ff_h263_decode_frame,
   // ff_mpeg4_frame_end; header comment)
   if (divx_packed_ && !pending_.empty()) {
@@ -815,16 +934,17 @@ void Decoder::parse_headers(const uint8_t* data, size_t n, long long tag) {
       i += 2;
     }
   }
+  vop_at_ = n;
   if (starts.empty() && n > 0) {
     if (n >= 3 && data[0] == 0 && data[1] == 0 && (data[2] & 0xFC) == 0x80)
       refuse("the short video header (H.263)");
+    // a one-byte unit of a signed stream: the frame XviD's and DivX's
+    // codecs store where they hold one back, which ffmpeg skips
+    if (n == 1 && (xvid_build_ >= 0 || divx_version_ >= 0 ||
+                   strncasecmp(fourcc_.c_str(), "QMP4", 4) == 0))
+      return;
     fail("an access unit without a start code");
   }
-  int vops = 0;
-  for (size_t s : starts) vops += s < n && data[s] == 0xB6;
-  if (vops > 1 && !headers_only_)
-    refuse("a packed MPEG-4 bitstream (two VOPs in one packet)");
-  vop_at_ = n;
   for (size_t k = 0; k < starts.size(); ++k) {
     size_t s = starts[k];
     size_t e = k + 1 < starts.size() ? starts[k + 1] - 3 : n;
@@ -839,7 +959,7 @@ void Decoder::parse_headers(const uint8_t* data, size_t n, long long tag) {
     } else if (code == 0xB6) {
       // ffmpeg decodes the unit's first VOP and reads nothing after it
       if (!vol_.seen) fail("a VOP before any VOL header");
-      if (!workarounds_checked_ && !headers_only_) check_workarounds();
+      if (!headers_only_) check_workarounds();
       vop_at_ = s - 3;
       Bits b(body, len);
       vop(b, tag);
@@ -1454,7 +1574,6 @@ void Decoder::decode_mb(Bits& b) {
       // ff_mpeg4_set_direct_mv
       int pp = (uint16_t)pp_time_, pb = (uint16_t)pb_time_;
       bool eight = next_->kind[mb] == MB_8X8;
-      four_mv_[0] = four_mv_[1] = eight;
       for (int k = 0; k < (eight ? 4 : 1); ++k) {
         int16_t* p = mv_at(next_, k);
         for (int c = 0; c < 2; ++c) {
@@ -1464,6 +1583,13 @@ void Decoder::decode_mb(Bits& b) {
           mv_[1][k][c] = d ? f - pv : pv * (pb - pp) / pp;
         }
       }
+      // a quarter-pel stream predicts even a 16x16 co-located macroblock's
+      // direct vectors as four 8x8 blocks (without FF_BUG_DIRECT_BLOCKSIZE)
+      if (!eight && vol_.quarter_sample)
+        for (int d = 0; d < 2; ++d)
+          for (int k = 1; k < 4; ++k)
+            for (int c = 0; c < 2; ++c) mv_[d][k][c] = mv_[d][0][c];
+      four_mv_[0] = four_mv_[1] = eight || vol_.quarter_sample;
     }
     for (int k = 0; k < 6; ++k) {
       decode_block(b, k, cbp & 32, false, false);
@@ -1559,7 +1685,7 @@ void Decoder::reconstruct(bool intra) {
     for (int n = 0; n < 6; ++n) {
       if (last_index_[n] < 0) continue;
       if (vol_.mpeg_quant) dequant_mpeg_inter(block_[n], qscale_, vol_.inter_matrix);
-      idct_add(block_[n], dst(n), n < 4 ? ys : cs);
+      idct_add(block_[n], dst(n), n < 4 ? ys : cs, xvid_idct_);
     }
     clean_intra_entries();
   } else {
@@ -1568,7 +1694,7 @@ void Decoder::reconstruct(bool intra) {
         dequant_mpeg_intra(block_[n], n, qscale_, vol_.intra_matrix);
       else
         dequant_h263_intra(block_[n], n, qscale_);
-      idct_put(block_[n], dst(n), n < 4 ? ys : cs);
+      idct_put(block_[n], dst(n), n < 4 ? ys : cs, xvid_idct_);
     }
   }
 }
@@ -1632,45 +1758,80 @@ void Decoder::mc_block(uint8_t* dst, int stride, const uint8_t* ref,
   }
 }
 
-void Decoder::motion(int dir, Op op) {
-  // ff_mpv_motion for MV_TYPE_16X16 (mpeg_motion) and MV_TYPE_8X8
-  // (hpel_motion and chroma_4mv_motion)
-  Picture* ref = dir == 0 ? last_ : next_;
-  int ys = mb_w_ * 16, cs = mb_w_ * 8;
-  int ew = mb_w_ * 16, eh = mb_h_ * 16;  // h_edge_pos, v_edge_pos
-  uint8_t* dy = cur_->y.data() + (size_t)mb_y_ * 16 * ys + mb_x_ * 16;
-  uint8_t* du = cur_->u.data() + (size_t)mb_y_ * 8 * cs + mb_x_ * 8;
-  uint8_t* dv = cur_->v.data() + (size_t)mb_y_ * 8 * cs + mb_x_ * 8;
-  if (!four_mv_[dir]) {
-    int mx = mv_[dir][0][0], my = mv_[dir][0][1];
-    int dxy = ((my & 1) << 1) | (mx & 1);
-    int sx = mb_x_ * 16 + (mx >> 1), sy = mb_y_ * 16 + (my >> 1);
-    mc_block(dy, ys, ref->y.data(), ys, ew, eh, sx, sy, 16, 16, dxy, op);
-    int uvdxy = dxy | (my & 2) | ((mx & 2) >> 1);
-    int ux = sx >> 1, uy = sy >> 1;
-    mc_block(du, cs, ref->u.data(), cs, ew >> 1, eh >> 1, ux, uy, 8, 8, uvdxy,
-             op);
-    mc_block(dv, cs, ref->v.data(), cs, ew >> 1, eh >> 1, ux, uy, 8, 8, uvdxy,
-             op);
-    return;
+// MPEG-4's 8-tap half-sample filter at output sample c of a line of n + 1
+// samples (n = 8 or 16) a step apart, the taps past either end mirrored
+// back into it, as mpeg4_qpel{8,16}_{h,v}_lowpass compute it (qpeldsp.c);
+// rnd 0 rounds halves down (the put_no_rnd ops)
+static inline int qpel_tap(const uint8_t* s, int step, int n, int c,
+                           int rnd) {
+  auto at = [&](int i) {
+    i = i < 0 ? -1 - i : i > n ? 2 * n + 1 - i : i;
+    return (int)s[i * step];
+  };
+  int v = 20 * (at(c) + at(c + 1)) - 6 * (at(c - 1) + at(c + 2)) +
+          3 * (at(c - 2) + at(c + 3)) - (at(c - 3) + at(c + 4));
+  return clip8((v + 15 + rnd) >> 5);
+}
+
+void Decoder::qpel_block(uint8_t* dst, int stride, const uint8_t* ref,
+                         int rstride, int ew, int eh, int sx, int sy, int n,
+                         int dxy, Op op) {
+  // ffmpeg's {put,put_no_rnd,avg}_qpel{16,8}_mcXY_c on the (n + 1) x
+  // (n + 1) window at (sx, sy), coordinates clamped to the edge
+  // (emulated_edge_mc): the horizontal filter, averaged with the full
+  // sample left or right of it at a quarter x, then the vertical one
+  // over its n + 1 rows, averaged with the row above or below at a
+  // quarter y. The steps between round as the op does (put_no_rnd: down);
+  // avg averages the prediction into dst with rounding.
+  uint8_t win[17 * 17], hh[17 * 16], pred[16 * 16];
+  const int w1 = n + 1;
+  if (sx >= 0 && sy >= 0 && sx + w1 <= ew && sy + w1 <= eh) {
+    for (int r = 0; r < w1; ++r)
+      std::memcpy(win + r * w1, ref + (size_t)(sy + r) * rstride + sx, w1);
+  } else {
+    for (int r = 0; r < w1; ++r) {
+      int yy = std::min(std::max(sy + r, 0), eh - 1);
+      const uint8_t* row = ref + (size_t)yy * rstride;
+      for (int c = 0; c < w1; ++c)
+        win[r * w1 + c] = row[std::min(std::max(sx + c, 0), ew - 1)];
+    }
   }
-  int sum_x = 0, sum_y = 0;
-  for (int k = 0; k < 4; ++k) {
-    int mx = mv_[dir][k][0], my = mv_[dir][k][1];
-    int sx = mb_x_ * 16 + (k & 1) * 8 + (mx >> 1);
-    int sy = mb_y_ * 16 + (k >> 1) * 8 + (my >> 1);
-    int dxy = 0;
-    sx = std::min(std::max(sx, -16), vol_.width);
-    if (sx != vol_.width) dxy |= mx & 1;
-    sy = std::min(std::max(sy, -16), vol_.height);
-    if (sy != vol_.height) dxy |= (my & 1) << 1;
-    mc_block(dy + (k >> 1) * 8 * ys + (k & 1) * 8, ys, ref->y.data(), ys, ew,
-             eh, sx, sy, 8, 8, dxy, op);
-    sum_x += mx;
-    sum_y += my;
+  const int x = dxy & 3, y = dxy >> 2, rnd = op != PUT_NO_RND;
+  auto avg2 = [rnd](int a, int b) { return (a + b + rnd) >> 1; };
+  // the horizontal stage of row r, column c
+  auto horizontal = [&](int r, int c) -> int {
+    const uint8_t* row = win + r * w1;
+    if (x == 0) return row[c];
+    int h = qpel_tap(row, 1, n, c, rnd);
+    return x == 2 ? h : avg2(row[c + (x == 3)], h);
+  };
+  if (y == 0) {
+    for (int r = 0; r < n; ++r)
+      for (int c = 0; c < n; ++c) pred[r * n + c] = (uint8_t)horizontal(r, c);
+  } else {
+    for (int r = 0; r < w1; ++r)
+      for (int c = 0; c < n; ++c) hh[r * n + c] = (uint8_t)horizontal(r, c);
+    for (int r = 0; r < n; ++r)
+      for (int c = 0; c < n; ++c) {
+        int v = qpel_tap(hh + c, n, n, r, rnd);
+        pred[r * n + c] =
+            (uint8_t)(y == 2 ? v : avg2(hh[(r + (y == 3)) * n + c], v));
+      }
   }
+  for (int r = 0; r < n; ++r) {
+    uint8_t* d = dst + (size_t)r * stride;
+    for (int c = 0; c < n; ++c)
+      d[c] = op == AVG ? (uint8_t)((d[c] + pred[r * n + c] + 1) >> 1)
+                       : pred[r * n + c];
+  }
+}
+
+void Decoder::chroma_4mv(Picture* ref, int sum_x, int sum_y, Op op) {
+  // chroma_4mv_motion: one chroma vector from the sum of the four luma
+  // ones (in half-pels), with H.263's rounding (ff_h263_round_chroma)
   static const uint8_t round_tab[16] = {0, 0, 0, 1, 1, 1, 1, 1,
                                         1, 1, 1, 1, 1, 1, 2, 2};
+  int cs = mb_w_ * 8, ew = mb_w_ * 8, eh = mb_h_ * 8;
   int mx = round_tab[sum_x & 0xf] + ((sum_x >> 3) & ~1);
   int my = round_tab[sum_y & 0xf] + ((sum_y >> 3) & ~1);
   int dxy = ((my & 1) << 1) | (mx & 1);
@@ -1681,8 +1842,78 @@ void Decoder::motion(int dir, Op op) {
   if (sx == (vol_.width >> 1)) dxy &= ~1;
   sy = std::min(std::max(sy, -8), vol_.height >> 1);
   if (sy == (vol_.height >> 1)) dxy &= ~2;
-  mc_block(du, cs, ref->u.data(), cs, ew >> 1, eh >> 1, sx, sy, 8, 8, dxy, op);
-  mc_block(dv, cs, ref->v.data(), cs, ew >> 1, eh >> 1, sx, sy, 8, 8, dxy, op);
+  size_t at = (size_t)mb_y_ * 8 * cs + mb_x_ * 8;
+  mc_block(cur_->u.data() + at, cs, ref->u.data(), cs, ew, eh, sx, sy, 8, 8,
+           dxy, op);
+  mc_block(cur_->v.data() + at, cs, ref->v.data(), cs, ew, eh, sx, sy, 8, 8,
+           dxy, op);
+}
+
+void Decoder::motion(int dir, Op op) {
+  // ff_mpv_motion for MV_TYPE_16X16 (mpeg_motion, or qpel_motion in a
+  // quarter-pel stream) and MV_TYPE_8X8 (hpel_motion or the quarter-pel
+  // blocks, and chroma_4mv_motion)
+  Picture* ref = dir == 0 ? last_ : next_;
+  int ys = mb_w_ * 16, cs = mb_w_ * 8;
+  int ew = mb_w_ * 16, eh = mb_h_ * 16;  // h_edge_pos, v_edge_pos
+  uint8_t* dy = cur_->y.data() + (size_t)mb_y_ * 16 * ys + mb_x_ * 16;
+  uint8_t* du = cur_->u.data() + (size_t)mb_y_ * 8 * cs + mb_x_ * 8;
+  uint8_t* dv = cur_->v.data() + (size_t)mb_y_ * 8 * cs + mb_x_ * 8;
+  const bool qpel = vol_.quarter_sample;
+  if (!four_mv_[dir]) {
+    int mx = mv_[dir][0][0], my = mv_[dir][0][1];
+    int uvdxy, ux, uy;
+    if (qpel) {
+      int dxy = ((my & 3) << 2) | (mx & 3);
+      qpel_block(dy, ys, ref->y.data(), ys, ew, eh, mb_x_ * 16 + (mx >> 2),
+                 mb_y_ * 16 + (my >> 2), 16, dxy, op);
+      // qpel_motion's chroma vector: halved toward zero, then to a
+      // half-pel with the odd quarter kept
+      int cx = mx / 2, cy = my / 2;
+      cx = (cx >> 1) | (cx & 1);
+      cy = (cy >> 1) | (cy & 1);
+      uvdxy = (cx & 1) | ((cy & 1) << 1);
+      ux = mb_x_ * 8 + (cx >> 1);
+      uy = mb_y_ * 8 + (cy >> 1);
+    } else {
+      int dxy = ((my & 1) << 1) | (mx & 1);
+      int sx = mb_x_ * 16 + (mx >> 1), sy = mb_y_ * 16 + (my >> 1);
+      mc_block(dy, ys, ref->y.data(), ys, ew, eh, sx, sy, 16, 16, dxy, op);
+      uvdxy = dxy | (my & 2) | ((mx & 2) >> 1);
+      ux = sx >> 1;
+      uy = sy >> 1;
+    }
+    mc_block(du, cs, ref->u.data(), cs, ew >> 1, eh >> 1, ux, uy, 8, 8, uvdxy,
+             op);
+    mc_block(dv, cs, ref->v.data(), cs, ew >> 1, eh >> 1, ux, uy, 8, 8, uvdxy,
+             op);
+    return;
+  }
+  int sum_x = 0, sum_y = 0;
+  for (int k = 0; k < 4; ++k) {
+    int mx = mv_[dir][k][0], my = mv_[dir][k][1];
+    int shift = qpel ? 2 : 1, frac = qpel ? 3 : 1;
+    int sx = mb_x_ * 16 + (k & 1) * 8 + (mx >> shift);
+    int sy = mb_y_ * 16 + (k >> 1) * 8 + (my >> shift);
+    int fx = mx & frac, fy = my & frac;
+    sx = std::min(std::max(sx, -16), vol_.width);
+    if (sx == vol_.width) fx = 0;
+    sy = std::min(std::max(sy, -16), vol_.height);
+    if (sy == vol_.height) fy = 0;
+    uint8_t* d = dy + (k >> 1) * 8 * ys + (k & 1) * 8;
+    if (qpel) {
+      qpel_block(d, ys, ref->y.data(), ys, ew, eh, sx, sy, 8, fy << 2 | fx,
+                 op);
+      sum_x += mx / 2;  // to half-pels, toward zero
+      sum_y += my / 2;
+    } else {
+      mc_block(d, ys, ref->y.data(), ys, ew, eh, sx, sy, 8, 8, fy << 1 | fx,
+               op);
+      sum_x += mx;
+      sum_y += my;
+    }
+  }
+  chroma_4mv(ref, sum_x, sum_y, op);
 }
 
 int fill_err(const Error& e, char* err, int cap) {
@@ -1740,6 +1971,12 @@ int m4v_low_delay(void* h) { return static_cast<Decoder*>(h)->low_delay(); }
 
 void m4v_colour(void* h, int* matrix, int* full_range) {
   static_cast<Decoder*>(h)->colour(matrix, full_range);
+}
+
+void m4v_idct(int xvid, const int16_t* coefs, int* out) {
+  int16_t block[64];
+  std::memcpy(block, coefs, sizeof block);
+  (xvid ? xvid_idct : simple_idct)(block, out);
 }
 
 }  // extern "C"

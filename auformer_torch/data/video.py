@@ -19,8 +19,10 @@ unless the caller passes ``device="cpu"``, for three codecs in AVI or MP4:
                  DCTs round apart.
   MPEG-4 part 2  the port's own software decoder (``data/mpeg4.py``)
                  decodes on the host, as cv2's ffmpeg does, to planes equal
-                 to ffmpeg's bit for bit; the frames in ffmpeg's output
-                 order, the planes copied to the card for a CUDA device.
+                 to ffmpeg's bit for bit (XviD's streams with XviD's
+                 inverse DCT, packed B-VOPs and quarter-pel among them);
+                 the frames in ffmpeg's output order, the planes copied to
+                 the card for a CUDA device.
   H.264          the port's own software decoder (``data/h264.py``: CAVLC
                  and CABAC, any scaling lists, 4:2:0, 4:2:2, 4:4:4 and
                  monochrome at 8 bits and at 9, 10, 12 and 14 (High 10,
@@ -37,14 +39,16 @@ gives), on the card with its kernel for a CUDA device, from every entry
 point. NVDEC, the card's video decoder, is refused by the container the
 card runs in (``data/nvdec.py``) and is not tried. JPEG frames that are
 not 4:2:0 or 4:2:2, and the MPEG-4 and H.264 tools the decoders refuse
-(H.264's field pictures, bit depths of 11 and 13 and the rest), raise
-naming ROADMAP.md queue A9, as do other codecs.
+(MPEG-4's interlacing, GMC and the streams ffmpeg decodes with an
+encoder's bug workarounds, such as XviD builds of 32 and below; H.264's
+field pictures, bit depths of 11 and 13 and the rest), raise naming
+ROADMAP.md queue A9, as do other codecs.
 
 ``read_RGB(k)`` seeks as cv2's ``CAP_PROP_POS_FRAMES`` does for MPEG-4 and
 H.264: from the sync packet at or before the display position 16 frames
-before ``k``, counting the frames the decoder returns from the first one's
-display position. Where no MPEG-4 VOP with vop_coded 0 lies between them,
-that is ``frames()``'s frame ``k``.
+before ``k``, counting the frames the decoder returns from the number cv2
+gives the first one (``_seek_key``). Where no MPEG-4 VOP with vop_coded 0
+lies between them, that is ``frames()``'s frame ``k``.
 """
 from __future__ import annotations
 
@@ -211,7 +215,8 @@ class Video:
             if k < 0:
                 raise ValueError(f"read_RGB: frame {k} of {self.path}")
             self._close_session()
-            key, skip = _seek_key(index, min(k, index["num_frames"]))
+            key, skip = _seek_key(index, min(k, index["num_frames"]),
+                                  self.path)
             self._session = _SOFTWARE[index["codec"]](self.path, index, key,
                                                       device=device)
             for _ in range(skip):
@@ -257,12 +262,19 @@ def _planes_rgb(planes) -> Iterator[torch.Tensor]:
         planes.close()
 
 
-def _seek_key(index: dict, k: int) -> tuple[int, int]:
+def _seek_key(index: dict, k: int, path: str | None = None
+              ) -> tuple[int, int]:
     """(sync packet, frames to pass over) of cv2's seek to frame ``k``
     (cap_ffmpeg_impl.hpp ``seek``): ffmpeg seeks back from the display
     position ``k - 16`` to a sync packet, and cv2 numbers the first frame
-    it decodes there by its presentation time, then counts the frames it
-    reads."""
+    it decodes there by its timestamp (``dts_to_frame_number``) less the
+    first frame's of the file, then counts the frames it reads. That is
+    the sync VOP's display position, but for an MPEG-4 part 2 stream in
+    AVI that is not low delay (``path`` given), whose frames carry the
+    decode time of the chunk whose decoding returned them (``container``):
+    there it is that chunk's position less the one that returned the
+    file's first frame (a packed stream drops the B-VOPs packed with the
+    sync VOP after a seek, so the two differ)."""
     packets = index["packets"]
     kept = [p.pts for p in packets if p.kept]
     if not kept:
@@ -279,4 +291,15 @@ def _seek_key(index: dict, k: int) -> tuple[int, int]:
                 packets[key]):
             key = j
     # the first frame out of a closed GOP is its sync VOP's
-    return key, k - max(position(packets[key]), 0)
+    first = max(position(packets[key]), 0)
+    if key and path is not None and index["codec"] == "mpeg4" \
+            and "fourcc" in index:
+        def units(start: int):
+            return (u for _, u in container.access_units(
+                path, index, start, kept_only=False))
+        returned, low_delay = mpeg4.first_returned(units(key))
+        file_first, _ = mpeg4.first_returned(units(0))
+        if not low_delay and returned is not None and file_first is not None:
+            first = (position(packets[key + returned])
+                     - position(packets[file_first]))
+    return key, k - first

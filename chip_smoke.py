@@ -33,7 +33,7 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            which autocast casts at every call (prepare_inference rounds
            them once)
   dataset  a synthetic Aff-Wild2-layout test split written by the port's
-           fixtures (three videos of 2,100, 1,200 and 700 frames, 112x112
+           fixtures (three videos of 2,100, 600 and 300 frames, 112x112
            JPEG q90, 30 fps, wavs of each video's length + 0.5 s) and a
            .pth of the seeded random weights; ``python -m
            auformer_torch.test_aff2`` (its ``main``) over it in bf16: the
@@ -43,7 +43,7 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            against the array-fed run_inference_sweep on the same decoded
            frames, dataset-fed run_inference (DataLoader, host features)
            against the sweep on 64 label frames, the strict_parity sweep
-           of the 700-frame video, decoded frames against their source
+           of the 300-frame video, decoded frames against their source
            images. Then the decoder, its rate alone, the worker's
            start-up, the worker alone per video (decode against pipe
            transfer), sweep_serve_benchmark's end-to-end label frames/s
@@ -151,7 +151,17 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            launches and none of the other kernels, each frame equal to the
            plain conversion of the decoder's planes on the CPU, then
            frames/s of MPEG4_PASSES passes and the host decoder's s per
-           frame over as many, with the stream's bytes a frame; (g) the
+           frame over as many, with the stream's bytes a frame; (f')
+           libxvid's committed xvid_1280x720.avi (36 source frames at
+           11 KB each, users' XviD files; packed B-VOPs, of which ffmpeg
+           returns 34 frames; XviD's inverse DCT) the same way, this
+           slice's main path ``decode_mpeg4_xvid``: 34 yuv_rgb launches
+           and none of the other kernels, each frame
+           cv2's and the plain conversion of the decoder's planes, frames/s
+           and the host decoder's ms a frame over MPEG4_PASSES passes and
+           the bytes a frame, each beside the card's name and power limit
+           (the loop (e) holds every libxvid fixture's planes to
+           libavcodec's too); (g) the
            kernel's limited range at 1280x720 against its plain version,
            its device ms beside its bound; then H.264 (the port's software
            decoder on the host, data/h264.py): (h) every
@@ -430,9 +440,10 @@ SLICE_TOL = (2e-3, 2e-4)  # rtol, atol: card fp32 vs CPU fp32 logits
 SWEEP_TOL = (2e-3, 2e-4)  # rtol, atol: fp32 sweep vs fp32 clip path
 FEATURE_ATOL = 1e-4       # normalized units: phase-mel vs per-window, f32
 
-# the dataset phase's test split: 4,000 label frames, past the decode
-# worker's threshold (2,000)
-DATASET_FRAMES = (2100, 1200, 700)
+# the dataset phase's test split: 3,000 label frames, past the decode
+# worker's threshold (2,000); the first video spans two sweep buckets.
+# scripts/dataset_split_times.py times the phase at 4,000 beside it.
+DATASET_FRAMES = (2100, 600, 300)
 PLUMBING_ATOL = 1e-6      # dataset-fed vs array-fed sweep, same frames
 # label frames of the clip-path check: video 0 rows whose 10 s window lies
 # whole inside its 70.5 s wav (10 s <= ts <= 65.5 s)
@@ -565,6 +576,7 @@ MPEG4_GOP, MPEG4_B_FRAMES, MPEG4_QSCALE = 12, 2, 8
 MPEG4_SEEKS = (0, 5, 11)
 MPEG4_PASSES = 2                  # timed passes of frames() and the decoder
 MPEG4_CV2_STREAMS = ("mp4v_176.mp4", "xvid_176.avi")
+MPEG4_XVID_STREAM = "xvid_1280x720.avi"   # libxvid at full width
 # H.264: x264's streams (tests/data/videos_h264), the full-width CABAC one
 # the main path, with the full-width MBAFF (1080i) one beside it; the
 # full-width streams' seeks in the checked loop
@@ -1412,7 +1424,7 @@ def phase_dataset(torch, dev) -> tuple[dict, dict, dict]:
         fail(f"dataset-fed run_inference differs from the sweep by "
              f"{clip_err}")
 
-    # the strict_parity sweep (per-window host features) on the 700-frame
+    # the strict_parity sweep (per-window host features) on the last
     # video
     cfg_strict = Config(**{**cfg32.asdict(), "strict_parity": True})
     ds_strict = Aff2TestDataset(cfg_strict)
@@ -1595,7 +1607,7 @@ def phase_packed(torch, dev, work: Path, cfg32, cfg16, sd, videos: dict,
     if not counts.calls or counts.calls != per_bucket:
         fail(f"launches per packed bucket {counts.calls}")
 
-    # one video (the second, 1,200 frames) with jittered timestamps past
+    # one video (the second, 600 frames) with jittered timestamps past
     # 5 s: more hop-grid phases than max_phases, the per-video route
     ds_fb = Aff2TestDataset(cfg32)
     ts = np.asarray(ds_fb.time_stamps, np.float64).copy()
@@ -2306,13 +2318,14 @@ def phase_decode_mpeg4(torch, dev, work: Path) -> tuple[dict, dict, dict]:
     CPU, then timed again, as is the host decoder alone, MPEG4_PASSES
     times in all; (g) the limited-range kernel at 1280x720 on that
     stream's planes. Returns (the main path's launches, the fixtures and
-    the stream, the kernel's numbers)."""
+    the stream, the kernel's numbers). (f') libxvid's 1280x720 stream
+    the same way as (f), its own path: the launches of (f) and (f') are
+    returned as a pair."""
     import hashlib
 
     from auformer_torch.data import container, ingest, mpeg4
     from auformer_torch.data.fixtures import write_mpeg4
     from auformer_torch.data.video import Video
-    from auformer_torch.ops import colour
 
     def sha(t) -> str:
         return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
@@ -2339,10 +2352,21 @@ def phase_decode_mpeg4(torch, dev, work: Path) -> tuple[dict, dict, dict]:
         if (video.count_frames(), stamps) != (want["count_frames"],
                                               want["timestamps"]):
             fail(f"{name}: count and timestamps are not cv2's")
+        if "planes_sha256" in want:      # libxvid's: libavcodec's planes
+            planes = [[sha(p) for p in yuv] for _, yuv, _ in
+                      mpeg4.decode_range(path, device=dev)]
+            if planes != [[p["y"], p["u"], p["v"]]
+                          for p in want["planes_sha256"]]:
+                fail(f"{name}: the decoder's planes are not libavcodec's")
         frames += len(got)
     fixtures = {"files": len(expected), "frames_equal_cv2": frames,
                 "seeks_equal_cv2": sum(len(w["read_RGB_sha256"])
                                        for w in expected.values()),
+                "planes_equal_libavcodec": sum(
+                    len(w.get("planes_sha256", ())) for w in
+                    expected.values()),
+                "xvid_files": sorted(n for n, w in expected.items()
+                                     if "planes_sha256" in w),
                 "s": time.perf_counter() - t0}
     # the host decoder on a real encoder's streams (cv2's, 176x144)
     fixtures["host_decode"] = {}
@@ -2365,33 +2389,8 @@ def phase_decode_mpeg4(torch, dev, work: Path) -> tuple[dict, dict, dict]:
     order = write_mpeg4(path, w, h, MPEG4_FRAMES, gop=MPEG4_GOP,
                         b_frames=MPEG4_B_FRAMES, qscale=MPEG4_QSCALE, seed=SEED)
     write_s = time.perf_counter() - t0
-    video = Video(path, write=False)
-    index = container.packet_index(path)
-    decode_s = []
-    for _ in range(MPEG4_PASSES):
-        t0 = time.perf_counter()
-        host = [planes for _, planes, _ in mpeg4.decode_range(path, index)]
-        decode_s.append(time.perf_counter() - t0)
-    torch.cuda.synchronize()
-    decoded, frames_s, launches = counted_decode(         # the main path
-        lambda: list(video.frames(device=dev)))
-    passes_s = [frames_s]
-    for _ in range(MPEG4_PASSES - 1):
-        t0 = time.perf_counter()
-        n = sum(1 for _ in video.frames(device=dev))
-        passes_s.append(time.perf_counter() - t0)
-        if n != MPEG4_FRAMES:
-            fail(f"MPEG-4 frames(), pass {len(passes_s)}: {n} frames")
-    if (launches["yuv_rgb"] != MPEG4_FRAMES or len(decoded) != MPEG4_FRAMES
-            or len(host) != MPEG4_FRAMES):
-        fail(f"MPEG-4 frames(): {len(decoded)} frames, {len(host)} "
-             f"decoded, {launches} launches")
-    for k, planes in enumerate(host):
-        plain = colour.yuv_rgb_plain(*planes, limited=True).numpy()
-        if not np.array_equal(plain, decoded[k]) or \
-                decoded[k].shape != (h, w, 3):
-            fail(f"MPEG-4 frame {k}: the card's differs from the plain "
-                 "conversion of the decoder's planes on the CPU")
+    video, host, decoded, launches, passes_s, decode_s = mpeg4_frames_path(
+        torch, dev, path, MPEG4_FRAMES)
     for k in MPEG4_SEEKS:
         if not np.array_equal(video.read_RGB(k, device=dev), decoded[k]):
             fail(f"MPEG-4 read_RGB({k}) differs from frames()[{k}]")
@@ -2411,7 +2410,86 @@ def phase_decode_mpeg4(torch, dev, work: Path) -> tuple[dict, dict, dict]:
                                           for t in decode_s],
               "colour_ms_per_frame": kernel["ms"],
               "launches": launches["yuv_rgb"], "seeks_equal": MPEG4_SEEKS}
-    return launches, {"fixtures": fixtures, "stream": stream}, kernel
+    xvid_launches, xvid = xvid_stream(torch, dev, expected)
+    return ((launches, xvid_launches),
+            {"fixtures": fixtures, "stream": stream, "xvid": xvid}, kernel)
+
+
+def mpeg4_frames_path(torch, dev, path: str, n: int) -> tuple:
+    """An MPEG-4 part 2 file through Video.frames() on the card, a main
+    path: the host decoder alone timed MPEG4_PASSES times, then frames()
+    with the launches counted (the count set to 0 just before and read
+    just after), n frames and n yuv_rgb launches, then timed again, each
+    frame equal to the plain conversion of the host decoder's planes on
+    the CPU. Returns (the Video, the host planes, the frames, the
+    launches, frames()' seconds and the decoder's seconds by pass)."""
+    from auformer_torch.data import container, mpeg4
+    from auformer_torch.data.video import Video
+    from auformer_torch.ops import colour
+
+    name = os.path.basename(path)
+    video = Video(path, write=False)
+    index = container.packet_index(path)
+    decode_s = []
+    for _ in range(MPEG4_PASSES):
+        t0 = time.perf_counter()
+        host = [planes for _, planes, _ in mpeg4.decode_range(path, index)]
+        decode_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    decoded, frames_s, launches = counted_decode(
+        lambda: list(video.frames(device=dev)))
+    passes_s = [frames_s]
+    for _ in range(MPEG4_PASSES - 1):
+        t0 = time.perf_counter()
+        k = sum(1 for _ in video.frames(device=dev))
+        passes_s.append(time.perf_counter() - t0)
+        if k != n:
+            fail(f"{name} frames(), pass {len(passes_s)}: {k} frames")
+    if launches["yuv_rgb"] != n or len(decoded) != n or len(host) != n:
+        fail(f"{name} frames(): {len(decoded)} frames, {len(host)} "
+             f"decoded, {launches} launches, expected {n}")
+    h, w = index["height"], index["width"]
+    for k, planes in enumerate(host):
+        plain = colour.yuv_rgb_plain(*planes, limited=True).numpy()
+        if not np.array_equal(plain, decoded[k]) or \
+                decoded[k].shape != (h, w, 3):
+            fail(f"{name} frame {k}: the card's differs from the plain "
+                 "conversion of the decoder's planes on the CPU")
+    return video, host, decoded, launches, passes_s, decode_s
+
+
+def xvid_stream(torch, dev, expected: dict) -> tuple[dict, dict]:
+    """(f') MPEG4_XVID_STREAM, libxvid's committed 1280x720 stream (XviD's
+    inverse DCT, packed B-VOPs), through Video.frames() on the card, its
+    own path (``mpeg4_frames_path``), each frame also cv2's
+    (expected.json); frames/s, the host decoder's ms a frame and the bytes
+    a frame, each beside the card's name and power limit. Returns (the
+    launches, the numbers)."""
+    import hashlib
+
+    path = str(MPEG4_FIXTURES / MPEG4_XVID_STREAM)
+    want = expected[MPEG4_XVID_STREAM]
+    n = len(want["frames_sha256"])
+    video, _, decoded, launches, passes_s, decode_s = mpeg4_frames_path(
+        torch, dev, path, n)
+    if [hashlib.sha256(f.tobytes()).hexdigest() for f in decoded] != \
+            want["frames_sha256"]:
+        fail(f"{MPEG4_XVID_STREAM} through frames() on the card: not cv2's "
+             "frames")
+    card = nvidia_smi()
+    return launches, {
+        "file": MPEG4_XVID_STREAM, "size": [video.meta["width"],
+                                            video.meta["height"]],
+        "frames": n, "encoder": want["xvid"],
+        "bytes_per_frame": {"value": want["bytes_per_frame"],
+                            "file_bytes": os.path.getsize(path),
+                            "card": card},
+        "frames_per_s": {"passes": [n / t for t in passes_s], "card": card},
+        "host_decode_ms_per_frame": {"passes": [1e3 * t / n
+                                                for t in decode_s],
+                                     "card": card},
+        "launches": {"yuv_rgb": launches["yuv_rgb"], "card": card},
+        "frames_equal_cv2_and_plain": n}
 
 
 def phase_decode_h264(torch, dev, work: Path) -> tuple[dict, dict, dict]:
@@ -2633,7 +2711,8 @@ def phase_decode(torch, dev) -> tuple[dict, dict, dict]:
     counted with the counts set to 0 just before frames() and read just
     after, then (e)-(g) MPEG-4 part 2 (``phase_decode_mpeg4``) and (h)
     H.264 (``phase_decode_h264``). Returns (the MJPEG path's launches, the
-    MPEG-4 path's, the H.264 paths' (progressive, MBAFF), the kernel's
+    MPEG-4 paths' (write_mpeg4's stream, libxvid's), the H.264 paths'
+    (progressive, MBAFF, 4:4:4, High 10), the kernel's
     numbers with the limited-range case under ``limited_range`` and
     H.264's colours under ``matrices``)."""
     import hashlib
@@ -2748,6 +2827,7 @@ def phase_decode(torch, dev) -> tuple[dict, dict, dict]:
               "plain_equal_frames": [list(r) for r in DECODE_PLAIN_RUNS],
               "max_source_mae": mae}
     mpeg4_launches, mpeg4, limited = phase_decode_mpeg4(torch, dev, work)
+    # (mpeg4_launches: (the write_mpeg4 stream's path, libxvid's))
     t_h264 = time.perf_counter()
     h264_launches, h264, matrices = phase_decode_h264(torch, dev, work)
     h264["s"] = time.perf_counter() - t_h264
@@ -3169,7 +3249,7 @@ def phase_zoo(torch, dev, split: dict) -> dict:
         torch.cuda.empty_cache()
 
     # vformer's run_inference_sweep over the dataset phase's split, in
-    # bf16 through the decode worker (4,000 test clips)
+    # bf16 through the decode worker (3,000 test clips)
     cfg = Config(model_name="vformer", modality="V", task="AU",
                  n_frames=FRAMES, image_size=IMAGE,
                  **{k: split[k] for k in ("root", "lmdb_label_dir",
@@ -5180,7 +5260,8 @@ def main() -> int:
         torch, dev, Path(split["work"]) / "experiments" / "avformer"
         / "pretrain" / f"random_seed{SEED}.pth")
     by_path["orbax"] = phase_orbax(torch, dev, split)
-    (by_path["decode"], by_path["decode_mpeg4"],
+    (by_path["decode"],
+     (by_path["decode_mpeg4"], by_path["decode_mpeg4_xvid"]),
      (by_path["decode_h264"], by_path["decode_h264_mbaff"],
       by_path["decode_h264_444"], by_path["decode_h264_high10"]),
      yuv) = phase_decode(torch, dev)
@@ -5293,6 +5374,7 @@ def main() -> int:
          "launches": launches("yuv_rgb"),
          "launches_by_path": {p: by_path[p]["yuv_rgb"]
                               for p in ("decode", "decode_mpeg4",
+                                        "decode_mpeg4_xvid",
                                         "decode_h264", "decode_h264_mbaff",
                                         "decode_h264_444",
                                         "decode_h264_high10")},

@@ -1103,6 +1103,44 @@ def test_mpeg4_frames_on_the_card(cuda_device):
             want["read_RGB_sha256"]["13"], name
 
 
+def test_xvid_frames_on_the_card(cuda_device):
+    """libxvid's streams of tests/data/videos_mpeg4/ (XviD's inverse DCT,
+    packed B-VOPs, quarter-pel) on the card: the host decoder's planes
+    copied to the card equal libavcodec's (expected.json's planes_sha256),
+    every frame of Video.frame_tensors equals cv2's with one yuv_rgb launch
+    a frame, and every seek of expected.json equals cv2's."""
+    import hashlib
+    import json
+    from pathlib import Path
+
+    from auformer_torch.data import mpeg4
+    from auformer_torch.data.video import Video
+    from auformer_torch.ops import colour
+
+    def sha(a) -> str:
+        return hashlib.sha256(a.tobytes()).hexdigest()
+
+    d = Path(__file__).parent / "data" / "videos_mpeg4"
+    expected = {name: want for name, want in
+                json.loads((d / "expected.json").read_text()).items()
+                if "planes_sha256" in want}
+    assert len(expected) == 6
+    for name, want in expected.items():
+        path = str(d / name)
+        planes = [[sha(p.cpu().numpy()) for p in yuv] for _, yuv, _ in
+                  mpeg4.decode_range(path, device=cuda_device)]
+        assert planes == [[p["y"], p["u"], p["v"]]
+                          for p in want["planes_sha256"]], name
+        v = Video(path, write=False)
+        before = colour.yuv_rgb.launches
+        frames = [t.cpu().numpy() for t in v.frame_tensors(cuda_device)]
+        assert colour.yuv_rgb.launches == before + len(frames)
+        assert [sha(f) for f in frames] == want["frames_sha256"], name
+        for k, digest in want["read_RGB_sha256"].items():
+            img = v.read_RGB(int(k), device=cuda_device)
+            assert (None if img is None else sha(img)) == digest, (name, k)
+
+
 @pytest.mark.parametrize("matrix,limited", [(1, True), (4, True),
                                             (7, True), (9, True),
                                             (2, False), (1, False)])

@@ -115,8 +115,10 @@ def test_h264_output_order_is_display_order(b_frames, gop, n):
 def test_mpeg4_output_order():
     """A B-VOP is output when decoded, an I- or P-VOP when the next one
     arrives; without B-VOPs the decode order stands (the port's MPEG-4
-    decoder reading the VOP headers alone). The frames of a packed unit
-    (two VOPs) raise naming A9."""
+    decoder reading the VOP headers alone). A packed bitstream's frames
+    (DivX's packed flag: a unit's second VOP decoded in the next unit's
+    place, a one-byte unit skipped) come out of the full decode by the
+    same rule."""
     head = fixtures._m4_headers(32, 32, 30, False, False, False)
 
     def vop(kind, t):                  # a VOP header up to vop_coded 1
@@ -132,8 +134,22 @@ def test_mpeg4_output_order():
     assert [k for k, _, _ in frames] == [0, 2, 3, 1, 5, 4]
     ipp = [head + vop(0, 0), vop(1, 1), vop(1, 2)]
     assert [k for k, _, _ in mpeg4.output_frames(ipp)[0]] == [0, 1, 2]
-    with pytest.raises(NotImplementedError, match="A9"):
-        mpeg4.Decoder().send(head + vop(1, 1) + vop(2, 2), 0)
+    headers, units = fixtures.mpeg4_access_units(32, 32, 5, gop=5,
+                                                 b_frames=1, seed=1,
+                                                 qscale=4)
+    vops = [v for _, _, v in units]          # I0 P2 B1 P4 B3
+    packed = [headers + b"\x00\x00\x01\xb2DivX503b1393p" + vops[0],
+              vops[1] + vops[2], vops[3] + vops[4], b"\x7f"]
+    dec, full = mpeg4.Decoder("FMP4"), []
+    for k, unit in enumerate(packed):
+        if dec.send(unit, k):
+            full.append(dec.receive_tag())
+    if dec.flush():
+        full.append(dec.receive_tag())
+    dec.close()
+    headers_only = [(k, props) for k, props, _ in
+                    mpeg4.output_frames(packed)[0]]
+    assert full == headers_only == [(0, 0), (2, 2), (1, 1)]
 
 
 @pytest.mark.parametrize("name", sorted(EXPECTED))

@@ -9,7 +9,9 @@ scripts/make_mpeg4_fixtures.py``, which needs cv2 and the JAX package), on
 the MPEG-4 files of tests/data/videos/, and on streams cv2 writes here at
 sizes whose width is not a whole number of swscale's SIMD steps. Every tool
 the decoder refuses raises naming ROADMAP.md queue A9, on streams whose
-headers are edited here.
+headers are edited here, and packed bitstreams decode to cv2's frames.
+libxvid's streams in the same directory (the entries of expected.json with
+``planes_sha256``) are held in test_torch_video_mpeg4_xvid.py.
 """
 import hashlib
 import json
@@ -32,7 +34,11 @@ from auformer_torch.ops.colour import yuv_rgb, yuv_rgb_plain
 
 D = Path(__file__).parent / "data" / "videos_mpeg4"
 VIDEOS = Path(__file__).parent / "data" / "videos"
-EXPECTED = json.loads((D / "expected.json").read_text())
+# the fixtures of cv2's writers and write_mpeg4; libxvid's are held in
+# test_torch_video_mpeg4_xvid.py
+EXPECTED = {name: entry for name, entry in
+            json.loads((D / "expected.json").read_text()).items()
+            if "planes_sha256" not in entry}
 CASES = [D / name for name in sorted(EXPECTED)] + [
     VIDEOS / name for name in ("mp4v_30.mp4", "xvid_25.avi",
                                "elst_window.mp4", "vfr.mp4")]
@@ -249,9 +255,15 @@ def _set_bits(data: bytearray, at: int, n: int, value: int) -> None:
 _VOL_EDITS = {
     "non-rectangular": (26, 2, 1), "interlaced": (76, 1, 1),
     "sprites": (78, 2, 1), "not_8_bit": (80, 1, 1),
-    "quarter-pel": (82, 1, 1), "complexity estimation": (83, 1, 0),
+    "complexity estimation": (83, 1, 0),
     "data partitioning": (85, 1, 1), "newpred": (86, 1, 1),
     "reduced resolution": (87, 1, 1), "scalability": (88, 1, 1)}
+_QUARTER_PEL = (82, 1, 1)     # decoded; refused in a DivX stream
+# the signatures (user data) of streams ffmpeg decodes with bug
+# workarounds: XviD build 32 and DivX 4
+_SIGNATURES = {"XviD": b"XviD0032", "DivX": b"DivX412b1393",
+               "DivX quarter-pel": b"DivX503b1393p",
+               "XVIX fourcc": b"XviD0069"}
 
 
 def _stream(tmp_path, tool: str) -> str:
@@ -260,23 +272,22 @@ def _stream(tmp_path, tool: str) -> str:
     head = bytearray(headers)
     vops = [vop for _, _, vop in units]
     fourcc = b"FMP4"
-    if tool in _VOL_EDITS:
+    if tool in _VOL_EDITS or tool == "DivX quarter-pel":
         at = head.index(b"\x00\x00\x01\x20") + 4
-        off, n, value = _VOL_EDITS[tool]
+        off, n, value = _VOL_EDITS.get(tool, _QUARTER_PEL)
         _set_bits(head, 8 * at + off, n, value)
     elif tool == "S-VOPs":
         vop = bytearray(vops[1])
         vop[4] = vop[4] & 0x3F | 0xC0              # vop_coding_type 3
         vops[1] = bytes(vop)
-    elif tool == "packed bitstream":
-        vops = [vops[0], vops[1] + vops[2]]
     elif tool == "short video header":
         head, vops = bytearray(), [b"\x00\x00\x80\x02\x0a" + bytes(16)]
-    elif tool in ("XviD", "DivX"):
-        sig = b"XviD0050" if tool == "XviD" else b"DivX503b1393p"
-        head += b"\x00\x00\x01\xb2" + sig
     elif tool == "XVID fourcc":
         fourcc = b"XVID"
+    if tool in _SIGNATURES:
+        head += b"\x00\x00\x01\xb2" + _SIGNATURES[tool]
+    if tool == "XVIX fourcc":
+        fourcc = b"XVIX"
     chunks = [bytes(head) + vops[0]] + vops[1:]
     path = tmp_path / "edited.avi"
     path.write_bytes(fixtures._avi(chunks, [True] + [False] * (len(chunks)
@@ -286,16 +297,18 @@ def _stream(tmp_path, tool: str) -> str:
 
 
 @pytest.mark.parametrize("tool", sorted(_VOL_EDITS) + [
-    "S-VOPs", "packed bitstream", "short video header", "XviD", "DivX",
-    "XVID fourcc"])
+    "S-VOPs", "short video header", "XviD", "DivX", "XVID fourcc",
+    "DivX quarter-pel", "XVIX fourcc"])
 @pytest.mark.parametrize("call", ["frames", "read_RGB"])
 def test_refused_tools_raise_naming_a9(tmp_path, tool, call):
-    """Interlacing, quarter-pel, sprites and S-VOPs, data partitioning,
-    the short video header, shapes, not_8_bit, newpred, scalability,
-    reduced resolution, complexity estimation, a packed bitstream, and the
-    streams ffmpeg decodes with XviD's inverse DCT or DivX workarounds:
-    each raises NotImplementedError naming A9 on the CPU, before any
-    frame."""
+    """Interlacing, sprites and S-VOPs, data partitioning, the short video
+    header, shapes, not_8_bit, newpred, scalability, reduced resolution,
+    complexity estimation, and the streams ffmpeg decodes with an
+    encoder's bug workarounds (XviD build 32, DivX 4, a quarter-pel DivX
+    stream, a bare XVID fourcc, which ffmpeg takes for XviD build 0, and
+    the XVIX fourcc): each raises NotImplementedError naming A9 on the
+    CPU, before any frame. (Quarter-pel, packed bitstreams and XviD's later
+    builds decode: test_torch_video_mpeg4_xvid.py.)"""
     v = Video(_stream(tmp_path, tool), write=False)
     with pytest.raises(NotImplementedError, match="A9"):
         if call == "frames":
@@ -374,8 +387,9 @@ def test_packed_count_and_timestamps_equal_jax(tmp_path, signature, n_vops):
     decoder reading the headers as ffmpeg does (with DivX's packed flag
     the second VOP of a chunk is decoded in the next chunk's place;
     without it, it is passed over and the N-VOPs return nothing). Neither
-    is the packet count or the packets' times. Its frames raise naming
-    A9."""
+    is the packet count or the packets' times. Its frames, read by the
+    same rule, and its seeks equal cv2's (DivX 5's bug workarounds act on
+    none of them)."""
     path = _packed_avi(tmp_path, signature, n_vops)
     jv = JaxVideo(path, write=False)
     ours = ingest.extract_timestamps(path, str(tmp_path / "a.txt"))
@@ -388,8 +402,7 @@ def test_packed_count_and_timestamps_equal_jax(tmp_path, signature, n_vops):
                  for p in index["packets"]]
     want = [float(x) for x in Path(theirs).read_text().split("\n")[1:] if x]
     assert len(by_packet) != len(want) or not np.allclose(by_packet, want)
-    with pytest.raises(NotImplementedError, match="A9"):
-        list(Video(path, write=False).frames(device="cpu"))
+    _against_jax(path)
 
 
 def test_h264_still_raises_and_mpeg4_needs_no_nvdec(monkeypatch):
