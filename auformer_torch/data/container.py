@@ -5,19 +5,34 @@ JAX package asks cv2's FFMPEG backend, auformer/data/video.py:30-48).
 ``num_frames`` (``CAP_PROP_FRAME_COUNT``), ``fps`` (``CAP_PROP_FPS``),
 ``width``, ``height``, ``packets`` (the frames a decode loop of ``grab()``
 returns) and ``timestamps_ms`` (``CAP_PROP_POS_MSEC`` after each
-``grab()``). cv2 computes them from ffmpeg's demuxer state; the rules below
-follow ffmpeg's code and were each held against cv2 on files written by
-cv2 and then edited box by box (tests/test_torch_video_ingest.py):
+``grab()``), for MP4/MOV (fragmented too), AVI and Matroska/WebM. cv2
+computes them from ffmpeg's demuxer state; the rules below follow
+ffmpeg's code and were each held against cv2 on files written by cv2, by
+libavformat or by the tests' writers, some edited box by box
+(tests/test_torch_video_ingest.py, test_torch_video_matroska.py,
+test_torch_video_fragmented.py):
 
   ``num_frames``  ``AVStream.nb_frames``: for MP4/MOV the sum of the
                   ``stts`` run counts (``mov_read_stts``), for AVI the
                   stream header's ``dwLength`` (``avi_read_header``). An
-                  edit list does not change it.
+                  edit list does not change it. A fragmented MP4 whose
+                  ``moov`` holds samples keeps their count; one whose
+                  ``stts`` is empty counts every fragment's samples.
+                  Matroska has none, so cv2 takes ``floor(duration * fps
+                  + 0.5)``: the Segment's ``Duration`` (ffmpeg's whole
+                  microseconds; with an audio track longer than the
+                  video, the longer), else the stream's unknown duration
+                  (``AV_NOPTS_VALUE`` ticks: a large negative count, as a
+                  live file written to a pipe gives).
   ``fps``         ``AVStream.avg_frame_rate``, which cv2 reads in place of
                   ``av_guess_frame_rate``: for MP4/MOV the sample count
                   times the ``mdhd`` timescale over the sum of the ``stts``
-                  durations (``mov_read_trak``), for AVI
-                  ``dwRate / dwScale``; 1 / time base where that is zero.
+                  durations (``mov_read_trak``; a track whose samples are
+                  all in fragments: the same over their durations, where
+                  they are all one), for AVI ``dwRate / dwScale``, for
+                  Matroska ``av_reduce(1e9, DefaultDuration, 30000)``
+                  (``matroska_read_header``); 1 / time base where that is
+                  zero.
   timestamps      ``(pts - start_time) * time_base * 1000`` in f64
                   (``dts_to_sec`` of cv2's ffmpeg backend). MP4/MOV: the
                   time base is 1 / timescale; the pts are the ``stts``
@@ -25,51 +40,69 @@ cv2 and then edited box by box (tests/test_torch_video_ingest.py):
                   samples whose time lies in [media_time, media_time +
                   segment duration in the media timescale), leading empty
                   edits delay them all, and ``start_time`` is the first
-                  kept sample's pts, so both shifts cancel. AVI: the time
-                  base is dwScale / dwRate, frame k of the stream's chunks
-                  has pts ``dwStart + k``, and ``start_time`` is 0.
+                  kept sample's pts, so both shifts cancel. A fragment's
+                  samples take their decode times from its ``tfdt``, else
+                  from where the fragment before ended, and the edit list
+                  shifts them without cutting any. AVI: the time base is
+                  dwScale / dwRate, frame k of the stream's chunks has pts
+                  ``dwStart + k``, and ``start_time`` is 0. Matroska: the
+                  time base is ``TimestampScale`` ns, each frame's pts its
+                  block time, ``start_time`` the earliest.
   ``packets``     the kept samples (MP4) or the stream's chunks in every
                   ``movi`` list, through OpenDML's ``AVIX`` parts (AVI),
-                  that hold data: an empty one decodes to no frame.
+                  that hold data: an empty one decodes to no frame; the
+                  frames of the track's blocks (Matroska).
 
 The edit window compares each sample's presentation time (decode time
 plus its ``ctts`` offset), as ``mov_fix_index`` does: on a track with
 reordering offsets it keeps the samples cv2 returns
-(tests/data/videos/ctts_reorder.mp4 and ctts_cut.mp4). On such a track
-the timestamps follow the order in which the decoder returns the frames,
-as cv2 reports them: ``output_order`` reads it from the stream's headers
-(``data/bitstream.py``: H.264 picture order counts), and the times count
-from the smallest kept presentation time. An MPEG-4 part 2 stream's
-timestamps are those of the frames its decoder returns
-(``mpeg4.output_frames``, the decoder reading the headers alone; none for
-a VOP with vop_coded 0), as cv2 reports them (ROADMAP.md C12): a frame's
-presentation time, which is that of the packet whose properties ffmpeg
-gives it (its own, or the last one's for a frame returned at the end of a
-stream after a VOP of vop_coded 0); where there is none, as in an AVI
-whose stream is not low delay, the decode time of the chunk whose decoding
-returned the frame (0 for one returned at the end of the stream). An H.264
-stream in AVI takes that rule too, with the frames ffmpeg's decoder returns
+(tests/data/videos/ctts_reorder.mp4 and ctts_cut.mp4). On such a track,
+and on any Matroska track, the timestamps follow the order in which the
+decoder returns the frames, as cv2 reports them: ``output_order`` reads
+it from the stream's headers (``data/bitstream.py``: H.264 picture order
+counts), and the times count from the smallest kept presentation time. An
+MPEG-4 part 2 stream's timestamps are those of the frames its decoder
+returns (``mpeg4.output_frames``, the decoder reading the headers alone;
+none for a VOP with vop_coded 0), as cv2 reports them (ROADMAP.md C12): a
+frame's presentation time, which is that of the packet whose properties
+ffmpeg gives it (its own, or the last one's for a frame returned at the
+end of a stream after a VOP of vop_coded 0); where there is none, as in
+an AVI or a Matroska ``V_MS/VFW/FOURCC`` track (whose block times are
+decode times, ffmpeg's ``ms_compat``) whose stream is not low delay, the
+decode time of the packet whose decoding returned the frame (0 for one
+returned at the end of the stream). An H.264 stream in AVI takes that
+rule too, with the frames ffmpeg's decoder returns
 (``bitstream.h264_output_frames``): a stream with B frames has its
 timestamps one or more chunks late and 0 for the last.
 
 ``packet_index(path)`` lists the stream's packets in decode order (file
-offset, size, sync flag from ``stss`` or the AVI index, decode and
-presentation time, whether the edit list keeps it) with the codec and its
-setup data (``avcC``'s SPS and PPS, the ``esds`` VOL header), and
-``access_units`` reads each packet as a decoder takes it: H.264 in MP4 as
-Annex B, as ffmpeg's h264_mp4toannexb writes it, MPEG-4 part 2 in MP4
-with its VOL ahead of the first; each equals cv2's raw packet
-(``CAP_PROP_FORMAT`` -1) byte for byte (tests/test_torch_video_decode.py).
+offset, size, sync flag from ``stss``, the fragments' sample flags, the
+AVI index or the Matroska block, decode and presentation time, whether
+the edit list keeps it) with the codec and its setup data (``avcC``'s SPS
+and PPS, the ``esds`` VOL header, a Matroska track's CodecPrivate), and
+``access_units`` reads each packet as a decoder takes it: H.264 in MP4 or
+Matroska as Annex B, as ffmpeg's h264_mp4toannexb writes it, MPEG-4 part
+2 in MP4 or Matroska with its VOL ahead of the first, a Matroska frame
+with its content encoding (header stripping, zlib) undone; each equals
+cv2's raw packet (``CAP_PROP_FORMAT`` -1) byte for byte
+(tests/test_torch_video_decode.py). Matroska itself is read by
+``data/matroska.py``.
 
 What raises ``NotImplementedError`` naming ROADMAP.md queue A9: an edit
-list of more than one media edit or a rate other than 1, fragmented MP4
-(``moof``), Matroska/WebM, and the timestamps of a track with ``ctts``
-whose codec is neither H.264 (with ``avcC``) nor MPEG-4 part 2 (HEVC, for
-one), whose output order the port does not read. A file that is none of these formats raises
-ValueError.
+list of more than one media edit or a rate other than 1, the rate of a
+fragmented track whose samples last different times, a second ``trun``
+of a ``traf`` without its data offset, a Matroska track without
+DefaultDuration, encrypted or bzlib/LZO content, the timestamps of a
+Matroska track whose codec the port does not decode (VP9, AV1, HEVC:
+meta is read), the timestamps of a track with ``ctts`` whose codec is
+neither H.264 (with ``avcC``) nor MPEG-4 part 2 (HEVC, for one), whose
+output order the port does not read, and ASF (.wmv), MPEG program and
+transport streams, by their first bytes. A file that is none of these
+formats, or malformed, raises ValueError.
 """
 from __future__ import annotations
 
+import math
 import struct
 from typing import Iterator, NamedTuple
 
@@ -90,7 +123,8 @@ class Packet(NamedTuple):
     kept: bool
 
 
-_MP4_CONTAINERS = {b"moov", b"trak", b"mdia", b"minf", b"stbl", b"edts"}
+_MP4_CONTAINERS = {b"moov", b"trak", b"mdia", b"minf", b"stbl", b"edts",
+                   b"mvex", b"traf"}
 
 
 def _unsupported(path: str, what: str):
@@ -127,13 +161,14 @@ def _tree(buf: bytes, off: int = 0, end: int | None = None) -> dict:
     return out
 
 
-def _top_level_mp4(f, path: str) -> bytes:
-    """The ``moov`` body of the file, read box header by box header (an
-    ``mdat`` before or after it is skipped, 64-bit and to-the-end sizes
-    included); fragmented files raise."""
+def _top_level_mp4(f, path: str) -> tuple[bytes, list[tuple[int, bytes]]]:
+    """The ``moov`` body of the file and (offset, body) of each ``moof``
+    after it, read box header by box header (``mdat``, ``sidx``, ``mfra``
+    and the rest are stepped over, 64-bit and to-the-end sizes
+    included)."""
     f.seek(0, 2)
     size_of_file = f.tell()
-    off, moov = 0, None
+    off, moov, moofs = 0, None, []
     while off + 8 <= size_of_file:
         f.seek(off)
         size, kind = struct.unpack(">I4s", f.read(8))
@@ -145,14 +180,14 @@ def _top_level_mp4(f, path: str) -> bytes:
             size = size_of_file - off
         if size < head:
             raise ValueError(f"{path}: box {kind!r} has size {size}")
-        if kind == b"moof":
-            raise _unsupported(path, "a fragmented MP4 (moof)")
         if kind == b"moov":
             moov = f.read(size - head)
+        elif kind == b"moof":
+            moofs.append((off, f.read(size - head)))
         off += size
     if moov is None:
         raise ValueError(f"{path}: an MP4 without a moov box")
-    return moov
+    return moov, moofs
 
 
 def _video_trak(moov: dict, path: str) -> dict:
@@ -167,10 +202,10 @@ def _video_trak(moov: dict, path: str) -> dict:
 def _mp4_track(f, path: str) -> dict:
     """The first video track's sample table: each sample's file offset,
     size, sync flag, decode and presentation time, whether the edit list
-    keeps it, and the codec with its setup data."""
-    moov = _tree(_top_level_mp4(f, path))
-    if b"mvex" in moov:
-        raise _unsupported(path, "a fragmented MP4 (mvex)")
+    keeps it, and the codec with its setup data; the samples of a
+    fragmented file's ``moof`` boxes after those of its ``moov``."""
+    moov_body, moofs = _top_level_mp4(f, path)
+    moov = _tree(moov_body)
     movie_scale = _timescale(moov[b"mvhd"][0])
     trak = _video_trak(moov, path)
     mdia = trak[b"mdia"][0]
@@ -185,8 +220,6 @@ def _mp4_track(f, path: str) -> dict:
             for i in range(n)]
     num_frames = sum(c for c, _ in runs)
     duration = sum(c * d for c, d in runs)
-    fps = (num_frames * scale / duration if num_frames and duration
-           else float(scale))
     sizes = _sample_sizes(stbl, path)
     # decode times: the stts runs, the last delta repeated for samples
     # past them
@@ -214,14 +247,133 @@ def _mp4_track(f, path: str) -> dict:
             if 0 < number <= len(sizes):
                 sync[number - 1] = True
     lo, hi = _edit_window(trak, movie_scale, scale, path)
-    kept = [lo <= cts[k] < hi and sizes[k] > 0 for k in range(len(sizes))]
     codec, setup = _mp4_codec(entry, path)
+    packets = [Packet(o, z, y, d, c, lo <= c < hi and z > 0)
+               for o, z, y, d, c in zip(_sample_offsets(stbl, sizes, path),
+                                        sizes, sync, dts, cts)]
+    ctts = b"ctts" in stbl
+    if b"mvex" in moov:
+        # a fragmented file: the edit list shifts the fragments' times
+        # alone (ffmpeg's time_offset), which the timestamps take back out
+        frag = _fragments(moov, trak, moofs, t, path)
+        ctts = ctts or frag["ctts"]
+        packets += [Packet(o, z, y, d, c, z > 0)
+                    for o, z, y, d, c in frag["samples"]]
+        if not num_frames:
+            # an empty stts: ffmpeg's rate and count from the fragments'
+            # sample durations, where they are all one
+            durations = set(frag["durations"])
+            if len(durations) > 1:
+                raise _unsupported(path, "the rate of a fragmented track "
+                                   "whose samples last different times")
+            num_frames = len(frag["samples"])
+            duration = num_frames * durations.pop() if durations else 0
+    fps = (num_frames * scale / duration if num_frames and duration
+           else float(scale))
     return {"num_frames": num_frames, "fps": fps, "width": width,
-            "height": height, "time_base": 1 / scale, "ctts": b"ctts" in stbl,
-            "codec": codec, "setup": setup,
-            "packets": [Packet(o, z, y, d, c, k) for o, z, y, d, c, k in zip(
-                _sample_offsets(stbl, sizes, path), sizes, sync, dts, cts,
-                kept)]}
+            "height": height, "time_base": 1 / scale, "ctts": ctts,
+            "codec": codec, "setup": setup, "packets": packets}
+
+
+def _fragments(moov: dict, trak: dict, moofs: list[tuple[int, bytes]],
+               start: int, path: str) -> dict:
+    """The track's samples in the ``moof`` boxes, as ffmpeg's
+    ``mov_read_tfhd`` and ``mov_read_trun`` read them: ``samples`` as
+    (offset, size, sync, dts, cts), each one's ``durations``, and whether
+    any ``trun`` has composition offsets (``ctts``). Each field falls back
+    from the ``trun`` to the ``tfhd`` to the ``trex`` of ``mvex``; the
+    data of a ``traf`` starts at its explicit base offset, else at the
+    ``moof`` under ``default-base-is-moof``, else where the previous
+    ``traf``'s data ended (the ``moof`` for the first); decode times at
+    the ``tfdt``, else where the previous fragment ended (``start`` for
+    the first)."""
+    track_id, = struct.unpack(">I", trak[b"tkhd"][0][
+        20:24] if trak[b"tkhd"][0][0] == 1 else trak[b"tkhd"][0][12:16])
+    trex = (0, 0, 0)
+    for body in moov[b"mvex"][0].get(b"trex", []):
+        tid, _, dur, size, flags = struct.unpack(">IIIII", body[4:24])
+        if tid == track_id:
+            trex = (dur, size, flags)
+    out: dict = {"samples": [], "durations": [], "ctts": False}
+    dts = start
+    for moof_off, body in moofs:
+        implicit = moof_off
+        for kind, b0, b1 in _boxes(body):
+            if kind != b"traf":
+                continue
+            traf = _tree(body, b0, b1)
+            tfhd = traf[b"tfhd"][0]
+            flags, tid = struct.unpack(">II", tfhd[:8])
+            flags &= 0xFFFFFF
+            if tid != track_id:
+                continue
+            at, (dur, size, sflags) = 8, trex
+            if flags & 0x1:
+                base, = struct.unpack(">Q", tfhd[at:at + 8])
+                at += 8
+            else:
+                base = moof_off if flags & 0x20000 else implicit
+            if flags & 0x2:
+                at += 4
+            for bit in (0x8, 0x10, 0x20):
+                if flags & bit:
+                    value, = struct.unpack(">I", tfhd[at:at + 4])
+                    at += 4
+                    if bit == 0x8:
+                        dur = value
+                    elif bit == 0x10:
+                        size = value
+                    else:
+                        sflags = value
+            if b"tfdt" in traf:
+                tfdt = traf[b"tfdt"][0]
+                dts, = struct.unpack(">Q", tfdt[4:12]) if tfdt[0] == 1 \
+                    else struct.unpack(">I", tfdt[4:8])
+            for k, trun in enumerate(traf.get(b"trun", [])):
+                implicit, dts = _trun(trun, k, base, dts, (dur, size, sflags),
+                                      out, path)
+    return out
+
+
+def _trun(trun: bytes, k: int, base: int, dts: int, defaults: tuple,
+          out: dict, path: str) -> tuple[int, int]:
+    """Append the samples of the ``k``-th ``trun`` of a ``traf`` to
+    ``out`` (``_fragments``); (where its data ends, the decode time after
+    it)."""
+    version, flags = trun[0], int.from_bytes(trun[1:4], "big")
+    count, = struct.unpack(">I", trun[4:8])
+    at, offset = 8, base
+    if flags & 0x1:
+        rel, = struct.unpack(">i", trun[at:at + 4])
+        offset, at = base + rel, at + 4
+    elif k:
+        raise _unsupported(path, "a second trun in a traf without its data "
+                           "offset")
+    first = None
+    if flags & 0x4:
+        first, = struct.unpack(">I", trun[at:at + 4])
+        at += 4
+    fields = [bit for bit in (0x100, 0x200, 0x400, 0x800) if flags & bit]
+    out["ctts"] = out["ctts"] or bool(flags & 0x800)
+    row = struct.Struct(">" + "".join("i" if b == 0x800 else "I"
+                                      for b in fields))
+    if at + row.size * count > len(trun):
+        raise ValueError(f"{path}: a trun of {count} samples overruns its "
+                         "box")
+    for i in range(count):
+        values = dict(zip(fields, row.unpack_from(trun, at + row.size * i)))
+        dur = values.get(0x100, defaults[0])
+        size = values.get(0x200, defaults[1])
+        sflags = values.get(0x400, first if i == 0 and first is not None
+                            else defaults[2])
+        # ffmpeg: a key frame unless non-sync or depending on others
+        sync = not sflags & 0x01010000
+        out["samples"].append((offset, size, sync, dts,
+                               dts + values.get(0x800, 0)))
+        out["durations"].append(dur)
+        offset += size
+        dts += dur
+    return offset, dts
 
 
 def _mp4(f, path: str, timestamps: bool) -> dict:
@@ -298,17 +450,7 @@ def _mp4_codec(entry: bytes, path: str) -> tuple[str, dict]:
     boxes = dict((k, entry[b0:b1]) for k, b0, b1 in
                  _boxes(entry, 86, struct.unpack(">I", entry[:4])[0]))
     if kind in (b"avc1", b"avc3") and b"avcC" in boxes:
-        c = boxes[b"avcC"]
-        off, sets = 6, {"nal_length_size": (c[4] & 3) + 1}
-        for name, count in (("sps", c[5] & 0x1F), ("pps", None)):
-            if count is None:
-                count, off = c[off], off + 1
-            sets[name] = []
-            for _ in range(count):
-                n, = struct.unpack(">H", c[off:off + 2])
-                sets[name].append(c[off + 2:off + 2 + n])
-                off += 2 + n
-        return "h264", sets
+        return "h264", _avcc(boxes[b"avcC"])
     if kind == b"mp4v" and b"esds" in boxes:
         oti, info = _esds_setup(boxes[b"esds"])
         if oti == 0x20:
@@ -318,6 +460,21 @@ def _mp4_codec(entry: bytes, path: str) -> tuple[str, dict]:
     if kind in (b"jpeg", b"mjpa", b"mjpg"):
         return "mjpeg", {}
     return kind.decode("latin-1"), {}
+
+
+def _avcc(c: bytes) -> dict:
+    """The SPS, PPS and NAL length size of an ``avcC`` record (an MP4
+    sample entry's box, a Matroska ``V_MPEG4/ISO/AVC`` CodecPrivate)."""
+    off, sets = 6, {"nal_length_size": (c[4] & 3) + 1}
+    for name, count in (("sps", c[5] & 0x1F), ("pps", None)):
+        if count is None:
+            count, off = c[off], off + 1
+        sets[name] = []
+        for _ in range(count):
+            n, = struct.unpack(">H", c[off:off + 2])
+            sets[name].append(c[off + 2:off + 2 + n])
+            off += 2 + n
+    return sets
 
 
 def _sample_offsets(stbl: dict, sizes: list[int], path: str) -> list[int]:
@@ -505,25 +662,31 @@ def _avi(f, path: str, timestamps: bool) -> dict:
     kept = [p for p in track["packets"] if p.kept]
     out["packets"] = len(kept)
     if timestamps:
-        if track["codec"] == "mpeg4":
-            # an AVI stores no presentation times: ffmpeg infers them (the
-            # decode times) for a low-delay stream only; otherwise each
-            # frame carries the decode time of the chunk whose decoding
-            # returned it (0 at the end of the stream)
-            frames, low_delay = _mpeg4_frames(path, track)
-            kept = [track["packets"][props] if low_delay else
-                    None if trigger is None else track["packets"][trigger]
-                    for _, props, trigger in frames]
-        elif track["codec"] == "h264":
-            # the same for H.264: the chunk whose decoding returned each
-            # frame, in the output ffmpeg's decoder gives (bitstream.py)
-            kept = [None if trigger is None else track["packets"][trigger]
-                    for k, trigger in _h264_frames(path, track)
-                    if track["packets"][k].kept]
-        out["timestamps_ms"] = [0.0 if p is None else
-                                p.pts * track["time_base"] * 1000.0
-                                for p in kept]
+        out["timestamps_ms"] = _decode_time_stamps(path, track, kept)
     return out
+
+
+def _decode_time_stamps(path: str, track: dict, kept: list[Packet]
+                        ) -> list[float]:
+    """The timestamps of a stream whose container stores decode times only
+    (AVI, Matroska's ``V_MS/VFW/FOURCC``), ``kept`` its kept packets."""
+    if track["codec"] == "mpeg4":
+        # ffmpeg infers the presentation times (the decode times) for a
+        # low-delay stream only; otherwise each frame carries the decode
+        # time of the chunk whose decoding returned it (0 at the end of
+        # the stream)
+        frames, low_delay = _mpeg4_frames(path, track)
+        kept = [track["packets"][props] if low_delay else
+                None if trigger is None else track["packets"][trigger]
+                for _, props, trigger in frames]
+    elif track["codec"] == "h264":
+        # the same for H.264: the chunk whose decoding returned each
+        # frame, in the output ffmpeg's decoder gives (bitstream.py)
+        kept = [None if trigger is None else track["packets"][trigger]
+                for k, trigger in _h264_frames(path, track)
+                if track["packets"][k].kept]
+    return [0.0 if p is None else p.dts * track["time_base"] * 1000.0
+            for p in kept]
 
 
 def _avi_video_stream(f, off: int, end: int, path: str):
@@ -552,17 +715,159 @@ def _avi_video_stream(f, off: int, end: int, path: str):
 
 # -- entry point --------------------------------------------------------------
 
+# -- Matroska/WebM -------------------------------------------------------------
+
+_EPS_ZERO = 0.000025          # cv2's eps_zero (cap_ffmpeg_impl.hpp)
+_NOPTS = -(1 << 63)           # AV_NOPTS_VALUE
+
+
+def _av_reduce(num: int, den: int, limit: int) -> tuple[int, int]:
+    """ffmpeg's ``av_reduce``: num/den as the nearest fraction whose terms
+    are at most ``limit`` (num, den > 0)."""
+    g = math.gcd(num, den)
+    num, den = num // g, den // g
+    if num <= limit and den <= limit:
+        return num, den
+    a0, a1 = (0, 1), (1, 0)
+    while den:
+        x = num // den
+        nxt = num - den * x
+        a2 = (x * a1[0] + a0[0], x * a1[1] + a0[1])
+        if a2[0] > limit or a2[1] > limit:
+            if a1[0]:
+                x = (limit - a0[0]) // a1[0]
+            if a1[1]:
+                x = min(x, (limit - a0[1]) // a1[1])
+            if den * (2 * x * a1[1] + a0[1]) > num * a1[1]:
+                a1 = (x * a1[0] + a0[0], x * a1[1] + a0[1])
+            break
+        a0, a1 = a1, a2
+        num, den = den, nxt
+    return a1
+
+
+_MKV_MPEG4 = ("V_MPEG4/ISO/ASP", "V_MPEG4/ISO/SP", "V_MPEG4/ISO/AP")
+
+
+def _mkv_codec(m: dict, path: str) -> tuple[str, dict, str | None]:
+    """(codec, setup, fourcc or None) of a Matroska video track:
+    ``V_MPEG4/ISO/AVC`` with its ``avcC`` CodecPrivate, MPEG-4 part 2 with
+    its VOL as CodecPrivate, ``V_MJPEG``, and ``V_MS/VFW/FOURCC`` by its
+    BITMAPINFOHEADER's fourcc, mapped as an AVI's is; else the CodecID."""
+    cid, private = m["codec_id"], m["codec_private"]
+    if cid == "V_MPEG4/ISO/AVC":
+        if len(private) < 7:
+            raise ValueError(f"{path}: an AVC track without its avcC")
+        return "h264", _avcc(private), None
+    if cid in _MKV_MPEG4:
+        return "mpeg4", {"vol": private}, None
+    if cid == "V_MJPEG":
+        return "mjpeg", {}, None
+    if cid == "V_MS/VFW/FOURCC":
+        if len(private) < 40:
+            raise ValueError(f"{path}: a V_MS/VFW/FOURCC track without its "
+                             "BITMAPINFOHEADER")
+        fourcc = private[16:20]
+        codec = _AVI_CODECS.get(fourcc.upper(), fourcc.decode("latin-1"))
+        setup = {"vol": private[40:]} if codec == "mpeg4" else {}
+        return codec, setup, fourcc.decode("latin-1")
+    return cid, {}, None
+
+
+def _mkv_track(f, path: str) -> dict:
+    """The first video track of a Matroska/WebM file as ``packet_index``
+    gives it (module docstring): the blocks' frames in file order, which
+    is decode order, each with its block time as pts and dts."""
+    from . import matroska
+    m = matroska.read(f, path)
+    codec, setup, fourcc = _mkv_codec(m, path)
+    scale = m["timestamp_scale"]
+    tb = scale / 1e9
+    if not m["default_duration"]:
+        raise _unsupported(path, "the rate of a Matroska video track "
+                           "without DefaultDuration (ffmpeg estimates it "
+                           "from the first packets)")
+    num, den = _av_reduce(1000000000, m["default_duration"], 30000)
+    fps = num / den
+    # cv2's get_total_frames: ffmpeg has no nb_frames for Matroska, so
+    # floor(duration * fps + 0.5), the duration the Segment's (ffmpeg's
+    # integer microseconds), else the stream's, which is unknown
+    sec = (int(m["duration"] * float(scale) * 1000 / 1000000) / 1e6
+           if m["duration"] else _NOPTS / 1e6)
+    if sec < _EPS_ZERO:
+        sec = _NOPTS * tb
+    out = {"num_frames": math.floor(sec * fps + 0.5), "fps": fps,
+           "width": m["width"], "height": m["height"], "time_base": tb,
+           "codec": codec, "setup": setup,
+           "packets": [Packet(fr.offset, fr.size, fr.key, fr.time, fr.time,
+                              fr.size > 0) for fr in m["frames"]]}
+    if m["encodings"]:
+        out["encodings"] = m["encodings"]
+    if fourcc is not None:
+        out["fourcc"] = fourcc
+    return out
+
+
+def _mkv(f, path: str, timestamps: bool) -> dict:
+    track = _mkv_track(f, path)
+    kept = [p for p in track["packets"] if p.kept]
+    out = {k: track[k] for k in ("num_frames", "fps", "width", "height")}
+    out["packets"] = len(kept)
+    if timestamps:
+        out["timestamps_ms"] = _mkv_stamps(path, track, kept)
+    return out
+
+
+def _mkv_stamps(path: str, track: dict, kept: list[Packet]) -> list[float]:
+    """A Matroska track's timestamps: in the decoder's output order from
+    the block times (presentation times), relative to the earliest; a
+    ``V_MS/VFW/FOURCC`` track's block times are decode times (ffmpeg's
+    ``ms_compat``), read as an AVI's are."""
+    codec = track["codec"]
+    if codec not in ("h264", "mpeg4", "mjpeg"):
+        raise _unsupported(path, f"the frames of a {codec} track (a block "
+                           "can hold frames its decoder does not return)")
+    if "fourcc" in track:
+        return _decode_time_stamps(path, track, kept)
+    first = min((p.pts for p in kept), default=0)
+    if codec == "mpeg4":
+        kept = [track["packets"][props]
+                for _, props, _ in _mpeg4_frames(path, track)[0]]
+    elif codec == "h264":
+        kept = [track["packets"][k] for k in output_order(path, track)]
+    return [(p.pts - first) * track["time_base"] * 1000.0 for p in kept]
+
+
+# -- entry point --------------------------------------------------------------
+
+_ASF = bytes.fromhex("3026b2758e66cf11a6d900aa0062ce6c")
+
+
 def _kind(f, path: str) -> str:
-    head = f.read(12)
+    head = f.read(400)
     f.seek(0)
     if head[:4] == b"\x1a\x45\xdf\xa3":
-        raise _unsupported(path, "a Matroska/WebM file")
+        return "mkv"
     if head[:4] == b"RIFF" and head[8:12] == b"AVI ":
         return "avi"
     if head[4:8] in (b"ftyp", b"moov", b"mdat", b"free", b"skip", b"wide",
                      b"pnot"):
         return "mp4"
-    raise ValueError(f"{path}: not an MP4/MOV or AVI file")
+    for what, found in (
+            ("an ASF file (.wmv, .asf)", head[:16] == _ASF),
+            ("an MPEG program stream (.mpg, .mpeg, .vob)",
+             head[:4] == b"\x00\x00\x01\xba"),
+            ("an MPEG transport stream (.ts)",
+             len(head) >= 377 and head[0] == head[188] == head[376] == 0x47),
+            ("an MPEG transport stream of 192-byte packets (.m2ts)",
+             len(head) >= 389 and head[4] == head[196] == head[388] == 0x47)):
+        if found:
+            raise _unsupported(path, what)
+    raise ValueError(f"{path}: not an MP4/MOV, AVI or Matroska/WebM file")
+
+
+_READERS = {"mp4": (_mp4, _mp4_track), "avi": (_avi, _avi_stream),
+            "mkv": (_mkv, _mkv_track)}
 
 
 def probe(path: str, timestamps: bool = True) -> dict:
@@ -570,21 +875,20 @@ def probe(path: str, timestamps: bool = True) -> dict:
     ``timestamps`` the ``timestamps_ms`` key is left out, and a track whose
     timestamps cannot be read still gives the rest."""
     with open(path, "rb") as f:
-        return (_avi if _kind(f, path) == "avi" else _mp4)(f, path,
-                                                            timestamps)
+        return _READERS[_kind(f, path)][0](f, path, timestamps)
 
 
 def packet_index(path: str) -> dict:
     """The first video stream's packets in decode order (``packets``, a
     list of :class:`Packet`), ``codec`` (``"h264"``, ``"mpeg4"``,
-    ``"mjpeg"`` or the fourcc), its ``setup`` (H.264: ``sps``, ``pps``,
-    ``nal_length_size``; MPEG-4 part 2 in MP4: ``vol``), ``time_base`` (s),
-    ``fps``, ``num_frames``, ``width`` and ``height``, as ``probe`` reads
-    them; an AVI's also its ``fourcc``."""
+    ``"mjpeg"``, else the fourcc or Matroska CodecID), its ``setup``
+    (H.264: ``sps``, ``pps``, ``nal_length_size``; MPEG-4 part 2 in MP4 or
+    Matroska: ``vol``), ``time_base`` (s), ``fps``, ``num_frames``,
+    ``width`` and ``height``, as ``probe`` reads them; an AVI's and a
+    Matroska ``V_MS/VFW/FOURCC`` track's also its ``fourcc``, a Matroska
+    track's with content encodings its ``encodings``."""
     with open(path, "rb") as f:
-        if _kind(f, path) == "avi":
-            return _avi_stream(f, path)
-        return _mp4_track(f, path)
+        return _READERS[_kind(f, path)][1](f, path)
 
 
 def _length_prefixed(sample: bytes, n: int) -> Iterator[bytes]:
@@ -641,6 +945,7 @@ def access_units(path: str, index: dict | None = None, start: int = 0,
     MP4 gets the ``esds`` VOL header ahead of the first unit; an AVI's
     chunks (whose H.264 is Annex B already, and whose MPEG-4 carries its
     VOL in band) and MJPEG frames are as stored."""
+    from . import matroska
     index = index or packet_index(path)
     setup, state = index["setup"], {"new_idr": True}
     first = True
@@ -654,6 +959,8 @@ def access_units(path: str, index: dict | None = None, start: int = 0,
             if len(unit) != p.size:
                 raise ValueError(f"{path}: packet {k} runs past the end of "
                                  "the file")
+            if "encodings" in index:
+                unit = matroska.content(unit, index["encodings"])
             if "nal_length_size" in setup:
                 unit = _annexb(unit, setup, state)
             elif first and setup.get("vol"):

@@ -1645,3 +1645,286 @@ def write_mpeg4(path: str, width: int, height: int, n_frames: int,
                      scale, width, height, headers, shift * delta,
                      kind=b"mp4v"))
     return order
+
+
+# -- Matroska and fragmented MP4 ----------------------------------------------
+
+def _ebml_size(n: int | None) -> bytes:
+    """An element size as EBML writes it, in the fewest bytes; None: the
+    unknown size (all ones)."""
+    if n is None:
+        return b"\x01" + b"\xff" * 7
+    width = 1
+    while n >= (1 << 7 * width) - 1:
+        width += 1
+    return (n | 1 << 7 * width).to_bytes(width, "big")
+
+
+def _el(eid: int, *parts: bytes, unknown: bool = False) -> bytes:
+    body = b"".join(parts)
+    return (eid.to_bytes((eid.bit_length() + 7) // 8, "big")
+            + _ebml_size(None if unknown else len(body)) + body)
+
+
+def _el_uint(eid: int, v: int) -> bytes:
+    return _el(eid, v.to_bytes(max(1, (v.bit_length() + 7) // 8), "big"))
+
+
+def _el_float(eid: int, v: float) -> bytes:
+    return _el(eid, struct.pack(">d", v))
+
+
+def _lace_head(sizes: list[int], lacing: str) -> bytes:
+    """A laced block's head: the lace count less one, then the sizes of
+    all frames but the last (Xiph: runs of 255; EBML: the first size, then
+    signed differences)."""
+    head = bytes([len(sizes) - 1])
+    if lacing == "xiph":
+        for n in sizes[:-1]:
+            head += b"\xff" * (n // 255) + bytes([n % 255])
+    elif lacing == "ebml":
+        head += _ebml_size(sizes[0])
+        for a, b in zip(sizes, sizes[1:-1]):
+            diff, width = b - a, 1
+            while abs(diff) >= (1 << 7 * width - 1) - 1:
+                width += 1
+            raw = diff + (1 << 7 * width - 1) - 1
+            head += (raw | 1 << 7 * width).to_bytes(width, "big")
+    return head
+
+
+def write_matroska(path: str, frames: list[bytes], keys: list[bool],
+                   times: list[int], codec_id: str, width: int, height: int,
+                   *, codec_private: bytes = b"",
+                   timestamp_scale: int = 1000000,
+                   default_duration: int | None = None,
+                   duration: float | None = None, groups: bool = False,
+                   lacing: str | None = None, lace: int = 1,
+                   strip: bytes = b"", encoding: str | None = None,
+                   live: bool = False, audio: bool = False,
+                   cluster: int = 12) -> None:
+    """Write a Matroska file of one video track: ``frames`` (as a decoder
+    takes them) with their key flags and block ``times`` in
+    ``timestamp_scale`` ns ticks, ``cluster`` frames to a ``Cluster``
+    (each opened by a ``CRC-32`` element), ``Cues`` for the key frames and
+    a ``Void`` after ``Info``. ``groups``: each frame in a ``BlockGroup``
+    with its ``BlockDuration`` (the time to the next frame) and, unless a
+    key frame, a ``ReferenceBlock``; else ``SimpleBlock``s. ``lacing``
+    "xiph", "ebml" or "fixed" puts ``lace`` frames in a block (fixed-size
+    lacing pads each frame with zeros to the largest). ``strip``: a prefix
+    every frame has, removed and written as a header-stripping
+    ``ContentCompression``; ``encoding`` "zlib" compresses each frame,
+    "bzlib" and "encrypted" only declare that (for refusals). ``live``:
+    the ``Segment`` and ``Cluster``s of unknown size, no ``Duration``, no
+    ``Cues``, as a muxer writing to a pipe leaves them. ``audio``: a PCM
+    track numbered 1 ahead of the video track (2), one silent block a
+    cluster."""
+    number = 2 if audio else 1
+    scale = timestamp_scale
+    encodings = b""
+    if strip:
+        if not all(f.startswith(strip) for f in frames):
+            raise ValueError("a frame without the stripped prefix")
+        frames = [f[len(strip):] for f in frames]
+        encodings = _el(0x6240, _el_uint(0x5031, 0), _el_uint(0x5032, 1),
+                        _el_uint(0x5033, 0), _el(0x5034, _el_uint(0x4254, 3),
+                                                 _el(0x4255, strip)))
+    elif encoding in ("zlib", "bzlib"):
+        if encoding == "zlib":
+            frames = [zlib.compress(f) for f in frames]
+        encodings = _el(0x6240, _el_uint(0x5031, 0), _el_uint(0x5032, 1),
+                        _el_uint(0x5033, 0), _el(0x5034, _el_uint(
+                            0x4254, 0 if encoding == "zlib" else 1)))
+    elif encoding == "encrypted":
+        encodings = _el(0x6240, _el_uint(0x5031, 0), _el_uint(0x5032, 1),
+                        _el_uint(0x5033, 1), _el(0x5035, _el_uint(0x47E1, 5),
+                                                 _el(0x47E2, bytes(16))))
+    video = [_el_uint(0xD7, number), _el_uint(0x73C5, number),
+             _el_uint(0x83, 1), _el_uint(0x9C, 1 if lacing else 0),
+             _el(0x86, codec_id.encode())]
+    if codec_private:
+        video.append(_el(0x63A2, codec_private))
+    if default_duration:
+        video.append(_el_uint(0x23E383, default_duration))
+    video.append(_el(0xE0, _el_uint(0xB0, width), _el_uint(0xBA, height)))
+    if encodings:
+        video.append(_el(0x6D80, encodings))
+    tracks = [_el(0xAE, *video)]
+    if audio:
+        tracks.insert(0, _el(0xAE, _el_uint(0xD7, 1), _el_uint(0x73C5, 1),
+                             _el_uint(0x83, 2), _el(0x86, b"A_PCM/INT/LIT"),
+                             _el(0xE1, _el_float(0xB5, 8000.0),
+                                 _el_uint(0x9F, 1), _el_uint(0x6264, 16))))
+    info = [_el_uint(0x2AD7B1, scale), _el(0x4D80, b"auformer_torch"),
+            _el(0x5741, b"auformer_torch fixtures")]
+    if duration is not None and not live:
+        info.append(_el_float(0x4489, float(duration)))
+    head = _el(0x1549A966, *info) + _el(0xEC, bytes(16)) + _el(
+        0x1654AE6B, *tracks)
+    step = lace if lacing else 1
+    tick = (default_duration or 0) // scale
+    clusters = []
+    for c0 in range(0, len(frames), cluster):
+        c1 = min(c0 + cluster, len(frames))
+        base = times[c0]
+        body = [_el(0xE7, base.to_bytes(max(1, (base.bit_length() + 7)
+                                              // 8), "big"))]
+        if audio:
+            span = (times[c1] if c1 < len(times) else times[-1] + tick) - base
+            samples = max(1, span * scale * 8000 // 1000000000)
+            body.append(_el(0xA3, b"\x81" + struct.pack(">hB", 0, 0x80),
+                            bytes(2 * samples)))
+        for b0 in range(c0, c1, step):
+            b1 = min(b0 + step, c1)
+            data = frames[b0:b1]
+            flags = 0x80 if keys[b0] and not groups else 0
+            block = b"\x80" + bytes([number]) if number > 127 else bytes(
+                [0x80 | number])
+            lace_bytes = b""
+            if lacing:
+                if lacing == "fixed":
+                    big = max(len(f) for f in data)
+                    data = [f + bytes(big - len(f)) for f in data]
+                flags |= {"xiph": 2, "fixed": 4, "ebml": 6}[lacing]
+                lace_bytes = _lace_head([len(f) for f in data], lacing)
+            block += struct.pack(">hB", times[b0] - base, flags) + lace_bytes
+            block += b"".join(data)
+            if groups:
+                parts = [_el(0xA1, block), _el_uint(0x9B, tick * (b1 - b0))]
+                if not keys[b0]:
+                    ref = times[b0 - 1] - times[b0]
+                    parts.append(_el(0xFB, ref.to_bytes(2, "big",
+                                                        signed=True)))
+                body.append(_el(0xA0, *parts))
+            else:
+                body.append(_el(0xA3, block))
+        payload = b"".join(body)
+        crc = _el(0xBF, struct.pack("<I", zlib.crc32(payload)))
+        clusters.append(_el(0x1F43B675, crc, payload, unknown=live))
+    segment = [head, *clusters]
+    if not live:
+        # each key frame's cluster, relative to the Segment's data
+        points = []
+        offsets, pos = [], len(head)
+        for c in clusters:
+            offsets.append(pos)
+            pos += len(c)
+        for k in range(0, len(frames), step):
+            if keys[k]:
+                points.append(_el(0xBB, _el_uint(0xB3, times[k]), _el(
+                    0xB7, _el_uint(0xF7, number),
+                    _el_uint(0xF1, offsets[k // cluster]))))
+        segment.append(_el(0x1C53BB6B, *points))
+    ebml = _el(0x1A45DFA3, _el_uint(0x4286, 1), _el_uint(0x42F7, 1),
+               _el_uint(0x42F2, 4), _el_uint(0x42F3, 8),
+               _el(0x4282, b"matroska"), _el_uint(0x4287, 4),
+               _el_uint(0x4285, 2))
+    with open(path, "wb") as f:
+        f.write(ebml + _el(0x18538067, *segment, unknown=live))
+
+
+def write_fragmented_mp4(path: str, samples: list[bytes], sync: list[bool],
+                         dts: list[int], cts: list[int], scale: int,
+                         width: int, height: int, config: bytes,
+                         kind: bytes = b"avc1", *, base: str = "moof",
+                         truns: int = 2, version: int = 1,
+                         sample_flags: bool = True, tfdt: bool = True,
+                         edit: int | None = None) -> None:
+    """Write a fragmented MP4 of one video track (an empty ``moov`` with a
+    ``trex``, then a ``moof`` and an ``mdat`` for each run of samples from
+    a sync sample): each ``traf`` holds a ``tfhd`` whose data base is the
+    ``moof`` (``base`` "moof": default-base-is-moof) or an explicit file
+    offset ("explicit"), a ``tfdt`` unless ``tfdt`` is False (the decode
+    times then run on from the fragment before), and its samples in
+    ``truns`` ``trun`` boxes (version ``version``: signed composition
+    offsets for 1), each with its data offset, the samples' sizes, their
+    durations unless all are the ``tfhd``'s default, their flags
+    (``sample_flags``) or else a first-sample flag over the ``tfhd``'s
+    non-sync default, and their composition offsets where ``cts`` differs
+    from ``dts``. ``edit``: an edit list of one media edit from that media
+    time. ``kind``/``config`` as ``_mp4``'s."""
+    durations = [b - a for a, b in zip(dts, dts[1:])]
+    durations.append(durations[-1] if durations else 1)
+    default_dur = max(set(durations), key=durations.count)
+    offsets = [c - d for c, d in zip(cts, dts)]
+    ftyp = _box(b"ftyp", b"isom", struct.pack(">I", 512),
+                b"isomiso6iso2avc1mp41")
+    stbl = _box(b"stbl", _full_box(b"stsd", 0, 0, struct.pack(">I", 1), _box(
+        kind, bytes(6), struct.pack(">H", 1), bytes(16),
+        struct.pack(">HHIII", width, height, 0x480000, 0x480000, 0),
+        struct.pack(">H", 1), bytes(32), struct.pack(">Hh", 24, -1),
+        _box(b"avcC", config) if kind == b"avc1" else _esds(config))),
+        _full_box(b"stts", 0, 0, struct.pack(">I", 0)),
+        _full_box(b"stsc", 0, 0, struct.pack(">I", 0)),
+        _full_box(b"stsz", 0, 0, struct.pack(">II", 0, 0)),
+        _full_box(b"stco", 0, 0, struct.pack(">I", 0)))
+    trak = [_full_box(b"tkhd", 0, 3, struct.pack(">IIIII", 0, 0, 1, 0, 0),
+                      bytes(8), struct.pack(">hhhH", 0, 0, 0, 0), _MATRIX,
+                      struct.pack(">II", width << 16, height << 16))]
+    if edit is not None:
+        trak.append(_box(b"edts", _full_box(
+            b"elst", 0, 0, struct.pack(">IIihH", 1, 0, edit, 1, 0))))
+    trak.append(_box(b"mdia", _full_box(
+        b"mdhd", 0, 0, struct.pack(">IIIIHH", 0, 0, scale, 0, 0x55C4, 0)),
+        _full_box(b"hdlr", 0, 0, struct.pack(">I4s", 0, b"vide"), bytes(12),
+                  b"VideoHandler\x00"),
+        _box(b"minf", _full_box(b"vmhd", 0, 1, bytes(8)),
+             _box(b"dinf", _full_box(b"dref", 0, 0, struct.pack(">I", 1),
+                                     _full_box(b"url ", 0, 1))), stbl)))
+    moov = _box(b"moov", _full_box(
+        b"mvhd", 0, 0, struct.pack(">IIIIIH", 0, 0, scale, 0, 0x10000,
+                                   0x100), bytes(10), _MATRIX, bytes(24),
+        struct.pack(">I", 2)), _box(b"trak", *trak), _box(
+            b"mvex", _full_box(b"trex", 0, 0, struct.pack(
+                ">IIIII", 1, 1, default_dur, 0, 0x01010000))))
+    out = [ftyp, moov]
+    at = len(ftyp) + len(moov)
+    starts = [k for k, s in enumerate(sync) if s or k == 0] + [len(samples)]
+    for seq, (f0, f1) in enumerate(zip(starts, starts[1:])):
+        cut = [f0 + (f1 - f0) * r // truns for r in range(truns)] + [f1]
+        runs = [(a, b) for a, b in zip(cut, cut[1:]) if b > a]
+
+        def moof(data_start: int) -> bytes:
+            flags = 0x8 | 0x20 | (0x20000 if base == "moof" else 0x1)
+            tfhd = struct.pack(">I", 1)
+            if base != "moof":
+                tfhd += struct.pack(">Q", at)
+            tfhd += struct.pack(">II", default_dur, 0x01010000)
+            parts = [_full_box(b"tfhd", 0, flags, tfhd)]
+            if tfdt:
+                parts.append(_full_box(b"tfdt", 1, 0,
+                                       struct.pack(">Q", dts[f0])))
+            pos = data_start
+            for a, b in runs:
+                tflags = 0x1 | 0x200 | (0x400 if sample_flags else 0x4)
+                if any(durations[k] != default_dur for k in range(a, b)):
+                    tflags |= 0x100
+                if any(offsets[f0:f1]):
+                    tflags |= 0x800
+                body = struct.pack(">Ii", b - a, pos)
+                if not sample_flags:
+                    body += struct.pack(">I", 0x02000000 if sync[a]
+                                        else 0x01010000)
+                for k in range(a, b):
+                    if tflags & 0x100:
+                        body += struct.pack(">I", durations[k])
+                    body += struct.pack(">I", len(samples[k]))
+                    if sample_flags:
+                        body += struct.pack(">I", 0x02000000 if sync[k]
+                                            else 0x01010000)
+                    if tflags & 0x800:
+                        body += struct.pack(">i" if version else ">I",
+                                            offsets[k])
+                parts.append(_full_box(b"trun", version, tflags, body))
+                pos += sum(len(samples[k]) for k in range(a, b))
+            return _box(b"moof", _full_box(b"mfhd", 0, 0,
+                                           struct.pack(">I", seq + 1)),
+                        _box(b"traf", *parts))
+
+        size = len(moof(0))
+        box = moof(size + 8)          # the data offsets from the moof
+        mdat = _box(b"mdat", *samples[f0:f1])
+        out += [box, mdat]
+        at += len(box) + len(mdat)
+    with open(path, "wb") as f:
+        f.write(b"".join(out))

@@ -10,7 +10,10 @@ key, as the JAX package keys it; the native reader finds such a key under
 the split's ``.jpg`` name (ROADMAP.md C11). ``extract_timestamps``
 writes the timestamps_v2 side file the split builder reads, and
 ``probe_video_meta`` the ``meta.json`` cache, both from the container's
-index (``data/container.py``, ``data/video.py``) in place of cv2's decoder.
+index (``data/container.py``, ``data/video.py``: MP4/MOV, fragmented MP4,
+AVI, Matroska/WebM) in place of cv2's decoder; the reference remuxed
+every video to Matroska with mkvmerge for its timestamps, the port reads
+the Matroska file as it is.
 ``write_label_store`` packs per-frame AU/EX/VA annotation arrays.
 """
 from __future__ import annotations

@@ -6,10 +6,13 @@ legacy ``<video>meta.json``, else probes the container and, with
 ``write``, saves the cache as ``<video>meta.json``, where the JAX package
 saves it (tests/test_ingest.py checks that name). The keys and the
 ``fps or 30.0`` rule are the JAX package's; the index comes from
-``data/container.py``, with no video decoder.
+``data/container.py``, with no video decoder, for MP4/MOV (fragmented
+too), AVI and Matroska/WebM (``data/matroska.py``); a Matroska/WebM file
+of VP9, AV1 or HEVC gives its meta and nothing more.
 
 Frames (``read_RGB``, ``frames``, ``frame_tensors``) come out on the card
-unless the caller passes ``device="cpu"``, for three codecs in AVI or MP4:
+unless the caller passes ``device="cpu"``, for three codecs in AVI, MP4
+(fragmented too) or Matroska/WebM:
 
   MJPEG          each frame's JPEG goes to its Y, Cb and Cr planes
                  (nvJPEG in the card's memory for a CUDA device, libjpeg on
@@ -48,7 +51,9 @@ ROADMAP.md queue A9, as do other codecs.
 H.264: from the sync packet at or before the display position 16 frames
 before ``k``, counting the frames the decoder returns from the number cv2
 gives the first one (``_seek_key``). Where no MPEG-4 VOP with vop_coded 0
-lies between them, that is ``frames()``'s frame ``k``.
+lies between them, that is ``frames()``'s frame ``k``. Where cv2 knows no
+frame count (a live Matroska file's: no Duration) it does not seek:
+``read_RGB(k)`` reads on, as cv2 does after flushing its decoder.
 """
 from __future__ import annotations
 
@@ -108,6 +113,7 @@ class Video:
         self.meta = self._load_or_probe_meta(write)
         self._next = 0
         self._session = None
+        self._read_to = 0
 
     def _meta_path(self) -> str:
         # the reference's cache name keeps the extension: <video.mp4>meta.json
@@ -147,8 +153,11 @@ class Video:
         2: the frames its decoder returns, from the VOP headers
         (``mpeg4.frame_count``): a VOP with vop_coded 0 returns none, and
         at the end of a low-delay stream the last frame once more
-        (ROADMAP.md C12)."""
-        index = container.packet_index(self.path)
+        (ROADMAP.md C12). Other codecs raise naming A9, as ``frames`` does:
+        what cv2 counts is what its decoder returns (none for AV1, which
+        cv2's ffmpeg does not decode; a WebM VP8 stream's hidden frames
+        are packets of their own)."""
+        index, _ = self._decodable
         if index["codec"] != "mpeg4":
             return container.probe(self.path, timestamps=False)["packets"]
         units = [u for _, u in container.access_units(self.path, index,
@@ -165,8 +174,9 @@ class Video:
             raise NotImplementedError(
                 f"decoding the {index['codec']} frames of {self.path} needs "
                 "a software decoder of the port's own, which auformer_torch "
-                "has for MJPEG, MPEG-4 part 2 and H.264 only (the card's "
-                f"NVDEC is refused by its container): {_A9} lists it")
+                "has for MJPEG, MPEG-4 part 2 and H.264 only, in MP4, AVI "
+                "and Matroska/WebM (the card's NVDEC is refused by its "
+                f"container): {_A9} lists it")
         return index, [k for k, p in enumerate(index["packets"]) if p.kept]
 
     def frame_tensors(self, device=None) -> Iterator[torch.Tensor]:
@@ -199,6 +209,8 @@ class Video:
         k = self._next if frame_idx is None else int(frame_idx)
         if k < 0:
             raise ValueError(f"read_RGB: frame {k} of {self.path}")
+        if index["num_frames"] < 1:       # cv2 does not seek: it reads on
+            k = self._next
         if k >= len(kept):
             self._next = len(kept)
             return None
@@ -209,21 +221,69 @@ class Video:
     def _read_decoded(self, index: dict, frame_idx, device):
         """cv2's seek and read on an MPEG-4 or H.264 stream: a decode from
         the sync packet of ``_seek_key`` that stays open for the reads
-        after it; the frames passed over are not converted."""
+        after it; the frames passed over are not converted. Where cv2
+        knows no frame count (``num_frames`` below 1, a live Matroska
+        file's) it does not seek: it flushes its decoder and reads on from
+        the packet after those it has read (``_read_on``)."""
         if frame_idx is not None or self._session is None:
             k = 0 if frame_idx is None else int(frame_idx)
             if k < 0:
                 raise ValueError(f"read_RGB: frame {k} of {self.path}")
             self._close_session()
-            key, skip = _seek_key(index, min(k, index["num_frames"]),
-                                  self.path)
+            if index["num_frames"] < 1:
+                key, skip = self._read_on(index), 0
+                if key is None:
+                    return None
+            else:
+                key, skip = _seek_key(index, min(k, index["num_frames"]),
+                                      self.path)
             self._session = _SOFTWARE[index["codec"]](self.path, index, key,
                                                       device=device)
+            if index["num_frames"] < 1:
+                self._session = self._reading_on(self._session, index, key)
             for _ in range(skip):
                 if next(self._session, None) is None:
                     break
         frame = next(self._session, None)
         return None if frame is None else _rgb(frame).cpu().numpy()
+
+    def _read_on(self, index: dict) -> int | None:
+        """The packet cv2's H.264 decoder returns a frame of first after a
+        flush: the first sync packet from the one after those it has read
+        (after a flush ffmpeg's decoder drops the pictures before the next
+        key frame); None past the last. An MPEG-4 decoder flushed mid
+        stream decodes its next VOPs from a grey picture, which the port
+        does not follow."""
+        if self._read_to and index["codec"] != "h264":
+            raise NotImplementedError(
+                f"{self.path}: cv2 does not seek in a file whose frame count "
+                f"it does not know, and flushes its {index['codec']} decoder "
+                f"mid stream; {_A9} lists following it")
+        packets = index["packets"]
+        return next((j for j in range(self._read_to, len(packets))
+                     if packets[j].sync and packets[j].kept), None)
+
+    def _reading_on(self, session, index: dict, key: int):
+        """``session``'s frames, keeping ``_read_to``, the packets cv2's
+        demuxer has handed out when each is returned: those up to the one
+        whose decoding returns it (``bitstream.h264_output_frames``)."""
+        from . import bitstream
+        triggers = None
+        try:
+            for j, frame in enumerate(session):
+                if triggers is None and index["codec"] != "h264":
+                    triggers = []           # _read_on refuses to go on
+                elif triggers is None:      # once the stream decodes
+                    units = (u for _, u in container.access_units(
+                        self.path, index, key, kept_only=False))
+                    triggers = [t for _, t in
+                                bitstream.h264_output_frames(units)]
+                t = triggers[j] if j < len(triggers) else None
+                self._read_to = (len(index["packets"]) if t is None
+                                 else key + t + 1)
+                yield frame
+        finally:
+            session.close()
 
     def _close_session(self) -> None:
         if self._session is not None:
@@ -234,6 +294,7 @@ class Video:
         """Back to the first frame, closing an open MPEG-4 or H.264
         decode."""
         self._next = 0
+        self._read_to = 0
         self._close_session()
 
 

@@ -144,7 +144,7 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            frame_tensors() on the card against the SHA-256s of the JAX
            package's cv2 frames (expected.json), its seeks, count and
            timestamps, and the host decoder's s per frame on cv2's own
-           176x144 streams over MPEG4_PASSES passes; (f) a 12-VOP
+           176x144 streams over MPEG4_PASSES pass; (f) a 12-VOP
            1280x720 stream (I, P, B) written here by write_mpeg4 (every
            coefficient by escape 3, so far more bytes a frame than an
            encoder's) through Video.frames(), the main path: 12 yuv_rgb
@@ -199,7 +199,23 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            full-chroma route; 4:2:2; monochrome), and at 1280x720 on the
            High 10 stream's planes in each chroma layout at 10 bits
            (DEEP_CASES: swscale's scaler route), against its plain
-           version, its device ms beside its bound
+           version, its device ms beside its bound; then containers
+           (``phase_decode_container``, its own line ``decode_container``):
+           (i) every tests/data/videos_container/ file (Matroska/WebM and
+           fragmented MP4, libavformat's and the tests' writer's) against
+           expected.json: its meta, and for H.264, MPEG-4 part 2 and MJPEG
+           its count, timestamps, frames through frame_tensors() on the
+           card and its reads in expected.json's order (the live file's
+           depend on the ones before), VP9, AV1 and HEVC raising naming
+           A9; the files, frames, seeks, seconds and frames/s; then
+           h264_cabac_1280x720.mkv, the Matroska remux of
+           ipb_cabac_1280x720.mp4, through Video.frames() on the card,
+           this slice's main path ``decode_container``: 24 yuv_rgb
+           launches and none of the other kernels, each frame the MP4's
+           cv2 frame, then the MP4 and the Matroska file once more each,
+           frames/s, and container.probe's seconds on both. The passes
+           above are 1 each (MPEG4_PASSES, H264_PASSES,
+           H264_DEEP_PASSES): a second one would check only the count
   quickstart
            ``python -m auformer_torch.quickstart`` (its ``main``, no
            device argument), the port's examples/quickstart.py: its
@@ -574,7 +590,9 @@ MPEG4_FIXTURES = ROOT / "tests" / "data" / "videos_mpeg4"
 MPEG4_FRAMES = 12
 MPEG4_GOP, MPEG4_B_FRAMES, MPEG4_QSCALE = 12, 2, 8
 MPEG4_SEEKS = (0, 5, 11)
-MPEG4_PASSES = 2                  # timed passes of frames() and the decoder
+# timed passes of frames() and the decoder: 1 (a second one would check
+# only the frame count; the first holds every frame)
+MPEG4_PASSES = 1
 MPEG4_CV2_STREAMS = ("mp4v_176.mp4", "xvid_176.avi")
 MPEG4_XVID_STREAM = "xvid_1280x720.avi"   # libxvid at full width
 # H.264: x264's streams (tests/data/videos_h264), the full-width CABAC one
@@ -584,7 +602,7 @@ H264_FIXTURES = ROOT / "tests" / "data" / "videos_h264"
 H264_STREAM = "ipb_cabac_1280x720.mp4"
 H264_MBAFF_STREAM = "ipb_mbaff_1920x1080.mp4"
 H264_CAVLC_STREAM = "ipb_1280x720.mp4"
-H264_PASSES = 2
+H264_PASSES = 1
 H264_MBAFF_PASSES = 1
 # 4:4:4 at full width (x264's High 4:4:4 defaults): this slice's main path;
 # the kernel's cases of the other chroma layouts at 1280x720, made from its
@@ -599,10 +617,16 @@ CHROMA_CASES = ("yuv444_limited", "yuv444_full_bt709", "yuv422_limited",
 # chroma layouts, made from its 10-bit planes (4:2:2 its chroma rows
 # twice, 4:4:4 its chroma samples twice each way)
 H264_DEEP_STREAM = "ipb_high10_1280x720.mp4"
-H264_DEEP_PASSES = 2
+H264_DEEP_PASSES = 1
 DEEP_CASES = ("yuv420_10bit", "yuv422_10bit", "yuv444_10bit")
 H264_FULL_WIDTH = ("1280x720", "1920x1080")
 H264_WIDE_SEEKS = ("0", "13", "23", "35")
+# Matroska/WebM and fragmented MP4: libavformat's and the tests' writer's
+# files (tests/data/videos_container) and what cv2 read from them; the 720p
+# Matroska remux of H264_STREAM the main path
+CONTAINER_FIXTURES = ROOT / "tests" / "data" / "videos_container"
+CONTAINER_STREAM = "h264_cabac_1280x720.mkv"
+CONTAINER_DECODED = ("h264", "mpeg4", "mjpeg")
 # (matrix_coefficients, full range) of the kernel's cases: BT.601, BT.709,
 # FCC, SMPTE 240M, BT.2020, and full range BT.601 and BT.709
 H264_COLOURS = ((2, 0), (1, 0), (4, 0), (7, 0), (9, 0), (2, 1), (1, 1))
@@ -2704,15 +2728,130 @@ def h264_stream(torch, dev, expected: dict, name: str,
         "launches": launches["yuv_rgb"], "seeks_equal": list(seeks)}, host[0][1:]
 
 
+def phase_decode_container(torch, dev, work: Path) -> tuple[dict, dict]:
+    """The decode phase's container part (i): every file of
+    CONTAINER_FIXTURES (Matroska/WebM and fragmented MP4) against
+    expected.json: its meta; for the codecs the port decodes its count,
+    timestamps, frames through frame_tensors() on the card (H.264 and
+    MPEG-4 part 2 bit for bit, MJPEG within MJPG_MAX and MJPG_MEAN of
+    cv2's mjpg_112.npz) and its reads in expected.json's order; for the
+    rest count, timestamps and frames raising naming A9. Then the main
+    path: CONTAINER_STREAM, the 720p Matroska remux of H264_STREAM,
+    through Video.frames() under counted_decode (24 yuv_rgb launches),
+    each frame the MP4's cv2 frame, then the MP4 and the Matroska file
+    once more each, timed, and container.probe of both. Returns (the
+    launches, the numbers)."""
+    import hashlib
+
+    from auformer_torch.data import container, ingest
+    from auformer_torch.data.video import Video
+
+    def sha(a) -> str | None:
+        return None if a is None else hashlib.sha256(
+            np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    expected = json.loads((CONTAINER_FIXTURES / "expected.json").read_text())
+    cv2_mjpeg = np.load(DECODE_FIXTURES / "mjpg_112.npz")["frames"]
+    t0 = time.perf_counter()
+    n_frames = n_seeks = 0
+    refused, mjpeg_err = [], 0.0
+    for name, want in sorted(expected.items()):
+        path = str(CONTAINER_FIXTURES / name)
+        video = Video(path, write=False)
+        if video.meta != want["meta"]:
+            fail(f"{name}: meta {video.meta}, cv2's {want['meta']}")
+        if want["codec"] not in CONTAINER_DECODED:
+            for call in (video.count_frames,
+                         lambda: ingest.extract_timestamps(
+                             path, str(work / "ts.txt")),
+                         lambda: next(video.frame_tensors(dev))):
+                try:
+                    call()
+                except NotImplementedError as e:
+                    if "A9" not in str(e):
+                        fail(f"{name}: refused without naming A9: {e}")
+                else:
+                    fail(f"{name}: a {want['codec']} track not refused")
+            refused.append(name)
+            continue
+        got = (video.count_frames(), Path(ingest.extract_timestamps(
+            path, str(work / "ts.txt"))).read_text())
+        if got != (want["count_frames"], want["timestamps"]):
+            fail(f"{name}: count and timestamps {got[0]}, expected "
+                 f"{want['count_frames']} and the JAX package's")
+        frames = [t.cpu().numpy() for t in video.frame_tensors(dev)]
+        if want["codec"] == "mjpeg":
+            diff = np.abs(np.stack(frames).astype(int)
+                          - cv2_mjpeg.astype(int))
+            mjpeg_err = max(mjpeg_err, float(diff.max()))
+            if diff.max() > MJPG_MAX or diff.mean() > MJPG_MEAN:
+                fail(f"{name} on the card against cv2: max {diff.max()}, "
+                     f"mean {diff.mean()}")
+        elif [sha(f) for f in frames] != want["frames_sha256"]:
+            fail(f"{name}: frame_tensors() on the card is not cv2's")
+        n_frames += len(frames)
+        for k, theirs in want["read_RGB_sha256"]:
+            img = video.read_RGB(k, device=dev)
+            if want["codec"] == "mjpeg":
+                ok = (img is None if theirs is None else img is not None
+                      and np.array_equal(img, frames[
+                          want["frames_sha256"].index(theirs)]))
+            else:
+                ok = sha(img) == theirs
+            if not ok:
+                fail(f"{name}: read_RGB({k}) on the card is not cv2's")
+            n_seeks += 1
+        video.release()
+    fixtures_s = time.perf_counter() - t0
+    # the main path: the 720p Matroska file, then its MP4 and it again
+    mkv, mp4 = CONTAINER_FIXTURES / CONTAINER_STREAM, H264_FIXTURES / \
+        H264_STREAM
+    want = json.loads((H264_FIXTURES / "expected.json").read_text())[
+        H264_STREAM]["frames_sha256"]
+    probe_s = {}
+    for key, path in (("mkv", mkv), ("mp4", mp4)):
+        t1 = time.perf_counter()
+        container.probe(str(path))
+        probe_s[key] = time.perf_counter() - t1
+    video = Video(str(mkv), write=False)
+    torch.cuda.synchronize()
+    decoded, frames_s, launches = counted_decode(
+        lambda: list(video.frames(device=dev)))
+    if [sha(f) for f in decoded] != want or launches["yuv_rgb"] != len(
+            want) or any(f.shape != (720, 1280, 3) for f in decoded):
+        fail(f"{CONTAINER_STREAM} through frames() on the card: "
+             f"{launches}, not the MP4's cv2 frames")
+    rates = {"mkv": [len(want) / frames_s]}
+    for key, path in (("mp4", mp4), ("mkv", mkv)):
+        t1 = time.perf_counter()
+        n = sum(1 for _ in Video(str(path), write=False).frames(device=dev))
+        rates.setdefault(key, []).append(n / (time.perf_counter() - t1))
+        if n != len(want):
+            fail(f"{path.name} frames(): {n} frames")
+    numbers = {"files": len(expected), "frames": n_frames,
+               "seeks": n_seeks, "s": fixtures_s,
+               "frames_per_s": n_frames / fixtures_s,
+               "refused_naming_a9": refused, "mjpeg_max_err": mjpeg_err,
+               "stream": {"file": CONTAINER_STREAM, "source": H264_STREAM,
+                          "frames": len(want),
+                          "launches": launches["yuv_rgb"],
+                          "frames_per_s": rates, "probe_s": probe_s},
+               "card": nvidia_smi()}
+    emit("decode_container", **numbers)
+    return launches, numbers
+
+
 def phase_decode(torch, dev) -> tuple[dict, dict, dict]:
     """The decode phase: (a) NVDEC's caps and the I_PCM H.264 fixtures'
     frames, (b) the committed fixtures, (c) the kernel at full width, (d)
     the full-width MJPEG stream through Video on the card, its launches
     counted with the counts set to 0 just before frames() and read just
-    after, then (e)-(g) MPEG-4 part 2 (``phase_decode_mpeg4``) and (h)
-    H.264 (``phase_decode_h264``). Returns (the MJPEG path's launches, the
+    after, then (e)-(g) MPEG-4 part 2 (``phase_decode_mpeg4``), (h)
+    H.264 (``phase_decode_h264``) and (i) Matroska/WebM and fragmented MP4
+    (``phase_decode_container``). Returns (the MJPEG path's launches, the
     MPEG-4 paths' (write_mpeg4's stream, libxvid's), the H.264 paths'
-    (progressive, MBAFF, 4:4:4, High 10), the kernel's
+    (progressive, MBAFF, 4:4:4, High 10), the container path's, the
+    kernel's
     numbers with the limited-range case under ``limited_range`` and
     H.264's colours under ``matrices``)."""
     import hashlib
@@ -2831,10 +2970,13 @@ def phase_decode(torch, dev) -> tuple[dict, dict, dict]:
     t_h264 = time.perf_counter()
     h264_launches, h264, matrices = phase_decode_h264(torch, dev, work)
     h264["s"] = time.perf_counter() - t_h264
+    t_container = time.perf_counter()
+    container_launches, containers = phase_decode_container(torch, dev, work)
+    containers["s_part"] = time.perf_counter() - t_container
     emit("decode", nvidia_smi=nvidia_smi(), nvdec_caps=caps,
          fixtures=fixtures, kernel=kernel, stream=stream, mpeg4=mpeg4,
          limited_kernel=limited, h264=h264, h264_kernels=matrices,
-         phase_s=time.perf_counter() - t_phase)
+         containers=containers, phase_s=time.perf_counter() - t_phase)
     shutil.rmtree(work, ignore_errors=True)
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernel = dict(kernel, limited_range={key: limited[key] for key in keys},
@@ -2850,7 +2992,8 @@ def phase_decode(torch, dev) -> tuple[dict, dict, dict]:
                               for name in DEEP_CASES})
     kernel["max_abs_err"] = max([kernel["max_abs_err"], limited["max_abs_err"]]
                                 + [c["max_abs_err"] for c in matrices.values()])
-    return launches, mpeg4_launches, h264_launches, kernel
+    return launches, mpeg4_launches, h264_launches, container_launches, \
+        kernel
 
 
 def phase_quickstart(torch, dev) -> tuple[dict, list]:
@@ -5264,7 +5407,7 @@ def main() -> int:
      (by_path["decode_mpeg4"], by_path["decode_mpeg4_xvid"]),
      (by_path["decode_h264"], by_path["decode_h264_mbaff"],
       by_path["decode_h264_444"], by_path["decode_h264_high10"]),
-     yuv) = phase_decode(torch, dev)
+     by_path["decode_container"], yuv) = phase_decode(torch, dev)
     shutil.rmtree(split["work"], ignore_errors=True)  # the split, the .pth
     by_path["quickstart"], quickstart_grads = phase_quickstart(torch, dev)
     paths, grad_cases, attention_in_step = phase_train(torch, dev)
@@ -5377,7 +5520,8 @@ def main() -> int:
                                         "decode_mpeg4_xvid",
                                         "decode_h264", "decode_h264_mbaff",
                                         "decode_h264_444",
-                                        "decode_h264_high10")},
+                                        "decode_h264_high10",
+                                        "decode_container")},
          **{key: yuv[key] for key in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms",
                                       "limited_range", "matrices",

@@ -172,22 +172,38 @@ H264 = os.path.join(os.path.dirname(VIDEOS), "videos_h264",
                     "mbaff_yuv422_176x144.mp4")
 
 
-@pytest.mark.parametrize("call", [
-    lambda t: Video(H264, write=False).read_RGB(0, device="cpu"),
-    lambda t: ingest.extract_timestamps(os.path.join(VIDEOS,
-                                                     "matroska.mkv"),
-                                        str(t / "ts.txt")),
-    lambda t: ingest.probe_video_meta(shutil.copy(
-        os.path.join(VIDEOS, "fragmented.mp4"), t)),
-    lambda t: next(Video(H264, write=False).frames(device="cpu")),
+def _fragmented_meta(t):
+    """probe_video_meta of fragmented.mp4 (mp4v_30.mp4 and an empty moof),
+    which the port now reads: the JAX package's meta."""
+    ours = ingest.probe_video_meta(shutil.copy(
+        os.path.join(VIDEOS, "fragmented.mp4"), t))
+    (t / "jax").mkdir()
+    assert ours == jax_ingest.probe_video_meta(shutil.copy(
+        os.path.join(VIDEOS, "fragmented.mp4"), t / "jax"))
+
+
+@pytest.mark.parametrize("call,raises", [
+    (lambda t: Video(H264, write=False).read_RGB(0, device="cpu"),
+     NotImplementedError),
+    (lambda t: ingest.extract_timestamps(os.path.join(VIDEOS,
+                                                      "matroska.mkv"),
+                                         str(t / "ts.txt")), ValueError),
+    (_fragmented_meta, None),
+    (lambda t: next(Video(H264, write=False).frames(device="cpu")),
+     NotImplementedError),
 ], ids=["read_RGB", "extract_timestamps", "probe_video_meta", "frames"])
-def test_decoder_paths_raise_naming_a9(tmp_path, call):
+def test_decoder_paths_raise_naming_a9(tmp_path, call, raises):
     """What still needs a decoder tool the port does not have (H.264 4:2:2
     coded for fields: NVDEC is refused by the card's container, and the
     port's own software decoder reads 4:2:0 alone in streams coded for
-    fields) or a container the port does not read (Matroska, fragmented
-    MP4) raises naming A9."""
-    with pytest.raises(NotImplementedError, match="A9"):
+    fields) raises naming A9. The containers the port now reads no longer
+    do: matroska.mkv (an EBML ID and 28 zero bytes) raises ValueError as a
+    malformed file, and fragmented.mp4's meta is the JAX package's."""
+    if raises is None:
+        call(tmp_path)
+        return
+    with pytest.raises(raises, match="A9" if raises is NotImplementedError
+                       else "bad element size"):
         call(tmp_path)
 
 
