@@ -90,12 +90,13 @@ def _skip_scaling_list(r: BitReader, size: int) -> None:
 
 def parse_sps(nal: bytes) -> dict:
     """The fields of a sequence parameter set that the picture order count
-    needs (ITU-T H.264 7.3.2.1.1)."""
+    needs (ITU-T H.264 7.3.2.1.1), the cropped ``width`` and ``height`` and
+    the VUI's ``timing`` (num_units_in_tick, time_scale; None without)."""
     r = BitReader(rbsp(nal[1:]))
     profile = r.u(8)
     level = r.u(16) & 0xFF                     # constraints, level_idc
     sps_id = r.ue()
-    separate_planes = 0
+    separate_planes, chroma = 0, 1
     if profile in _HIGH_PROFILES:
         chroma = r.ue()
         if chroma == 3:
@@ -116,17 +117,24 @@ def parse_sps(nal: bytes) -> dict:
         raise _unread("H.264 picture order count type 1")
     r.ue()                                     # max_num_ref_frames
     r.u(1)                                     # gaps_in_frame_num_allowed
-    mbs = (r.ue() + 1) * (r.ue() + 1)          # width x height in map units
+    width, units = r.ue() + 1, r.ue() + 1      # in macroblocks, map units
     sps["frame_mbs_only"] = r.u(1)
     # FrameHeightInMbs: twice the map units of a stream coded for fields
-    mbs *= 2 - sps["frame_mbs_only"]
-    sps["num_reorder_frames"] = _max_dpb_frames(level, mbs)
+    height = units * (2 - sps["frame_mbs_only"])
+    sps["num_reorder_frames"] = _max_dpb_frames(level, width * height)
     if not sps["frame_mbs_only"]:
         r.u(1)                                 # mb_adaptive_frame_field
     r.u(1)                                     # direct_8x8_inference
+    crop = (0, 0, 0, 0)
     if r.u(1):                                 # frame_cropping_flag
-        for _ in range(4):
-            r.ue()
+        crop = tuple(r.ue() for _ in range(4))
+    # the cropped size (7.4.2.1.1: CropUnitX, CropUnitY)
+    unit_x = 1 if chroma in (0, 3) or separate_planes else 2
+    unit_y = (1 if chroma != 1 or separate_planes else 2) * (
+        2 - sps["frame_mbs_only"])
+    sps["width"] = 16 * width - unit_x * (crop[0] + crop[1])
+    sps["height"] = 16 * height - unit_y * (crop[2] + crop[3])
+    sps["timing"] = None
     if r.u(1):                                 # vui_parameters_present
         _vui(r, sps)
     return sps
@@ -159,8 +167,7 @@ def _vui(r: BitReader, sps: dict) -> None:
         r.ue()
         r.ue()
     if r.u(1):                                 # timing_info_present
-        r.u(32)
-        r.u(32)
+        sps["timing"] = (r.u(32), r.u(32))     # num_units_in_tick, scale
         r.u(1)
     hrd = [r.u(1)]
 

@@ -5,12 +5,17 @@ JAX package asks cv2's FFMPEG backend, auformer/data/video.py:30-48).
 ``num_frames`` (``CAP_PROP_FRAME_COUNT``), ``fps`` (``CAP_PROP_FPS``),
 ``width``, ``height``, ``packets`` (the frames a decode loop of ``grab()``
 returns) and ``timestamps_ms`` (``CAP_PROP_POS_MSEC`` after each
-``grab()``), for MP4/MOV (fragmented too), AVI and Matroska/WebM. cv2
+``grab()``), for MP4/MOV (fragmented too), AVI and Matroska/WebM, and
+for ASF (``data/asf.py``) and MPEG program and transport streams
+(``data/mpegstream.py``, whose module docstring has their rules). cv2
 computes them from ffmpeg's demuxer state; the rules below follow
 ffmpeg's code and were each held against cv2 on files written by cv2, by
 libavformat or by the tests' writers, some edited box by box
 (tests/test_torch_video_ingest.py, test_torch_video_matroska.py,
-test_torch_video_fragmented.py):
+test_torch_video_fragmented.py, test_torch_video_mpegts.py,
+test_torch_video_asf.py). ``meta(path)`` gives the first four; for ASF
+and MPEG streams it reads the head and the tail of the file only, as
+ffmpeg's open does, where ``probe`` and ``packet_index`` read it all:
 
   ``num_frames``  ``AVStream.nb_frames``: for MP4/MOV the sum of the
                   ``stts`` run counts (``mov_read_stts``), for AVI the
@@ -96,9 +101,16 @@ DefaultDuration, encrypted or bzlib/LZO content, the timestamps of a
 Matroska track whose codec the port does not decode (VP9, AV1, HEVC:
 meta is read), the timestamps of a track with ``ctts`` whose codec is
 neither H.264 (with ``avcC``) nor MPEG-4 part 2 (HEVC, for one), whose
-output order the port does not read, and ASF (.wmv), MPEG program and
-transport streams, by their first bytes. A file that is none of these
-formats, or malformed, raises ValueError.
+output order the port does not read, the frames and timestamps of the
+other codecs (MPEG-1/2 video, WMV/VC-1: meta is read), and what
+``_stream_stamps`` and ``_asf_meta`` do not follow. A file that is none
+of these formats, or malformed, raises ValueError.
+
+In an ASF file or an MPEG program or transport stream a frame's time is
+its PTS where it has one other than 0, else the DTS of the packet whose
+decoding returned it (``_stream_stamps``), as cv2 reads ``pkt_dts`` for a
+frame without one; a unit of an MPEG stream that takes no PTS from its
+PES has none, and cv2 gives it 0.
 """
 from __future__ import annotations
 
@@ -574,6 +586,7 @@ def _chunks(f, off: int, end: int):
 _AVI_CODECS = {b"H264": "h264", b"X264": "h264", b"AVC1": "h264",
                b"XVID": "mpeg4", b"DIVX": "mpeg4", b"DX50": "mpeg4",
                b"FMP4": "mpeg4", b"MP4V": "mpeg4", b"M4S2": "mpeg4",
+               b"MP4S": "mpeg4",
                b"MJPG": "mjpeg"}
 
 
@@ -715,7 +728,7 @@ def _avi_video_stream(f, off: int, end: int, path: str):
 
 # -- entry point --------------------------------------------------------------
 
-# -- Matroska/WebM -------------------------------------------------------------
+# -- Matroska/WebM ------------------------------------------------------------
 
 _EPS_ZERO = 0.000025          # cv2's eps_zero (cap_ffmpeg_impl.hpp)
 _NOPTS = -(1 << 63)           # AV_NOPTS_VALUE
@@ -838,13 +851,165 @@ def _mkv_stamps(path: str, track: dict, kept: list[Packet]) -> list[float]:
     return [(p.pts - first) * track["time_base"] * 1000.0 for p in kept]
 
 
+# -- MPEG program and transport streams ---------------------------------------
+
+def _mpeg_track(f, path: str) -> dict:
+    """The first video stream of an MPEG program or transport stream
+    (``data/mpegstream.py``): its access units as ffmpeg's parser cuts
+    them, each a packet of offsets in the elementary stream (``chunks``
+    maps them to the file), with the PTS and DTS it takes (None where it
+    takes none)."""
+    from . import mpegstream
+    s = mpegstream.streams(f, path)
+    out = mpegstream.meta_of(f, s, path)
+    pes, units, chunks = mpegstream.units(f, s, path)
+    inferred = any(u.pts is None for u in units)
+    if out["codec"] == "mpeg4":
+        units = mpegstream.interpolate(
+            units, mpegstream.frame_ticks(s.head["rate"], 0))
+    out.update(time_base=1 / 90000, setup={}, chunks=chunks, kind=s.kind,
+               inferred=inferred, pes=pes,
+               wraps_down=s.wrap.ref is not None and not s.wrap.add,
+               packets=[Packet(u.start, u.size, u.key, u.dts, u.pts, True)
+                        for u in units], unit_pos=[u.pos for u in units])
+    out["start_time"] = next((u.pts for u in units if u.pts is not None),
+                             None)
+    return out
+
+
+def _stream(read_track):
+    """``probe`` of a container whose packets carry their own times (MPEG
+    program and transport streams, ASF), from its track reader."""
+    def read(f, path: str, timestamps: bool) -> dict:
+        track = read_track(f, path)
+        out = {k: track[k] for k in ("num_frames", "fps", "width",
+                                     "height")}
+        out["packets"] = len(track["packets"])
+        if timestamps:
+            out["timestamps_ms"] = _stream_stamps(path, track)
+        return out
+    return read
+
+
+def _stream_stamps(path: str, track: dict) -> list[float]:
+    """The timestamps cv2 reports of a stream whose packets carry their
+    own times (MPEG program and transport streams, ASF): each frame's PTS
+    where it has one other than 0, else the DTS of the packet whose
+    decoding returned it (cv2 takes ``pkt_dts`` for a frame without a
+    PTS), less the stream's start time; 0 where neither is known."""
+    codec, packets = track["codec"], track["packets"]
+    if codec not in ("h264", "mpeg4"):
+        raise _unsupported(path, f"the frames of a {codec} stream")
+    if codec == "mpeg4":
+        frames, low_delay = _mpeg4_frames(path, track)
+        if track.get("inferred") and not low_delay:
+            raise _unsupported(path, "the times of an MPEG-4 part 2 stream "
+                               "with B-VOPs whose units lack a PTS (ffmpeg "
+                               "guesses them from the last I- or P-VOP)")
+        pairs = [(props, trigger) for _, props, trigger in frames]
+    else:
+        pairs = _h264_frames(path, track)
+    start, tb = track["start_time"], track["time_base"]
+    out = []
+    for own, trigger in pairs:
+        t = packets[own].pts
+        if not t:
+            t = None
+            if trigger is not None:
+                p = packets[trigger]
+                if p.dts is None and p.pts is not None:
+                    raise _unsupported(path, "the time of a frame without a "
+                                       "PTS returned by a packet without a "
+                                       "DTS (ffmpeg guesses it from the "
+                                       "PTS before)")
+                t = p.dts
+        out.append(0.0 if t is None or start is None
+                   else (t - start) * tb * 1000.0)
+    return out
+
+
+# -- ASF ----------------------------------------------------------------------
+
+def _asf_meta(h: dict, path: str) -> dict:
+    """``num_frames``, ``fps``, ``width``, ``height`` and ``codec`` of an
+    ASF file's video stream from its header and first packets
+    (``data/asf.py``), as ffmpeg's ``asf`` demuxer and
+    ``avformat_find_stream_info`` give them to cv2. ``avg_frame_rate`` is
+    the probed frames' rate in the 1 ms time base, rounded to a standard
+    rate within 1 %: for MPEG-4 part 2 from the VOL (its parser gives each
+    frame its duration, whatever the times), for the rest from the
+    objects' times (AvgTimePerFrame is read past). Every stream lasts the
+    play duration less the preroll, where the file is not broadcast and
+    its size is within 5 % of the header's; the file from the earliest
+    stream start to the latest end where that is longer. A broadcast file
+    has none, and cv2 counts floor(AV_NOPTS_VALUE ms x fps + 0.5)."""
+    from . import mpegstream
+    fourcc = h["fourcc"]
+    codec = _AVI_CODECS.get(fourcc.upper().encode("latin-1"), fourcc)
+    if codec == "mpeg4":
+        head = mpegstream.mpeg4_head(h["extradata"]) or {}
+        ticks = mpegstream.frame_ticks(head.get("rate"), 0, 1000)
+    else:
+        times = h["times"][:40]
+        steps = {b - a for a, b in zip(times, times[1:])}
+        if len(steps) != 1:
+            raise _unsupported(path, "the rate of an ASF video stream whose "
+                               "first frames are not evenly spaced (ffmpeg "
+                               "averages their durations)")
+        ticks = steps.pop()
+    rate = mpegstream.avg_frame_rate(ticks, 1000)
+    if rate is None:
+        raise _unsupported(path, "the rate of an ASF video stream without "
+                           "one in its headers or times")
+    fps = rate[0] / rate[1]
+    size, declared = h["file_size"], h["declared_size"]
+    known = not h["flags"] & 1 and (
+        declared <= 0 or abs(size - declared) < min(size, declared) / 20)
+    if known:
+        dur = h["play"] // 10000 - h["preroll"]
+        starts = {k: t * 1000 for k, t in h["first"].items()}
+        sec = max(dur * 1000, max(starts.values(), default=0) + dur * 1000
+                  - min(starts.values(), default=0)) / 1e6
+    elif all(h["bitrates"].get(k) for k in h["streams"]):
+        raise _unsupported(path, "the duration of a broadcast ASF file from "
+                           "its streams' bit rates")
+    else:
+        sec = _NOPTS / 1e6
+    if sec < _EPS_ZERO:
+        sec = _NOPTS * 0.001
+    return {"num_frames": math.floor(sec * fps + 0.5), "fps": fps,
+            "width": h["width"], "height": h["height"], "codec": codec}
+
+
+def _asf_track(f, path: str) -> dict:
+    """The video stream of an ASF file: its media objects as packets of
+    offsets in the stream of their fragments (``chunks``), their
+    presentation times (ms) as PTS and DTS, the VOL of an MPEG-4 part 2
+    stream's BITMAPINFOHEADER as its setup."""
+    from . import asf
+    h = asf.read(f, path)
+    out = _asf_meta(h, path)
+    objs = h["objects"]
+    out.update(time_base=1 / 1000, chunks=h["chunks"], kind="asf",
+               fourcc=h["fourcc"],
+               setup={"vol": h["extradata"]} if out["codec"] == "mpeg4"
+               and h["extradata"] else {},
+               packets=[Packet(o.start, o.size, o.key, o.pts, o.pts, True)
+                        for o in objs],
+               object_packet=[o.packet for o in objs],
+               start_time=objs[0].pts if objs else None,
+               simple_index=h["index"], preroll=h["preroll"])
+    return out
+
+
 # -- entry point --------------------------------------------------------------
 
 _ASF = bytes.fromhex("3026b2758e66cf11a6d900aa0062ce6c")
 
 
 def _kind(f, path: str) -> str:
-    head = f.read(400)
+    from . import mpegstream
+    head = f.read(1024)
     f.seek(0)
     if head[:4] == b"\x1a\x45\xdf\xa3":
         return "mkv"
@@ -853,21 +1018,21 @@ def _kind(f, path: str) -> str:
     if head[4:8] in (b"ftyp", b"moov", b"mdat", b"free", b"skip", b"wide",
                      b"pnot"):
         return "mp4"
-    for what, found in (
-            ("an ASF file (.wmv, .asf)", head[:16] == _ASF),
-            ("an MPEG program stream (.mpg, .mpeg, .vob)",
-             head[:4] == b"\x00\x00\x01\xba"),
-            ("an MPEG transport stream (.ts)",
-             len(head) >= 377 and head[0] == head[188] == head[376] == 0x47),
-            ("an MPEG transport stream of 192-byte packets (.m2ts)",
-             len(head) >= 389 and head[4] == head[196] == head[388] == 0x47)):
-        if found:
-            raise _unsupported(path, what)
-    raise ValueError(f"{path}: not an MP4/MOV, AVI or Matroska/WebM file")
+    if head[:16] == _ASF:
+        return "asf"
+    if head[:4] == b"\x00\x00\x01\xba":
+        return "ps"
+    if mpegstream.is_ts(head):
+        return "ts"
+    raise ValueError(f"{path}: not an MP4/MOV, AVI or Matroska/WebM file, "
+                     "nor ASF or an MPEG program or transport stream")
 
 
 _READERS = {"mp4": (_mp4, _mp4_track), "avi": (_avi, _avi_stream),
-            "mkv": (_mkv, _mkv_track)}
+            "mkv": (_mkv, _mkv_track),
+            "ps": (_stream(_mpeg_track), _mpeg_track),
+            "ts": (_stream(_mpeg_track), _mpeg_track),
+            "asf": (_stream(_asf_track), _asf_track)}
 
 
 def probe(path: str, timestamps: bool = True) -> dict:
@@ -878,6 +1043,25 @@ def probe(path: str, timestamps: bool = True) -> dict:
         return _READERS[_kind(f, path)][0](f, path, timestamps)
 
 
+def meta(path: str) -> dict:
+    """``num_frames``, ``fps``, ``width``, ``height`` and ``codec`` of the
+    first video stream, as ``probe`` gives the first four; for MPEG program
+    and transport streams and ASF from the head and the tail of the file
+    alone, as ffmpeg's open reads them, for the other containers from
+    their index."""
+    with open(path, "rb") as f:
+        kind = _kind(f, path)
+        if kind in ("ts", "ps"):
+            from . import mpegstream
+            return mpegstream.meta(f, path)
+        if kind == "asf":
+            from . import asf
+            return _asf_meta(asf.read(f, path, objects=False), path)
+        track = _READERS[kind][1](f, path)
+    return {k: track[k] for k in ("num_frames", "fps", "width", "height",
+                                  "codec")}
+
+
 def packet_index(path: str) -> dict:
     """The first video stream's packets in decode order (``packets``, a
     list of :class:`Packet`), ``codec`` (``"h264"``, ``"mpeg4"``,
@@ -886,7 +1070,10 @@ def packet_index(path: str) -> dict:
     Matroska: ``vol``), ``time_base`` (s), ``fps``, ``num_frames``,
     ``width`` and ``height``, as ``probe`` reads them; an AVI's and a
     Matroska ``V_MS/VFW/FOURCC`` track's also its ``fourcc``, a Matroska
-    track's with content encodings its ``encodings``."""
+    track's with content encodings its ``encodings``. In an MPEG program
+    or transport stream (``kind`` ``"ps"``, ``"ts"``) a packet is an
+    access unit, its offset one in the elementary stream, whose ``chunks``
+    map it to the file."""
     with open(path, "rb") as f:
         return _READERS[_kind(f, path)][1](f, path)
 
@@ -949,13 +1136,19 @@ def access_units(path: str, index: dict | None = None, start: int = 0,
     index = index or packet_index(path)
     setup, state = index["setup"], {"new_idr": True}
     first = True
+    chunks = index.get("chunks")
+    if chunks is not None:
+        from .mpegstream import read_es
     with open(path, "rb") as f:
         for k in range(start, len(index["packets"])):
             p = index["packets"][k]
             if kept_only and not p.kept:
                 continue
-            f.seek(p.offset)
-            unit = f.read(p.size)
+            if chunks is not None:
+                unit = read_es(f, chunks, p.offset, p.offset + p.size)
+            else:
+                f.seek(p.offset)
+                unit = f.read(p.size)
             if len(unit) != p.size:
                 raise ValueError(f"{path}: packet {k} runs past the end of "
                                  "the file")

@@ -20,10 +20,15 @@ library's ``zlib``, for PNG-aligned frame trees on hosts without cv2.
 save does, for hosts without orbax or the JAX package. ``write_h264``
 writes H.264 streams whose decoded YUV is known exactly (I_PCM, P_Skip and
 B_Skip macroblocks, deblocking off) in MP4 or AVI, and ``write_mjpeg_avi``
-an MJPEG AVI, for hosts without an encoder.
+an MJPEG AVI, for hosts without an encoder. ``write_mpegts``,
+``write_mpegps`` and ``write_asf`` put given access units into an MPEG
+transport stream (PES packets off the unit boundaries, PTS past 2^33, the
+M2TS form), a program stream and an ASF file (several payloads to a
+packet, no index, the broadcast flag): what libavformat does not write.
 """
 from __future__ import annotations
 
+import bisect
 import functools
 import json
 import os
@@ -1928,3 +1933,273 @@ def write_fragmented_mp4(path: str, samples: list[bytes], sync: list[bool],
         at += len(box) + len(mdat)
     with open(path, "wb") as f:
         f.write(b"".join(out))
+
+
+# -- ASF ----------------------------------------------------------------------
+
+_ASF_GUIDS = {
+    "header": "3026b2758e66cf11a6d900aa0062ce6c",
+    "file": "a1dcab8c47a9cf118ee400c00c205365",
+    "stream": "9107dcb7b7a9cf118ee600c00c205365",
+    "extension": "b503bf5f2ea9cf118ee300c00c205365",
+    "reserved1": "11d2d3abbaa9cf118ee600c00c205365",
+    "ext_stream": "cba5e61472c632438399a96952065b5a",
+    "data": "3626b2758e66cf11a6d900aa0062ce6c",
+    "index": "90080033b1e5cf1189f400a0c90349cb",
+    "video": "c0ef19bc4d5bcf11a8fd00805f5c442b",
+    "no_ec": "0057fb20555bcf11a8fd00805f5c442b",
+}
+
+
+def _asf_object(name: str, body: bytes) -> bytes:
+    return (bytes.fromhex(_ASF_GUIDS[name]) + struct.pack("<Q", 24 + len(body))
+            + body)
+
+
+def write_asf(path: str, objects: Sequence[bytes], keys: Sequence[bool],
+              times_ms: Sequence[int], fourcc: bytes, width: int,
+              height: int, extradata: bytes = b"", packet_size: int = 1024,
+              preroll: int = 3100, avg_time: int | None = None,
+              broadcast: bool = False, index: bool = True,
+              multiple: bool = False) -> None:
+    """An ASF file of one video stream (number 1) whose media objects are
+    ``objects``, presented at ``times_ms``: packets of ``packet_size``
+    bytes with error correction data and one payload each, or with
+    ``multiple`` as many payloads as fit (several small objects in a
+    packet); an object larger than the room left is split over packets.
+    ``avg_time`` (100 ns) writes an Extended Stream Properties Object,
+    ``broadcast`` sets the File Properties' broadcast flag (no play
+    duration), ``index`` writes a Simple Index Object of 1 s entries."""
+    head = 13 + (1 if multiple else 0)     # packet header bytes
+    per = 15 + (2 if multiple else 0)      # payload header bytes
+    packets: list[list] = [[]]              # [(object, offset, data)]
+    room = packet_size - head
+    for k, obj in enumerate(objects):
+        off = 0
+        while off < len(obj):
+            if room < per + 1 or (not multiple and packets[-1]):
+                packets.append([])
+                room = packet_size - head
+            n = min(len(obj) - off, room - per)
+            packets[-1].append((k, off, obj[off:off + n]))
+            room -= per + n
+            off += n
+    out = []
+    for p in packets:
+        body = bytearray()
+        for k, off, data in p:
+            body += bytes([1 | (0x80 if keys[k] else 0), k & 0xFF])
+            body += struct.pack("<IB", off, 8)
+            body += struct.pack("<II", len(objects[k]), times_ms[k] + preroll)
+            if multiple:
+                body += struct.pack("<H", len(data))
+            body += data
+        pad = packet_size - head - len(body)
+        send = times_ms[p[0][0]] + preroll if p else 0
+        pkt = bytes([0x82, 0, 0, 0x11 if multiple else 0x10, 0x5D])
+        pkt += struct.pack("<HIH", pad, send, 0)
+        if multiple:
+            pkt += bytes([0x80 | len(p)])
+        out.append(pkt + bytes(body) + bytes(pad))
+    frame = times_ms[1] - times_ms[0] if len(times_ms) > 1 else 40
+    play = (max(times_ms) + frame + preroll) * 10000
+    bih = struct.pack("<IiiHH4sIiiII", 40 + len(extradata), width, height,
+                      1, 24, fourcc, width * height * 3, 0, 0, 0, 0)
+    bih += extradata
+    specific = struct.pack("<IIBH", width, height, 2, len(bih)) + bih
+    stream = (bytes.fromhex(_ASF_GUIDS["video"])
+              + bytes.fromhex(_ASF_GUIDS["no_ec"])
+              + struct.pack("<QIIHI", 0, len(specific), 0, 1, 0) + specific)
+    ext = b""
+    if avg_time is not None:
+        ext = _asf_object("ext_stream", struct.pack(
+            "<QQIIIIIIIIHHQHH", 0, 0, 400000, 1000, 0, 0, 0, 0,
+            max(len(o) for o in objects), 2, 1, 0, avg_time, 0, 0))
+    extension = _asf_object("extension", bytes.fromhex(
+        _ASF_GUIDS["reserved1"]) + struct.pack("<HI", 6, len(ext)) + ext)
+    data = (bytes.fromhex(_ASF_GUIDS["data"])
+            + struct.pack("<Q", 50 + packet_size * len(out)) + bytes(16)
+            + struct.pack("<QH", len(out), 0x0101) + b"".join(out))
+    tail = b""
+    if index:
+        starts = {}
+        for n, p in enumerate(packets):
+            for k, off, _ in p:
+                if off == 0:
+                    starts.setdefault(k, n)
+        # each entry: the packet where the last key object at or before
+        # its time begins
+        entries, last_key, k = [], 0, 0
+        for i in range((play // 10000000) + 1):
+            while k < len(objects) and times_ms[k] + preroll <= i * 1000:
+                if keys[k]:
+                    last_key = starts[k]
+                k += 1
+            entries.append(struct.pack("<IH", last_key, 1))
+        tail = _asf_object("index", bytes(16) + struct.pack(
+            "<QII", 10000000, 1, len(entries)) + b"".join(entries))
+
+    def file_props(size: int) -> bytes:
+        return _asf_object("file", bytes(16) + struct.pack(
+            "<QQQQQQIIII", size, 0, len(out), 0 if broadcast else play,
+            0 if broadcast else play - preroll * 10000, preroll,
+            1 if broadcast else 2, packet_size, packet_size, 0))
+
+    children = [_asf_object("stream", stream), extension]
+    guess = 30 + len(file_props(0)) + sum(len(c) for c in children)
+    total = guess + len(data) + len(tail)
+    header = (_asf_object("header", struct.pack("<IBB", 3, 1, 2)
+                          + file_props(total) + b"".join(children)))
+    with open(path, "wb") as f:
+        f.write(header + data + tail)
+
+
+# -- MPEG transport stream ----------------------------------------------------
+
+def _crc32_mpeg(data: bytes) -> int:
+    crc = 0xFFFFFFFF
+    for b in data:
+        crc ^= b << 24
+        for _ in range(8):
+            crc = (crc << 1) ^ 0x04C11DB7 if crc & 0x80000000 else crc << 1
+            crc &= 0xFFFFFFFF
+    return crc
+
+
+def _psi(table_id: int, extension: int, body: bytes) -> bytes:
+    """A PSI section with its CRC_32."""
+    head = struct.pack(">BHHBBB", table_id, 0xB000 | (len(body) + 9),
+                       extension, 0xC1, 0, 0)
+    return head + body + struct.pack(">I", _crc32_mpeg(head + body))
+
+
+def _pes_time(marker: int, t: int) -> bytes:
+    t %= 1 << 33
+    return bytes([marker << 4 | (t >> 29) & 0x0E | 1, (t >> 22) & 0xFF,
+                  (t >> 14) & 0xFE | 1, (t >> 7) & 0xFF, (t << 1) & 0xFE | 1])
+
+
+def write_mpegts(path: str, units: Sequence[bytes], pts: Sequence[int],
+                 dts: Sequence[int | None], stream_type: int = 0x1B,
+                 splits: Sequence[int] | None = None, m2ts: bool = False,
+                 pcr: bool = True) -> None:
+    """A transport stream of one program whose video elementary stream
+    (PID 0x100, ``stream_type``) is the concatenated ``units``, each
+    presented at ``pts`` and decoded at ``dts`` (None: no DTS), times taken
+    modulo 2^33 (a PTS near 2^33 wraps in mid stream). PES packets (of
+    PES_packet_length 0, as video's are) start at the byte offsets
+    ``splits`` of the elementary stream (default: where each unit starts),
+    each with the times of the first unit that begins in it, none where
+    none does; so two units can share a PES and a unit can run over two.
+    Each PES's last TS packet is filled with adaptation-field stuffing, and
+    with ``pcr`` the first packet of a PES whose unit is a key frame in the
+    caller's sense (the first unit, and each whose DTS is its PTS' minimum
+    so far) carries a PCR. ``m2ts`` writes 192-byte packets with the 4-byte
+    TP_extra_header (arrival time stamps) of BDAV/AVCHD ``.m2ts`` files."""
+    starts = [0]
+    for u in units[:-1]:
+        starts.append(starts[-1] + len(u))
+    es = b"".join(units)
+    cuts = sorted(set(starts if splits is None else splits) | {0})
+    packets: list[bytes] = []
+    cc = {0: 0, 0x1000: 0, 0x100: 0}
+
+    def ts_packet(pid: int, payload: bytes, start: bool,
+                  adaptation: bytes | None = None) -> None:
+        room = 184 - (len(adaptation) if adaptation is not None else 0)
+        if len(payload) < room:       # stuffing in the adaptation field
+            fill = room - len(payload)
+            if adaptation is None:
+                adaptation = (b"\x00" if fill == 1 else bytes(
+                    [fill - 1, 0]) + b"\xff" * (fill - 2))
+            else:
+                adaptation = (bytes([adaptation[0] + fill]) + adaptation[1:]
+                              + b"\xff" * fill)
+        afc = 0x30 if adaptation is not None else 0x10
+        head = struct.pack(">BHB", 0x47, (0x4000 if start else 0) | pid,
+                           afc | cc[pid])
+        cc[pid] = (cc[pid] + 1) & 15
+        packets.append(head + (adaptation or b"") + payload)
+
+    def tables() -> None:
+        pat = _psi(0, 1, struct.pack(">HH", 1, 0xE000 | 0x1000))
+        ts_packet(0, b"\x00" + pat, True)
+        pmt = _psi(2, 1, struct.pack(">HH", 0xE000 | 0x100, 0xF000)
+                   + struct.pack(">BHH", stream_type, 0xE000 | 0x100, 0xF000))
+        ts_packet(0x1000, b"\x00" + pmt, True)
+
+    low = None
+    for i, c in enumerate(cuts):
+        end = cuts[i + 1] if i + 1 < len(cuts) else len(es)
+        if end <= c:
+            continue
+        lo = bisect.bisect_left(starts, c)
+        begun = list(range(lo, bisect.bisect_left(starts, end)))
+        header = b""
+        key = False
+        if begun:
+            k = begun[0]
+            d = dts[k]
+            key = k == 0 or (d is not None and (low is None or d <= low)
+                             and d == pts[k])
+            if d is not None:
+                low = d if low is None else min(low, d)
+            if d is None:
+                header = b"\x80\x80\x05" + _pes_time(2, pts[k])
+            else:
+                header = (b"\x80\xc0\x0a" + _pes_time(3, pts[k])
+                          + _pes_time(1, d))
+        else:
+            header = b"\x80\x00\x00"
+        if i % 8 == 0:
+            tables()
+        data = b"\x00\x00\x01\xe0\x00\x00" + header + es[c:end]
+        first = True
+        while data:
+            adaptation = None
+            if first and pcr and key and begun:
+                base = (dts[begun[0]] if dts[begun[0]] is not None
+                        else pts[begun[0]]) - 9000
+                base %= 1 << 33
+                adaptation = bytes([7, 0x10]) + struct.pack(
+                    ">IH", base >> 1, (base & 1) << 15 | 0x7E00)
+            room = 184 - (len(adaptation) if adaptation else 0)
+            ts_packet(0x100, data[:room], first, adaptation)
+            data, first = data[room:], False
+    with open(path, "wb") as f:
+        for n, p in enumerate(packets):
+            if m2ts:
+                f.write(struct.pack(">I", (n * 1000) & 0x3FFFFFFF))
+            f.write(p)
+
+
+def write_mpegps(path: str, units: Sequence[bytes], pts: Sequence[int],
+                 dts: Sequence[int | None]) -> None:
+    """An MPEG-2 program stream of one video stream (id 0xE0): a pack
+    header (with a system header in the first) and one PES packet a unit,
+    with its PTS and DTS (None: none), split into PES packets of at most
+    65,000 bytes (the later ones without times)."""
+    out = bytearray()
+    for k, u in enumerate(units):
+        scr = max((dts[k] if dts[k] is not None else pts[k]) - 9000, 0)
+        out += b"\x00\x00\x01\xba" + bytes([
+            0x44 | (scr >> 27) & 0x38 | (scr >> 28) & 3, (scr >> 20) & 0xFF,
+            (scr >> 12) & 0xF8 | 4 | (scr >> 13) & 3, (scr >> 5) & 0xFF,
+            (scr << 3) & 0xF8 | 4, 1, 0x01, 0x89, 0xC3, 0xF8])
+        if k == 0:
+            out += b"\x00\x00\x01\xbb\x00\x0c\x80\x1e\xff\xfe\xe1\x7f" \
+                   b"\xe0\xe0\xe8\xc0\xc0\x20"
+        for at in range(0, max(len(u), 1), 65000):
+            piece = u[at:at + 65000]
+            if at:
+                header = b"\x80\x00\x00"
+            elif dts[k] is None:
+                header = b"\x80\x80\x05" + _pes_time(2, pts[k])
+            else:
+                header = (b"\x80\xc0\x0a" + _pes_time(3, pts[k])
+                          + _pes_time(1, dts[k]))
+            out += b"\x00\x00\x01\xe0" + struct.pack(
+                ">H", len(header) + len(piece)) + header + piece
+    out += b"\x00\x00\x01\xb9"
+    with open(path, "wb") as f:
+        f.write(out)

@@ -11,7 +11,8 @@ the split's ``.jpg`` name (ROADMAP.md C11). ``extract_timestamps``
 writes the timestamps_v2 side file the split builder reads, and
 ``probe_video_meta`` the ``meta.json`` cache, both from the container's
 index (``data/container.py``, ``data/video.py``: MP4/MOV, fragmented MP4,
-AVI, Matroska/WebM) in place of cv2's decoder; the reference remuxed
+AVI, Matroska/WebM, ASF and MPEG program and transport streams) in place
+of cv2's decoder; the reference remuxed
 every video to Matroska with mkvmerge for its timestamps, the port reads
 the Matroska file as it is.
 ``write_label_store`` packs per-frame AU/EX/VA annotation arrays.

@@ -142,12 +142,19 @@ def create_dataset_split(root: str, save_dir: str | None = None,
     if save_dir is not None:
         os.makedirs(save_dir, exist_ok=True)
         for task in TASKS:
-            with open(os.path.join(save_dir, f"split_dict_{task}.pkl"),
-                      "wb") as f:
-                pickle.dump(out[task], f)
+            _save(os.path.join(save_dir, f"split_dict_{task}.pkl"), out[task])
             # test-split pickle consumed by Aff2TestDataset (the reference
             # ships these as separate caches, testset.py:64)
-            with open(os.path.join(save_dir, f"split_dict_test_{task}.pkl"),
-                      "wb") as f:
-                pickle.dump(out[task], f)
+            _save(os.path.join(save_dir, f"split_dict_test_{task}.pkl"),
+                  out[task])
     return out
+
+
+def _save(path: str, obj) -> None:
+    """Pickle ``obj`` to ``path`` whole or not at all: the ranks of a
+    data-parallel world build the split at once, and one that finds the
+    file must not read it half written."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(obj, f)
+    os.replace(tmp, path)

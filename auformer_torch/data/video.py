@@ -2,17 +2,21 @@
 of auformer/data/video.py; reference dataloader/video.py:14-94).
 
 ``Video(path).meta`` loads the ``<video.ext>meta.json`` side cache, or the
-legacy ``<video>meta.json``, else probes the container and, with
-``write``, saves the cache as ``<video>meta.json``, where the JAX package
-saves it (tests/test_ingest.py checks that name). The keys and the
-``fps or 30.0`` rule are the JAX package's; the index comes from
+legacy ``<video>meta.json``, else probes the container (``container.meta``)
+and, with ``write``, saves the cache as ``<video>meta.json``, where the JAX
+package saves it (tests/test_ingest.py checks that name). The keys and the
+``fps or 30.0`` rule are the JAX package's; the meta comes from
 ``data/container.py``, with no video decoder, for MP4/MOV (fragmented
-too), AVI and Matroska/WebM (``data/matroska.py``); a Matroska/WebM file
-of VP9, AV1 or HEVC gives its meta and nothing more.
+too), AVI and Matroska/WebM (``data/matroska.py``) from their index, and
+for ASF (``data/asf.py``) and MPEG program and transport streams
+(``data/mpegstream.py``) from the head and the tail of the file, as
+ffmpeg's open reads them; a file of VP9, AV1, HEVC, MPEG-1/2 video or
+WMV/VC-1 gives its meta and nothing more.
 
 Frames (``read_RGB``, ``frames``, ``frame_tensors``) come out on the card
 unless the caller passes ``device="cpu"``, for three codecs in AVI, MP4
-(fragmented too) or Matroska/WebM:
+(fragmented too), Matroska/WebM, ASF and MPEG program and transport
+streams:
 
   MJPEG          each frame's JPEG goes to its Y, Cb and Cr planes
                  (nvJPEG in the card's memory for a CUDA device, libjpeg on
@@ -51,8 +55,14 @@ ROADMAP.md queue A9, as do other codecs.
 H.264: from the sync packet at or before the display position 16 frames
 before ``k``, counting the frames the decoder returns from the number cv2
 gives the first one (``_seek_key``). Where no MPEG-4 VOP with vop_coded 0
-lies between them, that is ``frames()``'s frame ``k``. Where cv2 knows no
-frame count (a live Matroska file's: no Duration) it does not seek:
+lies between them, that is ``frames()``'s frame ``k``. In an MPEG program
+or transport stream ffmpeg's seek is a binary search on DTS that can land
+on a packet that is not a key frame, and ffmpeg's decoder returns nothing
+before the next one; in ASF it goes by the Simple Index; cv2 then numbers
+the first frame by its timestamp and seeks again from further back where
+that lies past ``k`` (``_stream_seek``: read_RGB(0) of a B-pyramid stream
+in a transport stream is frame 12, as cv2 gives it). Where cv2 knows no
+frame count (a live Matroska or broadcast ASF file's) it does not seek:
 ``read_RGB(k)`` reads on, as cv2 does after flushing its decoder.
 """
 from __future__ import annotations
@@ -125,7 +135,7 @@ class Video:
             if os.path.isfile(mp):
                 with open(mp) as f:
                     return json.load(f)
-        index = container.probe(self.path, timestamps=False)
+        index = container.meta(self.path)
         meta = {"num_frames": int(index["num_frames"]),
                 "fps": float(index["fps"]) or 30.0,
                 "width": int(index["width"]),
@@ -157,9 +167,9 @@ class Video:
         what cv2 counts is what its decoder returns (none for AV1, which
         cv2's ffmpeg does not decode; a WebM VP8 stream's hidden frames
         are packets of their own)."""
-        index, _ = self._decodable
+        index, kept = self._decodable
         if index["codec"] != "mpeg4":
-            return container.probe(self.path, timestamps=False)["packets"]
+            return len(kept)
         units = [u for _, u in container.access_units(self.path, index,
                                                       kept_only=False)]
         return mpeg4.frame_count(units, [p.kept for p in index["packets"]])
@@ -174,9 +184,11 @@ class Video:
             raise NotImplementedError(
                 f"decoding the {index['codec']} frames of {self.path} needs "
                 "a software decoder of the port's own, which auformer_torch "
-                "has for MJPEG, MPEG-4 part 2 and H.264 only, in MP4, AVI "
-                "and Matroska/WebM (the card's NVDEC is refused by its "
-                f"container): {_A9} lists it")
+                "has for MJPEG, MPEG-4 part 2 and H.264 only (in MP4, AVI, "
+                "Matroska/WebM, ASF and MPEG program and transport "
+                "streams; not MPEG-1/2 video, WMV/VC-1, HEVC, VP9 or AV1), "
+                "and the card's NVDEC is refused by its container: "
+                f"{_A9} lists it")
         return index, [k for k, p in enumerate(index["packets"]) if p.kept]
 
     def frame_tensors(self, device=None) -> Iterator[torch.Tensor]:
@@ -234,11 +246,15 @@ class Video:
                 key, skip = self._read_on(index), 0
                 if key is None:
                     return None
+            elif index.get("kind") in ("ts", "ps", "asf"):
+                key, skip = _stream_seek(index, k, self.path)
             else:
                 key, skip = _seek_key(index, min(k, index["num_frames"]),
                                       self.path)
-            self._session = _SOFTWARE[index["codec"]](self.path, index, key,
-                                                      device=device)
+            # a seek that finds no sync packet after it decodes nothing
+            self._session = _SOFTWARE[index["codec"]](
+                self.path, index, key, device=device) if key < len(
+                    index["packets"]) else (x for x in ())
             if index["num_frames"] < 1:
                 self._session = self._reading_on(self._session, index, key)
             for _ in range(skip):
@@ -364,3 +380,129 @@ def _seek_key(index: dict, k: int, path: str | None = None
             first = (position(packets[key + returned])
                      - position(packets[file_first]))
     return key, k - first
+
+
+def _number(index: dict, key: int, path: str) -> int:
+    """cv2's ``dts_to_frame_number`` of the first frame ffmpeg's decoder
+    returns from the sync packet ``key``: its PTS less the stream's start,
+    in frames, where it has a PTS other than 0; else the DTS of the packet
+    whose decoding returns it (an MPEG-4 part 2 stream's, low delay: its
+    own), far below 0 where that has none."""
+    import itertools
+    from . import bitstream
+    packets = index["packets"]
+    t = packets[key].pts
+    if not t:
+        if index["codec"] == "mpeg4":
+            t = packets[key].dts
+        else:
+            units = (u for _, u in container.access_units(
+                path, index, key, kept_only=False))
+            frames = bitstream.h264_output_frames(itertools.islice(units, 40))
+            trigger = frames[0][1] if frames else None
+            t = None if trigger is None else packets[key + trigger].dts
+    if t is None:
+        return -(1 << 62)
+    return int(index["fps"] * (t - index["start_time"])
+               * index["time_base"] + 0.5)
+
+
+def _landing(index: dict, ts: int, path: str) -> int:
+    """The first packet ffmpeg reads after ``av_seek_frame`` to ``ts`` in
+    an MPEG program or transport stream: ``ff_gen_search``'s binary search
+    on the demuxer's ``read_timestamp`` finds the last PES packet (program
+    stream) or the last access unit that took a PES's times (transport
+    stream) whose DTS (its PTS where it has none) is at or before ``ts``,
+    and reading goes on from that PES; the result is the position of the
+    first access unit that begins in it or after it."""
+    packets = index["packets"]
+    if index["kind"] == "asf":
+        return _asf_landing(index, ts)
+    if index.get("wraps_down"):
+        # the file starts within 60 s of 2^33, so its times count down
+        # past the wrap (mpegstream.Wrap): cv2's seeks to a time before the
+        # wrap return to the first packet (held on the tests' writer's
+        # files); past it, the port does not follow them
+        if ts >= 0:
+            raise NotImplementedError(
+                f"{path}: cv2's seek past the 2^33 wrap of a file "
+                f"whose times start before it; {_A9} lists following it")
+        return 0
+    def stamp(x) -> int | None:
+        return x.dts if x.dts is not None else x.pts
+
+    if index["kind"] == "ps":
+        starts = [x.start for x in index["pes"]
+                  if stamp(x) is not None and stamp(x) <= ts]
+    else:
+        pes_at = {x.pos: x.start for x in index["pes"]}
+        starts = [pes_at[pos] for p, pos in zip(packets, index["unit_pos"])
+                  if pos >= 0 and stamp(p) is not None and stamp(p) <= ts]
+    start = starts[-1] if starts else 0
+    return next((j for j, p in enumerate(packets) if p.offset >= start),
+                len(packets))
+
+
+def _asf_landing(index: dict, ts: int) -> int:
+    """The first media object ffmpeg's ``asf_read_seek`` reads after a seek
+    to ``ts`` (ms): the first of the file for 0; else the first that
+    begins in or after the data packet of the Simple Index's last entry at
+    or before ``ts`` (entry i at i x interval less the preroll, 0 at
+    least; an entry at the packet of the one before is not added, one at
+    the time of the one before replaces it); without an index (ffmpeg's
+    binary search on the key frames' times) the last key object at or
+    before ``ts``."""
+    packets = index["packets"]
+    if ts == 0:
+        return 0
+    if index["simple_index"] is None:
+        return max([j for j, p in enumerate(packets)
+                    if p.sync and p.pts <= ts] or [0])
+    interval, entries = index["simple_index"]
+    table: list[list[int]] = []
+    for i, number in enumerate(entries):
+        if table and number == table[-1][1]:
+            continue
+        t = max((interval * i + 5000) // 10000 - index["preroll"], 0)
+        if table and table[-1][0] == t:
+            table[-1][1] = number
+        else:
+            table.append([t, number])
+    found = [number for t, number in table if t <= ts]
+    if not found:
+        return max([j for j, p in enumerate(packets)
+                    if p.sync and p.pts <= ts] or [0])
+    return next((j for j, at in enumerate(index["object_packet"])
+                 if at >= found[-1]), len(packets))
+
+
+def _stream_seek(index: dict, k: int, path: str) -> tuple[int, int]:
+    """(sync packet, frames to pass over) of cv2's seek to frame ``k`` in
+    an MPEG program or transport stream or an ASF file
+    (cap_ffmpeg_impl.hpp ``seek``):
+    from the display position 16 frames before ``k`` (more, where the
+    first frame decoded lies past ``k - 1``), ``av_seek_frame`` lands on
+    the packet of ``_landing``, ffmpeg's decoder returns nothing before
+    the first sync packet from there, and cv2 numbers that frame by its
+    timestamp."""
+    packets = index["packets"]
+    k = min(k, index["num_frames"])
+    tb, fps = index["time_base"], index["fps"]
+    first = _number(index, 0, path) if packets else 0
+    delta = 16
+    while True:
+        t = max(k - delta, 0)
+        ts = index["start_time"] + int(t / fps / tb + 0.5)
+        land = _landing(index, ts, path)
+        key = next((j for j in range(land, len(packets))
+                    if packets[j].sync), None)
+        if key is None:
+            return len(packets), 0
+        if k <= 1:
+            return key, k
+        n = _number(index, key, path) - first
+        if 0 <= n <= k - 1:
+            return key, k - n
+        if t == 0:
+            return key, 1
+        delta = delta * 2 if delta < 16 else delta * 3 // 2

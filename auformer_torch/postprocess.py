@@ -9,8 +9,11 @@ nearest previous detected frame (postprocess.py:29-48), and
 with explicit paths in place of the reference's hardcoded drives.
 
 Frame counts come from each video's meta.json side file, or from its
-container's index where it has none (``data/video.py``), which then writes
-the side file, as the JAX package's ``Video(path, write=True)`` does.
+container where it has none (``data/video.py``: the index of an MP4, AVI
+or Matroska file; the head and the tail of an ASF file (.wmv) or an MPEG
+program stream (.mpg, .mpeg), as ffmpeg's open reads them), which then
+writes the side file, as the JAX package's ``Video(path, write=True)``
+does.
 
     python -m auformer_torch.postprocess --predictions results \
         --frames_root <cropped_aligned> --video_dir <videos> --tasks au

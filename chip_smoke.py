@@ -201,19 +201,23 @@ Phases, each printing one JSON line (any failed check exits non-zero):
            (DEEP_CASES: swscale's scaler route), against its plain
            version, its device ms beside its bound; then containers
            (``phase_decode_container``, its own line ``decode_container``):
-           (i) every tests/data/videos_container/ file (Matroska/WebM and
-           fragmented MP4, libavformat's and the tests' writer's) against
-           expected.json: its meta, and for H.264, MPEG-4 part 2 and MJPEG
-           its count, timestamps, frames through frame_tensors() on the
-           card and its reads in expected.json's order (the live file's
-           depend on the ones before), VP9, AV1 and HEVC raising naming
-           A9; the files, frames, seeks, seconds and frames/s; then
-           h264_cabac_1280x720.mkv, the Matroska remux of
-           ipb_cabac_1280x720.mp4, through Video.frames() on the card,
-           this slice's main path ``decode_container``: 24 yuv_rgb
-           launches and none of the other kernels, each frame the MP4's
-           cv2 frame, then the MP4 and the Matroska file once more each,
-           frames/s, and container.probe's seconds on both. The passes
+           (i) every tests/data/videos_container/ file (Matroska/WebM,
+           fragmented MP4, ASF, MPEG program and transport streams,
+           libavformat's and the tests' writer's) against expected.json:
+           its meta, and for H.264, MPEG-4 part 2 and MJPEG its count,
+           timestamps, frames through frame_tensors() on the card and its
+           reads in expected.json's order (the live and broadcast files'
+           depend on the ones before; a broadcast MPEG-4 file's after the
+           first raise naming A9), VP9, AV1, HEVC, MPEG-1/2 video and WMV
+           raising naming A9; the files, frames, seeks, seconds and
+           frames/s; then h264_cabac_1280x720.mkv, the Matroska remux of
+           ipb_cabac_1280x720.mp4, path ``decode_container``, and
+           h264_cabac_1280x720_avchd.m2ts, its AVCHD M2TS remux, path
+           ``decode_container_m2ts``, each through Video.frames()
+           on the card: 24 yuv_rgb launches and none of the other
+           kernels, each frame the MP4's cv2 frame, frames/s, and
+           container.probe's seconds of both and the MP4 (the MP4's rate
+           is part (h)'s). The passes
            above are 1 each (MPEG4_PASSES, H264_PASSES,
            H264_DEEP_PASSES): a second one would check only the count
   quickstart
@@ -626,6 +630,8 @@ H264_WIDE_SEEKS = ("0", "13", "23", "35")
 # Matroska remux of H264_STREAM the main path
 CONTAINER_FIXTURES = ROOT / "tests" / "data" / "videos_container"
 CONTAINER_STREAM = "h264_cabac_1280x720.mkv"
+# the same stream as AVCHD camcorders write it: MPEG-TS of 192-byte packets
+TS_STREAM = "h264_cabac_1280x720_avchd.m2ts"
 CONTAINER_DECODED = ("h264", "mpeg4", "mjpeg")
 # (matrix_coefficients, full range) of the kernel's cases: BT.601, BT.709,
 # FCC, SMPTE 240M, BT.2020, and full range BT.601 and BT.709
@@ -2728,19 +2734,23 @@ def h264_stream(torch, dev, expected: dict, name: str,
         "launches": launches["yuv_rgb"], "seeks_equal": list(seeks)}, host[0][1:]
 
 
-def phase_decode_container(torch, dev, work: Path) -> tuple[dict, dict]:
+def phase_decode_container(torch, dev, work: Path
+                           ) -> tuple[tuple[dict, dict], dict]:
     """The decode phase's container part (i): every file of
-    CONTAINER_FIXTURES (Matroska/WebM and fragmented MP4) against
-    expected.json: its meta; for the codecs the port decodes its count,
-    timestamps, frames through frame_tensors() on the card (H.264 and
-    MPEG-4 part 2 bit for bit, MJPEG within MJPG_MAX and MJPG_MEAN of
-    cv2's mjpg_112.npz) and its reads in expected.json's order; for the
-    rest count, timestamps and frames raising naming A9. Then the main
-    path: CONTAINER_STREAM, the 720p Matroska remux of H264_STREAM,
-    through Video.frames() under counted_decode (24 yuv_rgb launches),
-    each frame the MP4's cv2 frame, then the MP4 and the Matroska file
-    once more each, timed, and container.probe of both. Returns (the
-    launches, the numbers)."""
+    CONTAINER_FIXTURES (Matroska/WebM, fragmented MP4, ASF, MPEG program
+    and transport streams) against expected.json: its meta; for the codecs
+    the port decodes its count, timestamps, frames through frame_tensors()
+    on the card (H.264 and MPEG-4 part 2 bit for bit, MJPEG within
+    MJPG_MAX and MJPG_MEAN of cv2's mjpg_112.npz) and its reads in
+    expected.json's order (in a file whose count cv2 does not know, the
+    reads after the first in an MPEG-4 stream raising naming A9); for the
+    rest (VP9, AV1, HEVC, MPEG-1/2 video, WMV) count, timestamps and
+    frames raising naming A9. Then the main paths: CONTAINER_STREAM, the
+    720p Matroska remux of H264_STREAM, and TS_STREAM, its AVCHD M2TS
+    remux, each through Video.frames() under counted_decode (24 yuv_rgb
+    launches), each frame the MP4's cv2 frame, their frames/s and
+    container.probe's seconds. Returns ((the Matroska path's launches,
+    the M2TS path's), the numbers)."""
     import hashlib
 
     from auformer_torch.data import container, ingest
@@ -2754,7 +2764,7 @@ def phase_decode_container(torch, dev, work: Path) -> tuple[dict, dict]:
     cv2_mjpeg = np.load(DECODE_FIXTURES / "mjpg_112.npz")["frames"]
     t0 = time.perf_counter()
     n_frames = n_seeks = 0
-    refused, mjpeg_err = [], 0.0
+    refused, mjpeg_err, reads_refused = [], 0.0, []
     for name, want in sorted(expected.items()):
         path = str(CONTAINER_FIXTURES / name)
         video = Video(path, write=False)
@@ -2791,7 +2801,14 @@ def phase_decode_container(torch, dev, work: Path) -> tuple[dict, dict]:
             fail(f"{name}: frame_tensors() on the card is not cv2's")
         n_frames += len(frames)
         for k, theirs in want["read_RGB_sha256"]:
-            img = video.read_RGB(k, device=dev)
+            try:
+                img = video.read_RGB(k, device=dev)
+            except NotImplementedError as e:
+                # cv2 flushes its MPEG-4 decoder mid stream and reads on
+                if "A9" not in str(e) or video.meta["num_frames"] > 0:
+                    fail(f"{name}: read_RGB({k}) refused: {e}")
+                reads_refused.append([name, k])
+                break
             if want["codec"] == "mjpeg":
                 ok = (img is None if theirs is None else img is not None
                       and np.array_equal(img, frames[
@@ -2803,42 +2820,42 @@ def phase_decode_container(torch, dev, work: Path) -> tuple[dict, dict]:
             n_seeks += 1
         video.release()
     fixtures_s = time.perf_counter() - t0
-    # the main path: the 720p Matroska file, then its MP4 and it again
-    mkv, mp4 = CONTAINER_FIXTURES / CONTAINER_STREAM, H264_FIXTURES / \
-        H264_STREAM
+    # the main paths: the 720p Matroska file, then its AVCHD M2TS remux
+    mp4 = H264_FIXTURES / H264_STREAM
     want = json.loads((H264_FIXTURES / "expected.json").read_text())[
         H264_STREAM]["frames_sha256"]
-    probe_s = {}
-    for key, path in (("mkv", mkv), ("mp4", mp4)):
+    probe_s, rates, counted = {}, {}, {}
+    for key, name in (("mkv", CONTAINER_STREAM), ("m2ts", TS_STREAM)):
+        path = CONTAINER_FIXTURES / name
         t1 = time.perf_counter()
         container.probe(str(path))
         probe_s[key] = time.perf_counter() - t1
-    video = Video(str(mkv), write=False)
-    torch.cuda.synchronize()
-    decoded, frames_s, launches = counted_decode(
-        lambda: list(video.frames(device=dev)))
-    if [sha(f) for f in decoded] != want or launches["yuv_rgb"] != len(
-            want) or any(f.shape != (720, 1280, 3) for f in decoded):
-        fail(f"{CONTAINER_STREAM} through frames() on the card: "
-             f"{launches}, not the MP4's cv2 frames")
-    rates = {"mkv": [len(want) / frames_s]}
-    for key, path in (("mp4", mp4), ("mkv", mkv)):
-        t1 = time.perf_counter()
-        n = sum(1 for _ in Video(str(path), write=False).frames(device=dev))
-        rates.setdefault(key, []).append(n / (time.perf_counter() - t1))
-        if n != len(want):
-            fail(f"{path.name} frames(): {n} frames")
+        video = Video(str(path), write=False)
+        torch.cuda.synchronize()
+        decoded, frames_s, counted[key] = counted_decode(
+            lambda: list(video.frames(device=dev)))
+        if [sha(f) for f in decoded] != want or counted[key][
+                "yuv_rgb"] != len(want) or any(
+                    f.shape != (720, 1280, 3) for f in decoded):
+            fail(f"{name} through frames() on the card: {counted[key]}, "
+                 "not the MP4's cv2 frames")
+        rates[key] = len(want) / frames_s
+    t1 = time.perf_counter()
+    container.probe(str(mp4))
+    probe_s["mp4"] = time.perf_counter() - t1
     numbers = {"files": len(expected), "frames": n_frames,
                "seeks": n_seeks, "s": fixtures_s,
                "frames_per_s": n_frames / fixtures_s,
                "refused_naming_a9": refused, "mjpeg_max_err": mjpeg_err,
-               "stream": {"file": CONTAINER_STREAM, "source": H264_STREAM,
-                          "frames": len(want),
-                          "launches": launches["yuv_rgb"],
+               "reads_refused_naming_a9": reads_refused,
+               "stream": {"files": [CONTAINER_STREAM, TS_STREAM],
+                          "source": H264_STREAM, "frames": len(want),
+                          "launches": {k: c["yuv_rgb"]
+                                       for k, c in counted.items()},
                           "frames_per_s": rates, "probe_s": probe_s},
                "card": nvidia_smi()}
     emit("decode_container", **numbers)
-    return launches, numbers
+    return (counted["mkv"], counted["m2ts"]), numbers
 
 
 def phase_decode(torch, dev) -> tuple[dict, dict, dict]:
@@ -5407,7 +5424,8 @@ def main() -> int:
      (by_path["decode_mpeg4"], by_path["decode_mpeg4_xvid"]),
      (by_path["decode_h264"], by_path["decode_h264_mbaff"],
       by_path["decode_h264_444"], by_path["decode_h264_high10"]),
-     by_path["decode_container"], yuv) = phase_decode(torch, dev)
+     (by_path["decode_container"], by_path["decode_container_m2ts"]),
+     yuv) = phase_decode(torch, dev)
     shutil.rmtree(split["work"], ignore_errors=True)  # the split, the .pth
     by_path["quickstart"], quickstart_grads = phase_quickstart(torch, dev)
     paths, grad_cases, attention_in_step = phase_train(torch, dev)
@@ -5521,7 +5539,8 @@ def main() -> int:
                                         "decode_h264", "decode_h264_mbaff",
                                         "decode_h264_444",
                                         "decode_h264_high10",
-                                        "decode_container")},
+                                        "decode_container",
+                                        "decode_container_m2ts")},
          **{key: yuv[key] for key in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms",
                                       "limited_range", "matrices",

@@ -13,6 +13,9 @@ the committed files. Run from the root of the repository:
     JAX_PLATFORMS=cpu python scripts/make_container_fixtures.py \
         [--out tests/data/videos_container]
 
+It writes the folder anew: run scripts/make_stream_fixtures.py after it
+for the ASF and MPEG stream files and their entries.
+
 Files written by libavformat 59 (``AV_TOOL remux``: the source's packets
 with their times, the frame rate as the stream's ``avg_frame_rate``, so
 that the Matroska muxer writes DefaultDuration, Cues, CRC-32 elements and

@@ -12,8 +12,9 @@ scripts/make_container_fixtures.py``. Each one's meta equals the JAX
 package's through cv2, and its count, timestamps, frames and reads equal
 expected.json's bit for bit. What the port does not follow raises naming
 ROADMAP.md queue A9: the rate of a track in fragments whose samples last
-different times, a second trun without its data offset; and ASF, MPEG
-program and transport streams, by their first bytes.
+different times, a second trun without its data offset. Stub ASF, MPEG
+program and transport stream headers with no stream behind them raise
+ValueError.
 """
 import struct
 from pathlib import Path
@@ -138,17 +139,17 @@ def test_second_trun_without_data_offset_raises_naming_a9(tmp_path):
     ("clip.m2ts", b"".join(bytes(4) + b"\x47\x40\x00\x10" + bytes(184)
                            for _ in range(3)))],
     ids=["asf", "mpeg_ps", "mpeg_ts", "m2ts"])
-def test_other_video_exts_raise_naming_a9(tmp_path, name, head):
+def test_other_video_exts_stubs_raise_value_error(tmp_path, name, head):
     """ASF (.wmv), MPEG program streams (.mpg, .mpeg) and transport
-    streams, which the JAX package reads through cv2, raise naming A9 from
-    meta, count and timestamps: formats the port does not read yet, not
-    malformed files."""
+    streams are read (test_torch_video_asf.py, test_torch_video_mpegts.py):
+    these stub headers, with no stream behind them, are malformed files and
+    raise ValueError from meta, probe and the packet index."""
     path = tmp_path / name
     path.write_bytes(head + bytes(64))
     for call in (lambda: Video(str(path), write=False),
                  lambda: container.probe(str(path)),
                  lambda: container.packet_index(str(path))):
-        with pytest.raises(NotImplementedError, match="A9"):
+        with pytest.raises(ValueError):
             call()
 
 
